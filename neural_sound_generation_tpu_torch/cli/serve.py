@@ -1,0 +1,504 @@
+"""Inference server: HTTP endpoints over a mel VQ-VAE, in PyTorch.
+
+Counterpart of ``neural_sound_generation_tpu/cli/serve.py`` for the flat
+mel VQ-VAE with Griffin-Lim synthesis. Stdlib-only HTTP server:
+
+  POST /encode       wav bytes (RIFF) -> {"codes": [[...]], "shape": [...]}
+  POST /reconstruct  wav bytes -> reconstructed wav bytes
+  POST /decode       {"codes": [[...]]} JSON -> wav bytes
+  GET  /health       -> {"status": "ok", "backend": "cuda" | "cpu"}
+  GET  /metrics      -> per-endpoint request/error counts and latency
+                        percentiles
+
+Long inputs are tiled over serving windows of ``--frames`` mel frames and
+stitched. With ``--batch-window-ms`` concurrent /reconstruct requests are
+coalesced into one batch per length bucket; each result equals the
+unbatched one. Without a checkpoint the server serves weights initialized
+from seed 0, as the JAX server does.
+
+Run: ``python -m neural_sound_generation_tpu_torch.cli.serve [--device cuda]``
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import io
+import json
+import logging
+import queue
+import threading
+import time
+import uuid
+from collections import deque
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+import torch
+
+from neural_sound_generation_tpu_torch.config import Config, load_preset
+from neural_sound_generation_tpu_torch.device import resolve_device
+from neural_sound_generation_tpu_torch.models import VQVAE
+from neural_sound_generation_tpu_torch.ops import dsp
+
+#: Griffin-Lim's initial phase is drawn from a generator seeded with this
+#: for every request, as the JAX server uses PRNGKey(0): a request's audio
+#: does not depend on what else was in its batch.
+GL_SEED = 0
+
+
+class _MicroBatcher:
+    """Cross-request dynamic batching (--batch-window-ms).
+
+    Handler threads ``submit()`` and block; one worker thread collects
+    requests for up to ``window_ms`` after the first arrival (or until
+    ``max_batch``), runs them through ``run_batch`` as one batch, and wakes
+    each caller with its own result."""
+
+    def __init__(self, run_batch, window_ms: float, max_batch: int = 8):
+        self._run_batch = run_batch
+        self._window = max(0.0, float(window_ms)) / 1000.0
+        self._max = max(1, int(max_batch))
+        self._q: queue.Queue = queue.Queue()
+        threading.Thread(
+            target=self._worker, daemon=True, name="nsg-microbatch"
+        ).start()
+
+    def submit(self, request):
+        done = threading.Event()
+        box = [done, None]  # [event, result-or-exception]
+        self._q.put((request, box))
+        done.wait()
+        if isinstance(box[1], Exception):
+            raise box[1]
+        return box[1]
+
+    def _worker(self):
+        while True:
+            batch = [self._q.get()]
+            deadline = time.monotonic() + self._window
+            while len(batch) < self._max:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    batch.append(self._q.get(timeout=remaining))
+                except queue.Empty:
+                    break
+            try:
+                results = self._run_batch([req for req, _ in batch])
+            except Exception as e:  # noqa: BLE001 — wake every caller
+                results = [e] * len(batch)
+            for (_, box), result in zip(batch, results):
+                box[1] = result
+                box[0].set()
+
+
+class _Metrics:
+    """Thread-safe per-endpoint request counters + latency reservoirs
+    (last ``window`` observations) for GET /metrics."""
+
+    def __init__(self, window: int = 512):
+        self._lock = threading.Lock()
+        self._lat: dict = {}
+        self._count: dict = {}
+        self._errors: dict = {}
+        self._window = window
+        self._t0 = time.time()
+
+    def observe(self, path: str, seconds: float, ok: bool):
+        with self._lock:
+            d = self._lat.setdefault(path, deque(maxlen=self._window))
+            d.append(seconds)
+            self._count[path] = self._count.get(path, 0) + 1
+            if not ok:
+                self._errors[path] = self._errors.get(path, 0) + 1
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            out = {
+                "uptime_s": round(time.time() - self._t0, 1),
+                "endpoints": {},
+            }
+            for path, d in self._lat.items():
+                lat = sorted(d)
+                n = len(lat)
+                out["endpoints"][path] = {
+                    "requests": self._count.get(path, 0),
+                    "errors": self._errors.get(path, 0),
+                    "latency_ms": {
+                        "p50": round(1e3 * lat[n // 2], 1),
+                        "p99": round(1e3 * lat[min(n - 1, int(n * 0.99))], 1),
+                        "mean": round(1e3 * sum(lat) / n, 1),
+                    },
+                }
+            return out
+
+
+class InferenceService:
+    """Holds the model on its device and runs the serving chains.
+
+    Thread-safe: requests share the model read-only under
+    ``torch.inference_mode``. ``device=None`` means the CUDA card and
+    raises without one."""
+
+    #: encoder time-axis downsampling (two stride-2 convs)
+    STRIDE = 4
+
+    def __init__(self, cfg: Config, model: VQVAE, frames: int = 84,
+                 device=None, default_speaker=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model = model.to(self.device).eval()
+        n_spk = model.n_speakers if model.speakered else 0
+        if n_spk > 0 and (
+            default_speaker is None or not 0 <= int(default_speaker) < n_spk
+        ):
+            raise ValueError(
+                f"speaker-conditioned model ({n_spk} speakers) needs "
+                f"default_speaker in [0, {n_spk}), got {default_speaker}"
+            )
+        self.default_speaker = default_speaker
+        self.frames = frames
+        self.metrics = _Metrics()
+        self.batcher = None  # set by enable_batching
+
+    # -- model calls ------------------------------------------------------
+
+    def _g(self, n: int):
+        """Per-window speaker ids for a speaker-conditioned decoder."""
+        if not self.model.speakered:
+            return None
+        return torch.full((n,), int(self.default_speaker), device=self.device)
+
+    def _reconstruct(self, windows: torch.Tensor) -> torch.Tensor:
+        """(n, n_mels, frames, 1) -> the VQ-VAE's reconstruction, same shape."""
+        x_tilde, _, _ = self.model(windows, g=self._g(windows.shape[0]))
+        return x_tilde
+
+    def _gl_angles(self, n_frames: int) -> torch.Tensor:
+        gen = torch.Generator(device=self.device).manual_seed(GL_SEED)
+        shape = (n_frames, self.cfg.audio.fft_size // 2 + 1)
+        return dsp.random_angles(shape, gen, self.device)
+
+    def _vocode(self, mel: torch.Tensor) -> torch.Tensor:
+        """(..., n_mels, T) normalized mels -> waveforms via Griffin-Lim."""
+        angles = self._gl_angles(mel.shape[-1])
+        return dsp.inv_mel_spectrogram(mel, self.cfg.audio, init_angles=angles)
+
+    def _reconstruct_wav(self, samples: torch.Tensor) -> torch.Tensor:
+        """(B, L) padded requests of one length bucket -> (B, samples).
+
+        The whole /reconstruct chain in one call: mel analysis -> windows
+        -> VQ-VAE -> stitch -> Griffin-Lim. Requests fold into the model's
+        window batch (B requests x n windows -> one (B*n, ...) batch),
+        which is correct because eval-mode BatchNorm uses running
+        statistics and every window is independent."""
+        a = self.cfg.audio
+        n_mels, win = a.num_mels, self.frames
+        mels = dsp.melspectrogram(samples, a)  # (B, n_mels, T')
+        b = samples.shape[0]
+        n_win = mels.shape[-1] // win
+        windows = (
+            mels[..., : n_win * win]
+            .reshape(b, n_mels, n_win, win)
+            .permute(0, 2, 1, 3)
+            .reshape(b * n_win, n_mels, win, 1)
+        )
+        out = self._reconstruct(windows)[..., 0].reshape(b, n_win, n_mels, win)
+        full = out.permute(0, 2, 1, 3).reshape(b, n_mels, n_win * win)
+        return self._vocode(full)
+
+    # -- host-side framing ------------------------------------------------
+
+    def _decode_wav_bytes(self, wav_bytes: bytes) -> np.ndarray:
+        return dsp.load_wav_bytes(wav_bytes, self.cfg.audio.sample_rate)
+
+    def _encode_wav_bytes(self, wav_np: np.ndarray) -> bytes:
+        from scipy.io import wavfile
+
+        buf = io.BytesIO()
+        wav_np = wav_np * (32767 / max(0.01, float(np.abs(wav_np).max())))
+        wavfile.write(buf, self.cfg.audio.sample_rate, wav_np.astype(np.int16))
+        return buf.getvalue()
+
+    def _wav_to_mel(self, wav_bytes: bytes):
+        """Window the full utterance into (n, n_mels, frames, 1) batches.
+
+        Returns (windows, t, n_win): t is the true mel frame count, n_win
+        the number of windows that hold it; the window batch is padded to
+        the next power of two, as in the JAX server, so both servers see
+        the same shapes. The samples are zero-padded to the window grid
+        before analysis, so the last frames see zeros instead of the
+        reflect tail."""
+        data = self._decode_wav_bytes(wav_bytes)
+        a = self.cfg.audio
+        hop = a.effective_hop_size
+        t = dsp.num_stft_frames(len(data), a.fft_size, hop)
+        n_win = max(1, -(-t // self.frames))
+        n_pad = 1 << (n_win - 1).bit_length()
+        total = n_pad * self.frames * hop
+        buf = np.zeros(total, np.float32)
+        buf[: min(len(data), total)] = data[:total]
+        mel = dsp.melspectrogram(torch.from_numpy(buf).to(self.device), a)
+        windows = (
+            mel[:, : n_pad * self.frames]
+            .reshape(mel.shape[0], n_pad, self.frames)
+            .permute(1, 0, 2)[..., None]
+        )
+        return windows, t, n_win
+
+    def _pad_for_reconstruct(self, wav_bytes: bytes):
+        """Decode + zero-pad input samples to the power-of-two serving
+        window grid (the length bucket). Returns (padded, n_data)."""
+        data = self._decode_wav_bytes(wav_bytes)
+        hop = self.cfg.audio.effective_hop_size
+        t_est = len(data) // hop + 1
+        n_win = max(1, -(-t_est // self.frames))
+        n_pad = 1 << (n_win - 1).bit_length()
+        total = n_pad * self.frames * hop + self.cfg.audio.fft_size
+        padded = np.zeros(total, np.float32)
+        padded[: min(len(data), total)] = data[:total]
+        return padded, len(data)
+
+    @staticmethod
+    def _stitch(codes, t, stride):
+        """(n, H', W') window code grids -> one (H', cols) grid trimmed to
+        the true mel length t."""
+        valid = max(1, -(-t // stride))
+        return np.concatenate(list(codes), axis=-1)[:, :valid]
+
+    @staticmethod
+    def _check_codes(arr: np.ndarray, limit: int, name: str):
+        # out-of-range indices must not reach the device gather
+        if arr.size and (int(arr.min()) < 0 or int(arr.max()) >= limit):
+            raise ValueError(f"{name} entries must be in [0, {limit})")
+
+    # -- endpoints --------------------------------------------------------
+
+    @torch.inference_mode()
+    def encode(self, wav_bytes: bytes) -> dict:
+        windows, t, n_win = self._wav_to_mel(wav_bytes)
+        codes = self.model.encode(windows)[:n_win].cpu().numpy()  # (n, H', W')
+        stitched = self._stitch(codes, t, self.STRIDE)
+        return {"codes": stitched.tolist(), "shape": list(stitched.shape)}
+
+    @torch.inference_mode()
+    def reconstruct(self, wav_bytes: bytes) -> bytes:
+        """The input is zero-padded to the serving-window grid on the host,
+        the analysis -> VQ -> synthesis chain runs on the device, and the
+        waveform is trimmed to the input length."""
+        if self.batcher is not None:
+            return self.batcher.submit(wav_bytes)
+        padded, n_data = self._pad_for_reconstruct(wav_bytes)
+        samples = torch.from_numpy(padded).to(self.device)[None]
+        wav = self._reconstruct_wav(samples)[0].cpu().numpy()
+        return self._encode_wav_bytes(wav[: min(n_data, len(wav))])
+
+    @torch.inference_mode()
+    def reconstruct_batched(self, requests: list) -> list:
+        """One batch for many /reconstruct requests: group the padded inputs
+        by length bucket, run each group (zero-padded to a power-of-two
+        batch), and trim each request's waveform.
+
+        Returns one ``bytes`` result or ``Exception`` per request, index
+        aligned: a malformed upload fails alone, never its batchmates."""
+        slots: list = [None] * len(requests)
+        groups: dict = {}
+        for i, wb in enumerate(requests):
+            try:
+                padded, n_data = self._pad_for_reconstruct(wb)
+                groups.setdefault(len(padded), []).append((i, padded, n_data))
+            except Exception as e:  # noqa: BLE001 — isolate per request
+                slots[i] = e
+        for total, items in groups.items():
+            b_pad = 1 << (len(items) - 1).bit_length()
+            stacked = np.zeros((b_pad, total), np.float32)
+            for j, (_, padded, _) in enumerate(items):
+                stacked[j] = padded
+            try:
+                samples = torch.from_numpy(stacked).to(self.device)
+                wavs = self._reconstruct_wav(samples).cpu().numpy()
+                for j, (i, _, n_data) in enumerate(items):
+                    wav = wavs[j][: min(n_data, wavs.shape[1])]
+                    slots[i] = self._encode_wav_bytes(wav)
+            except Exception as e:  # noqa: BLE001
+                for i, _, _ in items:
+                    slots[i] = e
+        return slots
+
+    def enable_batching(self, window_ms: float, max_batch: int = 8):
+        """Attach a request micro-batcher to /reconstruct."""
+        self.batcher = _MicroBatcher(self.reconstruct_batched, window_ms, max_batch)
+
+    @torch.inference_mode()
+    def decode(self, payload: dict) -> bytes:
+        idx_np = np.asarray(payload["codes"], np.int64)
+        height = self.cfg.audio.num_mels // self.STRIDE
+        if idx_np.ndim != 2 or idx_np.shape[0] != height or idx_np.shape[1] < 1:
+            raise ValueError(
+                f"codes must be a ({height}, cols) grid, got shape {idx_np.shape}"
+            )
+        self._check_codes(idx_np, self.model.z_dim, "codes")
+        idx = torch.from_numpy(idx_np).to(self.device)[None]
+        mel = self.model.decode(idx, g=self._g(1))[0, :, :, 0]
+        return self._encode_wav_bytes(self._vocode(mel).cpu().numpy())
+
+
+def make_handler(service: InferenceService):
+    backend = service.device.type
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, *args):
+            pass
+
+        def _send(self, code, body: bytes, ctype="application/json"):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/health":
+                self._send(200, json.dumps(
+                    {"status": "ok", "backend": backend}
+                ).encode())
+            elif self.path == "/metrics":
+                snap = service.metrics.snapshot()
+                snap["backend"] = backend
+                self._send(200, json.dumps(snap).encode())
+            else:
+                self._send(404, b'{"error": "not found"}')
+
+        # malformed input from the client: safe to describe in the response
+        _CLIENT_ERRORS = (ValueError, KeyError, TypeError, OverflowError)
+
+        def do_POST(self):
+            length = int(self.headers.get("Content-Length", 0))
+            body = self.rfile.read(length)
+            t0 = time.perf_counter()
+            ok = False
+            try:
+                ok = self._dispatch(body)
+            finally:
+                service.metrics.observe(self.path, time.perf_counter() - t0, ok)
+
+        def _dispatch(self, body) -> bool:
+            """Route one POST; True when the request was served (2xx)."""
+            try:
+                if self.path == "/encode":
+                    self._send(200, json.dumps(service.encode(body)).encode())
+                elif self.path == "/reconstruct":
+                    self._send(200, service.reconstruct(body), "audio/wav")
+                elif self.path == "/decode":
+                    self._send(200, service.decode(json.loads(body)), "audio/wav")
+                else:
+                    self._send(404, b'{"error": "not found"}')
+                    return False
+                return True
+            except self._CLIENT_ERRORS as e:
+                self._send(400, json.dumps(
+                    {"error": f"bad request: {type(e).__name__}: {e}"}
+                ).encode())
+                return False
+            except Exception:
+                # log the traceback under an opaque id; never echo internals
+                err_id = uuid.uuid4().hex[:12]
+                logging.getLogger("nsg.serve").exception(
+                    "internal error %s on %s", err_id, self.path
+                )
+                self._send(500, json.dumps(
+                    {"error": "internal error", "id": err_id}
+                ).encode())
+                return False
+
+    return Handler
+
+
+def build_service(args) -> InferenceService:
+    cfg = load_preset(args.preset, Config()) if args.preset else Config()
+    # serving defaults: fast Griffin-Lim (momentum 0.99 at 30 iterations)
+    # when no preset is given; explicit flags win; a preset's settings are
+    # kept when the flags are not passed
+    gl_iters, gl_momentum = args.gl_iters, args.gl_momentum
+    if not args.preset:
+        gl_iters = 30 if gl_iters is None else gl_iters
+        gl_momentum = 0.99 if gl_momentum is None else gl_momentum
+    audio = {}
+    if gl_iters is not None:
+        audio["griffin_lim_iters"] = gl_iters
+    if gl_momentum is not None:
+        audio["griffin_lim_momentum"] = gl_momentum
+    cfg = dataclasses.replace(cfg, audio=dataclasses.replace(cfg.audio, **audio))
+
+    # a multispeaker preset (gin_channels > 0) serves the speaker-conditioned
+    # model, with --speaker-id as the voice of /reconstruct and /decode
+    gin = cfg.arch.gin_channels
+    n_speakers = cfg.arch.n_speakers if gin > 0 else 0
+    sid = args.speaker_id
+    if n_speakers and sid is None:
+        raise SystemExit(
+            f"this preset serves a speaker-conditioned model (gin_channels "
+            f"{gin}): pass --speaker-id 0..{n_speakers - 1}"
+        )
+    if n_speakers and not 0 <= int(sid) < n_speakers:
+        raise SystemExit(
+            f"--speaker-id {sid} out of range: this model has {n_speakers} "
+            f"speakers (0..{n_speakers - 1})"
+        )
+    model = VQVAE(
+        input_dim=1, dim=args.dim, z_dim=args.z_dim, n_speakers=n_speakers,
+        gin_channels=gin if n_speakers else -1,
+        generator=torch.Generator().manual_seed(0),
+    )
+    service = InferenceService(
+        cfg, model, args.frames, device=args.device, default_speaker=sid
+    )
+    if args.batch_window_ms > 0:
+        service.enable_batching(args.batch_window_ms, args.batch_max)
+    return service
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="VQ-VAE inference HTTP server")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8787)
+    p.add_argument("--preset", default=None)
+    p.add_argument("--dim", type=int, default=256)
+    p.add_argument("--z-dim", type=int, default=512)
+    p.add_argument("--frames", type=int, default=84,
+                   help="serving mel window in frames")
+    p.add_argument("--gl-iters", type=int, default=None,
+                   help="Griffin-Lim iterations (default: the --preset "
+                        "value, or 30 with momentum when no preset is "
+                        "given; reference setting: 60 with momentum 0)")
+    p.add_argument("--gl-momentum", type=float, default=None,
+                   help="fast Griffin-Lim momentum; 0 = plain reference "
+                        "GL (default: preset value, or 0.99 w/o preset)")
+    p.add_argument("--batch-window-ms", type=float, default=0.0,
+                   help="coalesce concurrent /reconstruct requests arriving "
+                        "within this window into one batch (0 = off)")
+    p.add_argument("--batch-max", type=int, default=8,
+                   help="max requests per coalesced batch")
+    p.add_argument("--speaker-id", type=int, default=None,
+                   help="default speaker for /reconstruct and /decode when "
+                        "serving a speaker-conditioned (multispeaker-preset) "
+                        "model")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to serve on (cuda, cuda:N or cpu)")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    service = build_service(args)
+    server = ThreadingHTTPServer((args.host, args.port), make_handler(service))
+    print(f"serving on http://{args.host}:{args.port} (device={service.device})")
+    server.serve_forever()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,112 @@
+"""Weight bridge between the JAX package's flax variables and the port.
+
+``flax_to_state_dict`` turns flax's nested ``{"params": ..., "batch_stats":
+...}`` tree (leaves as numpy arrays) into a PyTorch ``state_dict`` for the
+port's module of the same structure; ``module_to_flax`` reads such a module
+back into that tree (it needs the module's layer types). The
+port's modules carry the flax names (``encoder.ResBlock_0.Conv_0``), so the
+bridge only changes each leaf's name and layout:
+
+  flax leaf                          port (state_dict key suffix)
+  Conv        kernel (kh,kw,in,out)  .weight (out,in,kh,kw)
+  ConvTranspose kernel (kh,kw,in,out) .weight (in,out,kh,kw), kh and kw
+                                     flipped: flax's SAME transpose conv
+                                     correlates with the unflipped kernel,
+                                     ConvTranspose2d(4, 2, 1) with the flipped
+  Dense       kernel (in,out)        .weight (out,in)
+  Embed       embedding (n,d)        .weight (n,d)
+  norms       scale, bias            .weight, .bias
+  BatchNorm   mean, var (stats)      .running_mean, .running_var
+  codebook                           codebook
+
+Both directions copy values exactly, so a round trip is bit-exact.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Iterator, Mapping
+
+import numpy as np
+import torch
+
+
+def _walk(tree: Mapping[str, Any], prefix=()) -> Iterator[tuple[tuple[str, ...], Any]]:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _walk(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def _param_to_torch(path: tuple[str, ...], leaf: np.ndarray) -> tuple[str, np.ndarray]:
+    module, name = path[:-1], path[-1]
+    owner = module[-1] if module else ""
+    prefix = ".".join(module) + "." if module else ""
+    if name == "kernel":
+        if leaf.ndim == 4 and owner.startswith("ConvTranspose"):
+            return prefix + "weight", leaf[::-1, ::-1].transpose(2, 3, 0, 1)
+        if leaf.ndim == 4:
+            return prefix + "weight", leaf.transpose(3, 2, 0, 1)
+        if leaf.ndim == 2:
+            return prefix + "weight", leaf.T
+    elif name in ("scale", "embedding"):
+        return prefix + "weight", leaf
+    elif name == "bias" or (name == "codebook" and not module):
+        return prefix + name, leaf
+    raise ValueError(f"no port counterpart for flax leaf {'/'.join(path)}")
+
+
+def flax_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """flax variables (numpy leaves) -> the port's ``state_dict``."""
+    sd: dict[str, torch.Tensor] = {}
+    for path, leaf in _walk(variables["params"]):
+        key, value = _param_to_torch(path, np.asarray(leaf))
+        sd[key] = torch.from_numpy(np.array(value, order="C"))
+    for path, leaf in _walk(variables.get("batch_stats", {})):
+        module = ".".join(path[:-1])
+        stat = {"mean": "running_mean", "var": "running_var"}[path[-1]]
+        sd[f"{module}.{stat}"] = torch.from_numpy(np.array(leaf))
+        sd[f"{module}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+def _set(tree: dict, path: list[str], value: np.ndarray) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def module_to_flax(model: torch.nn.Module) -> dict[str, Any]:
+    """The port's module -> flax variables (numpy leaves)."""
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree, prefix, name, tensor, layout=lambda a: a):
+        value = np.ascontiguousarray(layout(tensor.detach().cpu().numpy()))
+        _set(tree, (prefix.split(".") if prefix else []) + [name], value)
+
+    for prefix, m in model.named_modules():
+        if isinstance(m, torch.nn.ConvTranspose2d):
+            put(params, prefix, "kernel", m.weight, lambda w: w.transpose(2, 3, 0, 1)[::-1, ::-1])
+        elif isinstance(m, torch.nn.Conv2d):
+            put(params, prefix, "kernel", m.weight, lambda w: w.transpose(2, 3, 1, 0))
+        elif isinstance(m, torch.nn.Linear):
+            put(params, prefix, "kernel", m.weight, lambda w: w.T)
+        elif isinstance(m, torch.nn.Embedding):
+            put(params, prefix, "embedding", m.weight)
+            continue
+        elif isinstance(m, (torch.nn.BatchNorm2d, torch.nn.GroupNorm)):
+            put(params, prefix, "scale", m.weight)
+            if isinstance(m, torch.nn.BatchNorm2d):
+                put(stats, prefix, "mean", m.running_mean)
+                put(stats, prefix, "var", m.running_var)
+        else:
+            for name, p in m.named_parameters(recurse=False):
+                put(params, prefix, name, p)
+            continue
+        if m.bias is not None:
+            put(params, prefix, "bias", m.bias)
+    out = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
+    return out

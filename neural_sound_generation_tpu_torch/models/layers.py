@@ -1,0 +1,100 @@
+"""Shared model layers, as PyTorch modules.
+
+Counterpart of ``neural_sound_generation_tpu/models/layers.py``. Inside the
+port the modules run NCHW, PyTorch's native layout; the models convert at
+their public functions, which keep the JAX package's NHWC. Submodules carry
+the JAX package's flax names (``Conv_0``, ``BatchNorm_0``, ...), so the
+weight bridge in ``convert.py`` maps one tree onto the other by name.
+
+Only the stock convolution math is ported. The JAX package's ``edge`` and
+``phased`` lowerings of the stride-2 convolutions are TPU layout choices
+with the same numerics.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+# flax's nn.BatchNorm: epsilon 1e-5, running average kept as
+# 0.99 * old + 0.01 * batch (PyTorch's momentum is the weight of the batch).
+# flax keeps the biased batch variance where PyTorch keeps the unbiased one;
+# that matters only to training, which is a later slice.
+BATCH_NORM_EPS = 1e-5
+BATCH_NORM_MOMENTUM = 0.01
+# flax's nn.GroupNorm(group_size=8): epsilon 1e-6, not PyTorch's 1e-5.
+GROUP_SIZE = 8
+GROUP_NORM_EPS = 1e-6
+
+
+def norm_name(norm: str, i: int) -> str:
+    """The flax auto-name of the i-th norm layer of a module."""
+    if norm == "batch":
+        return f"BatchNorm_{i}"
+    if norm == "group":
+        return f"GroupNorm_{i}"
+    raise ValueError(f"unknown norm: {norm!r}")
+
+
+def make_norm(norm: str, dim: int) -> nn.Module:
+    """Normalization layer by name: ``batch`` (reference parity) or
+    ``group`` (per-sample statistics, groups of 8 channels)."""
+    if norm == "batch":
+        return nn.BatchNorm2d(dim, eps=BATCH_NORM_EPS, momentum=BATCH_NORM_MOMENTUM)
+    if norm == "group":
+        if dim % GROUP_SIZE:
+            raise ValueError(f"group norm needs channels divisible by {GROUP_SIZE}")
+        return nn.GroupNorm(dim // GROUP_SIZE, dim, eps=GROUP_NORM_EPS)
+    raise ValueError(f"unknown norm: {norm!r}")
+
+
+def conv_down(in_dim: int, dim: int) -> nn.Conv2d:
+    """Stride-2 4x4 downsampling conv (torch Conv2d(k=4, s=2, p=1))."""
+    return nn.Conv2d(in_dim, dim, 4, stride=2, padding=1)
+
+
+def conv_up(in_dim: int, dim: int) -> nn.ConvTranspose2d:
+    """Stride-2 4x4 upsampling transpose conv, output 2H.
+
+    The JAX package's flax ``ConvTranspose`` with padding "SAME" and no
+    kernel flip computes the same function as ``ConvTranspose2d(4, 2, 1)``
+    with a spatially flipped kernel whose in/out axes are swapped;
+    ``convert.py`` applies that mapping."""
+    return nn.ConvTranspose2d(in_dim, dim, 4, stride=2, padding=1)
+
+
+class ResBlock(nn.Module):
+    """Pre-activation residual block (models.py:145-158):
+    ReLU -> 3x3 conv -> norm -> ReLU -> 1x1 conv -> norm, plus skip."""
+
+    def __init__(self, dim: int, norm: str = "batch"):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(dim, dim, 3, padding=1)
+        self.add_module(norm_name(norm, 0), make_norm(norm, dim))
+        self.Conv_1 = nn.Conv2d(dim, dim, 1)
+        self.add_module(norm_name(norm, 1), make_norm(norm, dim))
+        self._norms = (norm_name(norm, 0), norm_name(norm, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(x)
+        h = getattr(self, self._norms[0])(self.Conv_0(h))
+        h = torch.relu(h)
+        h = getattr(self, self._norms[1])(self.Conv_1(h))
+        return x + h
+
+
+def init_weights(module: nn.Module, generator: torch.Generator | None = None) -> None:
+    """The JAX package's initializers: Xavier-uniform kernels and zero
+    biases for convolutions and dense layers (the reference's weights_init,
+    models.py:25-32), unit scale and zero shift for norms. The same seed
+    gives the same weights on every device."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            nn.init.xavier_uniform_(m.weight, generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+            if isinstance(m, nn.BatchNorm2d):
+                m.reset_running_stats()

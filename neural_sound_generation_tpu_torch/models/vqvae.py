@@ -1,0 +1,151 @@
+"""VQ-VAE: strided conv encoder -> vector-quantized codebook -> deconv decoder.
+
+Counterpart of ``neural_sound_generation_tpu/models/vqvae.py`` (the flat
+``VQVAE`` with speaker conditioning). Public functions take and return the
+JAX package's NHWC layout: a mel window is (B, n_mels, frames, 1), latents
+are (B, H/4, W/4, dim), codes are (B, H/4, W/4). Inside, the convolutions run
+NCHW. Eval mode (``model.eval()``) uses BatchNorm's running statistics, as
+the JAX package's ``train=False`` does.
+
+Architecture (for input (B, H, W, C)):
+  encoder:  Conv4x4/s2 + norm + ReLU -> Conv4x4/s2 -> ResBlock x2   (H/4, W/4)
+  codebook: z_dim codes of width `dim`, init U(-1/z_dim, 1/z_dim)
+  decoder:  ResBlock x2 -> ReLU -> ConvT4x4/s2 + norm + ReLU -> ConvT4x4/s2
+            -> Tanh
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from neural_sound_generation_tpu_torch.models.layers import (
+    ResBlock,
+    conv_down,
+    conv_up,
+    init_weights,
+    make_norm,
+    norm_name,
+)
+from neural_sound_generation_tpu_torch.ops.vq import codebook_lookup, vq, vq_st
+
+
+class Encoder(nn.Module):
+    """(B, input_dim, H, W) -> (B, dim, H/4, W/4), NCHW."""
+
+    def __init__(self, input_dim: int, dim: int, norm: str = "batch"):
+        super().__init__()
+        self.Conv_0 = conv_down(input_dim, dim)
+        self.add_module(norm_name(norm, 0), make_norm(norm, dim))
+        self.Conv_1 = conv_down(dim, dim)
+        self.ResBlock_0 = ResBlock(dim, norm)
+        self.ResBlock_1 = ResBlock(dim, norm)
+        self._norm = norm_name(norm, 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(getattr(self, self._norm)(self.Conv_0(x)))
+        h = self.Conv_1(h)
+        return self.ResBlock_1(self.ResBlock_0(h))
+
+
+class Decoder(nn.Module):
+    """(B, dim, H', W') -> (B, output_dim, 4H', 4W') in (-1, 1), NCHW."""
+
+    def __init__(self, dim: int, output_dim: int, norm: str = "batch"):
+        super().__init__()
+        self.ResBlock_0 = ResBlock(dim, norm)
+        self.ResBlock_1 = ResBlock(dim, norm)
+        self.ConvTranspose_0 = conv_up(dim, dim)
+        self.add_module(norm_name(norm, 0), make_norm(norm, dim))
+        self.ConvTranspose_1 = conv_up(dim, output_dim)
+        self._norm = norm_name(norm, 0)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = self.ResBlock_1(self.ResBlock_0(z))
+        h = self.ConvTranspose_0(torch.relu(h))
+        h = torch.relu(getattr(self, self._norm)(h))
+        return torch.tanh(self.ConvTranspose_1(h).float())
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class VQVAE(nn.Module):
+    """input_dim/dim/z_dim as in the reference ctor (models.py:162).
+
+    ``n_speakers``/``gin_channels`` enable a learned speaker embedding added
+    to the quantized latents before decoding (global conditioning, the
+    multi-speaker CMU Arctic configuration). Weights are initialized from
+    ``generator`` (see ``layers.init_weights``)."""
+
+    def __init__(
+        self,
+        input_dim: int = 1,
+        dim: int = 256,
+        z_dim: int = 512,
+        n_speakers: int = 0,
+        gin_channels: int = -1,
+        norm: str = "batch",
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.input_dim, self.dim, self.z_dim = input_dim, dim, z_dim
+        self.n_speakers, self.gin_channels = n_speakers, gin_channels
+        self.codebook = nn.Parameter(torch.empty(z_dim, dim))
+        self.encoder = Encoder(input_dim, dim, norm)
+        self.decoder = Decoder(dim, input_dim, norm)
+        if self.speakered:
+            self.speaker_embed = nn.Embedding(n_speakers, gin_channels)
+            self.speaker_proj = nn.Linear(gin_channels, dim)
+        self.reset_parameters(generator)
+
+    @property
+    def speakered(self) -> bool:
+        return self.n_speakers > 0 and self.gin_channels > 0
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        init_weights(self, generator)
+        # codebook U(-1/z_dim, 1/z_dim) (models.py:125)
+        self.codebook.uniform_(-1.0 / self.z_dim, 1.0 / self.z_dim, generator=generator)
+        if self.speakered:
+            # flax nn.Embed's default: variance scaling 1.0, fan_in, normal
+            self.speaker_embed.weight.normal_(
+                0.0, self.n_speakers**-0.5, generator=generator
+            )
+
+    def _condition(self, z: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
+        """Add the speaker embedding to latents (B, H', W', dim). Speaker ids
+        are ignored when the model is unconditioned (gin <= 0)."""
+        if g is not None and self.speakered:
+            emb = self.speaker_proj(self.speaker_embed(g.long()))  # (B, dim)
+            z = z + emb[:, None, None, :]
+        return z
+
+    def _encode_latents(self, x: torch.Tensor) -> torch.Tensor:
+        return _nhwc(self.encoder(_nchw(x))).float()
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, H, W, C) -> int32 code indices (B, H/4, W/4)."""
+        return vq(self._encode_latents(x), self.codebook)
+
+    def decode(self, indices: torch.Tensor, g: torch.Tensor | None = None) -> torch.Tensor:
+        """Code indices (B, H', W') -> reconstruction (B, 4H', 4W', input_dim)."""
+        z_q = self._condition(codebook_lookup(self.codebook, indices), g)
+        return _nhwc(self.decoder(_nchw(z_q)))
+
+    def forward(self, x: torch.Tensor, g: torch.Tensor | None = None):
+        """Returns (x_tilde, z_e, z_q) like the reference forward
+        (models.py:198-216): ``z_e`` is the encoder output (NHWC), ``z_q`` the
+        codebook vectors by a second, differentiable lookup, and the decoder
+        consumes the straight-through codes."""
+        z_e = self._encode_latents(x)
+        codes_st, indices = vq_st(z_e, self.codebook)
+        z_q = codebook_lookup(self.codebook, indices).reshape(z_e.shape)
+        x_tilde = _nhwc(self.decoder(_nchw(self._condition(codes_st, g))))
+        return x_tilde, z_e, z_q
