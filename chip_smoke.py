@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's serving path on one CUDA card and checks it.
+"""Drives the PyTorch port's serving and training paths on one CUDA card
+and checks them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
 1. device: requires CUDA and prints the card's name and power limit;
-2. build: compiles every CUDA kernel of the port from ``csrc/``;
+2. build: compiles every CUDA kernel of the port from ``csrc/``, one
+   ``nvcc`` per source, all started together;
 3. kernels: holds each kernel against its plain PyTorch version at the
    shapes the serving path and the flagship training step give it, and
-   times kernel, plain version, one PyTorch library expression and the
-   card's bound;
+   times kernel, plain version, one PyTorch library call and the card's
+   bound: the nearest-code search at serving and training shapes, and the
+   fused Adam update at the flagship's parameter count in three
+   configurations over three chained steps;
 4. serving: builds the mel VQ-VAE service at full width (dim 256, 512
    codes, 84-frame windows) on the card with seeded weights, serves it over
    HTTP, checks every response of /health, /encode, /reconstruct and
@@ -18,7 +22,16 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    launch count over the HTTP requests alone and checks it against the
    count they must launch, then checks the float waveforms are finite and
    holds the card's codes and mels against the same model on the CPU;
-5. summary: one JSON line per kernel, then the result line.
+5. training: writes a synthetic chirp corpus, trains through ``cli.main``
+   at full width (batch 64 of 80 x 28 mel crops, dim 256, 512 codes) for
+   two epochs with --multi-steps 1, two with --multi-steps 4, then
+   --resume for a third; reads each kernel's launch count over each run
+   and checks it against the optimizer steps and batches the run must
+   launch; checks the loss is finite and falls, the checkpoint and its
+   metadata, one train step on the card against the same step on the CPU,
+   times train steps/s, and serves /reconstruct from the trained
+   checkpoint with --ema;
+6. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -27,8 +40,12 @@ port is not beside this script, or when any check fails.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import io
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -46,15 +63,37 @@ PEAK_HBM_BYTES = 3.35e12
 SEED = 0
 VQ_D = 256
 # (N, K): serving at 1 s (2 windows x 420 latents), serving at 8 s (16
-# windows), the flagship training step (vq_kernel.py:32-34), K past one
-# 512-code tile, and quantize_channels scale.
-VQ_SHAPES = [(840, 512), (6720, 512), (26880, 512), (1500, 1536), (8192, 65536)]
+# windows), the flagship training step (batch 64 of 28-frame crops:
+# 64 x 20 x 7 latents, bench.py:22 and data/collate.py:30-45), 64 serving
+# windows of 84 frames, K past one 512-code tile, and quantize_channels
+# scale.
+VQ_SHAPES = [(840, 512), (6720, 512), (8960, 512), (26880, 512), (1500, 1536),
+             (8192, 65536)]
 VQ_MAIN_SHAPE = (6720, 512)  # what an 8 s request gives the kernel
+VQ_TRAIN_SHAPE = (8960, 512)
 NEAR_TIE_REL = 1e-5
 CHIRP_SECONDS = (1.0, 3.0, 8.0)
 TIMED_REPEATS = 40  # timed requests per endpoint and length
 BURST = 4
 BURST_ROUNDS = 10
+
+
+# the training phase: full width, cut in depth (steps) only. DEVICE is the
+# card; a rehearsal of the phase on the CPU at small sizes may set it.
+DEVICE = "cuda"
+TRAIN_DIM, TRAIN_CODES, TRAIN_BATCH = 256, 512, 64
+CORPUS_UTTERANCES = 560  # 535 train (8 batches of 64), 25 test (1 batch)
+BATCHES_PER_EPOCH = 8
+TIMED_STEPS = 50
+# fused Adam: (name, bf16 moments, clip, weight decay, EMA)
+ADAM_CONFIGS = [("f32_clip_wd_ema", False, True, 0.01, True),
+                ("bf16_moments", True, True, 0.01, True),
+                ("f32_plain", False, False, 0.0, False)]
+ADAM_STEPS = 3
+# p and ema within 4 float32 ulps (relative 2**-21); moments in bf16 equal
+# or one bf16 ulp apart
+ADAM_P_RTOL = 4 * 2.0**-23
+ADAM_BF16_ULPS = 1
 
 
 class SmokeFailure(Exception):
@@ -154,6 +193,82 @@ def vq_tie_case(torch, vq_kernel, gen) -> dict:
     winners = sorted(set(got.tolist()))
     check(winners == [7], f"tie case: kernel picked {winners}, expected [7]")
     return {"phase": "kernel_tie", "name": "vq_nearest", "winners": winners}
+
+
+def adam_bound_ms(n: int, bf16: bool, has_ema: bool) -> float:
+    """Least time for one fused update of n parameters: read g, p, m, v
+    (and ema), write p, m, v (and ema) once each, over the HBM rate. The
+    ~11 float32 operations per element are far below the f32 peak."""
+    per_element = 4 + 2 * (4 + (2 if bf16 else 4) * 2 + (4 if has_ema else 0))
+    return 1e3 * n * per_element / PEAK_HBM_BYTES
+
+
+def compare_fused_adam(torch, fused_adam, n: int, config, gen) -> dict:
+    """Kernel vs plain version over ADAM_STEPS chained steps from the same
+    inputs (a new gradient and the count's bias corrections each step),
+    then the times of one update."""
+    name, bf16, clip, wd, has_ema = config
+    mdt = torch.bfloat16 if bf16 else torch.float32
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, clip=clip, wd=wd)
+    grads = [torch.randn(n, generator=gen, device="cuda") for _ in range(ADAM_STEPS)]
+    p = torch.randn(n, generator=gen, device="cuda")
+    start = [p, torch.zeros(n, device="cuda", dtype=mdt), torch.zeros(n, device="cuda", dtype=mdt),
+             p.clone() if has_ema else None]
+    ker = [None if t is None else t.clone() for t in start]
+    ref = [None if t is None else t.clone() for t in start]
+    for step, g in enumerate(grads):
+        gscale = torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
+        count = step + 1
+        scalars = torch.stack([
+            gscale, torch.full((), 1e-3, device="cuda"),
+            torch.full((), 1.0 - 0.9**count, device="cuda"),
+            torch.full((), 1.0 - 0.999**count, device="cuda"),
+            torch.full((), 0.99, device="cuda"),
+        ])
+        fused_adam.fused_adam_update(g, *ker, scalars, **kw)
+        fused_adam.fused_adam_plain(g, *ref, scalars, **kw)
+    torch.cuda.synchronize()
+    errs, mism = {}, {}
+    for label, a, b in zip(("p", "m", "v", "ema"), ker, ref):
+        if a is None:
+            continue
+        diff = (a.float() - b.float()).abs()
+        errs[label] = float(diff.max())
+        mism[label] = int((a != b).sum())
+        if label in ("m", "v") and bf16:
+            ulps = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs().max()
+            check(int(ulps) <= ADAM_BF16_ULPS,
+                  f"fused_adam {name}: {label} {int(ulps)} bf16 ulps from the plain version")
+        else:
+            rel = float((diff / b.float().abs().clamp(min=1e-30)).max())
+            check(rel <= ADAM_P_RTOL or float(diff.max()) == 0.0,
+                  f"fused_adam {name}: {label} differs by {rel:.3g} relative")
+    # views one element off 16-byte alignment take the kernel's scalar path
+    off_ker = [None if t is None else t[1:] for t in ker]
+    off_ref = [None if t is None else t[1:] for t in ref]
+    fused_adam.fused_adam_update(grads[0][1:], *off_ker, scalars, **kw)
+    fused_adam.fused_adam_plain(grads[0][1:], *off_ref, scalars, **kw)
+    torch.cuda.synchronize()
+    unaligned = sum(int((a != b).sum()) for a, b in zip(ker, ref) if a is not None)
+    check(unaligned == 0, f"fused_adam {name}: {unaligned} elements differ on unaligned views")
+    g = grads[0]
+    kernel_ms = time_ms(torch, lambda: fused_adam.fused_adam_update(g, *ker, scalars, **kw), 50)
+    plain_ms = time_ms(torch, lambda: fused_adam.fused_adam_plain(g, *ref, scalars, **kw), 20)
+    flat = torch.nn.Parameter(p.clone())
+    flat.grad = g.clone()
+    opt = torch.optim.Adam([flat], lr=1e-3, fused=True)
+    library_ms = time_ms(torch, opt.step, 50)
+    return {
+        "phase": "kernel", "name": "fused_adam", "config": name, "n": n, "steps": ADAM_STEPS,
+        "moments": "bf16" if bf16 else "f32", "clip": clip, "wd": wd, "ema": has_ema,
+        "max_abs_err": max(errs.values()), "max_abs_err_by_vector": errs,
+        "mismatched_elements": mism, "unaligned_mismatches": unaligned,
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "library": "torch.optim.Adam(fused=True) on one flat parameter: no clip, "
+                   "weight decay or EMA",
+        "bound_ms": adam_bound_ms(n, bf16, has_ema), "bound_by": "bytes",
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +455,258 @@ def serve_phase(torch, serve, dsp, vq_kernel, VQVAE) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: training
+# ---------------------------------------------------------------------------
+
+
+def write_corpus(torch, dsp, audio_cfg, root: str) -> None:
+    """Chirps of 0.5-0.8 s (43-69 frames, longer than the 28-frame crop)
+    with mels from the port's own analysis, in the manifest layout."""
+    from neural_sound_generation_tpu_torch.data.manifest import ManifestEntry, write_manifest
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(SEED)
+    sr = audio_cfg.sample_rate
+    entries = []
+    for i in range(CORPUS_UTTERANCES):
+        t = np.arange(int(sr * rng.uniform(0.5, 0.8))) / sr
+        f = rng.uniform(80, 400) + rng.uniform(300, 4000) * t / t[-1]
+        wav = (rng.uniform(0.2, 0.7) * np.sin(2 * np.pi * np.cumsum(f) / sr)).astype(np.float32)
+        mel = dsp.melspectrogram(torch.from_numpy(wav).to(DEVICE), audio_cfg).T.cpu().numpy()
+        np.save(os.path.join(root, f"a{i}.npy"), wav)
+        np.save(os.path.join(root, f"m{i}.npy"), mel.astype(np.float32))
+        entries.append(ManifestEntry(f"a{i}.npy", f"m{i}.npy", len(wav), "chirp"))
+    write_manifest(root, entries)
+
+
+LOSS_RE = re.compile(r"\sloss=(\S+)")
+
+
+def run_cli_main(cli_main, kernels, argv) -> dict:
+    """One ``cli.main`` run with every launch count set to 0 just before it
+    and read just after; its output is kept and its logged losses parsed."""
+    for k in kernels:
+        k.reset_launch_count()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli_main.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = {k.__name__.rsplit(".", 1)[-1]: k.launch_count() for k in kernels}
+    text = out.getvalue()
+    losses = [float(v) for v in LOSS_RE.findall(text)]
+    return {"seconds": seconds, "launches": launches, "losses": losses,
+            "epochs_logged": text.count("====> Epoch"), "evals": text.count("====> Test")}
+
+
+def train_phase(torch, dsp, cli_main, serve, checkpoint, vq_kernel, fused_adam) -> dict:
+    from neural_sound_generation_tpu_torch.config import Config
+    from neural_sound_generation_tpu_torch.models.layers import batch_stats_discarded
+    from neural_sound_generation_tpu_torch.ops.vq import vq
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+    from neural_sound_generation_tpu_torch.training.trainer import make_train_step
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke")
+    corpus = os.path.join(root, "corpus")
+    t0 = time.perf_counter()
+    write_corpus(torch, dsp, Config().audio, corpus)
+    corpus_s = time.perf_counter() - t0
+
+    def argv(tag, epochs, multi, *extra):
+        return ["--model", "vqvae", "--dataset", "ljspeech", "--datadir", corpus,
+                "--dim", str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES),
+                "--batch-size", str(TRAIN_BATCH), "--epochs", str(epochs),
+                "--multi-steps", str(multi), "--max-batches-per-epoch", str(BATCHES_PER_EPOCH),
+                "--log-interval", "1", "--codebook-init", "data", "--device", DEVICE,
+                "--ckpt-dir", os.path.join(root, tag, "models"),
+                "--sampledir", os.path.join(root, tag, "results"), *extra]
+
+    def ckpt_dir(tag):
+        return os.path.join(root, tag, "models", "vqvae",
+                            f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")
+
+    kernels = (vq_kernel, fused_adam)
+    runs = {}
+    for tag, multi in (("multi1", 1), ("multi4", 4)):
+        runs[tag] = run_cli_main(cli_main, kernels, argv(tag, 2, multi))
+    before_resume = checkpoint.latest_step(ckpt_dir("multi4"))
+    runs["resume"] = run_cli_main(cli_main, kernels, argv("multi4", 3, 4, "--resume"))
+
+    # every run: 8 mini-batches per epoch are 8 optimizer steps (two
+    # super-batches of 4 under --multi-steps 4); one eval batch per epoch
+    # runs the nearest-code search twice (forward and encode)
+    for tag, epochs in (("multi1", 2), ("multi4", 2), ("resume", 1)):
+        r = runs[tag]
+        steps = epochs * BATCHES_PER_EPOCH
+        r["optimizer_steps"] = steps
+        check(r["epochs_logged"] == epochs and r["evals"] == epochs,
+              f"{tag}: {r['epochs_logged']} epochs and {r['evals']} evals, expected {epochs}")
+        check(r["launches"]["fused_adam"] == steps,
+              f"{tag}: fused_adam launched {r['launches']['fused_adam']} times for {steps} steps")
+        want_vq = steps + 2 * epochs
+        check(r["launches"]["vq_kernel"] == want_vq,
+              f"{tag}: vq_nearest launched {r['launches']['vq_kernel']} times, expected {want_vq}")
+        check(len(r["losses"]) >= 1 and all(np.isfinite(r["losses"])), f"{tag}: losses {r['losses']}")
+    for tag in ("multi1", "multi4"):
+        ls = runs[tag]["losses"]
+        check(ls[-1] < ls[0], f"{tag}: the loss did not fall ({ls[0]} -> {ls[-1]})")
+    check(before_resume == 2 * BATCHES_PER_EPOCH,
+          f"multi4: checkpoint at step {before_resume}, expected {2 * BATCHES_PER_EPOCH}")
+    after = checkpoint.latest_step(ckpt_dir("multi4"))
+    check(after == before_resume + BATCHES_PER_EPOCH,
+          f"--resume: checkpoint at step {after}, expected {before_resume + BATCHES_PER_EPOCH}")
+    extra = checkpoint.read_extra(ckpt_dir("multi4"))
+    check(extra == {"epoch": 3, "arch": "vqvae", "num_quantizers": 1, "num_downsample": 6},
+          f"--resume: checkpoint metadata {extra}")
+    check(os.path.exists(os.path.join(ckpt_dir("multi4"), f"step_{after}", "_extra.json")),
+          "no _extra.json beside the checkpoint")
+    ckpt = ckpt_dir("multi4")
+
+    # one train step on the card against the same step on the CPU: the
+    # trained checkpoint (warm moments), one batch of the corpus
+    args = cli_main.parse_args(argv("multi4", 3, 1))
+    cfg = cli_main.build_config(args)
+    train_loader, _ = cli_main.audio_loaders(args, cfg)
+    batch = next(iter(train_loader))
+    states, metrics, codes = {}, {}, {}
+    for device in (DEVICE, "cpu"):
+        model = cli_main.make_model(cfg).to(device)
+        state = create_train_state(model, cfg.train)
+        checkpoint.restore(ckpt, state)
+        x = torch.from_numpy(batch["x"]).to(device)
+        with torch.no_grad(), batch_stats_discarded(model):
+            model.train()
+            codes[device] = vq(model._encode_latents(x), model.codebook).cpu()
+        _, m = make_train_step(model, cfg)(state, {"x": x})
+        states[device], metrics[device] = state, {k: float(v) for k, v in m.items()}
+    rel = {k: abs(metrics[DEVICE][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
+           for k in metrics["cpu"]}
+    flips = int((codes[DEVICE] != codes["cpu"]).sum())
+    diff = (states[DEVICE].flat.flat.cpu() - states["cpu"].flat.flat).abs()
+    by_name = states["cpu"].flat.named(diff)
+    cb_rows = int((by_name.pop("codebook") > 1e-5).any(dim=1).sum())
+    rest_max = max(float(t.max()) for t in by_name.values())
+    far = float((diff > 1e-5).float().mean())
+    g_card = states["cpu"].flat.named(states[DEVICE].flat.grad.cpu())
+    g_cpu = states["cpu"].flat.named(states["cpu"].flat.grad)
+    grad_rel = sorted(
+        ((float((g_card[k] - g_cpu[k]).norm()), float(g_cpu[k].norm()), k) for k in g_cpu),
+        reverse=True)[:6]
+    beyond = {k: int((t > 1e-5).sum()) for k, t in states["cpu"].flat.named(diff).items()
+              if int((t > 1e-5).sum())}
+    compare = {"metrics_rel_err": rel, "code_flips": flips, "rows": int(codes["cpu"].numel()),
+               "params_beyond_1e-5_frac": far, "params_max_abs_err": float(diff.max()),
+               "codebook_rows_beyond_1e-5": cb_rows, "other_params_max_abs_err": rest_max,
+               "grad_diff_norm_worst": grad_rel, "params_beyond_1e-5": beyond,
+               "grad_norm": metrics[DEVICE]["grad_norm"]}
+    emit({"phase": "card_vs_cpu_step", **compare})
+    # TF32 is off, so only the order of f32 sums differs: codes equal but
+    # at near-ties (at most 0.1% of rows); loss terms within 1e-5
+    # relative; grad_norm within 1e-5 relative, or 2e-3 when a code
+    # flipped (the row's codebook gradient lands on another code); 99.9%
+    # of the updated parameters within 1e-5 and all within 1e-2: a conv
+    # bias that feeds a train-mode BatchNorm has a true gradient of 0 and a
+    # computed one of rounding noise, which Adam turns into steps of up to
+    # about lr, as does a flipped code to its codebook rows
+    check(flips <= 1e-3 * codes["cpu"].numel(), f"card vs CPU: {flips} codes differ")
+    check(max(v for k, v in rel.items() if k != "grad_norm") <= 1e-5,
+          f"card vs CPU train step: loss terms differ {rel}")
+    check(rel["grad_norm"] <= (2e-3 if flips else 1e-5),
+          f"card vs CPU train step: grad_norm differs by {rel['grad_norm']:.3g} ({flips} flips)")
+    check(far <= 1e-3 and float(diff.max()) <= 1e-2,
+          f"card vs CPU train step: {far:.3%} of parameters beyond 1e-5, max {float(diff.max())}")
+
+    # train steps/s with a device-resident batch
+    state, model = states[DEVICE], states[DEVICE].model
+    step = make_train_step(model, cfg)
+    x = torch.from_numpy(batch["x"]).to(DEVICE)
+    for _ in range(5):
+        step(state, {"x": x})
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        step(state, {"x": x})
+    sync()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    del states, state, model
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    served = serve_trained(torch, serve, ckpt)
+    shutil.rmtree(root, ignore_errors=True)
+    return {
+        "phase": "training", "dim": TRAIN_DIM, "codes": TRAIN_CODES, "batch": TRAIN_BATCH,
+        "crop_frames": int(batch["x"].shape[2]), "corpus_utterances": CORPUS_UTTERANCES,
+        "corpus_s": corpus_s,
+        "runs": {tag: {k: v for k, v in r.items() if k != "losses"} | {
+            "first_loss": r["losses"][0], "last_loss": r["losses"][-1]}
+            for tag, r in runs.items()},
+        "checkpoint_steps": {"before_resume": before_resume, "after_resume": after},
+        "card_vs_cpu_step": compare,
+        "train_step_ms": 1e3 * step_s, "train_steps_per_s": 1.0 / step_s,
+        "timed_steps": TIMED_STEPS, "served_from_checkpoint": served,
+    }
+
+
+def serve_trained(torch, serve, ckpt: str) -> dict:
+    """The server with --ckpt-dir <trained checkpoint> --ema answers one
+    /reconstruct of 1 s with finite audio of the input's length."""
+    service = serve.build_service(serve.parse_args([
+        "--device", DEVICE, "--ckpt-dir", ckpt, "--ema",
+        "--dim", str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES)]))
+    sr = service.cfg.audio.sample_rate
+    wav_bytes, n = chirp_wav_bytes(1.0, sr)
+    httpd = serve.ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        status, body, dt = request(f"http://127.0.0.1:{httpd.server_address[1]}/reconstruct",
+                                   wav_bytes)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    check(status == 200, f"/reconstruct from the checkpoint: {status} {body[:200]!r}")
+    check(len(read_wav(body, sr)) == n, "/reconstruct from the checkpoint: wrong length")
+    with torch.inference_mode():
+        padded, _ = service._pad_for_reconstruct(wav_bytes)
+        wav = service._reconstruct_wav(torch.from_numpy(padded).to(DEVICE)[None])
+    check(bool(torch.isfinite(wav).all()), "non-finite /reconstruct from the checkpoint")
+    return {"status": status, "samples": n, "ms": 1e3 * dt}
+
+
+def build_phase(build, modules) -> list[dict]:
+    """Every kernel's library, one nvcc per source, all started together."""
+    errors: dict = {}
+
+    def load(mod):
+        try:
+            mod.load(rebuild=True)
+        except (RuntimeError, OSError) as e:  # reported below, the run fails
+            errors[mod.__name__] = e
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=load, args=(m,)) for m in modules]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    seconds = time.perf_counter() - t0
+    for name, e in errors.items():
+        raise SmokeFailure(f"build of {name} failed: {e}")
+    rows = []
+    for name in ("vq_nearest", "fused_adam"):
+        info = build.build_info[name]
+        check("sm_90a" in info["log"], f"ptxas did not compile {name} for sm_90a")
+        rows.append({"phase": "build", "kernel": name, "seconds": seconds,
+                     "nvcc_seconds": info["seconds"], "library": info["path"],
+                     "ptxas": [ln.strip() for ln in info["log"].splitlines()
+                               if "Used" in ln or "spill" in ln]})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -347,30 +714,28 @@ def main() -> int:
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     try:
+        from neural_sound_generation_tpu_torch.cli import main as cli_main
         from neural_sound_generation_tpu_torch.cli import serve
         from neural_sound_generation_tpu_torch.device import set_full_float32
         from neural_sound_generation_tpu_torch.models import VQVAE
         from neural_sound_generation_tpu_torch.ops import dsp
-        from neural_sound_generation_tpu_torch.ops.cuda import build, vq_kernel
+        from neural_sound_generation_tpu_torch.ops.cuda import build, fused_adam, vq_kernel
+        from neural_sound_generation_tpu_torch.training import checkpoint
     except ImportError as e:
         print(f"FAIL: the port is not beside this script: {e}", file=sys.stderr)
         return 1
     set_full_float32()
     try:
         # phase 1: device and card
-        print(card_line(), flush=True)
+        card = card_line()
+        print(card, flush=True)
         emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count(), "torch": torch.__version__,
-              "cuda": torch.version.cuda})
+              "cuda": torch.version.cuda, "card": card})
 
         # phase 2: build
-        t0 = time.perf_counter()
-        vq_kernel.load(rebuild=True)
-        info = build.build_info["vq_nearest"]
-        check("sm_90a" in info["log"], "ptxas did not compile for sm_90a")
-        emit({"phase": "build", "kernel": "vq_nearest", "seconds": time.perf_counter() - t0,
-              "nvcc_seconds": info["seconds"], "library": info["path"],
-              "ptxas": [ln.strip() for ln in info["log"].splitlines() if "Used" in ln or "spill" in ln]})
+        for row in build_phase(build, (vq_kernel, fused_adam)):
+            emit(row)
 
         # phase 3: kernels against their plain versions
         gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -386,26 +751,55 @@ def main() -> int:
             rows[(n, k)] = row
             del x, cb
         emit(vq_tie_case(torch, vq_kernel, gen))
+        n_params = sum(p.numel() for p in VQVAE(1, TRAIN_DIM, TRAIN_CODES).parameters())
+        adam_rows = {}
+        for config in ADAM_CONFIGS:
+            row = compare_fused_adam(torch, fused_adam, n_params, config, gen)
+            emit(row)
+            adam_rows[config[0]] = row
         torch.cuda.empty_cache()
 
         # phase 4: the serving path, with launch counts from its HTTP requests
         serving = serve_phase(torch, serve, dsp, vq_kernel, VQVAE)
         emit(serving)
+
+        # phase 5: the training path, with launch counts from each run
+        training = train_phase(torch, dsp, cli_main, serve, checkpoint, vq_kernel, fused_adam)
+        training["card"] = card
+        emit(training)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
 
-    # phase 5: summary and result
-    main_row = rows[VQ_MAIN_SHAPE]
+    # phase 6: summary and result
+    train_runs = training["runs"].values()
+    train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
+    train_adam = sum(r["launches"]["fused_adam"] for r in train_runs)
+    main_row, train_row = rows[VQ_MAIN_SHAPE], rows[VQ_TRAIN_SHAPE]
+    adam_row = adam_rows[ADAM_CONFIGS[0][0]]
     emit({"kernels": [{
         "name": "vq_nearest", "route": "cuda",
         "source": "neural_sound_generation_tpu_torch/csrc/vq_nearest.cu",
         "replaces": "neural_sound_generation_tpu/ops/pallas/vq_kernel.py:49",
         "status": "ported", "shape": {"n": VQ_MAIN_SHAPE[0], "k": VQ_MAIN_SHAPE[1], "d": VQ_D},
-        "launches": serving["vq_launches"], "max_abs_err": main_row["max_abs_err"],
+        "launches": serving["vq_launches"] + train_vq,
+        "launches_by_path": {"serving": serving["vq_launches"], "training": train_vq},
+        "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "training_shape": {"n": VQ_TRAIN_SHAPE[0], "ms": train_row["kernel_ms"],
+                           "plain_ms": train_row["plain_ms"], "bound_ms": train_row["bound_ms"],
+                           "library_ms": train_row["library_ms"]},
+    }, {
+        "name": "fused_adam", "route": "cuda",
+        "source": "neural_sound_generation_tpu_torch/csrc/fused_adam.cu",
+        "replaces": "neural_sound_generation_tpu/ops/pallas/fused_adam.py:49",
+        "status": "ported", "shape": {"n": n_params, "config": adam_row["config"]},
+        "launches": train_adam, "max_abs_err": adam_row["max_abs_err"],
+        "ms": adam_row["kernel_ms"], "plain_ms": adam_row["plain_ms"],
+        "bound_ms": adam_row["bound_ms"], "bound_by": adam_row["bound_by"],
+        "library_ms": adam_row["library_ms"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,107 @@
+"""Standalone evaluation of a saved checkpoint against the test split.
+
+Counterpart of ``neural_sound_generation_tpu/cli/evaluate.py`` for the flat
+mel VQ-VAE: per-batch metric accumulation, the averaged summary as one JSON
+line, and the last reconstruction batch as ``.npy`` (``--dump-npy``). The
+EMA shadow is evaluated when the checkpoint carries one, unless
+``--no-ema``. The checkpoint's recorded metadata (``arch``,
+``num_quantizers``, ``num_downsample``) must match the flags.
+
+Run: ``python -m neural_sound_generation_tpu_torch.cli.evaluate --datadir
+<corpus> --ckpt-dir <dir> [--device cuda]``
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import sys
+
+import numpy as np
+import torch
+
+from neural_sound_generation_tpu_torch.cli.main import (
+    audio_loaders,
+    build_config,
+    checkpoint_metadata,
+    make_model,
+    refuse_later_slices,
+)
+from neural_sound_generation_tpu_torch.device import resolve_device
+from neural_sound_generation_tpu_torch.training import checkpoint
+from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+from neural_sound_generation_tpu_torch.training.trainer import Trainer
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Evaluate a saved checkpoint")
+    p.add_argument("--model", default="vqvae",
+                   choices=["vae", "vqvae", "wavevqvae", "hiervqvae"])
+    p.add_argument("--dataset", default="ljspeech")
+    p.add_argument("--datadir", required=True)
+    p.add_argument("--ckpt-dir", required=True)
+    p.add_argument("--preset", default=None)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--dim", type=int, default=256)
+    p.add_argument("--z-dim", type=int, default=512)
+    p.add_argument("--norm", choices=["batch", "group"], default="batch")
+    p.add_argument("--max-batches", type=int, default=None)
+    p.add_argument("--dump-npy", default=None,
+                   help="write the last reconstruction batch here")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (a later slice of the port)")
+    p.add_argument("--no-ema", action="store_true",
+                   help="evaluate the live training parameters instead of the "
+                        "averaged (EMA) model")
+    p.add_argument("--num-quantizers", type=int, default=1)
+    p.add_argument("--num-downsample", type=int, default=6)
+    p.add_argument("--mesh-data", type=int, default=None)
+    p.add_argument("--mesh-model", type=int, default=1)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to evaluate on (cuda, cuda:N or cpu)")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    # fields build_config expects that evaluation does not use
+    args.lr_rate, args.beta, args.seed, args.epochs, args.log_interval = 1e-3, 1.0, 0, 1, 10
+    args.speaker_id = None
+    refuse_later_slices(args)
+    device = resolve_device(args.device)
+    cfg = build_config(args)
+    try:
+        checkpoint.check_extra(args.ckpt_dir, **checkpoint_metadata(cfg))
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+
+    _, test_loader = audio_loaders(args, cfg, test_shuffle=False)
+    sample = next(iter(test_loader))
+    n_speakers = cfg.arch.n_speakers if "g" in sample else 0
+    model = make_model(cfg, n_speakers, norm=args.norm,
+                       generator=torch.Generator().manual_seed(0)).to(device)
+    state = create_train_state(model, cfg.train)
+    try:
+        state, extra = checkpoint.restore(args.ckpt_dir, state)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    if args.no_ema:
+        # without the shadow, eval_params() resolves to the live parameters
+        state.ema_params = None
+    print(f"loaded checkpoint step={int(state.step)} extra={extra}")
+
+    trainer = Trainer(model, cfg, state, log_fn=print)
+    batches = iter(test_loader)
+    if args.max_batches:
+        batches = itertools.islice(batches, args.max_batches)
+    means, recon = trainer.eval_epoch(batches)
+    print(json.dumps({k: round(v, 6) for k, v in means.items()}))
+    if args.dump_npy and recon is not None:
+        np.save(args.dump_npy, recon.detach().cpu().numpy())
+        print(f"wrote {args.dump_npy}")
+    return means
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -13,8 +13,9 @@ mel VQ-VAE with Griffin-Lim synthesis. Stdlib-only HTTP server:
 Long inputs are tiled over serving windows of ``--frames`` mel frames and
 stitched. With ``--batch-window-ms`` concurrent /reconstruct requests are
 coalesced into one batch per length bucket; each result equals the
-unbatched one. Without a checkpoint the server serves weights initialized
-from seed 0, as the JAX server does.
+unbatched one. ``--ckpt-dir`` serves a checkpoint written by ``cli.main``
+(its live parameters, or with ``--ema`` its averaged model); without one
+the server serves weights initialized from seed 0, as the JAX server does.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.serve [--device cuda]``
 """
@@ -40,6 +41,8 @@ from neural_sound_generation_tpu_torch.config import Config, load_preset
 from neural_sound_generation_tpu_torch.device import resolve_device
 from neural_sound_generation_tpu_torch.models import VQVAE
 from neural_sound_generation_tpu_torch.ops import dsp
+from neural_sound_generation_tpu_torch.training import checkpoint
+from neural_sound_generation_tpu_torch.training.train_state import create_train_state
 
 #: Griffin-Lim's initial phase is drawn from a generator seeded with this
 #: for every request, as the JAX server uses PRNGKey(0): a request's audio
@@ -454,6 +457,11 @@ def build_service(args) -> InferenceService:
         gin_channels=gin if n_speakers else -1,
         generator=torch.Generator().manual_seed(0),
     )
+    ckpt_dir, ema = getattr(args, "ckpt_dir", None), getattr(args, "ema", False)
+    if ckpt_dir:
+        restore_weights(model, cfg, ckpt_dir, ema)
+    elif ema:
+        raise SystemExit("--ema needs --ckpt-dir")
     service = InferenceService(
         cfg, model, args.frames, device=args.device, default_speaker=sid
     )
@@ -462,10 +470,35 @@ def build_service(args) -> InferenceService:
     return service
 
 
+def restore_weights(model: VQVAE, cfg: Config, ckpt_dir: str, ema: bool) -> None:
+    """Load a ``cli.main`` checkpoint into ``model`` (on the CPU, before
+    the service moves it): the live parameters, or the EMA shadow with
+    ``ema``, and the BatchNorm running statistics. Refuses a checkpoint of
+    another architecture or shape, and ``ema`` on one without a shadow."""
+    try:
+        checkpoint.check_extra(ckpt_dir, arch="vqvae", num_quantizers=1)
+        state, _ = checkpoint.restore(ckpt_dir, create_train_state(model, cfg.train))
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    if ema:
+        if state.ema_params is None:
+            raise SystemExit(
+                "--ema: checkpoint has no EMA shadow (trained with "
+                "exponential_moving_average=false); drop --ema or retrain with EMA on"
+            )
+        state.flat.flat.copy_(state.ema_params)
+    model.zero_grad(set_to_none=True)  # serving keeps no gradient buffer
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="VQ-VAE inference HTTP server")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8787)
+    p.add_argument("--ckpt-dir", default=None,
+                   help="serve this cli.main checkpoint directory (latest step)")
+    p.add_argument("--ema", action="store_true",
+                   help="serve the averaged (EMA) weights of --ckpt-dir instead "
+                        "of the live parameters")
     p.add_argument("--preset", default=None)
     p.add_argument("--dim", type=int, default=256)
     p.add_argument("--z-dim", type=int, default=512)

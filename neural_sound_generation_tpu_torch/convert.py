@@ -20,6 +20,13 @@ bridge only changes each leaf's name and layout:
   codebook                           codebook
 
 Both directions copy values exactly, so a round trip is bit-exact.
+
+Flat vectors. The JAX package keeps the fused optimizer's moments and the
+parameter EMA as one vector in ``ravel_pytree`` order (the params tree
+flattened with sorted keys); the port keeps them in its flat buffer's
+order (``FlatParams``: ``named_parameters()`` order, PyTorch layouts).
+``flax_flat_to_port`` and ``port_flat_to_flax`` map any param-shaped
+vector between the two through the named tree, never index to index.
 """
 
 from __future__ import annotations
@@ -76,13 +83,20 @@ def _set(tree: dict, path: list[str], value: np.ndarray) -> None:
     tree[path[-1]] = value
 
 
-def module_to_flax(model: torch.nn.Module) -> dict[str, Any]:
-    """The port's module -> flax variables (numpy leaves)."""
+def module_to_flax(
+    model: torch.nn.Module, tensors: Mapping[str, torch.Tensor] | None = None
+) -> dict[str, Any]:
+    """The port's module -> flax variables (numpy leaves). ``tensors``
+    (parameter name -> tensor of the parameter's shape) stands in for the
+    module's own parameter values, e.g. an Adam moment split by name."""
     params: dict = {}
     stats: dict = {}
+    names = {id(p): n for n, p in model.named_parameters()}
 
     def put(tree, prefix, name, tensor, layout=lambda a: a):
-        value = np.ascontiguousarray(layout(tensor.detach().cpu().numpy()))
+        if tensors is not None and id(tensor) in names:
+            tensor = tensors[names[id(tensor)]]
+        value = np.ascontiguousarray(layout(tensor.detach().float().cpu().numpy()))
         _set(tree, (prefix.split(".") if prefix else []) + [name], value)
 
     for prefix, m in model.named_modules():
@@ -110,3 +124,57 @@ def module_to_flax(model: torch.nn.Module) -> dict[str, Any]:
     if stats:
         out["batch_stats"] = stats
     return out
+
+
+def ravel_flax(tree: Mapping[str, Any]) -> np.ndarray:
+    """A tree of arrays as one float32 vector in ``jax.flatten_util.
+    ravel_pytree`` order (dict keys sorted at every level)."""
+    leaves = []
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            for key in sorted(node):
+                walk(node[key])
+        else:
+            leaves.append(np.asarray(node, np.float32).reshape(-1))
+
+    walk(tree)
+    return np.concatenate(leaves) if leaves else np.zeros(0, np.float32)
+
+
+def unravel_flax(flat: np.ndarray, template: Mapping[str, Any]) -> dict[str, Any]:
+    """Inverse of ``ravel_flax``: a vector back into ``template``'s shapes."""
+    flat = np.asarray(flat, np.float32)
+    offset = 0
+
+    def walk(node):
+        nonlocal offset
+        if isinstance(node, Mapping):
+            return {key: walk(node[key]) for key in sorted(node)}
+        shape = np.shape(node)
+        size = int(np.prod(shape))
+        out = flat[offset : offset + size].reshape(shape)
+        offset += size
+        return out
+
+    out = walk(template)
+    if offset != flat.size:
+        raise ValueError(f"vector of {flat.size} for a tree of {offset} values")
+    return out
+
+
+def flax_flat_to_port(
+    flat: np.ndarray, params_template: Mapping[str, Any], names: list[str]
+) -> torch.Tensor:
+    """A JAX ``ravel_pytree``-order vector over ``params_template`` (the
+    flax params tree) -> the port's flat order for parameters ``names``
+    (``FlatParams.names``), float32."""
+    sd = flax_to_state_dict({"params": unravel_flax(flat, params_template)})
+    return torch.cat([sd[name].reshape(-1) for name in names])
+
+
+def port_flat_to_flax(vector: torch.Tensor, model: torch.nn.Module, flat_params) -> np.ndarray:
+    """The port's flat vector (``flat_params`` layout) -> the JAX
+    ``ravel_pytree``-order vector of the same values, float32."""
+    params = module_to_flax(model, flat_params.named(vector.detach()))["params"]
+    return ravel_flax(params)

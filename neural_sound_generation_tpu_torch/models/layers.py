@@ -13,13 +13,15 @@ with the same numerics.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # flax's nn.BatchNorm: epsilon 1e-5, running average kept as
 # 0.99 * old + 0.01 * batch (PyTorch's momentum is the weight of the batch).
-# flax keeps the biased batch variance where PyTorch keeps the unbiased one;
-# that matters only to training, which is a later slice.
 BATCH_NORM_EPS = 1e-5
 BATCH_NORM_MOMENTUM = 0.01
 # flax's nn.GroupNorm(group_size=8): epsilon 1e-6, not PyTorch's 1e-5.
@@ -36,11 +38,51 @@ def norm_name(norm: str, i: int) -> str:
     raise ValueError(f"unknown norm: {norm!r}")
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d with flax's ``nn.BatchNorm`` semantics.
+
+    Eval mode normalizes with the running statistics, as ``BatchNorm2d``
+    does. Train mode normalizes with the batch mean and the *biased* batch
+    variance, and updates the running averages as 0.99 * old + 0.01 *
+    batch with that biased variance, where ``BatchNorm2d`` would store the
+    unbiased one. ``num_batches_tracked`` is not used (flax has no
+    counter)."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=BATCH_NORM_EPS, momentum=BATCH_NORM_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+            self.running_var.copy_(keep * self.running_var + self.momentum * var)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+@contextlib.contextmanager
+def batch_stats_discarded(module: nn.Module) -> Iterator[None]:
+    """Train-mode passes inside leave every BatchNorm's running statistics
+    as they were (flax's ``mutable=["batch_stats"]`` with the update
+    dropped)."""
+    norms = [m for m in module.modules() if isinstance(m, nn.BatchNorm2d)]
+    saved = [(m.running_mean.clone(), m.running_var.clone()) for m in norms]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for m, (mean, var) in zip(norms, saved):
+                m.running_mean.copy_(mean)
+                m.running_var.copy_(var)
+
+
 def make_norm(norm: str, dim: int) -> nn.Module:
     """Normalization layer by name: ``batch`` (reference parity) or
     ``group`` (per-sample statistics, groups of 8 channels)."""
     if norm == "batch":
-        return nn.BatchNorm2d(dim, eps=BATCH_NORM_EPS, momentum=BATCH_NORM_MOMENTUM)
+        return BatchNorm(dim)
     if norm == "group":
         if dim % GROUP_SIZE:
             raise ValueError(f"group norm needs channels divisible by {GROUP_SIZE}")

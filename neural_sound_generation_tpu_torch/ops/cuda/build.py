@@ -29,7 +29,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+# one lock per library name: two libraries build concurrently, a second
+# load of the same one waits for the first
+_locks_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 #: name -> {"seconds": build time (0.0 when the library was already built),
 #: "log": nvcc's output, including ptxas' register and shared-memory report}
@@ -52,9 +55,12 @@ def load_library(name: str, sources: list[Path], rebuild: bool = False) -> ctype
     ``rebuild`` compiles even when a library of the same sources is already
     on disk (the first load in a process only). Raises when CUDA is
     unavailable or the build fails: there is no fallback to a plain
-    version here.
+    version here. Different libraries may be loaded from several threads
+    at once; their ``nvcc`` runs overlap.
     """
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

@@ -1,4 +1,5 @@
-"""Vector quantization with straight-through gradients (serving subset).
+"""Vector quantization with straight-through gradients, and the codebook's
+training helpers.
 
 Counterpart of ``neural_sound_generation_tpu/ops/vq.py``:
 
@@ -8,12 +9,20 @@ Counterpart of ``neural_sound_generation_tpu/ops/vq.py``:
     codebook's is the upstream gradient summed into the selected rows
     (``index_add_`` semantics, accumulated in float32).
   * ``codebook_lookup``: an embedding lookup whose gradient has the same
-    index-add semantics (PyTorch's own backward for indexing).
+    index-add semantics (``index_select``'s own backward).
+
+Training helpers for a single (K, D) codebook, each a plain function on
+tensors; the ones that draw take an explicit ``torch.Generator``:
+
+  * ``codebook_ema_update``: VQ-VAE-2 style EMA codebook learning;
+  * ``restart_dead_codes`` (``restart_rows`` given the drawn candidates):
+    re-seed codes whose usage fell below a threshold;
+  * ``data_codebook_init`` (``codebook_from_rows`` given the draws): seed a
+    codebook from encoder outputs.
 
 The nearest-code search goes to the CUDA kernel for tensors on a CUDA
 device and to its plain version on the CPU; ``set_vq_backend`` can pin
-either one. Residual
-VQ and the EMA, restart and data-init helpers come with the training slice.
+either one. Residual VQ comes with a later slice.
 """
 
 from __future__ import annotations
@@ -93,5 +102,114 @@ def vq_st(inputs: torch.Tensor, codebook: torch.Tensor):
 
 
 def codebook_lookup(codebook: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
-    """Differentiable lookup ``codebook[indices]``: (..., D)."""
-    return codebook[indices.long()]
+    """Differentiable lookup ``codebook[indices]``: (..., D).
+
+    ``index_select``, whose backward is one ``index_add_`` of the rows:
+    the backward of advanced indexing sorts the indices and serializes the
+    duplicates, 5.8 ms of a 16.3 ms training step at 8960 rows into 512
+    codes on an H100."""
+    flat = codebook.index_select(0, indices.reshape(-1).long())
+    return flat.reshape(*indices.shape, codebook.shape[-1])
+
+
+def codebook_ema_update(
+    codebook: torch.Tensor,
+    cluster_size_ema: torch.Tensor,
+    embed_sum_ema: torch.Tensor,
+    inputs_flat: torch.Tensor,
+    indices_flat: torch.Tensor,
+    decay: float,
+    eps: float = 1e-5,
+):
+    """EMA codebook update (ModelConfig.ema_codebook): per-code counts and
+    sums of the assigned inputs, averaged into the EMA statistics; each
+    code becomes its smoothed mean. Returns (new_codebook,
+    new_cluster_size_ema, new_embed_sum_ema)."""
+    num_codes = codebook.shape[0]
+    ones = torch.ones(inputs_flat.shape[0], 1, dtype=inputs_flat.dtype, device=inputs_flat.device)
+    both = torch.zeros(
+        num_codes, 1 + inputs_flat.shape[1], dtype=torch.float32, device=inputs_flat.device
+    ).index_add_(0, indices_flat.long(), torch.cat([ones, inputs_flat], dim=1).to(torch.float32))
+    counts, sums = both[:, 0], both[:, 1:]
+    new_cluster = decay * cluster_size_ema + (1 - decay) * counts
+    new_embed_sum = decay * embed_sum_ema + (1 - decay) * sums
+    n = torch.sum(new_cluster)
+    cluster = (new_cluster + eps) / (n + num_codes * eps) * n
+    return new_embed_sum / cluster[:, None], new_cluster, new_embed_sum
+
+
+def restart_rows(
+    codebook: torch.Tensor,
+    usage: torch.Tensor,
+    candidates: torch.Tensor,
+    threshold: float = 1.0,
+    cluster: torch.Tensor | None = None,
+    embed_sum: torch.Tensor | None = None,
+):
+    """Replace the codes whose ``usage`` is below ``threshold`` by the
+    matching rows of ``candidates`` (K, D). With the EMA statistics given,
+    a restarted row restarts them as one observation of its new vector
+    (cluster 1, embed_sum the candidate) and the 3-tuple is returned;
+    otherwise the codebook alone."""
+    candidates = candidates.detach()
+    dead_row = usage < threshold
+    dead = dead_row[:, None]
+    new_cb = torch.where(dead, candidates.to(codebook.dtype), codebook)
+    if cluster is None:
+        return new_cb
+    new_cluster = torch.where(dead_row, torch.ones_like(cluster), cluster)
+    new_esum = torch.where(dead, candidates.to(embed_sum.dtype), embed_sum)
+    return new_cb, new_cluster, new_esum
+
+
+def restart_dead_codes(
+    codebook: torch.Tensor,
+    usage: torch.Tensor,
+    batch_flat: torch.Tensor,
+    generator: torch.Generator,
+    threshold: float = 1.0,
+    cluster: torch.Tensor | None = None,
+    embed_sum: torch.Tensor | None = None,
+):
+    """Reinitialize unused codes from random rows of the batch's encoder
+    outputs (the codebook-collapse mitigation): one row per code drawn
+    uniformly with replacement from ``generator``, then ``restart_rows``."""
+    idx = torch.randint(
+        0, batch_flat.shape[0], (codebook.shape[0],),
+        generator=generator, device=batch_flat.device,
+    )
+    return restart_rows(codebook, usage, batch_flat[idx], threshold, cluster, embed_sum)
+
+
+def codebook_from_rows(
+    flat: torch.Tensor, idx: torch.Tensor, noise: torch.Tensor, noise_scale: float = 0.01
+) -> torch.Tensor:
+    """Rows ``idx`` of ``flat`` (N, D) plus ``noise_scale * std(flat) *
+    noise``, so duplicate draws split."""
+    std = torch.std(flat, correction=0) + 1e-6
+    return flat[idx] + noise_scale * std * noise
+
+
+def data_codebook_init(
+    z_e: torch.Tensor,
+    codebook_shape,
+    generator: torch.Generator,
+    noise_scale: float = 0.01,
+) -> torch.Tensor:
+    """Seed a (K, D) codebook from encoder outputs ``z_e`` (..., D) instead
+    of the reference's U(+-1/K) ball at the origin (the Jukebox-style
+    random-sample init): K rows drawn without replacement (with replacement
+    when there are fewer than K), plus jitter."""
+    if len(codebook_shape) != 2:
+        raise NotImplementedError("data init of residual-VQ codebooks comes with the RVQ slice")
+    k, d = codebook_shape
+    flat = z_e.reshape(-1, z_e.shape[-1]).to(torch.float32)
+    if flat.shape[1] != d:
+        raise ValueError(f"codebook width {d}, encoder outputs {flat.shape[1]}")
+    n = flat.shape[0]
+    if n < k:
+        idx = torch.randint(0, n, (k,), generator=generator, device=flat.device)
+    else:
+        idx = torch.randperm(n, generator=generator, device=flat.device)[:k]
+    noise = torch.randn(k, d, generator=generator, device=flat.device)
+    return codebook_from_rows(flat, idx, noise, noise_scale)

@@ -1,0 +1,297 @@
+"""Train state: one flat parameter buffer, the fused optimizer and the EMA.
+
+Counterpart of ``neural_sound_generation_tpu/training/train_state.py`` for
+the flat fused optimizer (``TrainConfig.fused_optimizer``, the JAX default).
+
+The JAX package ravels the parameter tree into one vector per step
+(``ravel_pytree``) so the optimizer runs as one pass over contiguous memory.
+Here the ravel happens once: ``FlatParams`` moves every parameter of a
+module into one float32 buffer and makes each ``nn.Parameter`` a view into
+it, and gradients land in a second buffer of the same layout (each
+parameter's ``.grad`` is a view into it, zeroed in place every step, never
+set to ``None``, which would break the views). The fused kernel then
+updates the model in place. The flat order is the module's
+``named_parameters()`` order, not JAX's sorted-key order; ``convert.py``
+maps one onto the other by name.
+
+The per-leaf optax path (``fused=False``) exists in the JAX package for
+tensor parallelism only and comes with the parallel slice.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import Callable, Iterator
+
+import torch
+from torch import nn
+
+from neural_sound_generation_tpu_torch.config import TrainConfig
+from neural_sound_generation_tpu_torch.ops.cuda.fused_adam import fused_adam_update
+
+Schedule = Callable[[torch.Tensor], torch.Tensor]
+
+
+def make_lr_schedule(cfg: TrainConfig) -> Schedule:
+    """lr schedule by name (hparams.py:106 ``lr_schedule``): a function of
+    the 0-d integer step count (a tensor on the device) returning a 0-d
+    float32 tensor on the same device."""
+    name = cfg.lr_schedule
+    kwargs = dict(cfg.lr_schedule_kwargs)
+    base = cfg.initial_learning_rate
+    if name in (None, "", "constant"):
+        return lambda count: torch.full((), base, dtype=torch.float32, device=count.device)
+    if name == "noam_learning_rate_decay":
+        warmup = float(kwargs.get("warmup_steps", 4000))
+
+        def noam(count):
+            step = torch.clamp(count, min=1).to(torch.float32)
+            return base * warmup**0.5 * torch.minimum(step * warmup**-1.5, step**-0.5)
+
+        return noam
+    if name == "step_learning_rate_decay":
+        # optax.exponential_decay(base, anneal_interval, anneal_rate,
+        # staircase=True): base * rate ** floor(count / interval)
+        rate = float(kwargs.get("anneal_rate", 0.98))
+        interval = int(kwargs.get("anneal_interval", 30000))
+        if interval <= 0 or rate == 0:
+            return make_lr_schedule(dataclasses.replace(cfg, lr_schedule="constant"))
+
+        def step_decay(count):
+            # a tensor divisor: CUDA divides by a host scalar as a multiply
+            # by its reciprocal, which can land floor() one step early
+            divisor = torch.full((), float(interval), device=count.device)
+            p = torch.floor(count.to(torch.float32) / divisor)
+            decayed = base * torch.pow(rate, p)
+            return torch.where(count <= 0, torch.full_like(decayed, base), decayed)
+
+        return step_decay
+    raise ValueError(f"unknown lr_schedule: {name!r}")
+
+
+def resolve_ema_decay(ema_decay: float, ema_warmup: bool, step: torch.Tensor) -> torch.Tensor:
+    """The EMA decay as a 0-d float32 tensor on ``step``'s device: the
+    reference's fixed decay (hparams.py:118), or under ``ema_warmup``
+    min(decay, (1+t)/(10+t)) with t = step + 1. ``step`` is the 0-based
+    step BEFORE the increment."""
+    if not ema_warmup:
+        return torch.full((), ema_decay, dtype=torch.float32, device=step.device)
+    t = (step + 1).to(torch.float32)
+    return torch.clamp((1.0 + t) / (10.0 + t), max=ema_decay)
+
+
+class FlatParams:
+    """Every parameter of ``module`` as a view into one float32 buffer.
+
+    ``flat`` holds the values and ``grad`` the gradients in the same
+    layout; each parameter's ``.data`` and ``.grad`` are views into them.
+    Build it after the module is on its device: ``module.to()`` would
+    replace the views with copies. ``load_state_dict`` copies in place and
+    keeps them."""
+
+    def __init__(self, module: nn.Module):
+        named = list(module.named_parameters())
+        if not named:
+            raise ValueError("module has no parameters")
+        device = named[0][1].device
+        self.names = [name for name, _ in named]
+        self.shapes = [tuple(p.shape) for _, p in named]
+        self.offsets = []
+        n = 0
+        for _, p in named:
+            self.offsets.append(n)
+            n += p.numel()
+        self.flat = torch.empty(n, dtype=torch.float32, device=device)
+        self.grad = torch.zeros(n, dtype=torch.float32, device=device)
+        self._params = [p for _, p in named]
+        with torch.no_grad():
+            for p, view in zip(self._params, self.split(self.flat)):
+                if p.device != device:
+                    raise ValueError(f"parameters on {p.device} and {device}")
+                view.copy_(p.detach())
+                p.data = view
+        for p, gview in zip(self._params, self.split(self.grad)):
+            p.grad = gview
+
+    @property
+    def numel(self) -> int:
+        return self.flat.numel()
+
+    def split(self, vector: torch.Tensor) -> list[torch.Tensor]:
+        """Views of a flat vector shaped as the parameters, in order."""
+        return [
+            vector[o : o + math.prod(s)].view(s) for o, s in zip(self.offsets, self.shapes)
+        ]
+
+    def named(self, vector: torch.Tensor) -> dict[str, torch.Tensor]:
+        return dict(zip(self.names, self.split(vector)))
+
+    def view(self, name: str, vector: torch.Tensor | None = None) -> torch.Tensor:
+        """One parameter's view of ``vector`` (the live values by default)."""
+        i = self.names.index(name)
+        return self.split(self.flat if vector is None else vector)[i]
+
+    def zero_grad(self) -> None:
+        self.grad.zero_()
+
+    @contextlib.contextmanager
+    def swapped(self, vector: torch.Tensor) -> Iterator[None]:
+        """Run the module on another flat vector of the same layout (the EMA
+        shadow) without copying it: each parameter points into ``vector``
+        for the duration."""
+        if vector.shape != self.flat.shape:
+            raise ValueError(f"expected a flat vector of {self.numel}, got {tuple(vector.shape)}")
+        saved = [p.data for p in self._params]
+        try:
+            for p, view in zip(self._params, self.split(vector)):
+                p.data = view
+            yield
+        finally:
+            for p, data in zip(self._params, saved):
+                p.data = data
+
+
+@dataclasses.dataclass
+class FusedOptState:
+    """Adam moments as flat vectors (float32, or bfloat16 under
+    ``bf16_moments``) and the step count, a 0-d int32 tensor on the device.
+    The remaining fields are hyperparameters."""
+
+    count: torch.Tensor
+    m: torch.Tensor
+    v: torch.Tensor
+    lr: float | Schedule = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    clip: float = -1.0
+    wd: float = 0.0
+
+
+def fused_opt_init(flat: FlatParams, cfg: TrainConfig, use_schedule: bool) -> FusedOptState:
+    moment_dtype = torch.bfloat16 if cfg.bf16_moments else torch.float32
+    device = flat.flat.device
+    return FusedOptState(
+        count=torch.zeros((), dtype=torch.int32, device=device),
+        m=torch.zeros(flat.numel, dtype=moment_dtype, device=device),
+        v=torch.zeros(flat.numel, dtype=moment_dtype, device=device),
+        lr=make_lr_schedule(cfg) if use_schedule else float(cfg.initial_learning_rate),
+        b1=float(cfg.adam_beta1),
+        b2=float(cfg.adam_beta2),
+        eps=float(cfg.adam_eps),
+        clip=float(cfg.clip_thresh or -1.0),
+        wd=float(cfg.weight_decay or 0.0),
+    )
+
+
+def fused_flat_update(
+    s: FusedOptState, flat_p: torch.Tensor, flat_g: torch.Tensor,
+    ema: torch.Tensor | None, ema_decay: float, ema_warmup: bool, step: torch.Tensor,
+) -> torch.Tensor:
+    """One fused Adam(+EMA) update on flat float32 vectors: the single
+    source of the optimizer math (the JAX ``fused_flat_update``).
+
+    In place on ``flat_p``, ``s.m``, ``s.v`` and ``ema``; ``s.count`` is
+    incremented. Returns the global norm of the raw gradient (before clip
+    and weight decay). The order is clip -> weight decay -> Adam; the lr is
+    read at the pre-increment count, the bias corrections use count + 1 (as
+    float32 powers), the EMA decay is resolved at the pre-increment
+    ``step``. The per-step scalars stay on the device: nothing here waits
+    on the host."""
+    flat_g = flat_g.to(torch.float32)
+    # a cascaded sum: PyTorch's CPU vector_norm accumulates a long float32
+    # vector in one running sum (2e-4 relative error at 4.9M elements)
+    gnorm = torch.sqrt(torch.sum(flat_g * flat_g))
+    if s.clip > 0:
+        gscale = torch.clamp(
+            torch.full_like(gnorm, s.clip) / torch.clamp(gnorm, min=1e-12), max=1.0
+        )
+    else:
+        gscale = torch.ones((), dtype=torch.float32, device=flat_p.device)
+    lr = s.lr(s.count) if callable(s.lr) else torch.full(
+        (), s.lr, dtype=torch.float32, device=flat_p.device
+    )
+    cf = (s.count + 1).to(torch.float32)
+    bc1 = 1.0 - torch.pow(s.b1, cf)  # float32 powers, on the device
+    bc2 = 1.0 - torch.pow(s.b2, cf)
+    d = (
+        resolve_ema_decay(ema_decay, ema_warmup, step)
+        if ema is not None
+        else torch.zeros((), dtype=torch.float32, device=flat_p.device)
+    )
+    scalars = torch.stack([gscale, lr, bc1, bc2, d]).to(torch.float32)
+    fused_adam_update(
+        flat_g, flat_p, s.m, s.v, ema, scalars,
+        b1=s.b1, b2=s.b2, eps=s.eps, clip=s.clip > 0, wd=s.wd,
+    )
+    s.count.add_(1)
+    return gnorm
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its parameters views of ``flat.flat``, its BatchNorm
+    running statistics as buffers), the fused optimizer state, the flat
+    EMA shadow and the EMA-codebook statistics. ``step`` is a 0-d int32
+    tensor on the device. Updated in place by the train step."""
+
+    model: nn.Module
+    flat: FlatParams
+    step: torch.Tensor
+    opt_state: FusedOptState
+    ema_params: torch.Tensor | None
+    ema_decay: float = 0.0
+    ema_warmup: bool = False
+    # EMA-codebook statistics (ModelConfig.ema_codebook):
+    # {"cluster": (K,), "embed_sum": (K, D)}
+    codebook_ema: dict | None = None
+
+    def eval_params(self) -> torch.Tensor:
+        """The flat EMA shadow when enabled, else the live parameters (the
+        reference's intended averaged-model evaluation, hparams.py:116-118)."""
+        return self.flat.flat if self.ema_params is None else self.ema_params
+
+
+def create_train_state(
+    model: nn.Module,
+    cfg: TrainConfig,
+    use_schedule: bool = False,
+    ema_codebook: bool = False,
+    fused: bool | None = None,
+) -> TrainState:
+    """Flatten ``model``'s parameters (on its device) and build the state.
+
+    Under ``ema_codebook`` the codebook statistics start as cluster sizes
+    of 1 and ``embed_sum`` equal to the codebook, so embed_sum / cluster is
+    the codebook at init."""
+    if fused is None:
+        fused = cfg.fused_optimizer
+    if not fused:
+        raise NotImplementedError(
+            "the per-leaf optimizer (fused=False) serves tensor parallelism "
+            "and comes with the parallel slice of the port"
+        )
+    flat = FlatParams(model)
+    device = flat.flat.device
+    ema = flat.flat.clone() if cfg.exponential_moving_average else None
+    cb_ema = None
+    if ema_codebook and "codebook" in flat.names:
+        cb = flat.view("codebook")
+        if cb.ndim != 2:
+            raise NotImplementedError("EMA codebooks for residual VQ come with the RVQ slice")
+        cb_ema = {
+            "cluster": torch.ones(cb.shape[0], dtype=torch.float32, device=device),
+            "embed_sum": cb.detach().clone(),
+        }
+    return TrainState(
+        model=model,
+        flat=flat,
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        opt_state=fused_opt_init(flat, cfg, use_schedule),
+        ema_params=ema,
+        ema_decay=cfg.ema_decay,
+        ema_warmup=cfg.ema_warmup,
+        codebook_ema=cb_ema,
+    )

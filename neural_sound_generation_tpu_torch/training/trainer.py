@@ -1,0 +1,275 @@
+"""Training step and epoch driver for the mel VQ-VAE.
+
+Counterpart of ``neural_sound_generation_tpu/training/trainer.py`` for the
+flat ``VQVAE`` on one device. The JAX package returns a new state from a
+jitted pure step; here the step updates the state in place (the model's
+parameters are views of the flat buffer the fused kernel writes) and
+returns the same object, so the call sites read alike. Metrics stay device
+tensors until the caller asks for them.
+
+Each train step runs the nearest-code kernel once (the ``vq_st`` forward),
+once more under ``ema_codebook``, and the fused-Adam kernel once. Each eval
+batch runs the nearest-code kernel twice: the forward and ``encode``.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from neural_sound_generation_tpu_torch.config import Config
+from neural_sound_generation_tpu_torch.data.pipeline import device_prefetch
+from neural_sound_generation_tpu_torch.models import VQVAE
+from neural_sound_generation_tpu_torch.ops.vq import (
+    codebook_ema_update,
+    restart_dead_codes,
+    vq,
+)
+from neural_sound_generation_tpu_torch.training.losses import (
+    codebook_perplexity,
+    vqvae_loss,
+)
+from neural_sound_generation_tpu_torch.training.train_state import (
+    TrainState,
+    fused_flat_update,
+)
+
+Batch = Dict[str, torch.Tensor]
+
+
+def _check_model(model) -> None:
+    if not isinstance(model, VQVAE):
+        raise NotImplementedError(
+            f"{type(model).__name__}: the port trains the flat mel VQVAE; the "
+            f"other families come with later slices"
+        )
+
+
+def make_train_step(model: VQVAE, cfg: Config) -> Callable:
+    """One optimization step: ``train_step(state, batch, generator) ->
+    (state, metrics)``, updating ``state`` in place.
+
+    Under ``cfg.model.ema_codebook`` the codebook learns by EMA cluster
+    statistics: its gradient is zeroed before the update, the codebook is
+    overwritten after it (from the pre-update codebook and the step's
+    encoder outputs), and ``grad_norm`` is the norm after the zeroing.
+    ``generator`` draws the dead-code restarts (on the batch's device)."""
+    _check_model(model)
+    beta = cfg.model.beta
+    ema_codebook = bool(cfg.model.ema_codebook)
+
+    def train_step(state: TrainState, batch: Batch, generator: torch.Generator | None = None):
+        model.train()
+        state.flat.zero_grad()
+        x = batch["x"]
+        x_tilde, z_e, z_q = model(x, g=batch.get("g"))
+        total, metrics = vqvae_loss(x_tilde, x, z_e, z_q, beta)
+        total.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        with torch.no_grad():
+            cb_old = None
+            if ema_codebook:
+                state.flat.view("codebook", state.flat.grad).zero_()
+                cb_old = model.codebook.detach().clone()
+            metrics["grad_norm"] = fused_flat_update(
+                state.opt_state, state.flat.flat, state.flat.grad, state.ema_params,
+                state.ema_decay, state.ema_warmup, state.step,
+            )
+            state.step.add_(1)
+            if ema_codebook:
+                _ema_codebook_step(state, cfg, cb_old, z_e.detach(), generator)
+        return state, metrics
+
+    return train_step
+
+
+def _ema_codebook_step(state: TrainState, cfg: Config, cb_old, z_e, generator) -> None:
+    flat = z_e.reshape(-1, z_e.shape[-1])
+    indices = vq(flat, cb_old)
+    ce = state.codebook_ema
+    new_cb, cluster, esum = codebook_ema_update(
+        cb_old, ce["cluster"], ce["embed_sum"], flat, indices,
+        decay=cfg.model.ema_codebook_decay,
+    )
+    if cfg.model.restart_dead_threshold > 0:
+        new_cb, cluster, esum = restart_dead_codes(
+            new_cb, cluster, flat, generator,
+            threshold=cfg.model.restart_dead_threshold,
+            cluster=cluster, embed_sum=esum,
+        )
+    state.model.codebook.copy_(new_cb)
+    state.codebook_ema = {"cluster": cluster, "embed_sum": esum}
+
+
+def make_multistep_train(model: VQVAE, cfg: Config, n_inner: int) -> Callable:
+    """``n_inner`` optimization steps over a stacked super-batch (every
+    tensor gains a leading (n_inner,) axis): ``multi(state, batches,
+    generator) -> (state, stacked metrics)``. The parameters, moments and
+    EMA stay in their flat buffers from step to step (the JAX package's
+    flat carry), so nothing is raveled per step."""
+    step = make_train_step(model, cfg)
+
+    def multi(state: TrainState, batches: Batch, generator: torch.Generator | None = None):
+        per_step = []
+        for i in range(n_inner):
+            state, metrics = step(state, {k: v[i] for k, v in batches.items()}, generator)
+            per_step.append(metrics)
+        return state, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+    return multi
+
+
+def stack_batches(batches):
+    """List of dict batches -> one super-batch with a leading step axis,
+    stacked on the host (the loader's batches are numpy; one copy to the
+    device follows)."""
+    return {
+        k: np.stack([np.asarray(b[k]) for b in batches])
+        for k in batches[0]
+        if batches[0][k] is not None
+    }
+
+
+def make_eval_step(model: VQVAE, cfg: Config) -> Callable:
+    """Eval forward with running statistics: ``eval_step(state, batch) ->
+    (reconstruction, metrics)``, on the EMA shadow when the state has one
+    (``TrainState.eval_params``)."""
+    _check_model(model)
+    beta = cfg.model.beta
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Batch):
+        model.eval()
+        x = batch["x"]
+        with state.flat.swapped(state.eval_params()):
+            x_tilde, z_e, z_q = model(x, g=batch.get("g"))
+            _, metrics = vqvae_loss(x_tilde, x, z_e, z_q, beta)
+            indices = model.encode(x)
+        metrics["perplexity"] = codebook_perplexity(indices, model.z_dim)
+        return x_tilde, metrics
+
+    return eval_step
+
+
+class Trainer:
+    """Epoch driver: train epochs, eval epochs, metric aggregation.
+
+    Metric sums stay on the device and are pulled once per epoch; only the
+    ``log_interval`` print and the checkpoint callback read the host."""
+
+    def __init__(
+        self,
+        model: VQVAE,
+        cfg: Config,
+        state: TrainState,
+        log_fn: Optional[Callable[[str], None]] = print,
+        metrics_path: Optional[str] = None,
+        multi_steps: int = 1,
+    ):
+        self.model = model
+        self.cfg = cfg
+        self.state = state
+        self.device = state.flat.flat.device
+        self.log_fn = log_fn or (lambda s: None)
+        self.metrics_path = metrics_path
+        self.multi_steps = max(1, multi_steps)
+        self._train_step = make_train_step(model, cfg)
+        self._multi_step = (
+            make_multistep_train(model, cfg, self.multi_steps) if self.multi_steps > 1 else None
+        )
+        self._eval_step = make_eval_step(model, cfg)
+
+    def _write_metrics(self, record: Dict) -> None:
+        if not self.metrics_path:
+            return
+        with open(self.metrics_path, "a", encoding="utf-8") as f:
+            f.write(json.dumps(record) + "\n")
+
+    def _batches_on_device(self, batches):
+        """Host numpy batches -> device tensors, two batches ahead."""
+        return device_prefetch(batches, size=2, device=self.device)
+
+    @staticmethod
+    def _pull(sums: Optional[Dict[str, torch.Tensor]], count: int) -> Dict[str, float]:
+        if not sums:
+            return {}
+        keys = sorted(sums)
+        values = torch.stack([sums[k].to(torch.float32) for k in keys]).cpu().tolist()
+        return {k: v / max(count, 1) for k, v in zip(keys, values)}
+
+    def train_epoch(self, batches, generator: torch.Generator | None = None,
+                    epoch: int = 0, checkpoint_cb=None):
+        """batches: iterable of dict batches (host numpy or tensors).
+        Returns mean metrics over the epoch.
+
+        ``checkpoint_cb(state, step)`` runs every
+        ``cfg.train.checkpoint_interval`` optimization steps."""
+        sums: Optional[Dict[str, torch.Tensor]] = None
+        count = 0
+        interval = self.cfg.train.checkpoint_interval
+        step_now = int(self.state.step)
+        step_incr = self.multi_steps if self._multi_step is not None else 1
+        if self._multi_step is not None:
+            batches = self._chunk_batches(batches)
+        for i, batch in enumerate(self._batches_on_device(batches)):
+            if self._multi_step is not None:
+                self.state, stacked = self._multi_step(self.state, batch, generator)
+                metrics = {k: v.mean() for k, v in stacked.items()}
+            else:
+                self.state, metrics = self._train_step(self.state, batch, generator)
+            count += 1
+            step_now += step_incr
+            if self.cfg.train.log_interval and i % self.cfg.train.log_interval == 0:
+                m = self._pull(metrics, 1)
+                self.log_fn(
+                    f"Train Epoch: {epoch} [{i}]\t"
+                    + " ".join(f"{k}={v:.6f}" for k, v in sorted(m.items()))
+                )
+            if sums is None:
+                sums = dict(metrics)
+            else:
+                sums = {k: sums.get(k, 0.0) + v for k, v in metrics.items()}
+            if checkpoint_cb and interval and step_now % interval < step_incr:
+                checkpoint_cb(self.state, step_now)
+        means = self._pull(sums, count)
+        if count == 0:
+            # a silent no-op epoch trains nothing while printing loss 0.0
+            self.log_fn(
+                f"WARNING: epoch {epoch} produced 0 training batches — "
+                f"batch_size ({self.cfg.train.batch_size})"
+                + (f" x multi_steps ({self.multi_steps})" if self._multi_step is not None else "")
+                + " likely exceeds the training split after drop_last"
+            )
+        self.log_fn(f"====> Epoch: {epoch} Average loss: {means.get('loss', 0.0):.4f}")
+        self._write_metrics({"phase": "train", "epoch": epoch, "batches": count, **means})
+        return means
+
+    def _chunk_batches(self, batches):
+        """Group mini-batches into stacked super-batches of multi_steps; the
+        final partial chunk is dropped."""
+        chunk = []
+        for b in batches:
+            chunk.append(b)
+            if len(chunk) == self.multi_steps:
+                yield stack_batches(chunk)
+                chunk = []
+
+    def eval_epoch(self, batches):
+        sums: Optional[Dict[str, torch.Tensor]] = None
+        count = 0
+        last_recon = None
+        for batch in self._batches_on_device(batches):
+            last_recon, metrics = self._eval_step(self.state, batch)
+            count += 1
+            if sums is None:
+                sums = dict(metrics)
+            else:
+                sums = {k: sums.get(k, 0.0) + v for k, v in metrics.items()}
+        means = self._pull(sums, count)
+        self.log_fn(f"====> Test set loss: {means.get('loss', 0.0):.4f}")
+        self._write_metrics({"phase": "test", "batches": count, **means})
+        return means, last_recon
+

@@ -208,3 +208,44 @@ def test_vqvae_gradients_reach_codebook_and_encoder():
     loss.backward()
     assert tm.codebook.grad.abs().sum() > 0
     assert tm.encoder.Conv_0.weight.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("shape", [(4, 9, 7, 16), (2, 3, 5, 16)])
+def test_train_mode_batchnorm_matches_flax_over_three_steps(shape):
+    """Train mode normalizes with the biased batch variance and keeps
+    0.99 * old + 0.01 * batch running averages of that biased variance (the
+    unbiased one would differ by n/(n-1)); three steps from perturbed
+    statistics, each output and the statistics after each step. Tolerance
+    1e-5: the two sides take the variance by different formulas (flax
+    E[x^2] - E[x]^2, the port a two-pass reduction)."""
+    rng = np.random.default_rng(5)
+    xs = rng.standard_normal((3, *shape)).astype(np.float32) * 2.0 + 0.5
+    fmod = fnn.BatchNorm(use_running_average=False)
+    v = _perturb_stats(_np_tree(fmod.init(jax.random.PRNGKey(0), jnp.asarray(xs[0]))), 6)
+    v["params"] = {"scale": rng.uniform(0.5, 1.5, shape[-1]).astype(np.float32),
+                   "bias": rng.standard_normal(shape[-1]).astype(np.float32)}
+    tmod = layers.make_norm("batch", shape[-1])
+    holder = _Holder("BatchNorm_0", tmod)
+    holder.load_state_dict(convert.flax_to_state_dict(
+        {"params": {"BatchNorm_0": v["params"]}, "batch_stats": {"BatchNorm_0": v["batch_stats"]}}))
+    tmod.train()
+    for x in xs:
+        want, mut = fmod.apply(v, jnp.asarray(x), mutable=["batch_stats"])
+        v = {"params": v["params"], "batch_stats": _np_tree(mut["batch_stats"])}
+        with torch.no_grad():
+            got = _nhwc(tmod(_nchw(x))).numpy()
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-5)
+        np.testing.assert_allclose(tmod.running_mean.numpy(), v["batch_stats"]["mean"], atol=1e-5)
+        np.testing.assert_allclose(tmod.running_var.numpy(), v["batch_stats"]["var"], atol=1e-5)
+
+
+def test_discarded_train_pass_leaves_the_statistics():
+    _, _, tm, x = _pair()
+    before = {k: b.clone() for k, b in tm.named_buffers()}
+    tm.train()
+    with torch.no_grad(), layers.batch_stats_discarded(tm):
+        tm(torch.from_numpy(x))
+        moved = any(not torch.equal(b, before[k]) for k, b in tm.named_buffers())
+    assert moved  # the pass did update them inside
+    for k, b in tm.named_buffers():
+        assert torch.equal(b, before[k]), k

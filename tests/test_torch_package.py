@@ -14,7 +14,8 @@ import torch
 import neural_sound_generation_tpu_torch as port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "neural_sound_generation_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
+             "neural_sound_generation_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -31,7 +32,9 @@ def _port_modules():
 def test_importing_every_module_loads_no_jax():
     """In a fresh interpreter: tests/conftest.py imports jax into this one."""
     modules = _port_modules()
-    assert "neural_sound_generation_tpu_torch.cli.serve" in modules
+    for name in ("cli.serve", "cli.main", "cli.evaluate", "training.trainer",
+                 "training.checkpoint", "data.pipeline", "ops.cuda.fused_adam"):
+        assert f"neural_sound_generation_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"

@@ -154,3 +154,78 @@ def test_codebook_lookup_grad_is_index_add():
     j = jax.grad(lambda c: jnp.sum(jvq.codebook_lookup(c, jnp.asarray(idx.numpy()))))(
         jnp.asarray(cb.detach().numpy()))
     np.testing.assert_allclose(cb.grad.numpy(), np.asarray(j), atol=1e-6)
+
+
+def test_codebook_ema_update_matches_jax():
+    """Counts and sums per code, then the smoothed means; sums of a few
+    float32 values in another order: 1e-5 relative."""
+    x, cb = _data(300, 24, 8, seed=5)
+    rng = np.random.default_rng(6)
+    idx = rng.integers(0, 24, 300).astype(np.int32)
+    idx[idx == 5] = 6  # a code with no assignment this step
+    cluster = rng.uniform(0.0, 3.0, 24).astype(np.float32)
+    esum = rng.standard_normal((24, 8)).astype(np.float32)
+    want = jvq.codebook_ema_update(*map(jnp.asarray, (cb, cluster, esum, x, idx)), decay=0.9)
+    got = vq.codebook_ema_update(*map(torch.from_numpy, (cb, cluster, esum, x, idx)), decay=0.9)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+def test_restart_dead_codes_matches_jax_with_the_same_draws(with_stats):
+    """jax.random cannot be reproduced in torch: JAX's drawn rows are
+    injected into ``restart_rows``, which must then agree exactly."""
+    x, cb = _data(50, 16, 4, seed=7)
+    usage = np.random.default_rng(8).uniform(0.0, 2.0, 16).astype(np.float32)
+    cluster, esum = usage.copy(), cb * 2.0
+    key = jax.random.PRNGKey(3)
+    kw = dict(cluster=jnp.asarray(cluster), embed_sum=jnp.asarray(esum)) if with_stats else {}
+    want = jvq.restart_dead_codes(jnp.asarray(cb), jnp.asarray(usage), jnp.asarray(x), key,
+                                  threshold=1.0, **kw)
+    drawn = np.array(jax.random.randint(key, (16,), 0, 50))
+    tkw = dict(cluster=torch.from_numpy(cluster), embed_sum=torch.from_numpy(esum)) if with_stats else {}
+    got = vq.restart_rows(torch.from_numpy(cb), torch.from_numpy(usage),
+                          torch.from_numpy(x[drawn]), threshold=1.0, **tkw)
+    for a, b in zip(got if with_stats else [got], want if with_stats else [want]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_restart_dead_codes_draws_rows_of_the_batch():
+    x, cb = _data(50, 16, 4, seed=9)
+    usage = torch.linspace(0.0, 2.0, 16)
+    gen = torch.Generator().manual_seed(0)
+    new_cb, cluster, esum = vq.restart_dead_codes(
+        torch.from_numpy(cb), usage, torch.from_numpy(x), gen, threshold=1.0,
+        cluster=usage.clone(), embed_sum=torch.from_numpy(cb).clone())
+    dead = usage < 1.0
+    rows = {tuple(r) for r in x.tolist()}
+    assert all(tuple(r) in rows for r in new_cb[dead].tolist())
+    assert torch.equal(new_cb[~dead], torch.from_numpy(cb)[~dead])
+    assert torch.equal(cluster[dead], torch.ones(int(dead.sum())))
+    assert torch.equal(esum[dead], new_cb[dead])
+    again = vq.restart_dead_codes(torch.from_numpy(cb), usage, torch.from_numpy(x),
+                                  torch.Generator().manual_seed(0), threshold=1.0)
+    assert torch.equal(again, new_cb)  # seeded: reproducible
+
+
+@pytest.mark.parametrize("n", [200, 10])  # without and with replacement
+def test_data_codebook_init_matches_jax_with_the_same_draws(n):
+    """JAX's drawn rows and noise are injected into ``codebook_from_rows``:
+    1e-6 relative (the standard deviation is a float32 reduction)."""
+    rng = np.random.default_rng(10)
+    z_e = (3.0 + rng.standard_normal((n, 8))).astype(np.float32)
+    key = jax.random.PRNGKey(4)
+    want = np.asarray(jvq.data_codebook_init(jnp.asarray(z_e), (16, 8), key))
+    k_idx, k_noise = jax.random.split(key)
+    idx = np.array(jax.random.choice(k_idx, n, (16,), replace=n < 16))
+    noise = np.array(jax.random.normal(k_noise, (16, 8)))
+    got = vq.codebook_from_rows(torch.from_numpy(z_e), torch.from_numpy(idx),
+                                torch.from_numpy(noise))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    # the port's own draws: rows of z_e plus a small jitter, distinct rows
+    # when there are enough, reproducible from the generator
+    mine = vq.data_codebook_init(torch.from_numpy(z_e), (16, 8), torch.Generator().manual_seed(1))
+    dist = torch.cdist(mine, torch.from_numpy(z_e)).min(dim=1).values
+    assert float(dist.max()) < 0.2 and mine.shape == (16, 8)
+    with pytest.raises(NotImplementedError, match="RVQ"):
+        vq.data_codebook_init(torch.from_numpy(z_e), (2, 16, 8), torch.Generator())
