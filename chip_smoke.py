@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's serving and training paths on one CUDA card
-and checks them.
+"""Drives the PyTorch port's serving, training and prior paths on one CUDA
+card and checks them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
@@ -10,9 +10,12 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 3. kernels: holds each kernel against its plain PyTorch version at the
    shapes the serving path and the flagship training step give it, and
    times kernel, plain version, one PyTorch library call and the card's
-   bound: the nearest-code search at serving and training shapes, and the
+   bound: the nearest-code search at serving and training shapes, the
    fused Adam update at the flagship's parameter count in three
-   configurations over three chained steps;
+   configurations over three chained steps, and the causal-attention
+   forward, dQ and dK/dV kernels at the prior's grids (T = 140, 560 in f32
+   and bf16, 2240, a ragged T = 37 and D = 128), each run twice to show the
+   backward is bit-identical run to run;
 4. serving: builds the mel VQ-VAE service at full width (dim 256, 512
    codes, 84-frame windows) on the card with seeded weights, serves it over
    HTTP, checks every response of /health, /encode, /reconstruct and
@@ -31,7 +34,16 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    metadata, one train step on the card against the same step on the CPU,
    times train steps/s, and serves /reconstruct from the trained
    checkpoint with --ema;
-6. summary: one JSON line per kernel, then the result line.
+6. prior: on that VQ-VAE checkpoint and corpus, trains the transformer
+   prior through ``cli.prior train --arch transformer`` (dim 128, 4 layers
+   of 2 heads, 512 codes, batch 32 of 20 x 7 code grids) for three epochs,
+   then once more with --resume; reads every kernel's launch count over
+   each run (attention kernels: layers x steps each, fused Adam: steps,
+   nearest-code: encoded batches); checks the loss falls, one step on the
+   card against the same step on the CPU, the KV-cached decode against
+   the kernel's forward, times train steps/s, runs ``cli.prior sample``
+   and serves /sample at n = 1 and n = 4 from ``serve --prior-ckpt``;
+7. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -41,6 +53,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -56,8 +69,10 @@ import urllib.request
 import numpy as np
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): f32 outside the tensor
-# cores and HBM bandwidth. The kernels below do f32 FMA on the CUDA cores.
+# cores, dense bf16 on the tensor cores and HBM bandwidth. The kernels below
+# do f32 FMA on the CUDA cores; a bf16 input's bound takes the bf16 rate.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 SEED = 0
@@ -94,6 +109,24 @@ ADAM_STEPS = 3
 # or one bf16 ulp apart
 ADAM_P_RTOL = 4 * 2.0**-23
 ADAM_BF16_ULPS = 1
+# causal attention: (name, BH, T, D, bf16). BH = batch 32 x 2 heads of 64
+# for the prior the smoke trains; T = 140 is the CLI's 20 x 7 training
+# grid, 560 the flagship 20 x 28 grid (cli.prior sample's default), 2240
+# the hierarchical bottom grid
+ATTN_SHAPES = [("train_T140", 64, 140, 64, False), ("flagship_T560", 64, 560, 64, False),
+               ("flagship_T560_bf16", 64, 560, 64, True), ("hier_T2240", 16, 2240, 64, False),
+               ("ragged_T37_D32", 64, 37, 32, False), ("D128_T560", 64, 560, 128, False)]
+ATTN_MAIN = "train_T140"
+# error against the plain pair, relative to the plain output's largest
+# magnitude: f32 sums in another order; bf16 P and dS rounded at other sums
+ATTN_F32_REL, ATTN_BF16_REL = 1e-5, 2e-2
+
+# the prior phase: the configuration the JAX package measured (--prior-dim
+# 128 --prior-layers 4: 2 heads of 64), full width, cut in depth only
+PRIOR_DIM, PRIOR_LAYERS, PRIOR_HEADS, PRIOR_BATCH = 128, 4, 2, 32
+PRIOR_EPOCHS, PRIOR_BATCHES_PER_EPOCH = 3, 8
+PRIOR_TIMED_STEPS = 50
+SAMPLE_REPEATS = 5  # timed /sample requests per n
 
 
 class SmokeFailure(Exception):
@@ -268,6 +301,104 @@ def compare_fused_adam(torch, fused_adam, n: int, config, gen) -> dict:
         "library": "torch.optim.Adam(fused=True) on one flat parameter: no clip, "
                    "weight decay or EMA",
         "bound_ms": adam_bound_ms(n, bf16, has_ema), "bound_by": "bytes",
+    }
+
+
+def attention_bounds(bh: int, t: int, d: int, bf16: bool) -> dict:
+    """Least time of each attention kernel: its inputs read once and its
+    outputs written once over the HBM rate, against its causal matrix
+    products (2 operations per multiply-add over the T(T+1)/2 visible
+    pairs) over the peak rate of the input type. The forward does Q K^T
+    and P V; the dQ kernel recomputes S, then dP and dQ; the dK/dV kernel
+    recomputes S and dP, then dV and dK."""
+    es = 2 if bf16 else 4
+    n, rows = bh * t * d, bh * t
+    mac = bh * t * (t + 1) // 2 * d
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    work = {"flash_fwd": (4 * n * es + 4 * rows, 2 * 2 * mac),
+            "flash_bwd_dq": (6 * n * es + 8 * rows, 3 * 2 * mac),
+            "flash_bwd_dkdv": (6 * n * es + 8 * rows, 4 * 2 * mac)}
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        bytes_ms, ops_ms = 1e3 * nbytes / PEAK_HBM_BYTES, 1e3 * ops / peak
+        out[name] = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    return out
+
+
+def compare_attention(torch, fa, shape, gen) -> dict:
+    """The three kernels, each against its plain version on the same inputs
+    (the dQ part of the plain backward takes the kernel's O, the dK/dV part
+    the kernel's delta), each run twice for determinism; then the times of
+    each kernel and of its plain version, of scaled_dot_product_attention's
+    forward, and of the whole backward: both kernels, the plain backward and
+    SDPA's backward, which computes dQ, dK and dV in one call."""
+    import torch.nn.functional as F
+
+    name, bh, t, d, bf16 = shape
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    scale = d**-0.5
+    q, k, v, do = (torch.randn(bh, t, d, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+
+    def kernels():
+        o, lse = fa.launch_fwd(q, k, v, scale)
+        dq, delta = fa.launch_bwd_dq(q, k, v, o, do, lse, scale)
+        dk, dv = fa.launch_bwd_dkdv(q, k, v, do, lse, delta, scale)
+        return o, lse, dq, dk, dv, delta
+
+    first, second = kernels(), kernels()
+    torch.cuda.synchronize()
+    identical = all(torch.equal(a, b) for a, b in zip(first, second))
+    o, lse, dq, dk, dv, delta = first
+    ro, rlse = fa.flash_attention_fwd_plain(q, k, v, scale)
+    rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, scale)
+    rdk, rdv = fa.flash_attention_bwd_dkdv_plain(q, k, v, do, delta, scale)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    errs = {"o": rel(o, ro), "dq": rel(dq, rdq), "dk": rel(dk, rdk), "dv": rel(dv, rdv)}
+    lse_err = float((lse - rlse).abs().max())
+    delta_err = float((delta - rdelta).abs().max())
+    iters = 10 if t >= 2000 else 30
+    ms = {"flash_fwd": time_ms(torch, lambda: fa.launch_fwd(q, k, v, scale), iters),
+          "flash_bwd_dq": time_ms(torch, lambda: fa.launch_bwd_dq(q, k, v, o, do, lse, scale),
+                                  iters),
+          "flash_bwd_dkdv": time_ms(
+              torch, lambda: fa.launch_bwd_dkdv(q, k, v, do, lse, delta, scale), iters)}
+    plain = {
+        "flash_fwd": time_ms(torch, lambda: fa.flash_attention_fwd_plain(q, k, v, scale), iters),
+        "flash_bwd_dq": time_ms(
+            torch, lambda: fa.flash_attention_bwd_dq_plain(q, k, v, o, do, scale), iters),
+        "flash_bwd_dkdv": time_ms(
+            torch, lambda: fa.flash_attention_bwd_dkdv_plain(q, k, v, do, delta, scale), iters)}
+    backward_ms = time_ms(torch, lambda: fa.launch_bwd(q, k, v, o, do, lse, scale), iters)
+    plain_bwd = time_ms(torch, lambda: fa.flash_attention_bwd_plain(q, k, v, o, do, scale),
+                        iters)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=scale)
+    sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale), iters)
+    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                       iters)
+    bounds = attention_bounds(bh, t, d, bf16)
+    return {
+        "phase": "kernel", "name": "flash_attention", "shape_name": name, "bh": bh, "t": t,
+        "d": d, "dtype": "bf16" if bf16 else "f32", "rel_err": errs, "lse_max_abs_err": lse_err,
+        "delta_max_abs_err": delta_err,
+        "max_abs_err": {"flash_fwd": float((o.float() - ro.float()).abs().max()),
+                        "flash_bwd_dq": float((dq.float() - rdq.float()).abs().max()),
+                        "flash_bwd_dkdv": max(float((a.float() - b.float()).abs().max())
+                                              for a, b in ((dk, rdk), (dv, rdv)))},
+        "run_to_run_identical": identical, "kernel_ms": ms, "plain_ms": plain,
+        # no library call computes dQ alone or dK/dV alone
+        "library_ms": {"flash_fwd": sdpa_fwd, "flash_bwd_dq": None, "flash_bwd_dkdv": None},
+        "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True)",
+        "backward": {"ms": backward_ms, "plain_ms": plain_bwd, "library_ms": sdpa_bwd,
+                     "note": "dQ then dK/dV kernels, the plain backward, and SDPA's "
+                             "backward (dQ, dK and dV in one call)"},
+        "bound_ms": {k: b[0] for k, b in bounds.items()},
+        "bound_by": {k: b[1] for k, b in bounds.items()},
     }
 
 
@@ -501,14 +632,15 @@ def run_cli_main(cli_main, kernels, argv) -> dict:
             "epochs_logged": text.count("====> Epoch"), "evals": text.count("====> Test")}
 
 
-def train_phase(torch, dsp, cli_main, serve, checkpoint, vq_kernel, fused_adam) -> dict:
+def train_phase(torch, dsp, cli_main, serve, checkpoint, vq_kernel, fused_adam,
+                root: str) -> tuple[dict, str, str]:
+    """Returns (the phase's record, the trained checkpoint, the corpus)."""
     from neural_sound_generation_tpu_torch.config import Config
     from neural_sound_generation_tpu_torch.models.layers import batch_stats_discarded
     from neural_sound_generation_tpu_torch.ops.vq import vq
     from neural_sound_generation_tpu_torch.training.train_state import create_train_state
     from neural_sound_generation_tpu_torch.training.trainer import make_train_step
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke")
     corpus = os.path.join(root, "corpus")
     t0 = time.perf_counter()
     write_corpus(torch, dsp, Config().audio, corpus)
@@ -636,7 +768,6 @@ def train_phase(torch, dsp, cli_main, serve, checkpoint, vq_kernel, fused_adam) 
         torch.cuda.empty_cache()
 
     served = serve_trained(torch, serve, ckpt)
-    shutil.rmtree(root, ignore_errors=True)
     return {
         "phase": "training", "dim": TRAIN_DIM, "codes": TRAIN_CODES, "batch": TRAIN_BATCH,
         "crop_frames": int(batch["x"].shape[2]), "corpus_utterances": CORPUS_UTTERANCES,
@@ -648,7 +779,213 @@ def train_phase(torch, dsp, cli_main, serve, checkpoint, vq_kernel, fused_adam) 
         "card_vs_cpu_step": compare,
         "train_step_ms": 1e3 * step_s, "train_steps_per_s": 1.0 / step_s,
         "timed_steps": TIMED_STEPS, "served_from_checkpoint": served,
+    }, ckpt, corpus
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the prior
+# ---------------------------------------------------------------------------
+
+
+EPOCH_RE = re.compile(r"^prior epoch (\d+): nll/code (\S+)", re.M)
+
+
+def read_launches(vq_kernel, fused_adam, fa) -> dict:
+    return {"vq_nearest": vq_kernel.launch_count(), "fused_adam": fused_adam.launch_count(),
+            **fa.launch_counts()}
+
+
+def run_cli_prior(cli_prior, counters, argv) -> dict:
+    """One ``cli.prior`` run with every launch count set to 0 just before
+    it and read just after; its output is kept and its epoch NLLs parsed."""
+    for k in counters:
+        k.reset_launch_count()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli_prior.main(argv)
+    seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    return {"seconds": seconds, "launches": read_launches(*counters),
+            "epoch_nll": [float(v) for _, v in EPOCH_RE.findall(text)]}
+
+
+def prior_phase(torch, cli_prior, serve, checkpoint, counters, root: str, vq_ckpt: str,
+                corpus: str) -> dict:
+    from neural_sound_generation_tpu_torch.config import Config
+    from neural_sound_generation_tpu_torch.data.pipeline import get_audio_data_loaders
+    from neural_sound_generation_tpu_torch.models.transformer_prior import incremental_logits
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+    from neural_sound_generation_tpu_torch.training.trainer import make_train_step
+
+    ckpt = os.path.join(root, "prior", "models")
+    widths = ["--arch", "transformer", "--prior-dim", str(PRIOR_DIM),
+              "--prior-layers", str(PRIOR_LAYERS), "--dim", str(TRAIN_DIM),
+              "--z-dim", str(TRAIN_CODES), "--device", DEVICE]
+    train = ["train", "--datadir", corpus, "--vqvae-ckpt", vq_ckpt, "--ckpt-dir", ckpt,
+             "--batch-size", str(PRIOR_BATCH),
+             "--max-batches-per-epoch", str(PRIOR_BATCHES_PER_EPOCH), *widths]
+    runs = {"train": run_cli_prior(cli_prior, counters, train + ["--epochs", str(PRIOR_EPOCHS)])}
+    before_resume = checkpoint.latest_step(ckpt)
+    runs["resume"] = run_cli_prior(cli_prior, counters,
+                                   train + ["--epochs", str(PRIOR_EPOCHS + 1), "--resume"])
+    for tag, epochs in (("train", PRIOR_EPOCHS), ("resume", 1)):
+        r = runs[tag]
+        steps = epochs * PRIOR_BATCHES_PER_EPOCH
+        want = {"vq_nearest": steps, "fused_adam": steps,
+                **{k: PRIOR_LAYERS * steps for k in ("flash_fwd", "flash_bwd_dq",
+                                                     "flash_bwd_dkdv")}}
+        r["optimizer_steps"] = steps
+        check(r["launches"] == want, f"prior {tag}: launches {r['launches']}, expected {want}")
+        check(len(r["epoch_nll"]) == epochs and all(np.isfinite(r["epoch_nll"])),
+              f"prior {tag}: epoch NLLs {r['epoch_nll']}")
+    nll = runs["train"]["epoch_nll"]
+    check(nll[-1] < nll[0], f"prior: the NLL did not fall ({nll})")
+    after = checkpoint.latest_step(ckpt)
+    want_steps = (PRIOR_EPOCHS * PRIOR_BATCHES_PER_EPOCH, (PRIOR_EPOCHS + 1) * PRIOR_BATCHES_PER_EPOCH)
+    check((before_resume, after) == want_steps,
+          f"prior checkpoints at steps {(before_resume, after)}, expected {want_steps}")
+    spec = cli_prior.PriorSpec("transformer", TRAIN_CODES, PRIOR_DIM, PRIOR_LAYERS, PRIOR_HEADS, 10)
+    extra = checkpoint.read_extra(ckpt)
+    check(extra == {"epoch": PRIOR_EPOCHS + 1, **spec.metadata()},
+          f"prior checkpoint metadata {extra}")
+
+    # one batch of code grids from the trained VQ-VAE (the nearest-code kernel)
+    args = cli_prior.parse_args(train + ["--epochs", "1"])
+    cfg = Config()
+    loader = get_audio_data_loaders(corpus, None, PRIOR_BATCH, cfg, latent_stride=4)["train"]
+    vqvae = cli_prior.load_vqvae(args, cfg, DEVICE)
+    with torch.no_grad():
+        codes = vqvae.encode(torch.from_numpy(next(iter(loader))["x"]).to(DEVICE))
+    labels = torch.zeros(codes.shape[0], dtype=torch.int32, device=DEVICE)
+    del vqvae
+
+    # one train step on the card against the same step on the CPU, from the
+    # resumed run's full state (warm moments) on the same codes
+    pcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, initial_learning_rate=3e-4, batch_size=PRIOR_BATCH))
+    states, metrics = {}, {}
+    for device in (DEVICE, "cpu"):
+        model = spec.build().to(device)
+        state = create_train_state(model, pcfg.train)
+        checkpoint.restore(ckpt + "_train", state)
+        _, m = make_train_step(model, pcfg)(
+            state, {"codes": codes.to(device), "labels": labels.to(device)})
+        states[device], metrics[device] = state, {k: float(v) for k, v in m.items()}
+    rel = {k: abs(metrics[DEVICE][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
+           for k in metrics["cpu"]}
+    diff = (states[DEVICE].flat.flat.cpu() - states["cpu"].flat.flat).abs()
+    compare = {"metrics_rel_err": rel, "params_max_abs_err": float(diff.max()),
+               "params_beyond_1e-6_frac": float((diff > 1e-6).float().mean()),
+               "grad_norm": metrics[DEVICE]["grad_norm"]}
+    emit({"phase": "prior_card_vs_cpu_step", **compare})
+    # TF32 is off: only the order of f32 sums differs (LayerNorm, matrix
+    # products, the kernels' online softmax). The NLL within 1e-5 relative,
+    # grad_norm within 1e-4; each parameter moves by about lr = 3e-4 per
+    # step, so the updated parameters agree to a small part of that
+    check(rel["loss"] <= 1e-5, f"prior card vs CPU: NLL differs by {rel['loss']:.3g}")
+    check(rel["grad_norm"] <= 1e-4,
+          f"prior card vs CPU: grad_norm differs by {rel['grad_norm']:.3g}")
+    check(float(diff.max()) <= 1e-4, f"prior card vs CPU: parameters differ by {float(diff.max())}")
+
+    # train steps/s with a device-resident batch
+    state = states[DEVICE]
+    step = make_train_step(state.model, pcfg)
+    batch = {"codes": codes, "labels": labels}
+    for _ in range(5):
+        step(state, batch)
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(PRIOR_TIMED_STEPS):
+        step(state, batch)
+    sync()
+    step_s = (time.perf_counter() - t0) / PRIOR_TIMED_STEPS
+    del states, state, step
+
+    # the KV-cached decode against the kernel's forward, on the trained prior
+    prior = cli_prior.load_prior(ckpt, spec, DEVICE)
+    with torch.no_grad():
+        forward = prior(codes[:4], labels[:4])
+    cached = incremental_logits(prior, codes[:4], labels[:4])
+    inc_err = float((cached - forward).abs().max())
+    check(inc_err <= 1e-4, f"incremental_logits differ from the forward by {inc_err}")
+
+    sampled = sample_cli(cli_prior, vq_ckpt, ckpt, widths, root)
+    served = serve_samples(torch, serve, vq_ckpt, ckpt, counters)
+    return {
+        "phase": "prior", "prior_dim": PRIOR_DIM, "prior_layers": PRIOR_LAYERS,
+        "prior_heads": PRIOR_HEADS, "codes": TRAIN_CODES, "batch": PRIOR_BATCH,
+        "code_grid": list(codes.shape[1:]),
+        "parameters": sum(p.numel() for p in prior.parameters()),
+        "runs": runs, "checkpoint_steps": {"before_resume": before_resume, "after_resume": after},
+        "card_vs_cpu_step": compare, "train_step_ms": 1e3 * step_s,
+        "train_steps_per_s": 1.0 / step_s, "timed_steps": PRIOR_TIMED_STEPS,
+        "incremental_vs_forward_max_abs_err": inc_err, "sample_cli": sampled,
+        "serve_sample": served,
     }
+
+
+def sample_cli(cli_prior, vq_ckpt: str, ckpt: str, widths: list, root: str) -> dict:
+    """``cli.prior sample`` from the EMA artifact at the default 20 x 28
+    grid writes finite WAVs of the decoded length."""
+    out = os.path.join(root, "prior", "samples")
+    n, (h, w) = 4, (20, 28)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_prior.main(["sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt", ckpt + "_ema",
+                        "--output-dir", out, "--num-samples", str(n), *widths])
+    seconds = time.perf_counter() - t0
+    names = sorted(os.listdir(out))
+    check(names == [f"prior_sample_{i:03d}.wav" for i in range(n)], f"sample wrote {names}")
+    sr, hop = 22050, 256
+    for name in names:
+        with open(os.path.join(out, name), "rb") as f:
+            wav = read_wav(f.read(), sr)
+        check(len(wav) == hop * (4 * w - 1), f"{name}: {len(wav)} samples")
+    return {"num_samples": n, "code_grid": [h, w], "seconds": seconds}
+
+
+def serve_samples(torch, serve, vq_ckpt: str, ckpt: str, counters) -> dict:
+    """``serve --prior-ckpt`` answers /sample at n = 1 and n = 4 with
+    finite audio of the decoded length; p50 over SAMPLE_REPEATS requests
+    after a warm-up."""
+    service = serve.build_service(serve.parse_args([
+        "--device", DEVICE, "--ckpt-dir", vq_ckpt, "--dim", str(TRAIN_DIM),
+        "--z-dim", str(TRAIN_CODES), "--prior-ckpt", ckpt, "--prior-arch", "transformer",
+        "--prior-dim", str(PRIOR_DIM), "--prior-layers", str(PRIOR_LAYERS),
+        "--prior-heads", str(PRIOR_HEADS)]))
+    sr, hop, frames = service.cfg.audio.sample_rate, service.cfg.audio.effective_hop_size, 84
+    httpd = serve.ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/sample"
+    lat: dict = {}
+    for k in counters:
+        k.reset_launch_count()
+    try:
+        for n in (1, 4):
+            for i in range(1 + SAMPLE_REPEATS):
+                status, body, dt = request(url, json.dumps({"n": n, "label": 1, "seed": i}).encode())
+                check(status == 200, f"/sample n={n}: {status} {body[:200]!r}")
+                wav = read_wav(body, sr)
+                check(len(wav) == n * hop * (frames - 1), f"/sample n={n}: {len(wav)} samples")
+                if i:
+                    lat.setdefault(n, []).append(1e3 * dt)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    launches = read_launches(*counters)
+    from neural_sound_generation_tpu_torch.ops import dsp
+
+    with torch.inference_mode():
+        mels, gen = service._sample_mels({"n": 4, "label": 1, "seed": 0})
+        wav = dsp.inv_mel_spectrogram_batch(mels, service.cfg.audio, gen)
+    check(bool(torch.isfinite(wav).all()), "non-finite /sample waveform")
+    return {"code_grid": [service.cfg.audio.num_mels // 4, frames // 4],
+            "launches_over_requests": launches,
+            "latency_ms": {f"n={n}": {"n": len(v), "p50": float(np.percentile(v, 50)),
+                                      "max": float(max(v))} for n, v in lat.items()}}
 
 
 def serve_trained(torch, serve, ckpt: str) -> dict:
@@ -677,6 +1014,38 @@ def serve_trained(torch, serve, ckpt: str) -> dict:
     return {"status": status, "samples": n, "ms": 1e3 * dt}
 
 
+ATTN_REPLACES = {
+    "flash_fwd": "neural_sound_generation_tpu/ops/pallas/attention.py:165",
+    "flash_bwd_dq": "neural_sound_generation_tpu/ops/pallas/attention.py:233",
+    "flash_bwd_dkdv": "neural_sound_generation_tpu/ops/pallas/attention.py:233",
+}
+
+
+def attention_summary(rows: dict, name: str, launches: int) -> dict:
+    """One attention kernel's entry of the kernels line, at the shape the
+    prior's training path gives it (ATTN_MAIN), with its time at every
+    shape beside. The backward kernels have no library call of their own;
+    their entries carry the whole backward's times under ``backward``."""
+    main = rows[ATTN_MAIN]
+    entry = {
+        "name": name, "route": "cuda",
+        "source": "neural_sound_generation_tpu_torch/csrc/flash_attention.cu",
+        "replaces": ATTN_REPLACES[name], "status": "ported",
+        "shape": {"bh": main["bh"], "t": main["t"], "d": main["d"], "dtype": main["dtype"]},
+        "launches": launches, "max_abs_err": main["max_abs_err"][name],
+        "ms": main["kernel_ms"][name], "plain_ms": main["plain_ms"][name],
+        "bound_ms": main["bound_ms"][name], "bound_by": main["bound_by"][name],
+        "library_ms": main["library_ms"][name],
+        "by_shape": {shape: {"ms": r["kernel_ms"][name], "bound_ms": r["bound_ms"][name],
+                             "plain_ms": r["plain_ms"][name],
+                             "library_ms": r["library_ms"][name]}
+                     for shape, r in rows.items()},
+    }
+    if name != "flash_fwd":
+        entry["backward"] = main["backward"]
+    return entry
+
+
 def build_phase(build, modules) -> list[dict]:
     """Every kernel's library, one nvcc per source, all started together."""
     errors: dict = {}
@@ -697,7 +1066,7 @@ def build_phase(build, modules) -> list[dict]:
     for name, e in errors.items():
         raise SmokeFailure(f"build of {name} failed: {e}")
     rows = []
-    for name in ("vq_nearest", "fused_adam"):
+    for name in ("vq_nearest", "fused_adam", "flash_attention"):
         info = build.build_info[name]
         check("sm_90a" in info["log"], f"ptxas did not compile {name} for sm_90a")
         rows.append({"phase": "build", "kernel": name, "seconds": seconds,
@@ -715,16 +1084,19 @@ def main() -> int:
         return 1
     try:
         from neural_sound_generation_tpu_torch.cli import main as cli_main
+        from neural_sound_generation_tpu_torch.cli import prior as cli_prior
         from neural_sound_generation_tpu_torch.cli import serve
         from neural_sound_generation_tpu_torch.device import set_full_float32
         from neural_sound_generation_tpu_torch.models import VQVAE
         from neural_sound_generation_tpu_torch.ops import dsp
         from neural_sound_generation_tpu_torch.ops.cuda import build, fused_adam, vq_kernel
+        from neural_sound_generation_tpu_torch.ops.cuda import flash_attention as fa
         from neural_sound_generation_tpu_torch.training import checkpoint
     except ImportError as e:
         print(f"FAIL: the port is not beside this script: {e}", file=sys.stderr)
         return 1
     set_full_float32()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke")
     try:
         # phase 1: device and card
         card = card_line()
@@ -734,7 +1106,7 @@ def main() -> int:
               "cuda": torch.version.cuda, "card": card})
 
         # phase 2: build
-        for row in build_phase(build, (vq_kernel, fused_adam)):
+        for row in build_phase(build, (vq_kernel, fused_adam, fa)):
             emit(row)
 
         # phase 3: kernels against their plain versions
@@ -757,6 +1129,16 @@ def main() -> int:
             row = compare_fused_adam(torch, fused_adam, n_params, config, gen)
             emit(row)
             adam_rows[config[0]] = row
+        attn_rows = {}
+        for shape in ATTN_SHAPES:
+            row = compare_attention(torch, fa, shape, gen)
+            emit(row)
+            limit = ATTN_BF16_REL if shape[4] else ATTN_F32_REL
+            check(max(row["rel_err"].values()) <= limit,
+                  f"flash attention {shape[0]}: errors {row['rel_err']} above {limit}")
+            check(row["run_to_run_identical"],
+                  f"flash attention {shape[0]}: two runs differ")
+            attn_rows[shape[0]] = row
         torch.cuda.empty_cache()
 
         # phase 4: the serving path, with launch counts from its HTTP requests
@@ -764,17 +1146,30 @@ def main() -> int:
         emit(serving)
 
         # phase 5: the training path, with launch counts from each run
-        training = train_phase(torch, dsp, cli_main, serve, checkpoint, vq_kernel, fused_adam)
+        training, vq_ckpt, corpus = train_phase(torch, dsp, cli_main, serve, checkpoint,
+                                                vq_kernel, fused_adam, root)
         training["card"] = card
         emit(training)
+        torch.cuda.empty_cache()
+
+        # phase 6: the prior, with launch counts from each cli.prior run
+        prior = prior_phase(torch, cli_prior, serve, checkpoint, (vq_kernel, fused_adam, fa),
+                            root, vq_ckpt, corpus)
+        prior["card"] = card
+        emit(prior)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
-    # phase 6: summary and result
+    # phase 7: summary and result
     train_runs = training["runs"].values()
     train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
     train_adam = sum(r["launches"]["fused_adam"] for r in train_runs)
+    prior_runs = prior["runs"].values()
+    prior_launches = {k: sum(r["launches"][k] for r in prior_runs)
+                      for k in ("vq_nearest", "fused_adam", *fa.KERNELS)}
     main_row, train_row = rows[VQ_MAIN_SHAPE], rows[VQ_TRAIN_SHAPE]
     adam_row = adam_rows[ADAM_CONFIGS[0][0]]
     emit({"kernels": [{
@@ -782,8 +1177,9 @@ def main() -> int:
         "source": "neural_sound_generation_tpu_torch/csrc/vq_nearest.cu",
         "replaces": "neural_sound_generation_tpu/ops/pallas/vq_kernel.py:49",
         "status": "ported", "shape": {"n": VQ_MAIN_SHAPE[0], "k": VQ_MAIN_SHAPE[1], "d": VQ_D},
-        "launches": serving["vq_launches"] + train_vq,
-        "launches_by_path": {"serving": serving["vq_launches"], "training": train_vq},
+        "launches": serving["vq_launches"] + train_vq + prior_launches["vq_nearest"],
+        "launches_by_path": {"serving": serving["vq_launches"], "training": train_vq,
+                             "prior": prior_launches["vq_nearest"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -796,11 +1192,13 @@ def main() -> int:
         "source": "neural_sound_generation_tpu_torch/csrc/fused_adam.cu",
         "replaces": "neural_sound_generation_tpu/ops/pallas/fused_adam.py:49",
         "status": "ported", "shape": {"n": n_params, "config": adam_row["config"]},
-        "launches": train_adam, "max_abs_err": adam_row["max_abs_err"],
+        "launches": train_adam + prior_launches["fused_adam"],
+        "launches_by_path": {"training": train_adam, "prior": prior_launches["fused_adam"]},
+        "max_abs_err": adam_row["max_abs_err"],
         "ms": adam_row["kernel_ms"], "plain_ms": adam_row["plain_ms"],
         "bound_ms": adam_row["bound_ms"], "bound_by": adam_row["bound_by"],
         "library_ms": adam_row["library_ms"],
-    }]})
+    }] + [attention_summary(attn_rows, name, prior_launches[name]) for name in fa.KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,6 +6,9 @@ mel VQ-VAE with Griffin-Lim synthesis. Stdlib-only HTTP server:
   POST /encode       wav bytes (RIFF) -> {"codes": [[...]], "shape": [...]}
   POST /reconstruct  wav bytes -> reconstructed wav bytes
   POST /decode       {"codes": [[...]]} JSON -> wav bytes
+  POST /sample       {"n": 1, "label": 0, "seed": 0} -> wav bytes: the prior
+                     (--prior-ckpt) samples n code grids of (num_mels/4,
+                     frames/4), decoded and concatenated in time
   GET  /health       -> {"status": "ok", "backend": "cuda" | "cpu"}
   GET  /metrics      -> per-endpoint request/error counts and latency
                         percentiles
@@ -16,6 +19,8 @@ coalesced into one batch per length bucket; each result equals the
 unbatched one. ``--ckpt-dir`` serves a checkpoint written by ``cli.main``
 (its live parameters, or with ``--ema`` its averaged model); without one
 the server serves weights initialized from seed 0, as the JAX server does.
+``--prior-ckpt`` serves a ``cli.prior`` transformer checkpoint over
+``/sample``; its recorded ``prior_heads`` and widths must match the flags.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.serve [--device cuda]``
 """
@@ -39,6 +44,7 @@ import torch
 
 from neural_sound_generation_tpu_torch.config import Config, load_preset
 from neural_sound_generation_tpu_torch.device import resolve_device
+from neural_sound_generation_tpu_torch.inference import sample_prior_mels
 from neural_sound_generation_tpu_torch.models import VQVAE
 from neural_sound_generation_tpu_torch.ops import dsp
 from neural_sound_generation_tpu_torch.training import checkpoint
@@ -165,6 +171,7 @@ class InferenceService:
         self.frames = frames
         self.metrics = _Metrics()
         self.batcher = None  # set by enable_batching
+        self.prior = None  # set by attach_prior (serving /sample)
 
     # -- model calls ------------------------------------------------------
 
@@ -330,6 +337,49 @@ class InferenceService:
                     slots[i] = e
         return slots
 
+    def attach_prior(self, prior) -> None:
+        """Enable POST /sample with a trained prior over this model's code
+        grids (moved to the service's device, eval mode)."""
+        self.prior = prior.to(self.device).eval()
+
+    def _sample_mels(self, payload: dict):
+        """Validate a /sample payload, run the prior and decode the code
+        grids: (mels (n, n_mels, frames), the generator that drew them,
+        which goes on to draw Griffin-Lim's phase)."""
+        if self.prior is None:
+            raise ValueError("no prior loaded on this server (start with --prior-ckpt)")
+        if not isinstance(payload, dict):
+            raise ValueError("payload must be a JSON object")
+        n = int(payload.get("n", 1))
+        if not 1 <= n <= 16:
+            raise ValueError(f"n must be in [1, 16], got {n}")
+        label = int(payload.get("label", 0))
+        n_classes = int(self.prior.n_classes)
+        if not 0 <= label < n_classes:
+            raise ValueError(f"label must be in [0, {n_classes}), got {label}")
+        n_speakers = self.model.n_speakers if self.model.speakered else 0
+        if n_speakers > 0 and label >= n_speakers:
+            # a multispeaker decoder takes the label as the speaker id
+            raise ValueError(
+                f"label is the speaker id for this multispeaker model: must be in "
+                f"[0, {n_speakers}), got {label}")
+        seed = int(payload.get("seed", 0))
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        labels = torch.full((n,), label, dtype=torch.int32, device=self.device)
+        code_shape = (self.cfg.audio.num_mels // self.STRIDE, self.frames // self.STRIDE)
+        _, mels = sample_prior_mels(
+            self.model, self.prior, labels, code_shape, generator,
+            g=labels if n_speakers > 0 else None)
+        return mels, generator
+
+    @torch.inference_mode()
+    def sample(self, payload: dict) -> bytes:
+        """Ancestral sampling as a service: prior -> decoder -> Griffin-Lim
+        -> one wav of the n samples concatenated in time."""
+        mels, generator = self._sample_mels(payload)
+        wavs = dsp.inv_mel_spectrogram_batch(mels, self.cfg.audio, generator)
+        return self._encode_wav_bytes(wavs.reshape(-1).cpu().numpy())
+
     def enable_batching(self, window_ms: float, max_batch: int = 8):
         """Attach a request micro-batcher to /reconstruct."""
         self.batcher = _MicroBatcher(self.reconstruct_batched, window_ms, max_batch)
@@ -398,6 +448,9 @@ def make_handler(service: InferenceService):
                     self._send(200, service.reconstruct(body), "audio/wav")
                 elif self.path == "/decode":
                     self._send(200, service.decode(json.loads(body)), "audio/wav")
+                elif self.path == "/sample":
+                    payload = json.loads(body) if body else {}
+                    self._send(200, service.sample(payload), "audio/wav")
                 else:
                     self._send(404, b'{"error": "not found"}')
                     return False
@@ -465,6 +518,15 @@ def build_service(args) -> InferenceService:
     service = InferenceService(
         cfg, model, args.frames, device=args.device, default_speaker=sid
     )
+    if getattr(args, "prior_ckpt", None):
+        from neural_sound_generation_tpu_torch.cli.prior import PriorSpec, load_prior
+
+        spec = PriorSpec(args.prior_arch, args.z_dim, args.prior_dim, args.prior_layers,
+                         args.prior_heads, args.n_classes)
+        try:
+            service.attach_prior(load_prior(args.prior_ckpt, spec, service.device))
+        except NotImplementedError as e:
+            raise SystemExit(str(e)) from e
     if args.batch_window_ms > 0:
         service.enable_batching(args.batch_window_ms, args.batch_max)
     return service
@@ -520,6 +582,15 @@ def parse_args(argv=None):
                    help="default speaker for /reconstruct and /decode when "
                         "serving a speaker-conditioned (multispeaker-preset) "
                         "model")
+    p.add_argument("--prior-ckpt", default=None,
+                   help="cli.prior checkpoint directory: enables POST /sample")
+    p.add_argument("--prior-arch", choices=["pixelcnn", "transformer"], default="pixelcnn",
+                   help="prior family the --prior-ckpt was trained with (cli.prior --arch; "
+                        "the port serves the transformer)")
+    p.add_argument("--prior-dim", type=int, default=64)
+    p.add_argument("--prior-layers", type=int, default=15)
+    p.add_argument("--prior-heads", type=int, default=8)
+    p.add_argument("--n-classes", type=int, default=10)
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, cuda:N or cpu)")
     return p.parse_args(argv)

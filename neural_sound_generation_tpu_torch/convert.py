@@ -15,9 +15,10 @@ bridge only changes each leaf's name and layout:
                                      ConvTranspose2d(4, 2, 1) with the flipped
   Dense       kernel (in,out)        .weight (out,in)
   Embed       embedding (n,d)        .weight (n,d)
-  norms       scale, bias            .weight, .bias
+  norms       scale, bias            .weight, .bias (BatchNorm, GroupNorm,
+                                     LayerNorm)
   BatchNorm   mean, var (stats)      .running_mean, .running_var
-  codebook                           codebook
+  top-level leaves (codebook, bos)   the same name
 
 Both directions copy values exactly, so a round trip is bit-exact.
 
@@ -58,7 +59,7 @@ def _param_to_torch(path: tuple[str, ...], leaf: np.ndarray) -> tuple[str, np.nd
             return prefix + "weight", leaf.T
     elif name in ("scale", "embedding"):
         return prefix + "weight", leaf
-    elif name == "bias" or (name == "codebook" and not module):
+    elif name == "bias" or not module:
         return prefix + name, leaf
     raise ValueError(f"no port counterpart for flax leaf {'/'.join(path)}")
 
@@ -109,7 +110,7 @@ def module_to_flax(
         elif isinstance(m, torch.nn.Embedding):
             put(params, prefix, "embedding", m.weight)
             continue
-        elif isinstance(m, (torch.nn.BatchNorm2d, torch.nn.GroupNorm)):
+        elif isinstance(m, (torch.nn.BatchNorm2d, torch.nn.GroupNorm, torch.nn.LayerNorm)):
             put(params, prefix, "scale", m.weight)
             if isinstance(m, torch.nn.BatchNorm2d):
                 put(stats, prefix, "mean", m.running_mean)

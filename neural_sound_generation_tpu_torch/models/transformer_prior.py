@@ -1,0 +1,282 @@
+"""Autoregressive Transformer prior over VQ code grids.
+
+Counterpart of ``neural_sound_generation_tpu/models/transformer_prior.py``:
+a class-conditioned decoder-only Transformer over (H, W) code grids in
+raster order. Position t predicts ``codes[t]`` from ``codes[:t]``: its input
+is the embedding of ``codes[t-1]`` (a learned ``bos`` vector at t = 0) plus
+factored row/column positional embeddings and the class embedding.
+
+The modules carry the flax names (``tok_embed``, ``block_0.attn_qkv``,
+``ln_f``, the top-level ``bos``), so ``convert.py`` maps one tree onto the
+other by name. flax's defaults are kept where PyTorch's differ: LayerNorm's
+epsilon is 1e-6, ``nn.gelu`` is the tanh approximation, Dense kernels are
+LeCun-normal (truncated) with zero biases, Embed tables N(0, 1/dim).
+
+Teacher-forced training runs ``ops/attention.causal_attention`` (the flash
+kernels on the card). Sampling runs one position at a time through a KV
+cache in the compute dtype (``decode_step``), with plain attention over the
+filled prefix. ``generate`` draws with the Gumbel-max trick:
+argmax(logits / temperature + Gumbel), which is how ``jax.random.
+categorical`` draws; the noise comes from an explicit ``torch.Generator``
+or, for the tests, is injected.
+
+Switch-MoE feed-forwards (``n_experts > 0``) and spatial conditioning (the
+hierarchical bottom prior) come with later slices and raise.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from neural_sound_generation_tpu_torch.ops.attention import causal_attention
+
+__all__ = ["TransformerPrior", "generate", "incremental_logits", "init_caches"]
+
+#: flax nn.LayerNorm's epsilon (PyTorch's default is 1e-5)
+LAYER_NORM_EPS = 1e-6
+# flax's lecun_normal: a normal truncated at 2 std, rescaled to unit variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # flax nn.gelu's default
+
+
+def _refuse_moe(n_experts: int) -> None:
+    if n_experts > 0:
+        raise NotImplementedError(
+            "switch-MoE feed-forwards (--moe-experts) come with the MoE slice of the port")
+
+
+class _Block(nn.Module):
+    """Pre-LN transformer block: causal self-attention and an MLP."""
+
+    def __init__(self, dim: int, n_heads: int, mlp_ratio: int = 4, n_experts: int = 0):
+        super().__init__()
+        _refuse_moe(n_experts)
+        if dim % n_heads:
+            raise ValueError(f"dim {dim} is not divisible by {n_heads} heads")
+        self.dim, self.n_heads = dim, n_heads
+        self.ln1 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.ln2 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.attn_qkv = nn.Linear(dim, 3 * dim)
+        self.attn_out = nn.Linear(dim, dim)
+        self.mlp_in = nn.Linear(dim, mlp_ratio * dim)
+        self.mlp_out = nn.Linear(mlp_ratio * dim, dim)
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    def _mlp(self, h: torch.Tensor) -> torch.Tensor:
+        return self.mlp_out(_gelu(self.mlp_in(h)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, T, D); causal self-attention over T."""
+        b, t, d = x.shape
+        hd = self.head_dim
+        q, k, v = self.attn_qkv(self.ln1(x)).split(d, dim=-1)
+        # (B, H, T, hd), the layout causal_attention takes
+        q, k, v = (z.reshape(b, t, self.n_heads, hd).transpose(1, 2) for z in (q, k, v))
+        o = causal_attention(q, k, v, scale=1.0 / math.sqrt(hd))
+        x = x + self.attn_out(o.transpose(1, 2).reshape(b, t, d))
+        return x + self._mlp(self.ln2(x))
+
+    def decode_step(self, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    t: int) -> torch.Tensor:
+        """One position with a KV cache: x (B, D) is the input at position
+        t; k_cache/v_cache (B, T, H, hd) hold positions < t and get
+        position t written in place. Returns y (B, D)."""
+        b, d = x.shape
+        hd = self.head_dim
+        q, k, v = self.attn_qkv(self.ln1(x)).split(d, dim=-1)
+        k_cache[:, t] = k.reshape(b, self.n_heads, hd)
+        v_cache[:, t] = v.reshape(b, self.n_heads, hd)
+        # the filled prefix only: the JAX step masks positions > t to -inf
+        # over the whole cache, which adds exact zeros to the same sums
+        att = torch.einsum("bhd,bkhd->bhk", q.reshape(b, self.n_heads, hd).float(),
+                           k_cache[:, : t + 1].float()) * (1.0 / math.sqrt(hd))
+        att = torch.softmax(att, dim=-1).to(x.dtype)
+        o = torch.einsum("bhk,bkhd->bhd", att, v_cache[:, : t + 1]).reshape(b, d)
+        x = x + self.attn_out(o)
+        return x + self._mlp(self.ln2(x))
+
+
+class TransformerPrior(nn.Module):
+    """Decoder-only Transformer over (H, W) code grids:
+    ``(codes (B, H, W) int, label (B,) int) -> logits (B, H, W, input_dim)``
+    float32. Weights are initialized from ``generator``."""
+
+    def __init__(
+        self,
+        input_dim: int = 512,
+        dim: int = 256,
+        n_layers: int = 6,
+        n_heads: int = 4,
+        n_classes: int = 10,
+        mlp_ratio: int = 4,
+        n_experts: int = 0,
+        spatial_cond: bool = False,
+        max_rows: int = 64,
+        max_cols: int = 64,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        _refuse_moe(n_experts)
+        if spatial_cond:
+            raise NotImplementedError(
+                "spatially conditioned priors (the hierarchical bottom level) come with "
+                "the hierarchical chain slice of the port")
+        self.input_dim, self.dim, self.n_layers = input_dim, dim, n_layers
+        self.n_heads, self.n_classes = n_heads, n_classes
+        self.max_rows, self.max_cols = max_rows, max_cols
+        self.tok_embed = nn.Embedding(input_dim, dim)
+        self.class_embed = nn.Embedding(n_classes, dim)
+        self.bos = nn.Parameter(torch.empty(dim))
+        self.row_embed = nn.Embedding(max_rows, dim)
+        self.col_embed = nn.Embedding(max_cols, dim)
+        for i in range(n_layers):
+            self.add_module(f"block_{i}", _Block(dim, n_heads, mlp_ratio))
+        self.ln_f = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.head = nn.Linear(dim, input_dim)
+        self.reset_parameters(generator)
+
+    @property
+    def blocks(self) -> list[_Block]:
+        return [getattr(self, f"block_{i}") for i in range(self.n_layers)]
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                std = m.in_features**-0.5 / _TRUNC_STD
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, m.embedding_dim**-0.5, generator=generator)
+            elif isinstance(m, nn.LayerNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+        self.bos.normal_(0.0, 0.02, generator=generator)
+
+    def _pos_table(self, h: int, w: int) -> torch.Tensor:
+        if h > self.max_rows or w > self.max_cols:
+            raise ValueError(
+                f"code grid {(h, w)} exceeds positional tables "
+                f"({self.max_rows}, {self.max_cols}); raise max_rows/max_cols")
+        rows = self.row_embed.weight[:h]
+        cols = self.col_embed.weight[:w]
+        return (rows[:, None, :] + cols[None, :, :]).reshape(h * w, self.dim)
+
+    def embed_sequence(self, codes: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+        """Shifted token embeddings + positional + class: (B, H, W) -> (B, T, D)."""
+        b, h, w = codes.shape
+        tok = self.tok_embed(codes.reshape(b, h * w).long())
+        bos = self.bos.expand(b, 1, self.dim).to(tok.dtype)
+        x = torch.cat([bos, tok[:, :-1]], dim=1)
+        x = x + self._pos_table(h, w)[None]
+        return x + self.class_embed(label.long())[:, None, :]
+
+    def head_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Final LayerNorm + vocab head: (..., D) -> (..., K) float32."""
+        return self.head(self.ln_f(x)).float()
+
+    def forward(self, codes: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+        b, h, w = codes.shape
+        x = self.embed_sequence(codes, label)
+        for blk in self.blocks:
+            x = blk(x)
+        return self.head_logits(x).reshape(b, h, w, self.input_dim)
+
+    def embed_step(self, prev_tok: torch.Tensor, label: torch.Tensor, t: int, h: int,
+                   w: int) -> torch.Tensor:
+        """Input at position t while sampling: the previous token's
+        embedding (``bos`` at t = 0) + pos[t] + class. prev_tok (B,) -> (B, D)."""
+        if t == 0:
+            x = self.bos.expand(prev_tok.shape[0], self.dim)
+        else:
+            x = self.tok_embed(prev_tok.long())
+        r, c = divmod(t, w)
+        x = x + self.row_embed.weight[r] + self.col_embed.weight[c]
+        return x + self.class_embed(label.long())
+
+    def decode_step(self, x: torch.Tensor, caches, t: int):
+        """One cached position through all blocks: (logits (B, K) float32,
+        caches), the caches updated in place."""
+        for blk, (k_cache, v_cache) in zip(self.blocks, caches):
+            x = blk.decode_step(x, k_cache, v_cache, t)
+        return self.head_logits(x), caches
+
+
+def init_caches(model: TransformerPrior, batch: int, t: int):
+    """Per block a zero (k, v) pair of (batch, t, H, hd) in the compute
+    dtype (the qkv projection's), on the model's device."""
+    w = model.head.weight
+    shape = (batch, t, model.n_heads, model.dim // model.n_heads)
+    return tuple(
+        (torch.zeros(shape, dtype=w.dtype, device=w.device),
+         torch.zeros(shape, dtype=w.dtype, device=w.device))
+        for _ in range(model.n_layers)
+    )
+
+
+def gumbel_noise(shape, generator: torch.Generator | None, device) -> torch.Tensor:
+    """Standard Gumbel noise, -log(-log(U)) with U in [tiny, 1), as
+    ``jax.random.gumbel`` draws it."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+@torch.inference_mode()
+def generate(
+    model: TransformerPrior,
+    label: torch.Tensor,
+    generator: torch.Generator | None = None,
+    shape: tuple[int, int] = (8, 8),
+    batch_size: int = 64,
+    temperature: float = 1.0,
+    gumbel: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """KV-cached ancestral sampling of (batch_size, H, W) int32 code grids.
+
+    Position t draws argmax(logits / temperature + G_t). ``gumbel``, when
+    given, is the (T, B, K) noise; otherwise it is drawn from
+    ``generator`` (on the model's device) one position at a time."""
+    h, w = shape
+    t_len = h * w
+    device = model.head.weight.device
+    label = label.to(device)
+    caches = init_caches(model, batch_size, t_len)
+    prev = torch.zeros(batch_size, dtype=torch.long, device=device)
+    out = torch.empty(batch_size, t_len, dtype=torch.int32, device=device)
+    for t in range(t_len):
+        x = model.embed_step(prev, label, t, h, w)
+        logits, caches = model.decode_step(x, caches, t)
+        noise = gumbel[t].to(device) if gumbel is not None else gumbel_noise(
+            logits.shape, generator, device)
+        prev = torch.argmax(logits / temperature + noise, dim=-1)
+        out[:, t] = prev
+    return out.reshape(batch_size, h, w)
+
+
+@torch.inference_mode()
+def incremental_logits(model: TransformerPrior, codes: torch.Tensor,
+                       label: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced logits through the cached decode path, the sampler's
+    parity oracle: (B, H, W) codes -> (B, H, W, K) float32."""
+    b, h, w = codes.shape
+    t_len = h * w
+    seq = codes.reshape(b, t_len)
+    caches = init_caches(model, b, t_len)
+    out = []
+    for t in range(t_len):
+        x = model.embed_step(seq[:, max(t - 1, 0)], label, t, h, w)
+        logits, caches = model.decode_step(x, caches, t)
+        out.append(logits)
+    return torch.stack(out, dim=1).reshape(b, h, w, model.input_dim)

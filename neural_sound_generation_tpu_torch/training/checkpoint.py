@@ -16,8 +16,11 @@ with ``weights_only=True``):
   codebook_ema/{cluster,embed_sum}
   step                     0-d int32
 
-A JAX checkpoint (Orbax) is not read here; ``convert.py`` bridges the two
-trees in one process.
+A parameters-only artifact (``save_params``, and the ``_ema`` sibling) holds
+just ``params/<name>``: the prior CLI writes its sampling artifact that way,
+with the full state in a ``<ckpt_dir>_train`` sibling, and ``restore_params``
+reads either kind into a module. A JAX checkpoint (Orbax) is not read here;
+``convert.py`` bridges the two trees in one process.
 
 Restore is strict: a parameter or statistic the template has and the
 checkpoint lacks, or one of another shape, refuses with the names. The
@@ -263,6 +266,26 @@ def restore(ckpt_dir: str, state: TrainState, step: Optional[int] = None):
                 "state's (cluster 1, embed_sum = codebook)", path
             )
     return state, read_extra(ckpt_dir, int(os.path.basename(path)[len("step_"):]))
+
+
+def save_params(ckpt_dir: str, state: TrainState, step: int,
+                extra: Optional[dict] = None) -> str:
+    """Save the live parameters alone as ``ckpt_dir/step_{step}``
+    (``params/<name>``), blocking: the artifact that sampling and serving
+    restore with ``restore_params``."""
+    tensors = {f"params/{k}": t for k, t in state.flat.named(state.flat.flat).items()}
+    return _save_tensors(ckpt_dir, tensors, step, extra, block=True)
+
+
+def restore_params(ckpt_dir: str, module: torch.nn.Module,
+                   step: Optional[int] = None) -> Optional[dict]:
+    """Load ``params/<name>`` of a checkpoint (a full state, a
+    ``save_params`` artifact or an ``_ema`` sibling) into ``module``'s
+    parameters in place; returns the checkpoint's metadata. Strict, as
+    ``restore``."""
+    path = _step_path(ckpt_dir, step)
+    _copy_named(dict(module.named_parameters()), _load(path), "params/", path)
+    return read_extra(ckpt_dir, int(os.path.basename(path)[len("step_"):]))
 
 
 def save_ema_sibling(ckpt_dir: str, state: TrainState, step: int,

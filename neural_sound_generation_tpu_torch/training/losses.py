@@ -1,7 +1,8 @@
-"""Loss functions of the mel VQ-VAE.
+"""Loss functions of the mel VQ-VAE and of the prior.
 
 Counterpart of ``neural_sound_generation_tpu/training/losses.py``
-(``vqvae_loss``, ``codebook_perplexity``). The 3-term objective keeps the
+(``vqvae_loss``, ``codebook_perplexity``) and of the prior NLL in
+``training/trainer.py::_pixelcnn_loss_fn``. The 3-term objective keeps the
 reference's mean reductions (src/train.py:129-134) and its stop-gradients,
 as ``.detach()`` where the JAX package has ``jax.lax.stop_gradient``.
 """
@@ -37,3 +38,11 @@ def codebook_perplexity(indices: torch.Tensor, num_codes: int) -> torch.Tensor:
     probs = counts / torch.clamp(counts.sum(), min=1.0)
     entropy = -torch.sum(torch.where(probs > 0, probs * torch.log(probs), 0.0))
     return torch.exp(entropy)
+
+
+def prior_nll(logits: torch.Tensor, codes: torch.Tensor) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Mean negative log-likelihood of the code grid under the prior's
+    logits (B, H, W, K): (nll, {"loss", "nll_per_code"})."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, codes.long()[..., None]).mean()
+    return nll, {"loss": nll, "nll_per_code": nll}

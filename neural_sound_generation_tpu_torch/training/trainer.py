@@ -1,15 +1,18 @@
-"""Training step and epoch driver for the mel VQ-VAE.
+"""Training step and epoch driver for the mel VQ-VAE and the prior.
 
 Counterpart of ``neural_sound_generation_tpu/training/trainer.py`` for the
-flat ``VQVAE`` on one device. The JAX package returns a new state from a
-jitted pure step; here the step updates the state in place (the model's
-parameters are views of the flat buffer the fused kernel writes) and
-returns the same object, so the call sites read alike. Metrics stay device
-tensors until the caller asks for them.
+flat ``VQVAE`` and the ``TransformerPrior`` on one device. The JAX package
+returns a new state from a jitted pure step; here the step updates the
+state in place (the model's parameters are views of the flat buffer the
+fused kernel writes) and returns the same object, so the call sites read
+alike. Metrics stay device tensors until the caller asks for them.
 
-Each train step runs the nearest-code kernel once (the ``vq_st`` forward),
-once more under ``ema_codebook``, and the fused-Adam kernel once. Each eval
-batch runs the nearest-code kernel twice: the forward and ``encode``.
+A VQ-VAE train step runs the nearest-code kernel once (the ``vq_st``
+forward), once more under ``ema_codebook``, and the fused-Adam kernel once;
+each eval batch runs the nearest-code kernel twice (the forward and
+``encode``). A prior train step (batches ``{"codes", "labels"}``) runs the
+flash-attention forward and both backward kernels once per layer, and the
+fused-Adam kernel once; it has no BatchNorm and no codebook branch.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from neural_sound_generation_tpu_torch.config import Config
 from neural_sound_generation_tpu_torch.data.pipeline import device_prefetch
-from neural_sound_generation_tpu_torch.models import VQVAE
+from neural_sound_generation_tpu_torch.models import VQVAE, TransformerPrior
 from neural_sound_generation_tpu_torch.ops.vq import (
     codebook_ema_update,
     restart_dead_codes,
@@ -30,6 +33,7 @@ from neural_sound_generation_tpu_torch.ops.vq import (
 )
 from neural_sound_generation_tpu_torch.training.losses import (
     codebook_perplexity,
+    prior_nll,
     vqvae_loss,
 )
 from neural_sound_generation_tpu_torch.training.train_state import (
@@ -41,32 +45,51 @@ Batch = Dict[str, torch.Tensor]
 
 
 def _check_model(model) -> None:
-    if not isinstance(model, VQVAE):
+    if not isinstance(model, (VQVAE, TransformerPrior)):
         raise NotImplementedError(
-            f"{type(model).__name__}: the port trains the flat mel VQVAE; the "
-            f"other families come with later slices"
+            f"{type(model).__name__}: the port trains the flat mel VQVAE and the "
+            f"TransformerPrior; the other families come with later slices"
         )
 
 
-def make_train_step(model: VQVAE, cfg: Config) -> Callable:
+def _loss_fn(model, cfg: Config) -> Callable:
+    """Per-family loss closure: ``batch -> (total, metrics, z_e or None)``."""
+    if isinstance(model, TransformerPrior):
+        def prior_loss(batch: Batch):
+            codes = batch["codes"]
+            total, metrics = prior_nll(model(codes, batch["labels"]), codes)
+            return total, metrics, None
+
+        return prior_loss
+    beta = cfg.model.beta
+
+    def vqvae_step_loss(batch: Batch):
+        x = batch["x"]
+        x_tilde, z_e, z_q = model(x, g=batch.get("g"))
+        total, metrics = vqvae_loss(x_tilde, x, z_e, z_q, beta)
+        return total, metrics, z_e
+
+    return vqvae_step_loss
+
+
+def make_train_step(model, cfg: Config) -> Callable:
     """One optimization step: ``train_step(state, batch, generator) ->
     (state, metrics)``, updating ``state`` in place.
 
-    Under ``cfg.model.ema_codebook`` the codebook learns by EMA cluster
-    statistics: its gradient is zeroed before the update, the codebook is
-    overwritten after it (from the pre-update codebook and the step's
-    encoder outputs), and ``grad_norm`` is the norm after the zeroing.
-    ``generator`` draws the dead-code restarts (on the batch's device)."""
+    Under ``cfg.model.ema_codebook`` the VQ-VAE's codebook learns by EMA
+    cluster statistics: its gradient is zeroed before the update, the
+    codebook is overwritten after it (from the pre-update codebook and the
+    step's encoder outputs), and ``grad_norm`` is the norm after the
+    zeroing. ``generator`` draws the dead-code restarts (on the batch's
+    device)."""
     _check_model(model)
-    beta = cfg.model.beta
-    ema_codebook = bool(cfg.model.ema_codebook)
+    loss_fn = _loss_fn(model, cfg)
+    ema_codebook = bool(cfg.model.ema_codebook) and isinstance(model, VQVAE)
 
     def train_step(state: TrainState, batch: Batch, generator: torch.Generator | None = None):
         model.train()
         state.flat.zero_grad()
-        x = batch["x"]
-        x_tilde, z_e, z_q = model(x, g=batch.get("g"))
-        total, metrics = vqvae_loss(x_tilde, x, z_e, z_q, beta)
+        total, metrics, z_e = loss_fn(batch)
         total.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         with torch.no_grad():
@@ -104,7 +127,7 @@ def _ema_codebook_step(state: TrainState, cfg: Config, cb_old, z_e, generator) -
     state.codebook_ema = {"cluster": cluster, "embed_sum": esum}
 
 
-def make_multistep_train(model: VQVAE, cfg: Config, n_inner: int) -> Callable:
+def make_multistep_train(model, cfg: Config, n_inner: int) -> Callable:
     """``n_inner`` optimization steps over a stacked super-batch (every
     tensor gains a leading (n_inner,) axis): ``multi(state, batches,
     generator) -> (state, stacked metrics)``. The parameters, moments and
@@ -123,26 +146,35 @@ def make_multistep_train(model: VQVAE, cfg: Config, n_inner: int) -> Callable:
 
 
 def stack_batches(batches):
-    """List of dict batches -> one super-batch with a leading step axis,
-    stacked on the host (the loader's batches are numpy; one copy to the
-    device follows)."""
-    return {
-        k: np.stack([np.asarray(b[k]) for b in batches])
-        for k in batches[0]
-        if batches[0][k] is not None
-    }
+    """List of dict batches -> one super-batch with a leading step axis.
+    Numpy batches (the loader's) stack on the host, one copy to the device
+    follows; tensors (the prior's code grids, encoded on the device) stack
+    where they are."""
+    out = {}
+    for k, first in batches[0].items():
+        if first is None:
+            continue
+        values = [b[k] for b in batches]
+        out[k] = (torch.stack(values) if isinstance(first, torch.Tensor)
+                  else np.stack([np.asarray(v) for v in values]))
+    return out
 
 
-def make_eval_step(model: VQVAE, cfg: Config) -> Callable:
+def make_eval_step(model, cfg: Config) -> Callable:
     """Eval forward with running statistics: ``eval_step(state, batch) ->
-    (reconstruction, metrics)``, on the EMA shadow when the state has one
-    (``TrainState.eval_params``)."""
+    (reconstruction or prior logits, metrics)``, on the EMA shadow when the
+    state has one (``TrainState.eval_params``)."""
     _check_model(model)
     beta = cfg.model.beta
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
         model.eval()
+        if isinstance(model, TransformerPrior):
+            with state.flat.swapped(state.eval_params()):
+                logits = model(batch["codes"], batch["labels"])
+            _, metrics = prior_nll(logits, batch["codes"])
+            return logits, metrics
         x = batch["x"]
         with state.flat.swapped(state.eval_params()):
             x_tilde, z_e, z_q = model(x, g=batch.get("g"))
@@ -162,7 +194,7 @@ class Trainer:
 
     def __init__(
         self,
-        model: VQVAE,
+        model,
         cfg: Config,
         state: TrainState,
         log_fn: Optional[Callable[[str], None]] = print,

@@ -1,0 +1,219 @@
+"""The port's prior CLI end to end on the CPU (``--device cpu``) on a tiny
+synthetic corpus: a VQ-VAE trained by ``cli.main``, then ``cli.prior
+train --arch transformer`` for two epochs, ``--resume`` for a third,
+``cli.prior sample``, and ``/sample`` over HTTP from the server started
+with ``--prior-ckpt``; checkpoint metadata that disagrees with the flags
+(the head count above all) and the flags of later slices refuse."""
+
+import io
+import json
+import os
+import threading
+import urllib.error
+import urllib.request
+from http.server import ThreadingHTTPServer
+
+import numpy as np
+import pytest
+import torch
+
+from neural_sound_generation_tpu_torch.cli import main, prior, serve
+from neural_sound_generation_tpu_torch.data.manifest import ManifestEntry, write_manifest
+from neural_sound_generation_tpu_torch.ops.cuda import flash_attention as fa
+from neural_sound_generation_tpu_torch.training import checkpoint
+
+torch.set_num_threads(1)
+
+DIM, Z_DIM, SR = 32, 64, 22050
+PRIOR = ["--arch", "transformer", "--prior-dim", "32", "--prior-layers", "2",
+         "--prior-heads", "2", "--dim", str(DIM), "--z-dim", str(Z_DIM), "--device", "cpu"]
+
+
+def _corpus(root, n=40):
+    """Chirps of 0.3-0.5 s with mels from the port's own analysis."""
+    from neural_sound_generation_tpu_torch.config import Config
+    from neural_sound_generation_tpu_torch.ops import dsp
+
+    rng = np.random.default_rng(0)
+    entries = []
+    for i in range(n):
+        t = np.arange(int(SR * rng.uniform(0.3, 0.5))) / SR
+        f = rng.uniform(100, 300) + rng.uniform(500, 2500) * t / t[-1]
+        wav = (0.5 * np.sin(2 * np.pi * np.cumsum(f) / SR)).astype(np.float32)
+        mel = dsp.melspectrogram(torch.from_numpy(wav), Config().audio).T.numpy()
+        np.save(root / f"a{i}.npy", wav)
+        np.save(root / f"m{i}.npy", mel.astype(np.float32))
+        entries.append(ManifestEntry(f"a{i}.npy", f"m{i}.npy", len(wav), "chirp"))
+    write_manifest(str(root), entries)
+    return str(root)
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("prior")
+    os.makedirs(tmp / "corpus")
+    datadir = _corpus(tmp / "corpus")
+    main.main(["--model", "vqvae", "--dataset", "ljspeech", "--datadir", datadir,
+               "--dim", str(DIM), "--z-dim", str(Z_DIM), "--batch-size", "4", "--epochs", "1",
+               "--max-batches-per-epoch", "2", "--log-interval", "0", "--device", "cpu",
+               "--codebook-init", "data", "--ckpt-dir", str(tmp / "models"),
+               "--sampledir", str(tmp / "results")])
+    vq_ckpt = str(tmp / "models" / "vqvae" / f"checkpoint_ljspeech_{DIM}_{Z_DIM}")
+    ckpt = str(tmp / "prior")
+    train = ["train", "--datadir", datadir, "--vqvae-ckpt", vq_ckpt, "--ckpt-dir", ckpt,
+             "--batch-size", "4", "--max-batches-per-epoch", "3", "--lr", "3e-3", *PRIOR]
+    prior.main(train + ["--epochs", "2"])
+    after_two = checkpoint.latest_step(ckpt)
+    prior.main(train + ["--epochs", "3", "--resume"])
+    return tmp, datadir, vq_ckpt, ckpt, after_two, train
+
+
+def test_train_then_resume(trained, capsys):
+    _, _, _, ckpt, after_two, _ = trained
+    assert after_two == 6  # 3 batches per epoch, one step each
+    for d in (ckpt, ckpt + "_ema", ckpt + "_train"):
+        assert checkpoint.latest_step(d) == 9, d  # the resumed epoch continued the count
+    meta = {"arch": "transformer", "prior_dim": 32, "prior_layers": 2, "prior_heads": 2,
+            "z_dim": Z_DIM, "n_classes": 10}
+    assert checkpoint.read_extra(ckpt) == {"epoch": 3, **meta}
+    assert checkpoint.read_extra(ckpt + "_ema") == {"epoch": 3, "averaged": True, **meta}
+    state = torch.load(os.path.join(ckpt, "step_9", "state.pt"), weights_only=True)
+    assert all(k.startswith("params/") for k in state) and "params/bos" in state
+    full = torch.load(os.path.join(ckpt + "_train", "step_9", "state.pt"), weights_only=True)
+    assert int(full["step"]) == 9 and int(full["opt_state/count"]) == 9
+    # the code grids are 20 x 7: 80 mels and 28-frame crops over stride 4
+    assert full["params/block_0.attn_qkv.weight"].shape == (96, 32)
+
+
+def test_the_loss_falls(trained, tmp_path, capsys):
+    _, _, _, _, _, train = trained
+    prior.main(train + ["--epochs", "4", "--ckpt-dir", str(tmp_path / "p")])
+    out = capsys.readouterr().out
+    nll = [float(line.split("nll/code ")[1].split()[0])
+           for line in out.splitlines() if line.startswith("prior epoch")]
+    assert len(nll) == 4 and nll[-1] < nll[0]
+    assert fa.launch_counts() == dict.fromkeys(fa.KERNELS, 0)  # the CPU ran the plain pair
+
+
+def test_resume_from_the_artifact_alone(trained, tmp_path, capsys):
+    _, _, _, ckpt, _, train = trained
+    import shutil
+
+    shutil.copytree(ckpt, tmp_path / "p")
+    shutil.copytree(ckpt + "_ema", tmp_path / "p_ema")
+    # one super-batch of the epoch's 3 code grids: the tensor stacking path
+    prior.main(train + ["--epochs", "4", "--resume", "--multi-steps", "3",
+                        "--ckpt-dir", str(tmp_path / "p")])
+    assert "Adam moments restart" in capsys.readouterr().out
+    assert checkpoint.latest_step(str(tmp_path / "p")) == 12
+    full = torch.load(tmp_path / "p_train" / "step_12" / "state.pt", weights_only=True)
+    assert int(full["step"]) == 12 and int(full["opt_state/count"]) == 3
+
+
+def test_sample_writes_finite_wavs(trained, tmp_path):
+    from scipy.io import wavfile
+
+    _, _, vq_ckpt, ckpt, _, _ = trained
+    out = tmp_path / "samples"
+    prior.main(["sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt", ckpt + "_ema",
+                "--output-dir", str(out), "--code-shape", "20", "3", "--num-samples", "2",
+                "--label", "3", *PRIOR])
+    names = sorted(os.listdir(out))
+    assert names == ["prior_sample_000.wav", "prior_sample_001.wav"]
+    for name in names:
+        rate, wav = wavfile.read(out / name)
+        # 20 x 3 codes decode to 80 mels x 12 frames; Griffin-Lim gives
+        # (frames - 1) hops
+        assert rate == SR and wav.shape == (11 * 256,) and np.abs(wav).max() > 0
+
+
+def test_metadata_mismatch_refuses(trained, tmp_path):
+    _, _, vq_ckpt, ckpt, _, _ = trained
+    # the qkv weights have one shape for any head count: only the metadata
+    # tells 2 heads from 4
+    with pytest.raises(SystemExit, match="prior_heads=2"):
+        prior.main(["sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt", ckpt,
+                    "--output-dir", str(tmp_path), "--code-shape", "2", "2",
+                    *PRIOR[:-6], "--prior-heads", "4", *PRIOR[-6:]])
+    with pytest.raises(SystemExit, match="prior_heads=2"):
+        serve.build_service(serve.parse_args([
+            "--device", "cpu", "--dim", str(DIM), "--z-dim", str(Z_DIM), "--frames", "16",
+            "--prior-ckpt", ckpt, "--prior-arch", "transformer", "--prior-dim", "32",
+            "--prior-layers", "2"]))  # serve's --prior-heads defaults to 8
+    with pytest.raises(SystemExit, match="arch"):
+        serve.build_service(serve.parse_args([
+            "--device", "cpu", "--dim", str(DIM), "--z-dim", str(Z_DIM), "--frames", "16",
+            "--ckpt-dir", ckpt]))
+
+
+def _post(url, payload):
+    req = urllib.request.Request(url, data=json.dumps(payload).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def test_sample_endpoint_over_http(trained):
+    from scipy.io import wavfile
+
+    _, _, vq_ckpt, ckpt, _, _ = trained
+    service = serve.build_service(serve.parse_args([
+        "--device", "cpu", "--dim", str(DIM), "--z-dim", str(Z_DIM), "--frames", "16",
+        "--ckpt-dir", vq_ckpt, "--prior-ckpt", ckpt, "--prior-arch", "transformer",
+        "--prior-dim", "32", "--prior-layers", "2", "--prior-heads", "2"]))
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/sample"
+    try:
+        bodies = {}
+        for n in (1, 2):
+            status, body = _post(url, {"n": n, "label": 1, "seed": 5})
+            assert status == 200, body[:200]
+            rate, wav = wavfile.read(io.BytesIO(body))
+            # a 20 x 4 code grid decodes to 16 frames per sample
+            assert rate == SR and wav.shape == (n * 15 * 256,) and np.abs(wav).max() > 0
+            bodies[n] = body
+        assert _post(url, {"n": 1, "label": 1, "seed": 5})[1] == bodies[1]  # seeded
+        for payload in ({"n": 0}, {"n": 17}, {"label": 10}, {"label": -1}, [1, 2]):
+            status, body = _post(url, payload)
+            assert status == 400, (payload, body)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    bare = serve.build_service(serve.parse_args(
+        ["--device", "cpu", "--dim", str(DIM), "--z-dim", str(Z_DIM), "--frames", "16"]))
+    with pytest.raises(ValueError, match="no prior loaded"):
+        bare.sample({"n": 1})
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--arch", "pixelcnn"], "PixelCNN slice"),
+    (["--arch", "transformer", "--hier"], "hierarchical"),
+    (["--arch", "transformer", "--moe-experts", "4"], "MoE slice"),
+    (["--arch", "transformer", "--bf16"], "bf16 slice"),
+    (["--arch", "transformer", "--mesh-pipe", "2"], "parallel slice"),
+    (["--arch", "transformer", "--mesh-data", "2"], "parallel slice"),
+])
+def test_flags_of_later_slices_refuse(flags, match):
+    common = ["--vqvae-ckpt", "/nonexistent", "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match=match):
+        prior.main(["train", "--datadir", "/nonexistent", *common, *flags])
+    if "--mesh-pipe" not in flags and "--mesh-data" not in flags:
+        with pytest.raises(NotImplementedError, match=match):
+            prior.main(["sample", "--prior-ckpt", "/nonexistent", *common, *flags])
+
+
+def test_serve_refuses_a_pixelcnn_prior(trained):
+    _, _, _, ckpt, _, _ = trained
+    with pytest.raises(SystemExit, match="PixelCNN slice"):
+        serve.build_service(serve.parse_args([
+            "--device", "cpu", "--dim", str(DIM), "--z-dim", str(Z_DIM), "--frames", "16",
+            "--prior-ckpt", ckpt]))
+
+
+def test_long_t_warning():
+    assert prior.long_t_warning("transformer", (1, 20, 7)) is None
+    assert "T=2240" in prior.long_t_warning("transformer", (1, 40, 56))
+    assert prior.long_t_warning("pixelcnn", (1, 40, 56)) is None

@@ -32,8 +32,10 @@ def _port_modules():
 def test_importing_every_module_loads_no_jax():
     """In a fresh interpreter: tests/conftest.py imports jax into this one."""
     modules = _port_modules()
-    for name in ("cli.serve", "cli.main", "cli.evaluate", "training.trainer",
-                 "training.checkpoint", "data.pipeline", "ops.cuda.fused_adam"):
+    for name in ("cli.serve", "cli.main", "cli.evaluate", "cli.prior", "training.trainer",
+                 "training.checkpoint", "data.pipeline", "ops.cuda.fused_adam",
+                 "ops.cuda.flash_attention", "ops.attention", "models.transformer_prior",
+                 "inference.audio"):
         assert f"neural_sound_generation_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
