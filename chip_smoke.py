@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's serving, training and prior paths on one CUDA
-card and checks them.
+"""Drives the PyTorch port's serving, training, prior and vocoder paths on
+one CUDA card and checks them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
@@ -43,7 +43,22 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    card against the same step on the CPU, the KV-cached decode against
    the kernel's forward, times train steps/s, runs ``cli.prior sample``
    and serves /sample at n = 1 and n = 4 from ``serve --prior-ckpt``;
-7. summary: one JSON line per kernel, then the result line.
+7. vocoder: holds both variants of the whole-loop WaveNet kernel (sampling
+   and teacher-forced) against their plain versions at its production
+   configuration (24 layers, R 128, G 256, S 128, cin 80; T = 4096 and a
+   ragged 1000) and the CPU tests' 4-layer one (T = 64): the teacher's
+   logits within a tolerance, both against the float32 incremental_forward,
+   and the kernel's samples reproduced by the plain teacher on its own
+   trajectory with the same noise; times both, the plain versions and the
+   bound. Then the kernel's main path, ``make_generate_fn(use_kernel=True)``
+   generating one second twice with injected noise, with its launch count,
+   each call's samples reproduced by the plain teacher; then the CLI's
+   default vocoder at full width (24 layers, R = G = 512, S = 256) from a
+   seeded-init artifact: ``cli.vocoder synthesize``, and ``cli.serve
+   --vocoder wavenet`` on the trained VQ-VAE and prior answering
+   /reconstruct_stream, /decode and /sample_stream, and with
+   --stream-slots 2 two concurrent /reconstruct_stream;
+8. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -128,6 +143,39 @@ PRIOR_EPOCHS, PRIOR_BATCHES_PER_EPOCH = 3, 8
 PRIOR_TIMED_STEPS = 50
 SAMPLE_REPEATS = 5  # timed /sample requests per n
 
+# the vocoder phase. Kernel 5's production configuration (the Pallas
+# kernel's docstring, ops/pallas/wavenet_gen.py:19, and
+# tests/test_wavenet.py:359-363) and the CPU tests' 4-layer one
+WN_PROD = dict(out_channels=30, layers=24, stacks=4, residual_channels=128,
+               gate_channels=256, skip_out_channels=128, kernel_size=3, cin_channels=80,
+               upsample_scales=(4, 4, 4, 4))
+WN_TESTS = {**WN_PROD, "layers": 4, "stacks": 2, "upsample_scales": (2, 2)}
+WN_SHAPES = [("production_T4096", WN_PROD, 4096), ("production_T1000", WN_PROD, 1000),
+             ("tests_T64", WN_TESTS, 64)]
+WN_MAIN = "production_T4096"
+# teacher logits, kernel vs plain: the same rounding points and order of
+# sums, so they differ only where CUDA's tanhf/expf/log1pf and PyTorch's
+# differ in a last bit (bit-equal at every shape so far). The limit sits
+# well under the gap between the bf16 math and the float32
+# incremental_forward (on an H100: 0.0037 at the tests' T = 64, 0.017-0.020
+# at the production config), so a kernel that dropped its bf16 rounding points
+# would fail it; each row reports whether that float32 control does
+WN_TEACHER_TOL = 1e-3
+# the sampler's one-step consistency: samples within 1e-3 on 99.9% of
+# steps, and a mismatch only where the Gumbel-max gap is below 1e-3
+WN_SAMPLE_TOL, WN_AGREE = 1e-3, 0.999
+WN_PLAIN_STEPS = 32  # steps of the plain sampler timed (launch-bound)
+WN_API_SAMPLES, WN_API_CALLS = 22050, 2  # one second per call
+# the CLI's default vocoder (24 layers, R = G = 512, S = 256) is served with
+# a 16-frame window: /sample_stream's 20 x 4 code grid then decodes to 16
+# mel frames, one 4096-sample chunk, as the 0.1 s chirp of
+# /reconstruct_stream and its /decode are; the scan sampler takes some
+# 25 s per chunk on the card (launch-bound), so one chunk per request keeps
+# the phase near 150 s
+WN_SERVE_FRAMES = 16
+WN_CHIRP_SECONDS = (0.1, 0.15)
+WN_SYNTH_FRAMES = 4
+
 
 class SmokeFailure(Exception):
     pass
@@ -154,6 +202,11 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+
+def sync(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -1014,6 +1067,336 @@ def serve_trained(torch, serve, ckpt: str) -> dict:
     return {"status": status, "samples": n, "ms": 1e3 * dt}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the vocoder
+# ---------------------------------------------------------------------------
+
+
+def seeded_wavenet(torch, wn, cfg: dict, device: str | None = None):
+    return wn.WaveNet(**cfg, generator=torch.Generator().manual_seed(SEED)).to(
+        device or DEVICE).eval()
+
+
+def wavenet_bound_ms(packed, t: int, teacher: bool) -> dict:
+    """Least time of one call over t steps: the packed weights, the bf16
+    conditioning rows and the noise (or the given inputs) read once and the
+    samples (or logits) written once over the HBM rate, against the step's
+    multiply-adds (2 operations each, bf16 operands) over the bf16 rate.
+    Also the time to read the weights once from HBM: what a design that
+    streamed them every step would pay per step."""
+    d = packed.dims
+    L, K, R, G, S, C, out = d["L"], d["K"], d["R"], d["G"], d["S"], d["C"], d["OUT"]
+    macs = C * L * G + L * (K * R * G + G // 2 * (S + R)) + S * S + S * out
+    per_step_io = 2 * C + (4 + 4 * out if teacher else 4 * (d["n_mix"] + 1) + 4)
+    bytes_ms = 1e3 * (packed.nbytes() + t * per_step_io) / PEAK_HBM_BYTES
+    ops_ms = 1e3 * 2 * macs * t / PEAK_BF16_FLOPS
+    bound = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    return {"bound_ms": bound[0], "bound_by": bound[1], "flop_per_step": 2 * macs,
+            "weight_bytes": packed.nbytes(),
+            "weights_from_hbm_us": 1e6 * packed.nbytes() / PEAK_HBM_BYTES}
+
+
+def sample_consistency(torch, wn, plain, gum, unif, samples) -> dict:
+    """The plain teacher's logits on the kernel's own trajectory, sampled
+    with the kernel's noise, against the kernel's samples: the share of
+    steps within WN_SAMPLE_TOL, and the mismatches off a near-tie (a
+    Gumbel-max gap under WN_SAMPLE_TOL)."""
+    n_mix = gum.shape[-1]
+    again = wn.sample_mol(plain, gum, unif)
+    top2 = torch.topk(plain[:, :n_mix] + gum, 2).values
+    near_tie = (top2[:, 0] - top2[:, 1]) < WN_SAMPLE_TOL
+    off = (again - samples).abs() > WN_SAMPLE_TOL
+    return {"sample_max_abs_err": float((again - samples).abs().max()),
+            "sample_agree_frac": 1.0 - float(off.float().mean()),
+            "sample_mismatches": int(off.sum()),
+            "sample_mismatches_not_near_tie": int((off & ~near_tie).sum()),
+            "samples_clipped_frac": float((samples.abs() >= 1.0).float().mean()),
+            "samples_finite": bool(torch.isfinite(samples).all())}
+
+
+def check_samples(row: dict, what: str) -> None:
+    check(row["samples_finite"] and row["sample_agree_frac"] >= WN_AGREE
+          and row["sample_mismatches_not_near_tie"] == 0,
+          f"{what}: the plain teacher reproduces {row['sample_agree_frac']:.4%} of the "
+          f"kernel's samples, {row['sample_mismatches_not_near_tie']} mismatches off a "
+          f"near-tie")
+
+
+def compare_wavenet(torch, wn, wavenet_gen, shape, gen) -> dict:
+    """Both variants of kernel 5 at one configuration and length: the
+    kernel samples t steps; its trajectory, shifted, goes through the
+    teacher kernel, the plain teacher and the float32 incremental_forward;
+    the plain teacher's logits, sampled with the kernel's noise, must give
+    back the kernel's samples. Then the times of both variants, of the
+    plain teacher over the same steps and of the plain sampler over
+    WN_PLAIN_STEPS steps."""
+    import torch.nn.functional as F
+
+    name, cfg, t = shape
+    model = seeded_wavenet(torch, wn, cfg)
+    hop = int(np.prod(cfg["upsample_scales"]))
+    c = torch.randn(1, -(-t // hop), cfg["cin_channels"], generator=gen, device=DEVICE)
+    with torch.no_grad():
+        c_up = wn._upsample_cond(model, c)[0]
+    packed = wavenet_gen.pack_weights(model)
+    gum, unif = (a[:, 0] for a in wn.draw_noise(model, gen, t, 1))
+    samples = wavenet_gen.wavenet_generate(packed, c_up, gum, unif, t)
+    x_in = F.pad(samples[:-1], (1, 0))
+    logits = wavenet_gen.wavenet_teacher_logits(packed, c_up, x_in)
+    plain = wavenet_gen.wavenet_teacher_logits_plain(packed, c_up, x_in)
+    f32 = wn.incremental_forward(model, x_in[None, :, None], c)[0]
+    sync(torch)
+    f32_gap = float((logits - f32).abs().max())
+    iters = 3 if t > 1000 else 10
+    kernel_ms = time_ms(torch, lambda: wavenet_gen.wavenet_generate(packed, c_up, gum, unif, t),
+                        iters, warmup=1)
+    teacher_ms = time_ms(torch, lambda: wavenet_gen.wavenet_teacher_logits(packed, c_up, x_in),
+                         iters, warmup=1)
+    plain_teacher_ms = time_ms(
+        torch, lambda: wavenet_gen.wavenet_teacher_logits_plain(packed, c_up, x_in), 2, warmup=1)
+    n = min(t, WN_PLAIN_STEPS)
+    plain_sample_ms = time_ms(
+        torch, lambda: wavenet_gen.wavenet_generate_plain(packed, c_up, gum, unif, n), 1,
+        warmup=0)
+    return {
+        "phase": "kernel", "name": "wavenet_gen", "shape_name": name, "t": t,
+        "layers": cfg["layers"], "residual": cfg["residual_channels"],
+        "gate": cfg["gate_channels"], "skip": cfg["skip_out_channels"],
+        "cin": cfg["cin_channels"], "out": cfg["out_channels"],
+        "teacher_max_abs_err": float((logits - plain).abs().max()),
+        "teacher_mismatched": int((logits != plain).sum()),
+        "kernel_vs_f32_incremental_max_abs_err": f32_gap,
+        "plain_vs_f32_incremental_max_abs_err": float((plain - f32).abs().max()),
+        "f32_control_fails_teacher_limit": f32_gap > WN_TEACHER_TOL,
+        **sample_consistency(torch, wn, plain, gum, unif, samples),
+        "ms": {"wavenet_gen_sample": kernel_ms, "wavenet_gen_teacher": teacher_ms},
+        "us_per_step": {"wavenet_gen_sample": 1e3 * kernel_ms / t,
+                        "wavenet_gen_teacher": 1e3 * teacher_ms / t},
+        "plain_ms": {"wavenet_gen_sample_per_step": plain_sample_ms / n,
+                     "plain_sample_steps_timed": n,
+                     "wavenet_gen_teacher": plain_teacher_ms},
+        "bound": {"wavenet_gen_sample": wavenet_bound_ms(packed, t, False),
+                  "wavenet_gen_teacher": wavenet_bound_ms(packed, t, True)},
+    }
+
+
+def wavenet_api_path(torch, wn, wavenet_gen, gen) -> dict:
+    """The kernel's main path: ``make_generate_fn(model, 22050,
+    use_kernel=True)`` at the production configuration generates one
+    second, WN_API_CALLS times with noise drawn from seeds 0, 1 and passed
+    in, with the launch counts set to 0 just before and read just after.
+    Then each call's samples are held against the plain teacher run on
+    that trajectory and sampled with the same noise (the check of
+    compare_wavenet at the main path's length), and the kernel alone is
+    timed over the same length."""
+    import torch.nn.functional as F
+
+    model = seeded_wavenet(torch, wn, WN_PROD)
+    frames = -(-WN_API_SAMPLES // 256)
+    c = torch.randn(1, frames, WN_PROD["cin_channels"], generator=gen, device=DEVICE)
+    generate = wn.make_generate_fn(model, WN_API_SAMPLES, use_kernel=True)
+    noises = [wn.draw_noise(model, torch.Generator(device=DEVICE).manual_seed(i),
+                            WN_API_SAMPLES, 1) for i in range(WN_API_CALLS)]
+    wavenet_gen.reset_launch_count()
+    seconds, outs = [], []
+    for noise in noises:
+        sync(torch)
+        t0 = time.perf_counter()
+        out = generate(c, noise=noise)
+        sync(torch)
+        seconds.append(time.perf_counter() - t0)
+        outs.append(out)
+    launches = wavenet_gen.launch_counts()
+    check(launches == {"wavenet_gen_sample": WN_API_CALLS, "wavenet_gen_teacher": 0},
+          f"make_generate_fn(use_kernel=True): launches {launches}, expected "
+          f"{WN_API_CALLS} of the sampling variant")
+    for out in outs:
+        check(tuple(out.shape) == (1, WN_API_SAMPLES) and bool(torch.isfinite(out).all())
+              and float(out.abs().max()) <= 1.0, f"use_kernel samples {tuple(out.shape)}")
+    check(not torch.equal(outs[0], outs[1]), "two seeds gave the same samples")
+    with torch.no_grad():
+        c_up = wn._upsample_cond(model, c)[0]
+    packed = wavenet_gen.pack_weights(model)
+    consistency = []
+    for out, (gum, unif) in zip(outs, noises):
+        x_in = F.pad(out[0, :-1], (1, 0))
+        plain = wavenet_gen.wavenet_teacher_logits_plain(packed, c_up, x_in)
+        row = sample_consistency(torch, wn, plain, gum[:, 0], unif[:, 0], out[0])
+        check_samples(row, f"make_generate_fn(use_kernel=True) at T = {WN_API_SAMPLES}")
+        consistency.append(row)
+        del plain
+    gum, unif = (a[:, 0] for a in noises[0])
+    kernel_ms = time_ms(torch, lambda: wavenet_gen.wavenet_generate(
+        packed, c_up, gum, unif, WN_API_SAMPLES), 1, warmup=0)
+    audio_s = WN_API_SAMPLES / 22050
+    return {"phase": "vocoder_api_path", "samples": WN_API_SAMPLES, "calls": WN_API_CALLS,
+            "launches": launches, "seconds": seconds,
+            "realtime_factor": audio_s / seconds[-1],
+            "us_per_sample": 1e6 * seconds[-1] / WN_API_SAMPLES,
+            "vs_plain_teacher": consistency,
+            "sample_max_abs_err": max(r["sample_max_abs_err"] for r in consistency),
+            "kernel_ms": kernel_ms, "kernel_us_per_step": 1e3 * kernel_ms / WN_API_SAMPLES,
+            "bound": wavenet_bound_ms(packed, WN_API_SAMPLES, False)}
+
+
+def stream_request(url: str, data: bytes) -> tuple[int, bytes, float, float]:
+    """POST to a streaming endpoint: (status, body, seconds until the
+    response headers, which the server sends with its first piece, seconds
+    until the whole body)."""
+    import http.client
+    import urllib.parse
+
+    parts = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port, timeout=600)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", parts.path, body=data)
+        resp = conn.getresponse()
+        ttfb = time.perf_counter() - t0
+        body = resp.read()
+        return resp.status, body, ttfb, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def read_pcm(body: bytes, n: int, what: str) -> np.ndarray:
+    """s16le PCM of n samples. The server clips to [-1, 1] and scales by
+    32767, so -32768 only comes from a NaN cast: it marks non-finite audio."""
+    pcm = np.frombuffer(body, "<i2")
+    check(len(pcm) == n, f"{what}: {len(pcm)} samples, expected {n}")
+    check(int(pcm.min()) >= -32767 and int(np.abs(pcm.astype(np.int32)).max()) > 0,
+          f"{what}: non-finite or silent audio")
+    return pcm
+
+
+def vocoder_fullwidth(torch, serve, cli_vocoder, checkpoint, wavenet_gen, dsp, root: str,
+                      vq_ckpt: str, prior_ckpt: str) -> dict:
+    """The CLI's default vocoder at full width from a seeded-init artifact:
+    ``cli.vocoder synthesize``, then ``cli.serve --vocoder wavenet`` with the
+    training phase's VQ-VAE and the prior phase's checkpoint answering
+    /reconstruct_stream, /decode and /sample_stream, then with
+    --stream-slots 2 two concurrent /reconstruct_stream. The kernel's count
+    is read over each: this path runs the scan sampler, as the JAX
+    package's does, so it launches the kernel no time."""
+    import types
+
+    from neural_sound_generation_tpu_torch.config import Config
+
+    cfg = Config()
+    sr, hop = cfg.audio.sample_rate, cfg.audio.effective_hop_size
+    model = cli_vocoder.build_model(
+        cfg, types.SimpleNamespace(residual_channels=None, layers=None, stacks=None),
+        generator=torch.Generator().manual_seed(SEED))
+    widths = {"layers": model.layers, "stacks": model.stacks,
+              "residual": model.residual_channels, "gate": model.gate_channels,
+              "skip": model.skip_out_channels, "cin": model.cin_channels,
+              "out": model.out_channels,
+              "parameters": sum(p.numel() for p in model.parameters()),
+              "kernel_supported": wavenet_gen.generate_supported(model, 1)}
+    check(widths["residual"] == 512 and not widths["kernel_supported"],
+          f"the CLI's default vocoder: {widths}")
+    work = os.path.join(root, "vocoder")
+    ckpt = os.path.join(work, "models")
+    checkpoint.save_params(ckpt, model, 0, cli_vocoder.condition_meta())
+    check(checkpoint.read_extra(ckpt) == {"condition": "mel"}, "vocoder artifact metadata")
+    del model
+
+    # cli.vocoder synthesize over the first frames of a chirp's mel
+    wav_bytes, n = chirp_wav_bytes(WN_CHIRP_SECONDS[0], sr)
+    mel = dsp.melspectrogram(torch.from_numpy(dsp.load_wav_bytes(wav_bytes, sr)), cfg.audio)
+    mel_path, out_path = os.path.join(work, "mel.npy"), os.path.join(work, "out.wav")
+    np.save(mel_path, mel.T.numpy())
+    wavenet_gen.reset_launch_count()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_vocoder.main(["synthesize", "--ckpt-dir", ckpt, "--mel-npy", mel_path, "--output",
+                          out_path, "--max-frames", str(WN_SYNTH_FRAMES), "--device", DEVICE])
+    synth_s = time.perf_counter() - t0
+    with open(out_path, "rb") as f:
+        synth_wav = read_wav(f.read(), sr)
+    check(len(synth_wav) == WN_SYNTH_FRAMES * hop, f"synthesize: {len(synth_wav)} samples")
+    synth = {"frames": WN_SYNTH_FRAMES, "samples": len(synth_wav), "seconds": synth_s,
+             "ms_per_sample": 1e3 * synth_s / len(synth_wav),
+             "kernel_launches": wavenet_gen.launch_counts()}
+
+    base = ["--device", DEVICE, "--ckpt-dir", vq_ckpt, "--dim", str(TRAIN_DIM), "--z-dim",
+            str(TRAIN_CODES), "--frames", str(WN_SERVE_FRAMES), "--vocoder", "wavenet",
+            "--vocoder-ckpt", ckpt]
+    prior = ["--prior-ckpt", prior_ckpt, "--prior-arch", "transformer", "--prior-dim",
+             str(PRIOR_DIM), "--prior-layers", str(PRIOR_LAYERS), "--prior-heads",
+             str(PRIOR_HEADS)]
+    t_frames = dsp.num_stft_frames(n, cfg.audio.fft_size, hop)
+
+    def serving(argv, run):
+        service = serve.build_service(serve.parse_args(argv))
+        httpd = serve.ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        wavenet_gen.reset_launch_count()
+        try:
+            out = run(url)
+            status, body, _ = request(url + "/metrics")
+            check(status == 200, f"/metrics: {status}")
+            metrics = json.loads(body)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        check(all(e["errors"] == 0 for e in metrics["endpoints"].values()),
+              f"endpoint errors: {metrics['endpoints']}")
+        out["kernel_launches"] = wavenet_gen.launch_counts()
+        out["metrics"] = metrics
+        return out
+
+    def solo(url):
+        out = {}
+        status, body, ttfb, total = stream_request(url + "/reconstruct_stream", wav_bytes)
+        check(status == 200, f"/reconstruct_stream: {status} {body[:200]!r}")
+        read_pcm(body, t_frames * hop, "/reconstruct_stream")
+        out["/reconstruct_stream"] = {"seconds_audio": WN_CHIRP_SECONDS[0],
+                                      "samples": t_frames * hop, "ttfb_s": ttfb,
+                                      "total_s": total}
+        status, body, _ = request(url + "/encode", wav_bytes)
+        check(status == 200, f"/encode: {status}")
+        codes = json.loads(body)["codes"]
+        status, body, dt = request(url + "/decode", json.dumps({"codes": codes}).encode())
+        check(status == 200, f"/decode: {status} {body[:200]!r}")
+        want = 4 * len(codes[0]) * hop
+        check(len(read_wav(body, sr)) == want, f"/decode: expected {want} samples")
+        out["/decode"] = {"samples": want, "total_s": dt}
+        status, body, ttfb, total = stream_request(
+            url + "/sample_stream", json.dumps({"n": 1, "label": 1, "seed": 0}).encode())
+        check(status == 200, f"/sample_stream: {status} {body[:200]!r}")
+        read_pcm(body, WN_SERVE_FRAMES * hop, "/sample_stream")
+        out["/sample_stream"] = {"n": 1, "samples": WN_SERVE_FRAMES * hop, "ttfb_s": ttfb,
+                                 "total_s": total}
+        return out
+
+    def muxed(url):
+        chirps = [chirp_wav_bytes(s, sr) for s in WN_CHIRP_SECONDS]
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            futures = [pool.submit(stream_request, url + "/reconstruct_stream", wb)
+                       for wb, _ in chirps]
+            results = [f.result() for f in futures]
+        out = {}
+        for (status, body, ttfb, total), (_, n_i), s in zip(results, chirps, WN_CHIRP_SECONDS):
+            check(status == 200, f"muxed /reconstruct_stream: {status} {body[:200]!r}")
+            want = dsp.num_stft_frames(n_i, cfg.audio.fft_size, hop) * hop
+            read_pcm(body, want, f"muxed /reconstruct_stream {s}s")
+            out[f"{s:g}s"] = {"samples": want, "ttfb_s": ttfb, "total_s": total}
+        return {"/reconstruct_stream x2": out}
+
+    t0 = time.perf_counter()
+    served = serving(base + prior, solo)
+    muxed_run = serving(base + ["--stream-slots", "2"], muxed)
+    mux_block = muxed_run["metrics"].get("stream_mux")
+    check(mux_block is not None and mux_block["slots"] == 2 and mux_block["active"] == 0,
+          f"/metrics stream_mux: {mux_block}")
+    return {"phase": "vocoder_fullwidth", "model": widths, "synthesize": synth,
+            "serve": {k: v for k, v in served.items() if k != "metrics"},
+            "serve_mux": {k: v for k, v in muxed_run.items() if k != "metrics"},
+            "stream_mux_metrics": mux_block, "seconds": time.perf_counter() - t0}
+
+
 ATTN_REPLACES = {
     "flash_fwd": "neural_sound_generation_tpu/ops/pallas/attention.py:165",
     "flash_bwd_dq": "neural_sound_generation_tpu/ops/pallas/attention.py:233",
@@ -1046,6 +1429,48 @@ def attention_summary(rows: dict, name: str, launches: int) -> dict:
     return entry
 
 
+def wavenet_summary(rows: dict, api: dict) -> list[dict]:
+    """Kernel 5's two variants in the kernels line, per generated sample
+    (one step; a call of t steps takes t times as long): the sampling
+    variant at its main path's length (the API path's 22050 steps, launched
+    there WN_API_CALLS times), the teacher variant at WN_MAIN. The teacher
+    variant is the kernel's check harness: no entry point of the JAX package
+    or of the port calls it, so no main path launches it."""
+    main = rows[WN_MAIN]
+    shape = {k: main[k] for k in ("layers", "residual", "gate", "skip", "cin", "out")}
+    common = {"route": "cuda", "source": "neural_sound_generation_tpu_torch/csrc/wavenet_gen.cu",
+              "replaces": "neural_sound_generation_tpu/ops/pallas/wavenet_gen.py:155",
+              "status": "ported", "library_ms": None,
+              "library": "none: no PyTorch call computes a WaveNet step",
+              "per": "generated sample (one step)"}
+    by_shape = {name: {"t": r["t"], "us_per_step": r["us_per_step"],
+                       "plain_ms_per_step": r["plain_ms"]["wavenet_gen_sample_per_step"],
+                       "teacher_max_abs_err": r["teacher_max_abs_err"],
+                       "sample_agree_frac": r["sample_agree_frac"]}
+                for name, r in rows.items()}
+    t = api["samples"]
+    sample = {
+        "name": "wavenet_gen_sample", **common, "shape": {**shape, "t": t},
+        "launches": api["launches"]["wavenet_gen_sample"],
+        "max_abs_err": api["sample_max_abs_err"],
+        "ms": api["kernel_ms"] / t,
+        "plain_ms": main["plain_ms"]["wavenet_gen_sample_per_step"],
+        "bound_ms": api["bound"]["bound_ms"] / t, "bound_by": api["bound"]["bound_by"],
+        "call_ms": api["kernel_ms"], "by_shape": by_shape,
+    }
+    tb = main["bound"]["wavenet_gen_teacher"]
+    teacher = {
+        "name": "wavenet_gen_teacher", **common, "shape": {**shape, "t": main["t"]},
+        "launches": api["launches"]["wavenet_gen_teacher"], "on_main_path": False,
+        "max_abs_err": main["teacher_max_abs_err"],
+        "ms": main["ms"]["wavenet_gen_teacher"] / main["t"],
+        "plain_ms": main["plain_ms"]["wavenet_gen_teacher"] / main["t"],
+        "bound_ms": tb["bound_ms"] / main["t"], "bound_by": tb["bound_by"],
+        "call_ms": main["ms"]["wavenet_gen_teacher"],
+    }
+    return [sample, teacher]
+
+
 def build_phase(build, modules) -> list[dict]:
     """Every kernel's library, one nvcc per source, all started together."""
     errors: dict = {}
@@ -1066,7 +1491,7 @@ def build_phase(build, modules) -> list[dict]:
     for name, e in errors.items():
         raise SmokeFailure(f"build of {name} failed: {e}")
     rows = []
-    for name in ("vq_nearest", "fused_adam", "flash_attention"):
+    for name in ("vq_nearest", "fused_adam", "flash_attention", "wavenet_gen"):
         info = build.build_info[name]
         check("sm_90a" in info["log"], f"ptxas did not compile {name} for sm_90a")
         rows.append({"phase": "build", "kernel": name, "seconds": seconds,
@@ -1086,10 +1511,13 @@ def main() -> int:
         from neural_sound_generation_tpu_torch.cli import main as cli_main
         from neural_sound_generation_tpu_torch.cli import prior as cli_prior
         from neural_sound_generation_tpu_torch.cli import serve
+        from neural_sound_generation_tpu_torch.cli import vocoder as cli_vocoder
         from neural_sound_generation_tpu_torch.device import set_full_float32
         from neural_sound_generation_tpu_torch.models import VQVAE
+        from neural_sound_generation_tpu_torch.models import wavenet as wn
         from neural_sound_generation_tpu_torch.ops import dsp
-        from neural_sound_generation_tpu_torch.ops.cuda import build, fused_adam, vq_kernel
+        from neural_sound_generation_tpu_torch.ops.cuda import (
+            build, fused_adam, vq_kernel, wavenet_gen)
         from neural_sound_generation_tpu_torch.ops.cuda import flash_attention as fa
         from neural_sound_generation_tpu_torch.training import checkpoint
     except ImportError as e:
@@ -1106,7 +1534,7 @@ def main() -> int:
               "cuda": torch.version.cuda, "card": card})
 
         # phase 2: build
-        for row in build_phase(build, (vq_kernel, fused_adam, fa)):
+        for row in build_phase(build, (vq_kernel, fused_adam, fa, wavenet_gen)):
             emit(row)
 
         # phase 3: kernels against their plain versions
@@ -1157,13 +1585,35 @@ def main() -> int:
                             root, vq_ckpt, corpus)
         prior["card"] = card
         emit(prior)
+        torch.cuda.empty_cache()
+
+        # phase 7: the vocoder. Kernel 5 against its plain versions, its
+        # main path (make_generate_fn(use_kernel=True)) with launch counts,
+        # then the CLI's full-width vocoder through cli.vocoder and cli.serve
+        wn_rows = {}
+        for shape in WN_SHAPES:
+            row = compare_wavenet(torch, wn, wavenet_gen, shape, gen)
+            emit(row)
+            check(row["teacher_max_abs_err"] <= WN_TEACHER_TOL,
+                  f"wavenet_gen {shape[0]}: teacher logits differ by "
+                  f"{row['teacher_max_abs_err']} from the plain version")
+            check_samples(row, f"wavenet_gen {shape[0]}")
+            wn_rows[shape[0]] = row
+        torch.cuda.empty_cache()
+        wn_api = wavenet_api_path(torch, wn, wavenet_gen, gen)
+        wn_api["card"] = card
+        emit(wn_api)
+        vocoder = vocoder_fullwidth(torch, serve, cli_vocoder, checkpoint, wavenet_gen, dsp,
+                                    root, vq_ckpt, os.path.join(root, "prior", "models"))
+        vocoder["card"] = card
+        emit(vocoder)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # phase 7: summary and result
+    # phase 8: summary and result
     train_runs = training["runs"].values()
     train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
     train_adam = sum(r["launches"]["fused_adam"] for r in train_runs)
@@ -1198,7 +1648,8 @@ def main() -> int:
         "ms": adam_row["kernel_ms"], "plain_ms": adam_row["plain_ms"],
         "bound_ms": adam_row["bound_ms"], "bound_by": adam_row["bound_by"],
         "library_ms": adam_row["library_ms"],
-    }] + [attention_summary(attn_rows, name, prior_launches[name]) for name in fa.KERNELS]})
+    }] + [attention_summary(attn_rows, name, prior_launches[name]) for name in fa.KERNELS]
+      + wavenet_summary(wn_rows, wn_api)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -277,7 +277,7 @@ def cmd_train(args) -> None:
         # completed_epoch is the last FINISHED epoch: an interval save inside
         # epoch N stores N-1, so --resume replays epoch N with its data order
         extra = {"epoch": completed_epoch, **meta}
-        checkpoint.save_params(args.ckpt_dir, state, step, extra)
+        checkpoint.save_params(args.ckpt_dir, state.model, step, extra)
         checkpoint.save_ema_sibling(args.ckpt_dir, state, step, extra)
         checkpoint.save(train_dir, state, step, extra, block=False)
 

@@ -1,7 +1,7 @@
 """Inference server: HTTP endpoints over a mel VQ-VAE, in PyTorch.
 
 Counterpart of ``neural_sound_generation_tpu/cli/serve.py`` for the flat
-mel VQ-VAE with Griffin-Lim synthesis. Stdlib-only HTTP server:
+mel VQ-VAE. Stdlib-only HTTP server:
 
   POST /encode       wav bytes (RIFF) -> {"codes": [[...]], "shape": [...]}
   POST /reconstruct  wav bytes -> reconstructed wav bytes
@@ -9,9 +9,23 @@ mel VQ-VAE with Griffin-Lim synthesis. Stdlib-only HTTP server:
   POST /sample       {"n": 1, "label": 0, "seed": 0} -> wav bytes: the prior
                      (--prior-ckpt) samples n code grids of (num_mels/4,
                      frames/4), decoded and concatenated in time
+  POST /reconstruct_stream  wav bytes -> chunked raw s16le PCM as the
+                     WaveNet vocoder emits it (--vocoder wavenet)
+  POST /sample_stream  the /sample payload -> chunked raw s16le PCM, the n
+                     utterances back to back (--vocoder wavenet)
   GET  /health       -> {"status": "ok", "backend": "cuda" | "cpu"}
   GET  /metrics      -> per-endpoint request/error counts and latency
-                        percentiles
+                        percentiles, and the stream mux's occupancy
+
+Synthesis runs through Griffin-Lim, or with ``--vocoder wavenet
+--vocoder-ckpt`` through a WaveNet vocoder artifact (``cli.vocoder``): the
+scan sampler in chunks of 4096 samples with bf16 products, each chunk
+sent as soon as it is computed, or with ``--stream-slots N`` through a stream multiplexer
+that steps up to N concurrent sessions as one batch (``serving/mux.py``;
+``--stream-max-pending`` bounds its queue, and an overloaded mux answers
+503). The streaming endpoints scale samples by a fixed 32767, since a
+stream cannot know its future peak; a failure after the first piece drops
+the connection rather than write a status line into the chunked body.
 
 Long inputs are tiled over serving windows of ``--frames`` mel frames and
 stitched. With ``--batch-window-ms`` concurrent /reconstruct requests are
@@ -30,11 +44,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import io
+import itertools
 import json
 import logging
 import queue
 import threading
 import time
+import types
 import uuid
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -42,11 +58,14 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from neural_sound_generation_tpu_torch.cli import vocoder as cli_vocoder
 from neural_sound_generation_tpu_torch.config import Config, load_preset
 from neural_sound_generation_tpu_torch.device import resolve_device
 from neural_sound_generation_tpu_torch.inference import sample_prior_mels
 from neural_sound_generation_tpu_torch.models import VQVAE
+from neural_sound_generation_tpu_torch.models.wavenet import make_chunked_generate_fn
 from neural_sound_generation_tpu_torch.ops import dsp
+from neural_sound_generation_tpu_torch.serving import MuxOverloaded, WaveNetStreamMux
 from neural_sound_generation_tpu_torch.training import checkpoint
 from neural_sound_generation_tpu_torch.training.train_state import create_train_state
 
@@ -153,6 +172,8 @@ class InferenceService:
 
     #: encoder time-axis downsampling (two stride-2 convs)
     STRIDE = 4
+    #: samples per chunk of the WaveNet streaming sampler and the mux
+    STREAM_CHUNK = 4096
 
     def __init__(self, cfg: Config, model: VQVAE, frames: int = 84,
                  device=None, default_speaker=None):
@@ -172,6 +193,9 @@ class InferenceService:
         self.metrics = _Metrics()
         self.batcher = None  # set by enable_batching
         self.prior = None  # set by attach_prior (serving /sample)
+        self.vocoder = None  # set by attach_vocoder (--vocoder wavenet)
+        self._stream = None  # the vocoder's chunked sampler, set by attach_vocoder
+        self._stream_mux = None  # set by enable_stream_mux (--stream-slots)
 
     # -- model calls ------------------------------------------------------
 
@@ -195,6 +219,34 @@ class InferenceService:
         """(..., n_mels, T) normalized mels -> waveforms via Griffin-Lim."""
         angles = self._gl_angles(mel.shape[-1])
         return dsp.inv_mel_spectrogram(mel, self.cfg.audio, init_angles=angles)
+
+    def _post_np(self, chunk: np.ndarray) -> np.ndarray:
+        """The vocoder's memoryless post-processing (inverse mu-law) on a
+        host-side chunk."""
+        return cli_vocoder.postprocess(torch.from_numpy(chunk), self.cfg.audio).float().numpy()
+
+    def _vocode_stream(self, mel: torch.Tensor, seed: int = 0):
+        """(n_mels, T') normalized mel -> generator of float32 waveform
+        chunks from the WaveNet's streaming sampler: chunks of STREAM_CHUNK
+        samples, bf16 products, the MoL head and the sampling in float32.
+        With the stream mux the session takes one slot of its batched loop;
+        otherwise each chunk is copied to the host as soon as it is
+        computed. The inverse mu-law is memoryless, so it applies per
+        chunk."""
+        if self._stream_mux is not None:
+            for chunk in self._stream_mux.open(mel.T, seed):
+                yield self._post_np(chunk)
+            return
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        for blk in self._stream(mel.T[None], None, generator):
+            yield cli_vocoder.postprocess(blk[0], self.cfg.audio).float().cpu().numpy()
+
+    def _synthesize(self, mel: torch.Tensor, seed: int = 0) -> np.ndarray:
+        """(n_mels, T') normalized mel -> waveform through the configured
+        vocoder: the WaveNet (T' x hop samples), or Griffin-Lim."""
+        if self.vocoder is None:
+            return self._vocode(mel).cpu().numpy()
+        return np.concatenate(list(self._vocode_stream(mel, seed)))
 
     def _reconstruct_wav(self, samples: torch.Tensor) -> torch.Tensor:
         """(B, L) padded requests of one length bucket -> (B, samples).
@@ -297,13 +349,24 @@ class InferenceService:
     def reconstruct(self, wav_bytes: bytes) -> bytes:
         """The input is zero-padded to the serving-window grid on the host,
         the analysis -> VQ -> synthesis chain runs on the device, and the
-        waveform is trimmed to the input length."""
+        waveform is trimmed to the input length. With a WaveNet vocoder the
+        sampler runs over the stitched reconstructed mel instead."""
+        if self.vocoder is not None:
+            return self._encode_wav_bytes(self._synthesize(self._reconstruct_full_mel(wav_bytes)))
         if self.batcher is not None:
             return self.batcher.submit(wav_bytes)
         padded, n_data = self._pad_for_reconstruct(wav_bytes)
         samples = torch.from_numpy(padded).to(self.device)[None]
         wav = self._reconstruct_wav(samples)[0].cpu().numpy()
         return self._encode_wav_bytes(wav[: min(n_data, len(wav))])
+
+    def _reconstruct_full_mel(self, wav_bytes: bytes) -> torch.Tensor:
+        """Window -> reconstruct -> stitch along time -> trim to the true
+        frame count: the (n_mels, t) mel every vocoder-backed endpoint
+        synthesizes from."""
+        windows, t, n_win = self._wav_to_mel(wav_bytes)
+        mels = self._reconstruct(windows)[:n_win, ..., 0]  # (n_win, n_mels, frames)
+        return torch.cat(list(mels), dim=-1)[:, :t]
 
     @torch.inference_mode()
     def reconstruct_batched(self, requests: list) -> list:
@@ -375,14 +438,100 @@ class InferenceService:
     @torch.inference_mode()
     def sample(self, payload: dict) -> bytes:
         """Ancestral sampling as a service: prior -> decoder -> Griffin-Lim
-        -> one wav of the n samples concatenated in time."""
+        or the WaveNet (utterance i from seed + i) -> one wav of the n
+        samples concatenated in time."""
         mels, generator = self._sample_mels(payload)
-        wavs = dsp.inv_mel_spectrogram_batch(mels, self.cfg.audio, generator)
-        return self._encode_wav_bytes(wavs.reshape(-1).cpu().numpy())
+        if self.vocoder is None:
+            wavs = dsp.inv_mel_spectrogram_batch(mels, self.cfg.audio, generator)
+            return self._encode_wav_bytes(wavs.reshape(-1).cpu().numpy())
+        seed = int(payload.get("seed", 0))
+        if self._stream_mux is not None:
+            opens = self._mux_open_all(mels, seed)
+            try:
+                wavs = [np.concatenate([self._post_np(c) for c in g]) for g in opens]
+            finally:
+                for g in opens:
+                    g.close()  # cancels any session left running
+        else:
+            wavs = [self._synthesize(m, seed + i) for i, m in enumerate(mels)]
+        return self._encode_wav_bytes(np.concatenate(wavs))
 
     def enable_batching(self, window_ms: float, max_batch: int = 8):
         """Attach a request micro-batcher to /reconstruct."""
         self.batcher = _MicroBatcher(self.reconstruct_batched, window_ms, max_batch)
+
+    def attach_vocoder(self, vocoder) -> None:
+        """Synthesize /reconstruct, /decode and /sample through a WaveNet
+        vocoder (moved to the service's device, eval mode) and enable the
+        streaming endpoints."""
+        self.vocoder = vocoder.to(self.device).eval()
+        _, _, self._stream = make_chunked_generate_fn(
+            self.vocoder, self.STREAM_CHUNK, dtype=torch.bfloat16)
+
+    def enable_stream_mux(self, slots: int, max_seconds: float = 30.0, max_pending=None):
+        """Route WaveNet synthesis through a stream multiplexer: up to
+        ``slots`` concurrent sessions generate as one batch
+        (--stream-slots). ``max_pending`` bounds the admission queue; an
+        overloaded mux raises MuxOverloaded, answered with 503."""
+        if self.vocoder is None:
+            raise ValueError("--stream-slots requires --vocoder wavenet")
+        self._stream_mux = WaveNetStreamMux(
+            self.vocoder, chunk=self.STREAM_CHUNK, slots=slots, dtype=torch.bfloat16,
+            max_seconds=max_seconds, sample_rate=self.cfg.audio.sample_rate,
+            max_pending=max_pending)
+
+    @staticmethod
+    def _pcm_s16le(chunk: np.ndarray) -> bytes:
+        """The fixed-scaling s16le conversion of both streaming endpoints
+        (x in [-1, 1] -> x * 32767: a stream cannot know its future peak)."""
+        return (np.clip(chunk, -1.0, 1.0) * 32767.0).astype("<i2").tobytes()
+
+    def _mux_open_all(self, mels: torch.Tensor, seed: int) -> list:
+        """One mux session per mel (seed + i), opened up front so that the
+        n utterances synthesize concurrently. If a later open fails
+        (MuxOverloaded), the sessions already admitted are closed."""
+        opens: list = []
+        try:
+            for i, m in enumerate(mels):
+                opens.append(self._stream_mux.open(m.T, seed + i))
+            return opens
+        except BaseException:
+            for g in opens:
+                g.close()
+            raise
+
+    @torch.inference_mode()
+    def reconstruct_stream(self, wav_bytes: bytes):
+        """Streaming /reconstruct: raw s16le PCM pieces as the WaveNet
+        emits them, one chunk at a time."""
+        if self.vocoder is None:
+            raise ValueError("streaming reconstruct requires --vocoder wavenet")
+        for chunk in self._vocode_stream(self._reconstruct_full_mel(wav_bytes)):
+            yield self._pcm_s16le(chunk)
+
+    @torch.inference_mode()
+    def sample_stream(self, payload: dict):
+        """Streaming /sample: the prior -> decoder -> WaveNet chain as raw
+        s16le PCM pieces, the n utterances back to back in order; the first
+        piece comes after the prior, the decoder and one vocoder chunk."""
+        if self.vocoder is None:
+            raise ValueError("streaming sample requires --vocoder wavenet")
+        mels, _ = self._sample_mels(payload)
+        seed = int(payload.get("seed", 0))
+        if self._stream_mux is not None:
+            opens = self._mux_open_all(mels, seed)
+            try:
+                for g in opens:  # in order, so the client hears sample 0 first
+                    for chunk in g:
+                        yield self._pcm_s16le(self._post_np(chunk))
+            finally:
+                # a client gone mid-stream leaves no session synthesizing
+                for g in opens:
+                    g.close()
+        else:
+            for i, m in enumerate(mels):
+                for chunk in self._vocode_stream(m, seed + i):
+                    yield self._pcm_s16le(chunk)
 
     @torch.inference_mode()
     def decode(self, payload: dict) -> bytes:
@@ -395,7 +544,7 @@ class InferenceService:
         self._check_codes(idx_np, self.model.z_dim, "codes")
         idx = torch.from_numpy(idx_np).to(self.device)[None]
         mel = self.model.decode(idx, g=self._g(1))[0, :, :, 0]
-        return self._encode_wav_bytes(self._vocode(mel).cpu().numpy())
+        return self._encode_wav_bytes(self._synthesize(mel))
 
 
 def make_handler(service: InferenceService):
@@ -407,12 +556,35 @@ def make_handler(service: InferenceService):
         def log_message(self, *args):
             pass
 
-        def _send(self, code, body: bytes, ctype="application/json"):
+        def _send(self, code, body: bytes, ctype="application/json", headers=()):
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
+            for k, v in headers:
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
+
+        def _send_pcm_stream(self, gen):
+            """The chunked raw-PCM response of both streaming endpoints. The
+            first piece is pulled before any header goes out, so a
+            validation error still gets a clean 400; after the headers a
+            failure can only drop the connection (``_streaming_started``)."""
+            try:
+                first = next(gen, b"")
+                self.send_response(200)
+                self.send_header("Content-Type", "application/octet-stream")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.send_header("X-Sample-Rate", str(service.cfg.audio.sample_rate))
+                self.send_header("X-PCM-Format", "s16le")
+                self.end_headers()
+                self._streaming_started = True
+                for piece in itertools.chain([first], gen):
+                    if piece:
+                        self.wfile.write(f"{len(piece):x}\r\n".encode() + piece + b"\r\n")
+                self.wfile.write(b"0\r\n\r\n")
+            finally:
+                gen.close()  # releases an abandoned upstream (mux sessions)
 
         def do_GET(self):
             if self.path == "/health":
@@ -422,6 +594,11 @@ def make_handler(service: InferenceService):
             elif self.path == "/metrics":
                 snap = service.metrics.snapshot()
                 snap["backend"] = backend
+                mux = service._stream_mux
+                if mux is not None:
+                    snap["stream_mux"] = {"slots": mux.slots, "active": mux.active,
+                                          "pending": mux.pending,
+                                          "max_pending": mux.max_pending}
                 self._send(200, json.dumps(snap).encode())
             else:
                 self._send(404, b'{"error": "not found"}')
@@ -432,6 +609,7 @@ def make_handler(service: InferenceService):
         def do_POST(self):
             length = int(self.headers.get("Content-Length", 0))
             body = self.rfile.read(length)
+            self._streaming_started = False
             t0 = time.perf_counter()
             ok = False
             try:
@@ -451,11 +629,33 @@ def make_handler(service: InferenceService):
                 elif self.path == "/sample":
                     payload = json.loads(body) if body else {}
                     self._send(200, service.sample(payload), "audio/wav")
+                elif self.path == "/reconstruct_stream":
+                    self._send_pcm_stream(service.reconstruct_stream(body))
+                elif self.path == "/sample_stream":
+                    payload = json.loads(body) if body else {}
+                    self._send_pcm_stream(service.sample_stream(payload))
                 else:
                     self._send(404, b'{"error": "not found"}')
                     return False
                 return True
+            except MuxOverloaded:
+                if self._streaming_started:
+                    self.close_connection = True
+                    return False
+                # retryable, not a client error: 503 tells the client to back off
+                self._send(503, json.dumps(
+                    {"error": "stream slots exhausted; retry later"}).encode(),
+                    headers=(("Retry-After", "1"),))
+                return False
             except self._CLIENT_ERRORS as e:
+                if self._streaming_started:
+                    # the chunked headers are out: a status line would land
+                    # inside the body, so the only signal is a dropped
+                    # connection (a truncated, unterminated stream)
+                    logging.getLogger("nsg.serve").warning(
+                        "mid-stream client error on %s: %s", self.path, e)
+                    self.close_connection = True
+                    return False
                 self._send(400, json.dumps(
                     {"error": f"bad request: {type(e).__name__}: {e}"}
                 ).encode())
@@ -466,6 +666,9 @@ def make_handler(service: InferenceService):
                 logging.getLogger("nsg.serve").exception(
                     "internal error %s on %s", err_id, self.path
                 )
+                if self._streaming_started:
+                    self.close_connection = True
+                    return False
                 self._send(500, json.dumps(
                     {"error": "internal error", "id": err_id}
                 ).encode())
@@ -527,9 +730,34 @@ def build_service(args) -> InferenceService:
             service.attach_prior(load_prior(args.prior_ckpt, spec, service.device))
         except NotImplementedError as e:
             raise SystemExit(str(e)) from e
+    if getattr(args, "vocoder", "griffin-lim") == "wavenet":
+        service.attach_vocoder(load_serving_vocoder(args, cfg, service.device))
     if args.batch_window_ms > 0:
         service.enable_batching(args.batch_window_ms, args.batch_max)
+    if getattr(args, "stream_slots", 0) > 0:
+        try:
+            service.enable_stream_mux(args.stream_slots, args.stream_max_seconds,
+                                      max_pending=args.stream_max_pending)
+        except ValueError as e:
+            raise SystemExit(str(e)) from e
     return service
+
+
+def load_serving_vocoder(args, cfg: Config, device):
+    """The ``--vocoder-ckpt`` WaveNet at ``--vocoder-*`` widths over the
+    preset's arch, in eval mode on ``device``. Serve synthesizes from mels,
+    so a checkpoint recorded with another conditioning chain is refused."""
+    if not args.vocoder_ckpt:
+        raise SystemExit("--vocoder wavenet requires --vocoder-ckpt")
+    meta = checkpoint.read_extra(args.vocoder_ckpt) or {}
+    if meta.get("condition", "mel") != "mel":
+        raise SystemExit(
+            f"--vocoder-ckpt was trained with --condition {meta['condition']}; serve "
+            f"synthesizes from mels — use a mel-conditioned vocoder checkpoint")
+    model = cli_vocoder.build_model(cfg, types.SimpleNamespace(
+        residual_channels=args.vocoder_residual_channels, layers=args.vocoder_layers,
+        stacks=args.vocoder_stacks))
+    return cli_vocoder.load_vocoder(args.vocoder_ckpt, model, device)
 
 
 def restore_weights(model: VQVAE, cfg: Config, ckpt_dir: str, ema: bool) -> None:
@@ -591,6 +819,24 @@ def parse_args(argv=None):
     p.add_argument("--prior-layers", type=int, default=15)
     p.add_argument("--prior-heads", type=int, default=8)
     p.add_argument("--n-classes", type=int, default=10)
+    p.add_argument("--vocoder", choices=["griffin-lim", "wavenet"], default="griffin-lim",
+                   help="synthesis backend for /reconstruct, /decode and /sample: "
+                        "Griffin-Lim, or a WaveNet vocoder artifact (--vocoder-ckpt) "
+                        "through the scan sampler in chunks of 4096 samples")
+    p.add_argument("--vocoder-ckpt", default=None,
+                   help="WaveNet vocoder checkpoint directory (a cli.vocoder artifact)")
+    p.add_argument("--vocoder-layers", type=int, default=None)
+    p.add_argument("--vocoder-stacks", type=int, default=None)
+    p.add_argument("--vocoder-residual-channels", type=int, default=None)
+    p.add_argument("--stream-slots", type=int, default=0,
+                   help="multiplex WaveNet synthesis: up to N concurrent streams step "
+                        "as one batch (0 = one sampler per request); needs "
+                        "--vocoder wavenet")
+    p.add_argument("--stream-max-seconds", type=float, default=30.0,
+                   help="per-utterance cap of the stream multiplexer (slot capacity)")
+    p.add_argument("--stream-max-pending", type=int, default=None,
+                   help="admission control: answer 503 to new streams once this many "
+                        "sessions wait for a slot (default: unbounded)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, cuda:N or cpu)")
     return p.parse_args(argv)

@@ -9,10 +9,13 @@ bridge only changes each leaf's name and layout:
 
   flax leaf                          port (state_dict key suffix)
   Conv        kernel (kh,kw,in,out)  .weight (out,in,kh,kw)
+  Conv (1-D)  kernel (k,in,out)      .weight (out,in,k)
   ConvTranspose kernel (kh,kw,in,out) .weight (in,out,kh,kw), kh and kw
                                      flipped: flax's SAME transpose conv
                                      correlates with the unflipped kernel,
                                      ConvTranspose2d(4, 2, 1) with the flipped
+  ConvTranspose (1-D) (k,in,out)     .weight (in,out,k), k flipped
+                                     (``layers.ConvTranspose1dSame``)
   Dense       kernel (in,out)        .weight (out,in)
   Embed       embedding (n,d)        .weight (n,d)
   norms       scale, bias            .weight, .bias (BatchNorm, GroupNorm,
@@ -55,6 +58,10 @@ def _param_to_torch(path: tuple[str, ...], leaf: np.ndarray) -> tuple[str, np.nd
             return prefix + "weight", leaf[::-1, ::-1].transpose(2, 3, 0, 1)
         if leaf.ndim == 4:
             return prefix + "weight", leaf.transpose(3, 2, 0, 1)
+        if leaf.ndim == 3 and owner.startswith("ConvTranspose"):
+            return prefix + "weight", leaf[::-1].transpose(1, 2, 0)
+        if leaf.ndim == 3:
+            return prefix + "weight", leaf.transpose(2, 1, 0)
         if leaf.ndim == 2:
             return prefix + "weight", leaf.T
     elif name in ("scale", "embedding"):
@@ -105,6 +112,10 @@ def module_to_flax(
             put(params, prefix, "kernel", m.weight, lambda w: w.transpose(2, 3, 0, 1)[::-1, ::-1])
         elif isinstance(m, torch.nn.Conv2d):
             put(params, prefix, "kernel", m.weight, lambda w: w.transpose(2, 3, 1, 0))
+        elif isinstance(m, torch.nn.ConvTranspose1d):
+            put(params, prefix, "kernel", m.weight, lambda w: w.transpose(2, 0, 1)[::-1])
+        elif isinstance(m, torch.nn.Conv1d):
+            put(params, prefix, "kernel", m.weight, lambda w: w.transpose(2, 1, 0))
         elif isinstance(m, torch.nn.Linear):
             put(params, prefix, "kernel", m.weight, lambda w: w.T)
         elif isinstance(m, torch.nn.Embedding):

@@ -105,6 +105,28 @@ def conv_up(in_dim: int, dim: int) -> nn.ConvTranspose2d:
     return nn.ConvTranspose2d(in_dim, dim, 4, stride=2, padding=1)
 
 
+class ConvTranspose1dSame(nn.ConvTranspose1d):
+    """flax's 1-D ``ConvTranspose(features, (k,), strides=(s,),
+    padding="SAME")`` (no kernel flip): output length T * s.
+
+    ``lax.conv_transpose`` pads the stride-dilated input with pad_a =
+    ceil((k + s - 2) / 2) on the left (for k > s - 1) and correlates with the
+    unflipped kernel. ``ConvTranspose1d`` with padding k - 1 - pad_a and the
+    kernel flipped computes the same sums; for odd s it gives one sample
+    more on the right, which is dropped. ``convert.py`` flips the kernel and
+    swaps its in/out axes."""
+
+    def __init__(self, in_dim: int, dim: int, kernel_size: int, stride: int):
+        pad_a = -(-(kernel_size + stride - 2) // 2)
+        if stride > kernel_size - 1 or kernel_size - 1 - pad_a < 0:
+            raise ValueError(f"unsupported SAME transpose conv k={kernel_size} s={stride}")
+        super().__init__(in_dim, dim, kernel_size, stride=stride,
+                         padding=kernel_size - 1 - pad_a)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x)[..., : x.shape[-1] * self.stride[0]]
+
+
 class ResBlock(nn.Module):
     """Pre-activation residual block (models.py:145-158):
     ReLU -> 3x3 conv -> norm -> ReLU -> 1x1 conv -> norm, plus skip."""
@@ -131,7 +153,8 @@ def init_weights(module: nn.Module, generator: torch.Generator | None = None) ->
     models.py:25-32), unit scale and zero shift for norms. The same seed
     gives the same weights on every device."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d, nn.ConvTranspose2d,
+                          nn.Linear)):
             nn.init.xavier_uniform_(m.weight, generator=generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)

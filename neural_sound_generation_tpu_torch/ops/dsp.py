@@ -7,8 +7,9 @@ package ``vmap``s over a batch, these functions accept leading batch
 dimensions instead: a signal is (..., samples) and a spectrogram
 (..., frames, bins) or (..., mels, frames), as in the JAX functions.
 
-The LWS convention (``cfg.use_lws``), mu-law and silence trimming are not
-ported yet; ``use_lws=True`` raises.
+Mu-law companding and its inverse (the vocoder's output for ``mulaw`` and
+``mulaw-quantize`` inputs) are here. The LWS convention (``cfg.use_lws``)
+and silence trimming are not ported yet; ``use_lws=True`` raises.
 """
 
 from __future__ import annotations
@@ -339,6 +340,32 @@ def inv_mel_spectrogram_batch(
     if mels.ndim != 3:
         raise ValueError(f"expected (B, num_mels, T) mels, got {tuple(mels.shape)}")
     return inv_mel_spectrogram(mels, cfg, generator, init_angles)
+
+
+# ---------------------------------------------------------------------------
+# Mu-law (nnmnkwii.preprocessing semantics, as called by src/ljspeech.py:42-53)
+# ---------------------------------------------------------------------------
+
+
+def mulaw(x: torch.Tensor, mu: int = 256) -> torch.Tensor:
+    """Mu-law companding to [-1, 1]. The reference passes ``mu =
+    quantize_channels`` (256 or 65536), not ``quantize_channels - 1``."""
+    mu = float(mu)
+    return torch.sign(x) * torch.log1p(mu * torch.abs(x)) / math.log1p(mu)
+
+
+def inv_mulaw(y: torch.Tensor, mu: int = 256) -> torch.Tensor:
+    mu = float(mu)
+    return torch.sign(y) * (1.0 / mu) * ((1.0 + mu) ** torch.abs(y) - 1.0)
+
+
+def mulaw_quantize(x: torch.Tensor, mu: int = 256) -> torch.Tensor:
+    """Mu-law + quantize to integers in [0, mu] (truncation toward zero)."""
+    return ((mulaw(x, mu) + 1) / 2 * mu).to(torch.int32)
+
+
+def inv_mulaw_quantize(y: torch.Tensor, mu: int = 256) -> torch.Tensor:
+    return inv_mulaw(2.0 * y.to(torch.float32) / mu - 1.0, mu)
 
 
 # ---------------------------------------------------------------------------

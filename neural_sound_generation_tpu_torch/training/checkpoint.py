@@ -18,8 +18,9 @@ with ``weights_only=True``):
 
 A parameters-only artifact (``save_params``, and the ``_ema`` sibling) holds
 just ``params/<name>``: the prior CLI writes its sampling artifact that way,
-with the full state in a ``<ckpt_dir>_train`` sibling, and ``restore_params``
-reads either kind into a module. A JAX checkpoint (Orbax) is not read here;
+with the full state in a ``<ckpt_dir>_train`` sibling, and so does a WaveNet
+vocoder (``{"condition": "mel"}`` in its metadata); ``restore_params`` reads
+either kind into a module. A JAX checkpoint (Orbax) is not read here;
 ``convert.py`` bridges the two trees in one process.
 
 Restore is strict: a parameter or statistic the template has and the
@@ -268,12 +269,13 @@ def restore(ckpt_dir: str, state: TrainState, step: Optional[int] = None):
     return state, read_extra(ckpt_dir, int(os.path.basename(path)[len("step_"):]))
 
 
-def save_params(ckpt_dir: str, state: TrainState, step: int,
+def save_params(ckpt_dir: str, module: torch.nn.Module, step: int,
                 extra: Optional[dict] = None) -> str:
-    """Save the live parameters alone as ``ckpt_dir/step_{step}``
+    """Save a module's parameters alone as ``ckpt_dir/step_{step}``
     (``params/<name>``), blocking: the artifact that sampling and serving
-    restore with ``restore_params``."""
-    tensors = {f"params/{k}": t for k, t in state.flat.named(state.flat.flat).items()}
+    restore with ``restore_params`` (a trained prior's ``state.model``, a
+    vocoder)."""
+    tensors = {f"params/{k}": t for k, t in module.named_parameters()}
     return _save_tensors(ckpt_dir, tensors, step, extra, block=True)
 
 

@@ -1,0 +1,128 @@
+"""The port's vocoder CLI (cli/vocoder.py) on the CPU: ``synthesize`` from
+an artifact converted from a JAX WaveNet built by the JAX CLI's own
+``build_model``, the recorded-chain refusal at every restore surface
+(``synthesize`` and ``serve --vocoder-ckpt``), and the flags of the next
+slice raising NotImplementedError."""
+
+import argparse
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from neural_sound_generation_tpu.cli import vocoder as jvocoder
+from neural_sound_generation_tpu.config import Config as JaxConfig
+from neural_sound_generation_tpu_torch import convert
+from neural_sound_generation_tpu_torch.cli import serve, vocoder
+from neural_sound_generation_tpu_torch.config import Config
+from neural_sound_generation_tpu_torch.training import checkpoint
+
+torch.set_num_threads(1)
+
+WIDTHS = ["--layers", "2", "--stacks", "1", "--residual-channels", "8"]
+FRAMES, HOP = 3, 256
+
+
+def _ns(**kw):
+    return types.SimpleNamespace(**{"residual_channels": 8, "layers": 2, "stacks": 1, **kw})
+
+
+@pytest.fixture(scope="module")
+def artifact(tmp_path_factory):
+    """A JAX WaveNet of the CLI's build, carried into the port and saved as
+    a vocoder artifact; and a time-major mel."""
+    root = tmp_path_factory.mktemp("vocoder")
+    jm = jvocoder.build_model(JaxConfig(), _ns())
+    v = jax.tree_util.tree_map(np.array, jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8, 1)), jnp.zeros((1, 2, 80)), None))
+    tm = vocoder.build_model(Config(), _ns())
+    tm.load_state_dict(convert.flax_to_state_dict(v))
+    ckpt = str(root / "wavenet")
+    checkpoint.save_params(ckpt, tm, 7, vocoder.condition_meta())
+    mel = str(root / "mel.npy")
+    np.save(mel, np.random.default_rng(0).standard_normal((FRAMES, 80)).astype(np.float32))
+    return ckpt, mel, tm, root
+
+
+def test_build_model_matches_the_jax_cli():
+    """Gate = residual, skip = min(arch skip, residual), at the defaults and
+    under the width flags."""
+    for ns in (_ns(residual_channels=None, layers=None, stacks=None), _ns(),
+               _ns(residual_channels=128, layers=4, stacks=2)):
+        jm, tm = jvocoder.build_model(JaxConfig(), ns), vocoder.build_model(Config(), ns)
+        for name in ("out_channels", "layers", "stacks", "residual_channels", "gate_channels",
+                     "skip_out_channels", "kernel_size", "cin_channels", "gin_channels",
+                     "upsample_scales", "scalar_input", "quantize_channels"):
+            assert getattr(tm, name) == getattr(jm, name), name
+    full = vocoder.build_model(Config(), _ns(residual_channels=None, layers=None, stacks=None))
+    assert (full.residual_channels, full.gate_channels, full.skip_out_channels) == (512, 512, 256)
+
+
+def test_synthesize_writes_frames_times_hop(artifact, tmp_path, capsys):
+    from scipy.io import wavfile
+
+    ckpt, mel, _, _ = artifact
+    out = tmp_path / "out.wav"
+    vocoder.main(["synthesize", "--ckpt-dir", ckpt, "--mel-npy", mel, "--output", str(out),
+                  "--device", "cpu", *WIDTHS])
+    assert f"synthesized {FRAMES * HOP} samples" in capsys.readouterr().out
+    sr, wav = wavfile.read(out)
+    assert sr == 22050 and len(wav) == FRAMES * HOP
+    # --max-frames cuts the mel; f32 products run too
+    vocoder.main(["synthesize", "--ckpt-dir", ckpt, "--mel-npy", mel, "--output", str(out),
+                  "--device", "cpu", "--max-frames", "1", "--gen-precision", "f32", *WIDTHS])
+    assert len(wavfile.read(out)[1]) == HOP
+
+
+def test_synthesize_refusals(artifact, tmp_path):
+    ckpt, mel, tm, root = artifact
+    base = ["synthesize", "--ckpt-dir", ckpt, "--output", str(tmp_path / "o.wav"),
+            "--device", "cpu", *WIDTHS]
+    with pytest.raises(SystemExit, match="--mel-npy"):
+        vocoder.main(base)
+    with pytest.raises(SystemExit, match="no speaker embeddings"):
+        vocoder.main(base + ["--mel-npy", mel, "--speaker-id", "0"])
+    with pytest.raises(SystemExit, match="does not match the model"):  # wrong widths
+        vocoder.main(base[:-1] + ["16", "--mel-npy", mel])
+    units = str(root / "units")
+    checkpoint.save_params(units, tm, 1, {"condition": "units", "units_dim": 8})
+    with pytest.raises(SystemExit, match="trained with --condition units"):
+        vocoder.main(["synthesize", "--ckpt-dir", units, "--mel-npy", mel, "--output",
+                      str(tmp_path / "o.wav"), "--device", "cpu", *WIDTHS])
+    with pytest.raises(SystemExit, match="trained with --condition units; serve"):
+        serve.build_service(serve.parse_args([
+            "--device", "cpu", "--dim", "16", "--z-dim", "16", "--vocoder", "wavenet",
+            "--vocoder-ckpt", units, "--vocoder-layers", "2", "--vocoder-stacks", "1",
+            "--vocoder-residual-channels", "8"]))
+    with pytest.raises(SystemExit, match="requires --vocoder-ckpt"):
+        serve.build_service(serve.parse_args(["--device", "cpu", "--vocoder", "wavenet"]))
+    with pytest.raises(SystemExit, match="requires --vocoder wavenet"):
+        serve.build_service(serve.parse_args(["--device", "cpu", "--dim", "16", "--z-dim", "16",
+                                              "--stream-slots", "2"]))
+
+
+@pytest.mark.parametrize("argv", [
+    ["train", "--datadir", "x"],
+    ["train", "--datadir", "x", "--bf16", "--mesh-pipe", "2", "--multi-steps", "4"],
+    ["synthesize", "--ckpt-dir", "x", "--output", "o.wav", "--condition", "units"],
+])
+def test_next_slice_raises(argv):
+    with pytest.raises(NotImplementedError, match="next slice"):
+        vocoder.main(argv)
+
+
+def test_postprocess_follows_the_input_type():
+    cfg = Config()
+    y = torch.linspace(-1, 1, 9)
+    assert torch.equal(vocoder.postprocess(y, cfg.audio), y)  # raw
+    for input_type in ("mulaw", "mulaw-quantize"):
+        audio = argparse.Namespace(is_mulaw=input_type == "mulaw",
+                                   is_mulaw_quantize=input_type == "mulaw-quantize",
+                                   quantize_channels=256)
+        x = torch.arange(0, 256, 32) if input_type == "mulaw-quantize" else y
+        got = vocoder.postprocess(x, audio)
+        assert got.dtype == torch.float32 and float(got.abs().max()) <= 1.0 + 1e-6

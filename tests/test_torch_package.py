@@ -35,7 +35,8 @@ def test_importing_every_module_loads_no_jax():
     for name in ("cli.serve", "cli.main", "cli.evaluate", "cli.prior", "training.trainer",
                  "training.checkpoint", "data.pipeline", "ops.cuda.fused_adam",
                  "ops.cuda.flash_attention", "ops.attention", "models.transformer_prior",
-                 "inference.audio"):
+                 "inference.audio", "models.wavenet", "ops.cuda.wavenet_gen", "cli.vocoder",
+                 "serving.mux"):
         assert f"neural_sound_generation_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -17,6 +17,7 @@ import argparse
 import io
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 from http.server import ThreadingHTTPServer
@@ -339,3 +340,149 @@ def test_service_without_device_raises_when_cuda_is_absent(monkeypatch):
         serve.InferenceService(Config(), VQVAE(1, 8, 16), frames=FRAMES)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.build_service(_args(device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# --vocoder wavenet: the streaming endpoints and the stream mux
+# ---------------------------------------------------------------------------
+
+
+def _vocoder_service(**mux):
+    """A seeded VQ-VAE, a one-layer transformer prior and a two-layer
+    WaveNet (80 mels, hop 256) on the CPU, streaming in chunks of 512 so
+    that short inputs span several; ``mux`` enables the stream mux."""
+    from neural_sound_generation_tpu_torch.cli.prior import PriorSpec
+    from neural_sound_generation_tpu_torch.models.wavenet import WaveNet
+
+    svc = serve.InferenceService(
+        Config(), VQVAE(1, DIM, Z_DIM, generator=torch.Generator().manual_seed(0)),
+        frames=FRAMES, device="cpu")
+    svc.STREAM_CHUNK = 512
+    svc.attach_prior(PriorSpec("transformer", Z_DIM, 32, 1, 1, 10).build(seed=0))
+    svc.attach_vocoder(WaveNet(layers=2, stacks=1, residual_channels=8, gate_channels=8,
+                               skip_out_channels=8, generator=torch.Generator().manual_seed(1)))
+    if mux:
+        svc.enable_stream_mux(**mux)
+    return svc
+
+
+@pytest.fixture(scope="module")
+def voc_server():
+    svc = _vocoder_service()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(svc))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    yield svc, f"http://127.0.0.1:{httpd.server_address[1]}"
+    httpd.shutdown()
+    httpd.server_close()
+    thread.join(timeout=30)
+
+
+def _pcm(body: bytes) -> np.ndarray:
+    return np.frombuffer(body, "<i2").astype(np.float64)
+
+
+def _mel_frames(seconds):
+    from neural_sound_generation_tpu_torch.ops.dsp import num_stft_frames
+
+    return num_stft_frames(int(SR * seconds), 1024, 256)
+
+
+def test_reconstruct_stream_endpoint(voc_server):
+    """Chunked s16le PCM of t x hop samples at a fixed 32767 scale, equal to
+    the WaveNet's float output of the stitched reconstructed mel."""
+    svc, url = voc_server
+    wav_bytes = _wav_bytes(0.1)
+    with _post(url + "/reconstruct_stream", wav_bytes) as r:
+        assert r.headers["Transfer-Encoding"] == "chunked"
+        assert (r.headers["X-Sample-Rate"], r.headers["X-PCM-Format"]) == (str(SR), "s16le")
+        pcm = _pcm(r.read())
+    assert len(pcm) == _mel_frames(0.1) * 256  # 2304: four chunks and a trimmed fifth
+    with torch.inference_mode():
+        want = svc._synthesize(svc._reconstruct_full_mel(wav_bytes))
+    np.testing.assert_array_equal(pcm, (np.clip(want, -1, 1) * 32767).astype(np.int16))
+
+
+def test_vocoder_backs_the_buffered_endpoints(voc_server):
+    """/reconstruct and /decode synthesize through the WaveNet: mel frames
+    x hop samples, peak-normalized WAVs."""
+    _, url = voc_server
+    with _post(url + "/reconstruct", _wav_bytes(0.1)) as r:
+        assert len(_read_wav(r.read())) == _mel_frames(0.1) * 256
+    codes = np.random.default_rng(0).integers(0, Z_DIM, (20, 2)).tolist()
+    with _post(url + "/decode", json.dumps({"codes": codes}).encode()) as r:
+        wav = _read_wav(r.read())
+    assert len(wav) == 4 * 2 * 256 and np.abs(wav).max() == 32767
+
+
+def test_sample_stream_equals_buffered_sample(voc_server):
+    """The n utterances stream back to back, utterance i from seed + i:
+    the same audio as the buffered /sample up to its peak normalization."""
+    _, url = voc_server
+    payload = json.dumps({"n": 2, "label": 1, "seed": 3}).encode()
+    with _post(url + "/sample_stream", payload) as r:
+        stream = _pcm(r.read()) / 32767
+    with _post(url + "/sample", payload) as r:
+        buffered = _read_wav(r.read())
+    assert len(stream) == len(buffered) == 2 * FRAMES * 256
+    peak = np.abs(stream).max()
+    np.testing.assert_allclose(stream, buffered * peak / 32767, atol=3 / 32767)
+
+
+def test_stream_endpoints_need_a_vocoder(server):
+    for path, body in (("/reconstruct_stream", _wav_bytes(0.2)),
+                       ("/sample_stream", json.dumps({"n": 1}).encode())):
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _post(server + path, body)
+        assert err.value.code == 400
+        assert "requires --vocoder wavenet" in json.loads(err.value.read())["error"]
+    assert "stream_mux" not in _get_json(server + "/metrics")
+
+
+def test_stream_mux_over_http():
+    """Two concurrent /reconstruct_stream share the slots and each gets its
+    full length; a full mux (a slot busy, the other promised to a waiting
+    session, max_pending 0) answers 503 with
+    Retry-After; /metrics reports the mux."""
+    svc = _vocoder_service(slots=2, max_pending=0)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(svc))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    mux = svc._stream_mux
+    try:
+        results = [None, None]
+
+        def hit(i):
+            with _post(url + "/reconstruct_stream", _wav_bytes(0.05 + 0.05 * i)) as r:
+                results[i] = _pcm(r.read())
+
+        threads = [threading.Thread(target=hit, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert [len(p) for p in results] == [_mel_frames(0.05 + 0.05 * i) * 256 for i in range(2)]
+
+        release = threading.Event()
+        orig = mux._dispatch
+        mux._dispatch = lambda *a: (release.wait(timeout=60), orig(*a))[1]
+        held = [mux.open(torch.zeros(2, 80), 0)]  # a slot; its chunk is held
+        deadline = time.time() + 30
+        while mux.active < 1 and time.time() < deadline:
+            time.sleep(0.01)
+        held.append(mux.open(torch.zeros(2, 80), 1))  # waits for the free slot
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _post(url + "/reconstruct_stream", _wav_bytes(0.05))
+        assert err.value.code == 503 and err.value.headers["Retry-After"] == "1"
+        assert _get_json(url + "/metrics")["stream_mux"] == {
+            "slots": 2, "active": 1, "pending": 1, "max_pending": 0}
+        release.set()
+        for h in held:
+            assert len(np.concatenate(list(h))) == 2 * 256
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    deadline = time.time() + 30
+    while (mux.active or mux.pending or mux.busy) and time.time() < deadline:
+        time.sleep(0.02)
