@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's serving, training, prior and vocoder paths on
-one CUDA card and checks them.
+"""Drives the PyTorch port's serving, training (single-codebook float32 and
+residual-VQ bf16), prior, vocoder and 3x3-convolution A/B paths on one CUDA
+card and checks them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
@@ -15,7 +16,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    configurations over three chained steps, and the causal-attention
    forward, dQ and dK/dV kernels at the prior's grids (T = 140, 560 in f32
    and bf16, 2240, a ragged T = 37 and D = 128), each run twice to show the
-   backward is bit-identical run to run;
+   backward is bit-identical run to run, and both 3x3 bf16 convolution
+   kernels (phase 9 is their path);
 4. serving: builds the mel VQ-VAE service at full width (dim 256, 512
    codes, 84-frame windows) on the card with seeded weights, serves it over
    HTTP, checks every response of /health, /encode, /reconstruct and
@@ -34,7 +36,15 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    metadata, one train step on the card against the same step on the CPU,
    times train steps/s, and serves /reconstruct from the trained
    checkpoint with --ema;
-6. prior: on that VQ-VAE checkpoint and corpus, trains the transformer
+6. residual VQ and bf16: trains through ``cli.main`` at the same width
+   with --num-quantizers 4 --bf16 --ema-codebook --restart-dead-threshold
+   1.0 --codebook-init data for two epochs; checks the loss is finite and
+   falls, the launch counts (nearest-code: 3 for data init, 8 per step, 8
+   per eval batch; fused Adam: steps), the checkpoint (float32, 4 stages in
+   its metadata), ``cli.evaluate --num-quantizers 4 --bf16`` on it, one
+   float32 and one bf16 RVQ step on the card against the CPU, and times
+   steps/s with 4 stages and 1, in bf16 and float32;
+7. prior: on that VQ-VAE checkpoint and corpus, trains the transformer
    prior through ``cli.prior train --arch transformer`` (dim 128, 4 layers
    of 2 heads, 512 codes, batch 32 of 20 x 7 code grids) for three epochs,
    then once more with --resume; reads every kernel's launch count over
@@ -43,7 +53,7 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    card against the same step on the CPU, the KV-cached decode against
    the kernel's forward, times train steps/s, runs ``cli.prior sample``
    and serves /sample at n = 1 and n = 4 from ``serve --prior-ckpt``;
-7. vocoder: holds both variants of the whole-loop WaveNet kernel (sampling
+8. vocoder: holds both variants of the whole-loop WaveNet kernel (sampling
    and teacher-forced) against their plain versions at its production
    configuration (24 layers, R 128, G 256, S 128, cin 80; T = 4096 and a
    ragged 1000) and the CPU tests' 4-layer one (T = 64): the teacher's
@@ -58,7 +68,13 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    --vocoder wavenet`` on the trained VQ-VAE and prior answering
    /reconstruct_stream, /decode and /sample_stream, and with
    --stream-slots 2 two concurrent /reconstruct_stream;
-8. summary: one JSON line per kernel, then the result line.
+9. conv A/B: runs ``scripts/torch_ab_conv3x3.py``'s ``main()``, the
+   entry point of the 3x3 bf16 convolution's two kernels (taps and im2col;
+   held against their plain version in phase 3 at the A/B shape (64, 20, 7,
+   256) and a ragged (3, 13, 5, 64), and timed beside cuDNN): parity, then
+   cuDNN, taps, im2col and cuDNN legs of 400 chained convolutions, with
+   each kernel's launch count over it;
+10. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -135,6 +151,23 @@ ATTN_MAIN = "train_T140"
 # error against the plain pair, relative to the plain output's largest
 # magnitude: f32 sums in another order; bf16 P and dS rounded at other sums
 ATTN_F32_REL, ATTN_BF16_REL = 1e-5, 2e-2
+
+# the 3x3 bf16 convolution (kernel 6): the A/B shape, the ResBlock's conv
+# at the flagship's training step (batch 64 of 80 x 28 crops after two
+# stride-2 convs), and a ragged one, held to the A/B script's limits
+# (ULP_LIMIT, BIT_EQUAL_MIN)
+CONV_SHAPES = [("ab_64x20x7x256", (64, 20, 7, 256)), ("ragged_3x13x5x64", (3, 13, 5, 64))]
+CONV_MAIN = "ab_64x20x7x256"
+
+# the residual-VQ / bf16 training phase: the training phase's shape with
+# --num-quantizers 4 --bf16 and EMA codebooks with restarts
+RVQ_Q = 4
+RVQ_EPOCHS = 2
+RVQ_TIMED_STEPS = 50
+# one bf16 step, card vs CPU: the loss terms within 2e-2 relative (bf16
+# roundings flip where float32 sums run in another order, as the CPU tests
+# hold the port's bf16 step against JAX's)
+RVQ_BF16_LOSS_REL = 2e-2
 
 # the prior phase: the configuration the JAX package measured (--prior-dim
 # 128 --prior-layers 4: 2 heads of 64), full width, cut in depth only
@@ -354,6 +387,38 @@ def compare_fused_adam(torch, fused_adam, n: int, config, gen) -> dict:
         "library": "torch.optim.Adam(fused=True) on one flat parameter: no clip, "
                    "weight decay or EMA",
         "bound_ms": adam_bound_ms(n, bf16, has_ema), "bound_by": "bytes",
+    }
+
+
+def conv_bound_ms(b: int, h: int, w: int, c: int) -> tuple[float, str]:
+    """Least time for the 3x3 bf16 conv: x and the output (B, H, W, C) and w
+    (3, 3, C, C) in bf16 moved once, and 2 * B*H*W * 9C * C operations at
+    the dense bf16 tensor-core rate."""
+    bytes_ms = 1e3 * 2 * (2 * b * h * w * c + 9 * c * c) / PEAK_HBM_BYTES
+    ops_ms = 1e3 * 2 * b * h * w * 9 * c * c / PEAK_BF16_FLOPS
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def compare_conv3x3(torch, conv3x3, ab, shape, gen) -> dict:
+    """Both conv kernels against the plain version on the same bf16 inputs
+    (the A/B script's ``parity``; cuDNN's difference is reported, not
+    held), then the times of each kernel, the plain version and cuDNN."""
+    name, (b, h, w, c) = shape
+    x = torch.randn(b, h, w, c, generator=gen, device="cuda").to(torch.bfloat16)
+    wt = (0.02 * torch.randn(3, 3, c, c, generator=gen, device="cuda")).to(torch.bfloat16)
+    library = ab.cudnn_conv(torch, wt)
+    parity = ab.parity(torch, conv3x3, x, wt, library)
+    ms = {k: time_ms(torch, lambda fn=getattr(conv3x3, k): fn(x, wt), 50)
+          for k in conv3x3.KERNELS}
+    bound_ms, bound_by = conv_bound_ms(b, h, w, c)
+    return {
+        "phase": "kernel", "name": "conv3x3", "shape_name": name, "shape": [b, h, w, c],
+        "errors": {k: parity[k] for k in conv3x3.KERNELS},
+        "cudnn_vs_plain_max_abs_err": parity["cudnn_vs_plain_max_abs_err"],
+        "kernel_ms": ms, "plain_ms": time_ms(torch, lambda: conv3x3.conv3x3_plain(x, wt), 10),
+        "library_ms": time_ms(torch, lambda: library(x), 50),
+        "library": "F.conv2d (cuDNN) on channels-last bf16",
+        "bound_ms": bound_ms, "bound_by": bound_by,
     }
 
 
@@ -836,7 +901,228 @@ def train_phase(torch, dsp, cli_main, serve, checkpoint, vq_kernel, fused_adam,
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the prior
+# Phase 6: residual VQ and --bf16 training
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def cpu_drawn_restarts(torch, trainer, seed: int, draws: list):
+    """Dead-code restarts draw their rows from one CPU generator seeded with
+    ``seed``, on the card and on the CPU alike (a CUDA generator draws other
+    numbers), so a card step and a CPU step restart the same codes from the
+    same rows; each stage's drawn rows and restarted codes are appended to
+    ``draws``."""
+    from neural_sound_generation_tpu_torch.ops.vq import restart_rows
+
+    real = trainer.restart_dead_codes
+    gen = torch.Generator().manual_seed(seed)
+
+    def drawn(codebook, usage, batch_flat, generator, threshold=1.0, cluster=None,
+              embed_sum=None):
+        idx = torch.randint(0, batch_flat.shape[0], (codebook.shape[0],), generator=gen)
+        draws.append((idx, (usage < threshold).cpu()))
+        return restart_rows(codebook, usage, batch_flat[idx.to(batch_flat.device)], threshold,
+                            cluster, embed_sum)
+
+    trainer.restart_dead_codes = drawn
+    try:
+        yield
+    finally:
+        trainer.restart_dead_codes = real
+
+
+def rvq_card_vs_cpu(torch, cli_main, checkpoint, trainer, cfg, ckpt: str, batch,
+                    dtype) -> dict:
+    """One residual-VQ train step (EMA codebooks with restarts) on the card
+    and on the CPU from the same checkpoint and batch, with the same restart
+    draws. The new codebook rows are EMA means of the stages' residuals and
+    restarted rows copies of them; with the same assignments a residual
+    differs between the devices only as the encoder output does, so a row
+    may differ by more than 1e-5 + max |z_e card - z_e CPU| only where an
+    assignment flipped on a near-tie: the old and new codes of a flipped
+    vector at its stage and at every later stage (whose residual it
+    changed), and a code restarted from such a vector's residual."""
+    from neural_sound_generation_tpu_torch.models.layers import batch_stats_discarded
+    from neural_sound_generation_tpu_torch.ops.vq import residual_vq
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+
+    states, metrics, codes, draws, z_e = {}, {}, {}, {}, {}
+    for device in (DEVICE, "cpu"):
+        model = cli_main.make_model(cfg, dtype=dtype).to(device)
+        state = create_train_state(model, cfg.train, ema_codebook=True)
+        checkpoint.restore(ckpt, state)
+        x = torch.from_numpy(batch["x"]).to(device)
+        with torch.no_grad(), batch_stats_discarded(model):
+            model.train()
+            z = model._encode_latents(x)
+            codes[device] = residual_vq(z, model.codebook)[2].cpu()
+            z_e[device] = z.cpu()
+        draws[device] = []
+        with cpu_drawn_restarts(torch, trainer, SEED, draws[device]):
+            _, m = trainer.make_train_step(model, cfg)(state, {"x": x})
+        states[device], metrics[device] = state, {k: float(v) for k, v in m.items()}
+    rel = {k: abs(metrics[DEVICE][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
+           for k in metrics["cpu"]}
+    card_codes, cpu_codes = codes[DEVICE].long(), codes["cpu"].long()
+    flipped = card_codes != cpu_codes  # (Q, N)
+    upto = torch.cumsum(flipped.int(), dim=0) > 0  # flipped at this stage or before
+    q_stages, k_codes = cpu_codes.shape[0], cfg.model.z_dim
+    involved = torch.zeros(q_stages, k_codes, dtype=torch.bool)
+    for q in range(q_stages):
+        involved[q, cpu_codes[q][upto[q]]] = True
+        involved[q, card_codes[q][upto[q]]] = True
+        if q > 0:
+            idx, restarted = draws["cpu"][q]
+            involved[q] |= restarted & upto[q - 1][idx]
+    z_err = float((z_e[DEVICE] - z_e["cpu"]).abs().max())
+    cb_tol = 1e-5 + z_err
+    diff = (states[DEVICE].flat.flat.cpu() - states["cpu"].flat.flat).abs()
+    by_name = states["cpu"].flat.named(diff)
+    cb_diff = by_name.pop("codebook")
+    cb_rows = (cb_diff > cb_tol).any(dim=-1)  # (Q, K)
+    rest = torch.cat([t.reshape(-1) for t in by_name.values()])
+    return {
+        "dtype": str(dtype).replace("torch.", ""), "metrics_rel_err": rel,
+        "code_flips_by_stage": flipped.sum(dim=1).tolist(), "rows": int(cpu_codes.shape[1]),
+        "z_e_max_abs_err": z_err, "codebook_max_abs_err": float(cb_diff.max()),
+        "codebook_rows_beyond_1e-5": int((cb_diff > 1e-5).any(dim=-1).sum()),
+        "codebook_rows_beyond_tol": int(cb_rows.sum()),
+        "codebook_rows_not_from_a_flip": int((cb_rows & ~involved).sum()),
+        "restarted_codes_by_stage": [int(dead.sum()) for _, dead in draws["cpu"]],
+        "other_params_beyond_1e-5_frac": float((rest > 1e-5).float().mean()),
+        "other_params_max_abs_err": float(rest.max()),
+        "grad_norm": metrics[DEVICE]["grad_norm"], "loss": metrics[DEVICE]["loss"],
+    }
+
+
+def rvq_steps_per_s(torch, cli_main, cfg, batch, dtype, num_quantizers: int) -> float:
+    """Train steps/s at the training phase's shape with a device-resident
+    batch, EMA codebooks with restarts, seeded weights."""
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+    from neural_sound_generation_tpu_torch.training.trainer import make_train_step
+
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, num_quantizers=num_quantizers))
+    model = cli_main.make_model(cfg, generator=torch.Generator().manual_seed(SEED),
+                                dtype=dtype).to(DEVICE)
+    state = create_train_state(model, cfg.train, ema_codebook=True)
+    step = make_train_step(model, cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    x = torch.from_numpy(batch["x"]).to(DEVICE)
+    for _ in range(5):
+        step(state, {"x": x}, gen)
+    sync(torch)
+    t0 = time.perf_counter()
+    for _ in range(RVQ_TIMED_STEPS):
+        step(state, {"x": x}, gen)
+    sync(torch)
+    return RVQ_TIMED_STEPS / (time.perf_counter() - t0)
+
+
+def rvq_phase(torch, cli_main, cli_evaluate, checkpoint, vq_kernel, fused_adam, root: str,
+              corpus: str) -> dict:
+    """``cli.main --num-quantizers 4 --bf16 --ema-codebook
+    --restart-dead-threshold 1.0 --codebook-init data`` at the training
+    phase's full width for RVQ_EPOCHS epochs, with its launch counts; the
+    checkpoint (float32, its metadata); ``cli.evaluate --num-quantizers 4
+    --bf16`` on it; one float32 and one bf16 RVQ step card vs CPU; steps/s."""
+    from neural_sound_generation_tpu_torch.training import trainer
+
+    flags = ["--num-quantizers", str(RVQ_Q), "--ema-codebook", "--restart-dead-threshold", "1.0"]
+    tag = "rvq_bf16"
+    argv = ["--model", "vqvae", "--dataset", "ljspeech", "--datadir", corpus,
+            "--dim", str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES),
+            "--batch-size", str(TRAIN_BATCH), "--max-batches-per-epoch", str(BATCHES_PER_EPOCH),
+            "--log-interval", "1", "--codebook-init", "data", "--device", DEVICE,
+            "--ckpt-dir", os.path.join(root, tag, "models"),
+            "--sampledir", os.path.join(root, tag, "results"), *flags]
+    run = run_cli_main(cli_main, (vq_kernel, fused_adam),
+                       argv + ["--epochs", str(RVQ_EPOCHS), "--bf16"])
+    steps = RVQ_EPOCHS * BATCHES_PER_EPOCH
+    # data init: one search per stage after the first; a step: Q in the
+    # forward and Q in the EMA branch; an eval batch: Q in the forward and
+    # Q in encode (one eval batch per epoch)
+    want_vq = (RVQ_Q - 1) + 2 * RVQ_Q * steps + 2 * RVQ_Q * RVQ_EPOCHS
+    check(run["epochs_logged"] == RVQ_EPOCHS and run["evals"] == RVQ_EPOCHS,
+          f"{tag}: {run['epochs_logged']} epochs and {run['evals']} evals")
+    check(run["launches"]["fused_adam"] == steps,
+          f"{tag}: fused_adam launched {run['launches']['fused_adam']} times for {steps} steps")
+    check(run["launches"]["vq_kernel"] == want_vq,
+          f"{tag}: vq_nearest launched {run['launches']['vq_kernel']} times, expected {want_vq}")
+    losses = run["losses"]
+    check(len(losses) >= 2 and all(np.isfinite(losses)), f"{tag}: losses {losses}")
+    check(losses[-1] < losses[0], f"{tag}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+
+    ckpt = os.path.join(root, tag, "models", "vqvae",
+                        f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")
+    extra = checkpoint.read_extra(ckpt)
+    check(extra == {"epoch": RVQ_EPOCHS, "arch": "vqvae", "num_quantizers": RVQ_Q,
+                    "num_downsample": 6}, f"{tag}: checkpoint metadata {extra}")
+    saved = torch.load(os.path.join(ckpt, f"step_{steps}", "state.pt"), weights_only=True)
+    float_leaves = {k: t.dtype for k, t in saved.items()
+                    if k.startswith(("params/", "ema_params/", "batch_stats/", "codebook_ema/"))}
+    check(all(dt == torch.float32 for dt in float_leaves.values()),
+          f"{tag}: checkpoint leaves not float32: "
+          f"{ {k: str(d) for k, d in float_leaves.items() if d != torch.float32} }")
+    check(tuple(saved["params/codebook"].shape) == (RVQ_Q, TRAIN_CODES, TRAIN_DIM),
+          f"{tag}: codebook {tuple(saved['params/codebook'].shape)}")
+    del saved
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        evaluated = cli_evaluate.main([
+            "--datadir", corpus, "--ckpt-dir", ckpt, "--dim", str(TRAIN_DIM),
+            "--z-dim", str(TRAIN_CODES), "--batch-size", str(TRAIN_BATCH), "--max-batches", "1",
+            "--num-quantizers", str(RVQ_Q), "--bf16", "--device", DEVICE])
+    check(np.isfinite(evaluated["loss"]) and evaluated["perplexity"] >= 1.0,
+          f"cli.evaluate --num-quantizers {RVQ_Q} --bf16: {evaluated}")
+
+    args = cli_main.parse_args(argv + ["--epochs", "1"])
+    cfg = cli_main.build_config(args)
+    train_loader, _ = cli_main.audio_loaders(args, cfg)
+    batch = next(iter(train_loader))
+    f32 = rvq_card_vs_cpu(torch, cli_main, checkpoint, trainer, cfg, ckpt, batch, torch.float32)
+    emit({"phase": "rvq_card_vs_cpu_step", **f32})
+    flips = sum(f32["code_flips_by_stage"])
+    rel = f32["metrics_rel_err"]
+    check(flips <= 1e-3 * RVQ_Q * f32["rows"], f"RVQ card vs CPU: {flips} codes differ")
+    check(max(v for k, v in rel.items() if k != "grad_norm") <= 1e-5,
+          f"RVQ card vs CPU train step: loss terms differ {rel}")
+    check(rel["grad_norm"] <= (2e-3 if flips else 1e-5),
+          f"RVQ card vs CPU train step: grad_norm differs by {rel['grad_norm']:.3g}")
+    check(f32["other_params_beyond_1e-5_frac"] <= 1e-3 and f32["other_params_max_abs_err"] <= 1e-2,
+          f"RVQ card vs CPU train step: parameters differ {f32}")
+    check(f32["codebook_rows_not_from_a_flip"] == 0,
+          f"RVQ card vs CPU train step: {f32['codebook_rows_not_from_a_flip']} codebook rows "
+          f"differ by more than 1e-5 + max |dz_e| without a flipped assignment")
+    bf16 = rvq_card_vs_cpu(torch, cli_main, checkpoint, trainer, cfg, ckpt, batch,
+                           torch.bfloat16)
+    emit({"phase": "rvq_card_vs_cpu_step", **bf16})
+    bf16_loss = {k: v for k, v in bf16["metrics_rel_err"].items() if k != "grad_norm"}
+    check(max(bf16_loss.values()) <= RVQ_BF16_LOSS_REL,
+          f"bf16 RVQ card vs CPU train step: loss terms differ {bf16_loss}")
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    steps_per_s = {
+        f"{name}_q{q}": rvq_steps_per_s(torch, cli_main, cfg, batch, dtype, q)
+        for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))
+        for q in (RVQ_Q, 1)
+    }
+    return {
+        "phase": "rvq_bf16_training", "dim": TRAIN_DIM, "codes": TRAIN_CODES,
+        "num_quantizers": RVQ_Q, "batch": TRAIN_BATCH,
+        "crop_frames": int(batch["x"].shape[2]),
+        "run": {k: v for k, v in run.items() if k != "losses"} | {
+            "first_loss": losses[0], "last_loss": losses[-1], "optimizer_steps": steps,
+            "vq_launches_expected": want_vq},
+        "evaluate": evaluated, "card_vs_cpu_step": {"f32": f32, "bf16": bf16},
+        "steps_per_s_ema_restarts": steps_per_s, "timed_steps": RVQ_TIMED_STEPS,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the prior
 # ---------------------------------------------------------------------------
 
 
@@ -1068,7 +1354,7 @@ def serve_trained(torch, serve, ckpt: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the vocoder
+# Phase 8: the vocoder
 # ---------------------------------------------------------------------------
 
 
@@ -1471,6 +1757,72 @@ def wavenet_summary(rows: dict, api: dict) -> list[dict]:
     return [sample, teacher]
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the 3x3 conv's A/B (kernel 6's entry point)
+# ---------------------------------------------------------------------------
+
+
+def load_ab_script():
+    """``scripts/torch_ab_conv3x3.py`` as a module (the scripts are not a
+    package)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_ab_conv3x3.py")
+    spec = importlib.util.spec_from_file_location("torch_ab_conv3x3", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def conv_ab_phase(conv3x3, ab) -> dict:
+    """The A/B script's ``main()`` (parity, then cuDNN, taps, im2col, cuDNN
+    legs of 400 chained convolutions), with each kernel's launch count set to
+    0 just before it and read just after."""
+    conv3x3.reset_launch_count()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = ab.main([])
+    launches = conv3x3.launch_counts()
+    for name in conv3x3.KERNELS:
+        check(launches[name] > 0, f"the A/B launched {name} no time")
+    return {"phase": "conv3x3_ab", **result, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+CONV_REPLACES = {"conv3x3_taps": "scripts/ab_conv3x3.py:60",
+                 "conv3x3_im2col": "scripts/ab_conv3x3.py:95"}
+
+
+def conv_summary(rows: dict, ab_run: dict) -> list[dict]:
+    """Kernel 6's two variants in the kernels line, at the A/B shape
+    (CONV_MAIN), with launches from the A/B's run and its legs' times."""
+    main = rows[CONV_MAIN]
+    legs = ab_run["summary"]
+    return [{
+        "name": name, "route": "cuda",
+        "source": "neural_sound_generation_tpu_torch/csrc/conv3x3.cu",
+        "replaces": CONV_REPLACES[name], "status": "ported",
+        "shape": {"b": main["shape"][0], "h": main["shape"][1], "w": main["shape"][2],
+                  "c": main["shape"][3], "dtype": "bf16"},
+        "launches": ab_run["launches"][name], "path": "scripts/torch_ab_conv3x3.py main()",
+        "max_abs_err": main["errors"][name]["max_abs_err"],
+        "max_ulp": main["errors"][name]["max_ulp"],
+        "bit_equal_frac": main["errors"][name]["bit_equal_frac"],
+        "ms": main["kernel_ms"][name], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"], "library": main["library"],
+        "ab_us_per_iter": legs[name.split("_", 1)[1] + "_us"],
+        "ab_cudnn_us_per_iter": legs["cudnn_us"],
+        "by_shape": {shape: {"ms": r["kernel_ms"][name], "bound_ms": r["bound_ms"],
+                             "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                             "max_ulp": r["errors"][name]["max_ulp"],
+                             "bit_equal_frac": r["errors"][name]["bit_equal_frac"]}
+                     for shape, r in rows.items()},
+    } for name in main["kernel_ms"]]
+
+
 def build_phase(build, modules) -> list[dict]:
     """Every kernel's library, one nvcc per source, all started together."""
     errors: dict = {}
@@ -1491,7 +1843,7 @@ def build_phase(build, modules) -> list[dict]:
     for name, e in errors.items():
         raise SmokeFailure(f"build of {name} failed: {e}")
     rows = []
-    for name in ("vq_nearest", "fused_adam", "flash_attention", "wavenet_gen"):
+    for name in ("vq_nearest", "fused_adam", "flash_attention", "wavenet_gen", "conv3x3"):
         info = build.build_info[name]
         check("sm_90a" in info["log"], f"ptxas did not compile {name} for sm_90a")
         rows.append({"phase": "build", "kernel": name, "seconds": seconds,
@@ -1508,6 +1860,7 @@ def main() -> int:
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     try:
+        from neural_sound_generation_tpu_torch.cli import evaluate as cli_evaluate
         from neural_sound_generation_tpu_torch.cli import main as cli_main
         from neural_sound_generation_tpu_torch.cli import prior as cli_prior
         from neural_sound_generation_tpu_torch.cli import serve
@@ -1517,10 +1870,11 @@ def main() -> int:
         from neural_sound_generation_tpu_torch.models import wavenet as wn
         from neural_sound_generation_tpu_torch.ops import dsp
         from neural_sound_generation_tpu_torch.ops.cuda import (
-            build, fused_adam, vq_kernel, wavenet_gen)
+            build, conv3x3, fused_adam, vq_kernel, wavenet_gen)
         from neural_sound_generation_tpu_torch.ops.cuda import flash_attention as fa
         from neural_sound_generation_tpu_torch.training import checkpoint
-    except ImportError as e:
+        ab = load_ab_script()
+    except (ImportError, OSError) as e:
         print(f"FAIL: the port is not beside this script: {e}", file=sys.stderr)
         return 1
     set_full_float32()
@@ -1534,7 +1888,7 @@ def main() -> int:
               "cuda": torch.version.cuda, "card": card})
 
         # phase 2: build
-        for row in build_phase(build, (vq_kernel, fused_adam, fa, wavenet_gen)):
+        for row in build_phase(build, (vq_kernel, fused_adam, fa, wavenet_gen, conv3x3)):
             emit(row)
 
         # phase 3: kernels against their plain versions
@@ -1567,6 +1921,14 @@ def main() -> int:
             check(row["run_to_run_identical"],
                   f"flash attention {shape[0]}: two runs differ")
             attn_rows[shape[0]] = row
+        conv_rows = {}
+        for shape in CONV_SHAPES:
+            row = compare_conv3x3(torch, conv3x3, ab, shape, gen)
+            emit(row)
+            for kernel, err in row["errors"].items():
+                check(err["max_ulp"] <= ab.ULP_LIMIT and err["bit_equal_frac"] >= ab.BIT_EQUAL_MIN,
+                      f"{kernel} {shape[0]}: {err} against the plain version")
+            conv_rows[shape[0]] = row
         torch.cuda.empty_cache()
 
         # phase 4: the serving path, with launch counts from its HTTP requests
@@ -1580,14 +1942,22 @@ def main() -> int:
         emit(training)
         torch.cuda.empty_cache()
 
-        # phase 6: the prior, with launch counts from each cli.prior run
+        # phase 6: residual VQ and --bf16 training, with launch counts
+        rvq = rvq_phase(torch, cli_main, cli_evaluate, checkpoint, vq_kernel, fused_adam,
+                        root, corpus)
+        rvq["card"] = card
+        rvq["f32_single_codebook_train_steps_per_s"] = training["train_steps_per_s"]
+        emit(rvq)
+        torch.cuda.empty_cache()
+
+        # phase 7: the prior, with launch counts from each cli.prior run
         prior = prior_phase(torch, cli_prior, serve, checkpoint, (vq_kernel, fused_adam, fa),
                             root, vq_ckpt, corpus)
         prior["card"] = card
         emit(prior)
         torch.cuda.empty_cache()
 
-        # phase 7: the vocoder. Kernel 5 against its plain versions, its
+        # phase 8: the vocoder. Kernel 5 against its plain versions, its
         # main path (make_generate_fn(use_kernel=True)) with launch counts,
         # then the CLI's full-width vocoder through cli.vocoder and cli.serve
         wn_rows = {}
@@ -1607,14 +1977,19 @@ def main() -> int:
                                     root, vq_ckpt, os.path.join(root, "prior", "models"))
         vocoder["card"] = card
         emit(vocoder)
+
+        # phase 9: kernel 6's entry point, the A/B script, with launch counts
+        conv_ab = conv_ab_phase(conv3x3, ab)
+        conv_ab["card"] = card
+        emit(conv_ab)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # phase 8: summary and result
-    train_runs = training["runs"].values()
+    # phase 10: summary and result
+    train_runs = [*training["runs"].values(), rvq["run"]]
     train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
     train_adam = sum(r["launches"]["fused_adam"] for r in train_runs)
     prior_runs = prior["runs"].values()
@@ -1649,7 +2024,7 @@ def main() -> int:
         "bound_ms": adam_row["bound_ms"], "bound_by": adam_row["bound_by"],
         "library_ms": adam_row["library_ms"],
     }] + [attention_summary(attn_rows, name, prior_launches[name]) for name in fa.KERNELS]
-      + wavenet_summary(wn_rows, wn_api)})
+      + wavenet_summary(wn_rows, wn_api) + conv_summary(conv_rows, conv_ab)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

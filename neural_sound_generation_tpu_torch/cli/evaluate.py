@@ -5,7 +5,9 @@ mel VQ-VAE: per-batch metric accumulation, the averaged summary as one JSON
 line, and the last reconstruction batch as ``.npy`` (``--dump-npy``). The
 EMA shadow is evaluated when the checkpoint carries one, unless
 ``--no-ema``. The checkpoint's recorded metadata (``arch``,
-``num_quantizers``, ``num_downsample``) must match the flags.
+``num_quantizers``, ``num_downsample``) must match the flags;
+``--num-quantizers`` builds the residual-VQ model and ``--bf16`` evaluates
+in bfloat16 compute (checkpoints are float32 and restore unchanged).
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.evaluate --datadir
 <corpus> --ckpt-dir <dir> [--device cuda]``
@@ -50,11 +52,13 @@ def parse_args(argv=None):
     p.add_argument("--dump-npy", default=None,
                    help="write the last reconstruction batch here")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute (a later slice of the port)")
+                   help="bfloat16 compute for the eval sweep (checkpoints are "
+                        "float32 and restore unchanged)")
     p.add_argument("--no-ema", action="store_true",
                    help="evaluate the live training parameters instead of the "
                         "averaged (EMA) model")
-    p.add_argument("--num-quantizers", type=int, default=1)
+    p.add_argument("--num-quantizers", type=int, default=1,
+                   help="residual-VQ stages the checkpoint was trained with")
     p.add_argument("--num-downsample", type=int, default=6)
     p.add_argument("--mesh-data", type=int, default=None)
     p.add_argument("--mesh-model", type=int, default=1)
@@ -80,7 +84,8 @@ def main(argv=None):
     sample = next(iter(test_loader))
     n_speakers = cfg.arch.n_speakers if "g" in sample else 0
     model = make_model(cfg, n_speakers, norm=args.norm,
-                       generator=torch.Generator().manual_seed(0)).to(device)
+                       generator=torch.Generator().manual_seed(0),
+                       dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
     state = create_train_state(model, cfg.train)
     try:
         state, extra = checkpoint.restore(args.ckpt_dir, state)

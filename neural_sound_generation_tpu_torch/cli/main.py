@@ -5,15 +5,17 @@ surface (the reference's ``--batch-size --lr-rate --dataset --datadir
 --sampledir --epochs --seed --log-interval --model --beta --dim --z-dim``
 plus ``--preset --resume --multi-steps --ema-codebook
 --restart-dead-threshold --codebook-init --ema-warmup --bf16-moments --norm
---speaker-id --max-batches-per-epoch``) and its behaviour: per-epoch train
-and test, a reconstruction ``.npy`` and Griffin-Lim ``.wav`` per epoch,
-``metrics.jsonl``, a checkpoint every epoch, every
-``checkpoint_interval`` steps and on Ctrl-C, and ``--resume`` that replays
-the data order of the interrupted epoch.
+--speaker-id --max-batches-per-epoch --num-quantizers --bf16``) and its
+behaviour: per-epoch train and test, a reconstruction ``.npy`` and
+Griffin-Lim ``.wav`` per epoch, ``metrics.jsonl``, a checkpoint every
+epoch, every ``checkpoint_interval`` steps and on Ctrl-C, and ``--resume``
+that replays the data order of the interrupted epoch.
 
-Flags of later slices refuse with the slice named: ``--model
-vae|hiervqvae|wavevqvae``, MNIST/CIFAR10, ``--num-quantizers`` above 1,
-``--bf16`` and ``--mesh-*`` beyond one device. ``--device`` defaults to
+``--num-quantizers Q`` trains residual VQ with a (Q, K, D) codebook;
+``--bf16`` runs the convolutions in bfloat16 (parameters, VQ, loss and
+optimizer stay float32, and the checkpoint is float32). Flags of later
+slices refuse with the slice named: ``--model vae|hiervqvae|wavevqvae``,
+MNIST/CIFAR10 and ``--mesh-*`` beyond one device. ``--device`` defaults to
 the CUDA card.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.main --model vqvae
@@ -77,7 +79,8 @@ def parse_args(argv=None):
                    help="re-seed codes whose EMA cluster size drops below "
                         "this (requires --ema-codebook)")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute (a later slice of the port)")
+                   help="bfloat16 compute for the conv stacks; parameters, VQ, "
+                        "losses and optimizer stay float32")
     p.add_argument("--num-downsample", type=int, default=6,
                    help="wavevqvae stride-2 encoder layers (recorded in the "
                         "checkpoint metadata)")
@@ -109,10 +112,8 @@ def refuse_later_slices(args) -> None:
             f"--dataset {args.dataset}: the image datasets come with the "
             f"other-autoencoders slice"
         )
-    if getattr(args, "num_quantizers", 1) > 1:
-        raise SystemExit("--num-quantizers > 1: residual VQ comes with the RVQ slice")
-    if getattr(args, "bf16", False):
-        raise SystemExit("--bf16: bfloat16 training comes with the --bf16 training slice")
+    if getattr(args, "num_quantizers", 1) < 1:
+        raise SystemExit(f"--num-quantizers {args.num_quantizers}: must be at least 1")
     if (args.mesh_data or 1) > 1 or args.mesh_model > 1:
         raise SystemExit("--mesh-*: more than one device comes with the parallel slice")
 
@@ -166,15 +167,20 @@ def checkpoint_metadata(cfg: Config) -> dict:
 
 
 def make_model(cfg: Config, n_speakers: int = 0, norm: str = "batch",
-               generator: torch.Generator | None = None) -> VQVAE:
+               generator: torch.Generator | None = None,
+               dtype: torch.dtype | None = None) -> VQVAE:
+    """The flat mel VQ-VAE of ``cfg.model`` (its ``num_quantizers`` residual
+    stages) with compute ``dtype`` (float32 by default, bfloat16 under
+    ``--bf16``)."""
     mc = cfg.model
-    if mc.model != "vqvae" or mc.num_quantizers != 1:
-        raise NotImplementedError(f"{mc.model} x{mc.num_quantizers}: not in the port yet")
+    if mc.model != "vqvae":
+        raise NotImplementedError(f"--model {mc.model}: not in the port yet")
     gin = cfg.arch.gin_channels if n_speakers > 0 else -1
     return VQVAE(
         input_dim=mc.input_dim, dim=mc.dim, z_dim=mc.z_dim,
         n_speakers=n_speakers if gin > 0 else 0, gin_channels=gin,
-        norm=norm, generator=generator,
+        norm=norm, generator=generator, num_quantizers=mc.num_quantizers,
+        dtype=dtype or torch.float32,
     )
 
 
@@ -217,8 +223,9 @@ def apply_data_codebook_init(model: VQVAE, x: torch.Tensor, generator: torch.Gen
     """--codebook-init data: replace the codebook with rows drawn from the
     encoder outputs of a train batch, in train mode (batch statistics, as
     training quantizes them) with the running statistics left as they
-    were. Runs before ``create_train_state`` so the EMA shadows copy the
-    seeded rows."""
+    were; a residual-VQ (Q, K, D) codebook is seeded stage by stage from the
+    residuals. Runs before ``create_train_state`` so the EMA shadows copy
+    the seeded rows."""
     model.train()
     with batch_stats_discarded(model):
         z_e = model._encode_latents(x)
@@ -242,7 +249,8 @@ def main(argv=None):
     sample_batch = next(iter(test_loader))
     n_speakers = cfg.arch.n_speakers if "g" in sample_batch else 0
     model = make_model(
-        cfg, n_speakers, norm=args.norm, generator=torch.Generator().manual_seed(args.seed)
+        cfg, n_speakers, norm=args.norm, generator=torch.Generator().manual_seed(args.seed),
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
     ).to(device)
     if args.codebook_init == "data":
         # a TRAIN batch: a test-seeded codebook would leak held-out data

@@ -21,9 +21,16 @@ bridge only changes each leaf's name and layout:
   norms       scale, bias            .weight, .bias (BatchNorm, GroupNorm,
                                      LayerNorm)
   BatchNorm   mean, var (stats)      .running_mean, .running_var
-  top-level leaves (codebook, bos)   the same name
+  top-level leaves (codebook, bos)   the same name, the same layout: a
+                                     (K, D) codebook or a residual-VQ
+                                     (Q, K, D) stack
 
 Both directions copy values exactly, so a round trip is bit-exact.
+
+EMA-codebook statistics (``TrainState.codebook_ema`` on both sides):
+``cluster`` (K,) or (Q, K) and ``embed_sum`` (K, D) or (Q, K, D) keep their
+layouts; ``codebook_ema_to_port`` and ``codebook_ema_to_flax`` carry them
+over and check that the two agree.
 
 Flat vectors. The JAX package keeps the fused optimizer's moments and the
 parameter EMA as one vector in ``ravel_pytree`` order (the params tree
@@ -135,6 +142,31 @@ def module_to_flax(
     out = {"params": params}
     if stats:
         out["batch_stats"] = stats
+    return out
+
+
+def _check_codebook_ema(cluster_shape, embed_sum_shape) -> None:
+    if len(embed_sum_shape) not in (2, 3) or tuple(cluster_shape) != tuple(embed_sum_shape[:-1]):
+        raise ValueError(
+            f"EMA-codebook statistics cluster {tuple(cluster_shape)} and embed_sum "
+            f"{tuple(embed_sum_shape)}: expected (K,) and (K, D), or (Q, K) and (Q, K, D)"
+        )
+
+
+def codebook_ema_to_port(stats: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX train state's ``codebook_ema`` (numpy leaves) -> the port's
+    ``TrainState.codebook_ema`` (float32 tensors of the same layouts)."""
+    cluster, esum = np.asarray(stats["cluster"]), np.asarray(stats["embed_sum"])
+    _check_codebook_ema(cluster.shape, esum.shape)
+    return {"cluster": torch.from_numpy(np.array(cluster, np.float32)),
+            "embed_sum": torch.from_numpy(np.array(esum, np.float32))}
+
+
+def codebook_ema_to_flax(stats: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The port's ``TrainState.codebook_ema`` -> numpy leaves in the JAX
+    train state's layout."""
+    out = {k: stats[k].detach().float().cpu().numpy() for k in ("cluster", "embed_sum")}
+    _check_codebook_ema(out["cluster"].shape, out["embed_sum"].shape)
     return out
 
 

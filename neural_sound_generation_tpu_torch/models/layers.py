@@ -9,6 +9,15 @@ weight bridge in ``convert.py`` maps one tree onto the other by name.
 Only the stock convolution math is ported. The JAX package's ``edge`` and
 ``phased`` lowerings of the stride-2 convolutions are TPU layout choices
 with the same numerics.
+
+Compute dtype (``dtype``, flax's per-module ``dtype``; bfloat16 under
+``--bf16``): parameters stay float32. A convolution casts its input, kernel
+and bias to the compute dtype (flax's ``promote_dtype``), convolves with
+float32 accumulation rounded once, then adds the rounded bias, so its output
+is in the compute dtype. A norm takes its statistics and normalizes in
+float32 and rounds once to the compute dtype; BatchNorm's running averages
+stay float32. The casts are explicit: ``torch.autocast`` would choose the
+bf16 ops by its own list, which is not flax's.
 """
 
 from __future__ import annotations
@@ -46,20 +55,38 @@ class BatchNorm(nn.BatchNorm2d):
     variance, and updates the running averages as 0.99 * old + 0.01 *
     batch with that biased variance, where ``BatchNorm2d`` would store the
     unbiased one. ``num_batches_tracked`` is not used (flax has no
-    counter)."""
+    counter). Under a compute ``dtype`` other than float32 the input is
+    taken to float32 first and the output rounded once to ``dtype``."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__(dim, eps=BATCH_NORM_EPS, momentum=BATCH_NORM_MOMENTUM)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.to(torch.float32)
         if not self.training:
-            return super().forward(x)
+            return super().forward(x32).to(self.compute_dtype)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
             keep = 1.0 - self.momentum
             self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
             self.running_var.copy_(keep * self.running_var + self.momentum * var)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return y.to(self.compute_dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax's ``nn.GroupNorm(group_size=8)``: statistics and normalization in
+    float32, the output rounded once to the compute ``dtype``."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        if dim % GROUP_SIZE:
+            raise ValueError(f"group norm needs channels divisible by {GROUP_SIZE}")
+        super().__init__(dim // GROUP_SIZE, dim, eps=GROUP_NORM_EPS)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(torch.float32)).to(self.compute_dtype)
 
 
 @contextlib.contextmanager
@@ -78,31 +105,62 @@ def batch_stats_discarded(module: nn.Module) -> Iterator[None]:
                 m.running_var.copy_(var)
 
 
-def make_norm(norm: str, dim: int) -> nn.Module:
+def make_norm(norm: str, dim: int, dtype: torch.dtype = torch.float32) -> nn.Module:
     """Normalization layer by name: ``batch`` (reference parity) or
-    ``group`` (per-sample statistics, groups of 8 channels)."""
+    ``group`` (per-sample statistics, groups of 8 channels), with the
+    compute ``dtype`` of its output."""
     if norm == "batch":
-        return BatchNorm(dim)
+        return BatchNorm(dim, dtype)
     if norm == "group":
-        if dim % GROUP_SIZE:
-            raise ValueError(f"group norm needs channels divisible by {GROUP_SIZE}")
-        return nn.GroupNorm(dim // GROUP_SIZE, dim, eps=GROUP_NORM_EPS)
+        return GroupNorm(dim, dtype)
     raise ValueError(f"unknown norm: {norm!r}")
 
 
-def conv_down(in_dim: int, dim: int) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with flax's compute ``dtype`` (see the module
+    docstring); float32 runs the stock convolution unchanged."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y + self.bias.to(dt)[:, None, None]
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` with flax's compute ``dtype``, as ``Conv2d``."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding,
+                               self.output_padding, self.groups, self.dilation)
+        return y + self.bias.to(dt)[:, None, None]
+
+
+def conv_down(in_dim: int, dim: int, dtype: torch.dtype = torch.float32) -> Conv2d:
     """Stride-2 4x4 downsampling conv (torch Conv2d(k=4, s=2, p=1))."""
-    return nn.Conv2d(in_dim, dim, 4, stride=2, padding=1)
+    return Conv2d(in_dim, dim, 4, stride=2, padding=1, dtype=dtype)
 
 
-def conv_up(in_dim: int, dim: int) -> nn.ConvTranspose2d:
+def conv_up(in_dim: int, dim: int, dtype: torch.dtype = torch.float32) -> ConvTranspose2d:
     """Stride-2 4x4 upsampling transpose conv, output 2H.
 
     The JAX package's flax ``ConvTranspose`` with padding "SAME" and no
     kernel flip computes the same function as ``ConvTranspose2d(4, 2, 1)``
     with a spatially flipped kernel whose in/out axes are swapped;
     ``convert.py`` applies that mapping."""
-    return nn.ConvTranspose2d(in_dim, dim, 4, stride=2, padding=1)
+    return ConvTranspose2d(in_dim, dim, 4, stride=2, padding=1, dtype=dtype)
 
 
 class ConvTranspose1dSame(nn.ConvTranspose1d):
@@ -129,14 +187,16 @@ class ConvTranspose1dSame(nn.ConvTranspose1d):
 
 class ResBlock(nn.Module):
     """Pre-activation residual block (models.py:145-158):
-    ReLU -> 3x3 conv -> norm -> ReLU -> 1x1 conv -> norm, plus skip."""
+    ReLU -> 3x3 conv -> norm -> ReLU -> 1x1 conv -> norm, plus skip. The
+    skip sum promotes as jnp does: a float32 input and a bf16 branch give a
+    float32 output."""
 
-    def __init__(self, dim: int, norm: str = "batch"):
+    def __init__(self, dim: int, norm: str = "batch", dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(dim, dim, 3, padding=1)
-        self.add_module(norm_name(norm, 0), make_norm(norm, dim))
-        self.Conv_1 = nn.Conv2d(dim, dim, 1)
-        self.add_module(norm_name(norm, 1), make_norm(norm, dim))
+        self.Conv_0 = Conv2d(dim, dim, 3, padding=1, dtype=dtype)
+        self.add_module(norm_name(norm, 0), make_norm(norm, dim, dtype))
+        self.Conv_1 = Conv2d(dim, dim, 1, dtype=dtype)
+        self.add_module(norm_name(norm, 1), make_norm(norm, dim, dtype))
         self._norms = (norm_name(norm, 0), norm_name(norm, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -9,9 +9,16 @@ the JAX package's ``train=False`` does.
 
 Architecture (for input (B, H, W, C)):
   encoder:  Conv4x4/s2 + norm + ReLU -> Conv4x4/s2 -> ResBlock x2   (H/4, W/4)
-  codebook: z_dim codes of width `dim`, init U(-1/z_dim, 1/z_dim)
+  codebook: z_dim codes of width `dim`, init U(-1/z_dim, 1/z_dim); with
+            ``num_quantizers`` Q > 1 a (Q, z_dim, dim) stack of residual-VQ
+            stages (SoundStream-style), codes (Q, B, H/4, W/4)
   decoder:  ResBlock x2 -> ReLU -> ConvT4x4/s2 + norm + ReLU -> ConvT4x4/s2
             -> Tanh
+
+``dtype`` is the convolution stacks' compute dtype (bfloat16 under
+``--bf16``, see ``layers``): parameters stay float32, the encoder's output
+is taken to float32 before the VQ, the losses stay float32, the speaker
+embedding stays float32 and the decoder's tanh runs in float32.
 """
 
 from __future__ import annotations
@@ -27,19 +34,20 @@ from neural_sound_generation_tpu_torch.models.layers import (
     make_norm,
     norm_name,
 )
-from neural_sound_generation_tpu_torch.ops.vq import codebook_lookup, vq, vq_st
+from neural_sound_generation_tpu_torch.ops.vq import codebook_lookup, residual_vq, vq, vq_st
 
 
 class Encoder(nn.Module):
     """(B, input_dim, H, W) -> (B, dim, H/4, W/4), NCHW."""
 
-    def __init__(self, input_dim: int, dim: int, norm: str = "batch"):
+    def __init__(self, input_dim: int, dim: int, norm: str = "batch",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.Conv_0 = conv_down(input_dim, dim)
-        self.add_module(norm_name(norm, 0), make_norm(norm, dim))
-        self.Conv_1 = conv_down(dim, dim)
-        self.ResBlock_0 = ResBlock(dim, norm)
-        self.ResBlock_1 = ResBlock(dim, norm)
+        self.Conv_0 = conv_down(input_dim, dim, dtype)
+        self.add_module(norm_name(norm, 0), make_norm(norm, dim, dtype))
+        self.Conv_1 = conv_down(dim, dim, dtype)
+        self.ResBlock_0 = ResBlock(dim, norm, dtype)
+        self.ResBlock_1 = ResBlock(dim, norm, dtype)
         self._norm = norm_name(norm, 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -51,13 +59,14 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     """(B, dim, H', W') -> (B, output_dim, 4H', 4W') in (-1, 1), NCHW."""
 
-    def __init__(self, dim: int, output_dim: int, norm: str = "batch"):
+    def __init__(self, dim: int, output_dim: int, norm: str = "batch",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ResBlock_0 = ResBlock(dim, norm)
-        self.ResBlock_1 = ResBlock(dim, norm)
-        self.ConvTranspose_0 = conv_up(dim, dim)
-        self.add_module(norm_name(norm, 0), make_norm(norm, dim))
-        self.ConvTranspose_1 = conv_up(dim, output_dim)
+        self.ResBlock_0 = ResBlock(dim, norm, dtype)
+        self.ResBlock_1 = ResBlock(dim, norm, dtype)
+        self.ConvTranspose_0 = conv_up(dim, dim, dtype)
+        self.add_module(norm_name(norm, 0), make_norm(norm, dim, dtype))
+        self.ConvTranspose_1 = conv_up(dim, output_dim, dtype)
         self._norm = norm_name(norm, 0)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
@@ -80,8 +89,10 @@ class VQVAE(nn.Module):
 
     ``n_speakers``/``gin_channels`` enable a learned speaker embedding added
     to the quantized latents before decoding (global conditioning, the
-    multi-speaker CMU Arctic configuration). Weights are initialized from
-    ``generator`` (see ``layers.init_weights``)."""
+    multi-speaker CMU Arctic configuration). ``num_quantizers`` residual-VQ
+    stages (1: the reference's single codebook) and the compute ``dtype``
+    follow the JAX ``VQVAE`` (models/vqvae.py:86-108). Weights are
+    initialized from ``generator`` (see ``layers.init_weights``)."""
 
     def __init__(
         self,
@@ -92,13 +103,19 @@ class VQVAE(nn.Module):
         gin_channels: int = -1,
         norm: str = "batch",
         generator: torch.Generator | None = None,
+        num_quantizers: int = 1,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        if num_quantizers < 1:
+            raise ValueError(f"num_quantizers must be >= 1, got {num_quantizers}")
         self.input_dim, self.dim, self.z_dim = input_dim, dim, z_dim
         self.n_speakers, self.gin_channels = n_speakers, gin_channels
-        self.codebook = nn.Parameter(torch.empty(z_dim, dim))
-        self.encoder = Encoder(input_dim, dim, norm)
-        self.decoder = Decoder(dim, input_dim, norm)
+        self.num_quantizers = num_quantizers
+        cb_shape = (z_dim, dim) if num_quantizers == 1 else (num_quantizers, z_dim, dim)
+        self.codebook = nn.Parameter(torch.empty(cb_shape))
+        self.encoder = Encoder(input_dim, dim, norm, dtype)
+        self.decoder = Decoder(dim, input_dim, norm, dtype)
         if self.speakered:
             self.speaker_embed = nn.Embedding(n_speakers, gin_channels)
             self.speaker_proj = nn.Linear(gin_channels, dim)
@@ -131,21 +148,37 @@ class VQVAE(nn.Module):
         return _nhwc(self.encoder(_nchw(x))).float()
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, H, W, C) -> int32 code indices (B, H/4, W/4)."""
-        return vq(self._encode_latents(x), self.codebook)
+        """x (B, H, W, C) -> int32 code indices (B, H/4, W/4), or (Q, B,
+        H/4, W/4) under residual VQ."""
+        z_e = self._encode_latents(x)
+        if self.num_quantizers > 1:
+            _, _, indices = residual_vq(z_e, self.codebook)
+            return indices.reshape(self.num_quantizers, *z_e.shape[:-1])
+        return vq(z_e, self.codebook)
 
     def decode(self, indices: torch.Tensor, g: torch.Tensor | None = None) -> torch.Tensor:
-        """Code indices (B, H', W') -> reconstruction (B, 4H', 4W', input_dim)."""
-        z_q = self._condition(codebook_lookup(self.codebook, indices), g)
+        """Code indices (B, H', W'), or (Q, B, H', W') under residual VQ ->
+        reconstruction (B, 4H', 4W', input_dim)."""
+        if self.num_quantizers > 1:
+            z_q = codebook_lookup(self.codebook[0], indices[0])
+            for q in range(1, self.num_quantizers):
+                z_q = z_q + codebook_lookup(self.codebook[q], indices[q])
+        else:
+            z_q = codebook_lookup(self.codebook, indices)
+        z_q = self._condition(z_q, g)
         return _nhwc(self.decoder(_nchw(z_q)))
 
     def forward(self, x: torch.Tensor, g: torch.Tensor | None = None):
         """Returns (x_tilde, z_e, z_q) like the reference forward
-        (models.py:198-216): ``z_e`` is the encoder output (NHWC), ``z_q`` the
-        codebook vectors by a second, differentiable lookup, and the decoder
-        consumes the straight-through codes."""
+        (models.py:198-216): ``z_e`` is the encoder output (NHWC, float32),
+        ``z_q`` the codebook vectors by a differentiable lookup (under
+        residual VQ the sum of the stage lookups), and the decoder consumes
+        the straight-through codes."""
         z_e = self._encode_latents(x)
-        codes_st, indices = vq_st(z_e, self.codebook)
-        z_q = codebook_lookup(self.codebook, indices).reshape(z_e.shape)
+        if self.num_quantizers > 1:
+            codes_st, z_q, _ = residual_vq(z_e, self.codebook)
+        else:
+            codes_st, indices = vq_st(z_e, self.codebook)
+            z_q = codebook_lookup(self.codebook, indices).reshape(z_e.shape)
         x_tilde = _nhwc(self.decoder(_nchw(self._condition(codes_st, g))))
         return x_tilde, z_e, z_q

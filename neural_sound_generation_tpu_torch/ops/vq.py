@@ -20,9 +20,17 @@ tensors; the ones that draw take an explicit ``torch.Generator``:
   * ``data_codebook_init`` (``codebook_from_rows`` given the draws): seed a
     codebook from encoder outputs.
 
+Residual VQ (SoundStream-style, a (Q, K, D) stack of codebooks):
+
+  * ``residual_vq``: each stage quantizes what the earlier stages left;
+  * ``residual_codebook_ema_update``: per-stage EMA statistics, each taken
+    against the residual its stage saw;
+  * ``data_codebook_init`` with a (Q, K, D) shape seeds stage q > 0 from the
+    residual of the stages before it.
+
 The nearest-code search goes to the CUDA kernel for tensors on a CUDA
 device and to its plain version on the CPU; ``set_vq_backend`` can pin
-either one. Residual VQ comes with a later slice.
+either one.
 """
 
 from __future__ import annotations
@@ -112,6 +120,37 @@ def codebook_lookup(codebook: torch.Tensor, indices: torch.Tensor) -> torch.Tens
     return flat.reshape(*indices.shape, codebook.shape[-1])
 
 
+def residual_vq(inputs: torch.Tensor, codebooks: torch.Tensor):
+    """Residual vector quantization over ``codebooks`` (Q, K, D): stage q
+    quantizes the residual the stages before it left, and the quantized
+    vector is the sum of the stage codes. Returns ``(quantized_st,
+    quantized_sum, indices)``:
+
+      * ``quantized_st`` = inputs + (sum - inputs).detach(): the encoder gets
+        the upstream gradient once, through one straight-through around the
+        whole sum (feed the decoder);
+      * ``quantized_sum``: each stage's codebook gets gradients through its
+        own ``codebook_lookup`` only (use it in the VQ loss);
+      * ``indices`` (Q, N) int32, N the number of input vectors.
+
+    The residual is detached between stages, as the JAX package's
+    ``stop_gradient`` does."""
+    num_q, _, embedding_size = codebooks.shape
+    flat = inputs.reshape(-1, embedding_size)
+    residual = flat.detach()
+    total = torch.zeros_like(flat)
+    indices = []
+    for q in range(num_q):
+        idx = _nearest_indices(residual, codebooks[q])
+        codes = codebook_lookup(codebooks[q], idx)
+        total = total + codes
+        residual = residual - codes.detach()
+        indices.append(idx)
+    quantized_sum = total.reshape(inputs.shape)
+    quantized_st = inputs + (quantized_sum - inputs).detach()
+    return quantized_st, quantized_sum, torch.stack(indices)
+
+
 def codebook_ema_update(
     codebook: torch.Tensor,
     cluster_size_ema: torch.Tensor,
@@ -136,6 +175,43 @@ def codebook_ema_update(
     n = torch.sum(new_cluster)
     cluster = (new_cluster + eps) / (n + num_codes * eps) * n
     return new_embed_sum / cluster[:, None], new_cluster, new_embed_sum
+
+
+def residual_codebook_ema_update(
+    codebooks: torch.Tensor,
+    cluster_size_ema: torch.Tensor,
+    embed_sum_ema: torch.Tensor,
+    inputs_flat: torch.Tensor,
+    indices: torch.Tensor,
+    decay: float,
+    eps: float = 1e-5,
+    return_residuals: bool = False,
+):
+    """Per-stage EMA update for residual VQ: ``codebooks`` (Q, K, D),
+    ``cluster_size_ema`` (Q, K), ``embed_sum_ema`` (Q, K, D), ``indices``
+    (Q, N) from ``residual_vq``. Stage q's statistics are taken against the
+    residual its quantizer saw, rebuilt here from the indices with the
+    codebooks as they were before this update. Returns the stacked
+    (new_codebooks, new_cluster, new_embed_sum), and with
+    ``return_residuals`` the (Q, N, D) stage inputs as well: the candidate
+    pool for per-stage dead-code restarts (a stage-1+ residual is at
+    another scale than the raw encoder output)."""
+    residual = inputs_flat
+    new_cbs, new_clusters, new_sums, residuals = [], [], [], []
+    for q in range(codebooks.shape[0]):
+        residuals.append(residual)
+        cb, cl, es = codebook_ema_update(
+            codebooks[q], cluster_size_ema[q], embed_sum_ema[q], residual, indices[q],
+            decay, eps,
+        )
+        new_cbs.append(cb)
+        new_clusters.append(cl)
+        new_sums.append(es)
+        residual = residual - codebooks[q].index_select(0, indices[q].long())
+    out = (torch.stack(new_cbs), torch.stack(new_clusters), torch.stack(new_sums))
+    if return_residuals:
+        return out + (torch.stack(residuals),)
+    return out
 
 
 def restart_rows(
@@ -195,21 +271,41 @@ def data_codebook_init(
     codebook_shape,
     generator: torch.Generator,
     noise_scale: float = 0.01,
+    draws=None,
 ) -> torch.Tensor:
-    """Seed a (K, D) codebook from encoder outputs ``z_e`` (..., D) instead
-    of the reference's U(+-1/K) ball at the origin (the Jukebox-style
-    random-sample init): K rows drawn without replacement (with replacement
-    when there are fewer than K), plus jitter."""
-    if len(codebook_shape) != 2:
-        raise NotImplementedError("data init of residual-VQ codebooks comes with the RVQ slice")
-    k, d = codebook_shape
+    """Seed a (K, D) or (Q, K, D) codebook from encoder outputs ``z_e``
+    (..., D) instead of the reference's U(+-1/K) ball at the origin (the
+    Jukebox-style random-sample init): K rows drawn without replacement
+    (with replacement when there are fewer than K), plus jitter.
+
+    For residual VQ, stage q > 0 is drawn from the residual left after
+    greedy assignment to the stages already seeded (a nearest-code search
+    per earlier stage), which is what it will quantize. ``draws(q, n, k)``
+    may supply stage q's ``(idx, noise)`` in place of the generator's (the
+    tests hand in the JAX package's draws)."""
+    if len(codebook_shape) == 2:
+        qs, (k, d) = 1, codebook_shape
+    else:
+        qs, k, d = codebook_shape
     flat = z_e.reshape(-1, z_e.shape[-1]).to(torch.float32)
     if flat.shape[1] != d:
         raise ValueError(f"codebook width {d}, encoder outputs {flat.shape[1]}")
-    n = flat.shape[0]
-    if n < k:
-        idx = torch.randint(0, n, (k,), generator=generator, device=flat.device)
-    else:
-        idx = torch.randperm(n, generator=generator, device=flat.device)[:k]
-    noise = torch.randn(k, d, generator=generator, device=flat.device)
-    return codebook_from_rows(flat, idx, noise, noise_scale)
+
+    def draw(q: int, n: int):
+        if draws is not None:
+            return draws(q, n, k)
+        if n < k:
+            idx = torch.randint(0, n, (k,), generator=generator, device=flat.device)
+        else:
+            idx = torch.randperm(n, generator=generator, device=flat.device)[:k]
+        return idx, torch.randn(k, d, generator=generator, device=flat.device)
+
+    if qs == 1 and len(codebook_shape) == 2:
+        return codebook_from_rows(flat, *draw(0, flat.shape[0]), noise_scale)
+    books, residual = [], flat
+    for q in range(qs):
+        book = codebook_from_rows(residual, *draw(q, residual.shape[0]), noise_scale)
+        books.append(book)
+        if q + 1 < qs:
+            residual = residual - book.index_select(0, _nearest_indices(residual, book).long())
+    return torch.stack(books)

@@ -245,7 +245,8 @@ class TrainState:
     ema_decay: float = 0.0
     ema_warmup: bool = False
     # EMA-codebook statistics (ModelConfig.ema_codebook):
-    # {"cluster": (K,), "embed_sum": (K, D)}
+    # {"cluster": (K,), "embed_sum": (K, D)}, or (Q, K) and (Q, K, D) for
+    # residual VQ
     codebook_ema: dict | None = None
 
     def eval_params(self) -> torch.Tensor:
@@ -265,7 +266,8 @@ def create_train_state(
 
     Under ``ema_codebook`` the codebook statistics start as cluster sizes
     of 1 and ``embed_sum`` equal to the codebook, so embed_sum / cluster is
-    the codebook at init."""
+    the codebook at init; a residual-VQ (Q, K, D) codebook gets (Q, K)
+    clusters."""
     if fused is None:
         fused = cfg.fused_optimizer
     if not fused:
@@ -279,10 +281,8 @@ def create_train_state(
     cb_ema = None
     if ema_codebook and "codebook" in flat.names:
         cb = flat.view("codebook")
-        if cb.ndim != 2:
-            raise NotImplementedError("EMA codebooks for residual VQ come with the RVQ slice")
         cb_ema = {
-            "cluster": torch.ones(cb.shape[0], dtype=torch.float32, device=device),
+            "cluster": torch.ones(cb.shape[:-1], dtype=torch.float32, device=device),
             "embed_sum": cb.detach().clone(),
         }
     return TrainState(

@@ -7,12 +7,15 @@ state in place (the model's parameters are views of the flat buffer the
 fused kernel writes) and returns the same object, so the call sites read
 alike. Metrics stay device tensors until the caller asks for them.
 
-A VQ-VAE train step runs the nearest-code kernel once (the ``vq_st``
-forward), once more under ``ema_codebook``, and the fused-Adam kernel once;
-each eval batch runs the nearest-code kernel twice (the forward and
-``encode``). A prior train step (batches ``{"codes", "labels"}``) runs the
-flash-attention forward and both backward kernels once per layer, and the
-fused-Adam kernel once; it has no BatchNorm and no codebook branch.
+A VQ-VAE train step runs the nearest-code kernel once per VQ stage (the
+forward), as often again under ``ema_codebook``, and the fused-Adam kernel
+once; each eval batch runs the nearest-code kernel twice per stage (the
+forward and ``encode``). Under a bf16 compute dtype (``--bf16``) the model's
+convolutions run in bf16 while the VQ, the loss, the gradients in the flat
+float32 buffer and the fused update stay float32. A prior train step
+(batches ``{"codes", "labels"}``) runs the flash-attention forward and both
+backward kernels once per layer, and the fused-Adam kernel once; it has no
+BatchNorm and no codebook branch.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from neural_sound_generation_tpu_torch.data.pipeline import device_prefetch
 from neural_sound_generation_tpu_torch.models import VQVAE, TransformerPrior
 from neural_sound_generation_tpu_torch.ops.vq import (
     codebook_ema_update,
+    residual_codebook_ema_update,
+    residual_vq,
     restart_dead_codes,
     vq,
 )
@@ -110,19 +115,38 @@ def make_train_step(model, cfg: Config) -> Callable:
 
 
 def _ema_codebook_step(state: TrainState, cfg: Config, cb_old, z_e, generator) -> None:
+    """Overwrite the codebook from the step's encoder outputs (the JAX
+    ``train_step``'s EMA branch). Assignments use the pre-update codebook;
+    under residual VQ each stage's statistics and dead-code candidates come
+    from the residual it saw, with one restart draw per stage, in stage
+    order, from ``generator``."""
     flat = z_e.reshape(-1, z_e.shape[-1])
-    indices = vq(flat, cb_old)
     ce = state.codebook_ema
-    new_cb, cluster, esum = codebook_ema_update(
-        cb_old, ce["cluster"], ce["embed_sum"], flat, indices,
-        decay=cfg.model.ema_codebook_decay,
-    )
-    if cfg.model.restart_dead_threshold > 0:
-        new_cb, cluster, esum = restart_dead_codes(
-            new_cb, cluster, flat, generator,
-            threshold=cfg.model.restart_dead_threshold,
-            cluster=cluster, embed_sum=esum,
+    decay = cfg.model.ema_codebook_decay
+    threshold = cfg.model.restart_dead_threshold
+    if cb_old.ndim == 3:
+        _, _, indices = residual_vq(flat, cb_old)
+        new_cb, cluster, esum, residuals = residual_codebook_ema_update(
+            cb_old, ce["cluster"], ce["embed_sum"], flat, indices, decay=decay,
+            return_residuals=True,
         )
+        if threshold > 0:
+            restarted = [
+                restart_dead_codes(new_cb[q], cluster[q], residuals[q], generator,
+                                   threshold=threshold, cluster=cluster[q], embed_sum=esum[q])
+                for q in range(new_cb.shape[0])
+            ]
+            new_cb, cluster, esum = (torch.stack(t) for t in zip(*restarted))
+    else:
+        indices = vq(flat, cb_old)
+        new_cb, cluster, esum = codebook_ema_update(
+            cb_old, ce["cluster"], ce["embed_sum"], flat, indices, decay=decay,
+        )
+        if threshold > 0:
+            new_cb, cluster, esum = restart_dead_codes(
+                new_cb, cluster, flat, generator,
+                threshold=threshold, cluster=cluster, embed_sum=esum,
+            )
     state.model.codebook.copy_(new_cb)
     state.codebook_ema = {"cluster": cluster, "embed_sum": esum}
 
@@ -180,6 +204,8 @@ def make_eval_step(model, cfg: Config) -> Callable:
             x_tilde, z_e, z_q = model(x, g=batch.get("g"))
             _, metrics = vqvae_loss(x_tilde, x, z_e, z_q, beta)
             indices = model.encode(x)
+        # residual VQ: the (Q, ...) indices pool usage over the stages, as
+        # the JAX eval step's codebook_perplexity does
         metrics["perplexity"] = codebook_perplexity(indices, model.z_dim)
         return x_tilde, metrics
 

@@ -16,12 +16,20 @@ mels), float32 with TF32 off, and:
     kernels that take the most device time and the device's busy share
     of the steps' wall time.
 
-Run from the repository root: ``python3 scripts/torch_train_breakdown.py``.
-Prints one JSON line per measurement; fails without a CUDA device.
+``--bf16`` runs the convolutions in bf16 (``cli.main --bf16``);
+``--num-quantizers Q`` trains residual VQ; ``--ema-codebook`` learns the
+codebook by EMA with dead-code restarts at threshold 1.0, timed as a
+fourth phase.
+
+Run from the repository root: ``python3 scripts/torch_train_breakdown.py
+[--bf16] [--num-quantizers Q] [--ema-codebook]``. Prints one JSON line per
+measurement; fails without a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -37,7 +45,12 @@ PROFILED_STEPS = 10
 BATCH, N_MELS, FRAMES = 64, 80, 28
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="where a train step's time goes")
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--num-quantizers", type=int, default=1)
+    p.add_argument("--ema-codebook", action="store_true")
+    args = p.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -56,7 +69,10 @@ def main() -> int:
         create_train_state,
         fused_flat_update,
     )
-    from neural_sound_generation_tpu_torch.training.trainer import make_train_step
+    from neural_sound_generation_tpu_torch.training.trainer import (
+        _ema_codebook_step,
+        make_train_step,
+    )
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -65,18 +81,23 @@ def main() -> int:
     print(card, flush=True)
     device = resolve_device("cuda")
     cfg = Config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, num_quantizers=args.num_quantizers, ema_codebook=args.ema_codebook,
+        restart_dead_threshold=1.0 if args.ema_codebook else 0.0))
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.rand(BATCH, N_MELS, FRAMES, 1, generator=gen, device=device)
-    model = VQVAE(1, 256, 512, generator=torch.Generator().manual_seed(0)).to(device)
+    model = VQVAE(1, 256, 512, generator=torch.Generator().manual_seed(0),
+                  num_quantizers=args.num_quantizers,
+                  dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
     apply_data_codebook_init(model, x, gen)
-    state = create_train_state(model, cfg.train)
+    state = create_train_state(model, cfg.train, ema_codebook=args.ema_codebook)
     step = make_train_step(model, cfg)
     for _ in range(5):
-        step(state, {"x": x})
+        step(state, {"x": x}, gen)
     torch.cuda.synchronize()
 
     # the phases of a step, between events on the device's timeline
-    events = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(REPEATS)]
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(REPEATS)]
     model.train()
     for ev in events:
         ev[0].record()
@@ -87,22 +108,28 @@ def main() -> int:
         total.backward()
         ev[2].record()
         with torch.no_grad():
+            if args.ema_codebook:
+                state.flat.view("codebook", state.flat.grad).zero_()
+                cb_old = model.codebook.detach().clone()
             fused_flat_update(state.opt_state, state.flat.flat, state.flat.grad,
                               state.ema_params, state.ema_decay, state.ema_warmup, state.step)
             state.step.add_(1)
-        ev[3].record()
+            ev[3].record()
+            if args.ema_codebook:
+                _ema_codebook_step(state, cfg, cb_old, z_e.detach(), gen)
+        ev[4].record()
     torch.cuda.synchronize()
     phase_ms = {
         name: float(np.median([ev[i].elapsed_time(ev[i + 1]) for ev in events]))
-        for i, name in enumerate(("forward_and_loss", "backward", "optimizer"))
+        for i, name in enumerate(("forward_and_loss", "backward", "optimizer", "ema_codebook"))
     }
-    phase_ms["step"] = float(np.median([ev[0].elapsed_time(ev[3]) for ev in events]))
+    phase_ms["step"] = float(np.median([ev[0].elapsed_time(ev[4]) for ev in events]))
 
     enqueue = []
     for _ in range(REPEATS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(state, {"x": x})
+        step(state, {"x": x}, gen)
         enqueue.append(1e3 * (time.perf_counter() - t0))
     torch.cuda.synchronize()
 
@@ -118,17 +145,20 @@ def main() -> int:
         return start.elapsed_time(end) / iters
 
     flat_z = z_e.detach().reshape(-1, 256).contiguous()
+    first_book = model.codebook.detach()
+    first_book = first_book[0] if first_book.ndim == 3 else first_book
     scalars = torch.tensor([1.0, 1e-3, 0.5, 0.01, 0.9999], device=device)
     s = state.opt_state
     kernels = {
         "vq_nearest": kernel_ms(lambda: vq_kernel.nearest_codebook_indices(
-            flat_z, model.codebook.detach())),
+            flat_z, first_book)),
         "fused_adam": kernel_ms(lambda: fused_adam.fused_adam_update(
             state.flat.grad, state.flat.flat, s.m, s.v, state.ema_params, scalars,
             b1=s.b1, b2=s.b2, eps=s.eps, clip=False, wd=0.0)),
     }
     print(json.dumps({
-        "card": card, "batch": list(x.shape), "params": state.flat.numel,
+        "card": card, "bf16": args.bf16, "num_quantizers": args.num_quantizers,
+        "ema_codebook": args.ema_codebook, "batch": list(x.shape), "params": state.flat.numel,
         "vq_rows": flat_z.shape[0], "device_ms_median": phase_ms,
         "host_enqueue_ms_median": float(np.median(enqueue)),
         "kernel_ms": kernels,
@@ -138,7 +168,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILED_STEPS):
-            step(state, {"x": x})
+            step(state, {"x": x}, gen)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # device kernels only: an aten op also reports its kernels' time
@@ -150,7 +180,8 @@ def main() -> int:
     busy_ms = sum(dev_us(e) for e in device_events) / 1e3
     top = sorted(device_events, key=dev_us, reverse=True)[:12]
     print(json.dumps({
-        "profile": f"{PROFILED_STEPS} train steps", "card": card, "wall_ms": wall_ms,
+        "profile": f"{PROFILED_STEPS} train steps", "card": card, "bf16": args.bf16,
+        "num_quantizers": args.num_quantizers, "wall_ms": wall_ms,
         "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
         "kernel_launches_per_step": sum(e.count for e in device_events) / PROFILED_STEPS,
         "top_device_ms_per_step": {e.key[:80]: dev_us(e) / 1e3 / PROFILED_STEPS for e in top},
@@ -160,4 +191,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

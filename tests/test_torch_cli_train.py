@@ -1,8 +1,9 @@
 """The port's training CLI end to end on the CPU (``--device cpu``) on a
 tiny synthetic corpus: two epochs with --multi-steps 2 and --codebook-init
 data, --resume for a third, then ``cli.evaluate`` and the server with
-``--ckpt-dir --ema`` from the checkpoint it wrote, in process; and the
-flags of later slices, which refuse."""
+``--ckpt-dir --ema`` from the checkpoint it wrote, in process; residual VQ
+with bf16 compute (``--num-quantizers 2 --bf16``) through train, restore and
+evaluate; and the flags of later slices, which refuse."""
 
 import io
 import json
@@ -147,11 +148,57 @@ def test_serve_ema_refuses_a_checkpoint_without_a_shadow(trained, tmp_path):
     (["--model", "hiervqvae"], "other-autoencoders"),
     (["--model", "wavevqvae"], "other-autoencoders"),
     (["--model", "vqvae", "--dataset", "MNIST"], "other-autoencoders"),
-    (["--model", "vqvae", "--dataset", "ljspeech", "--num-quantizers", "2"], "RVQ"),
-    (["--model", "vqvae", "--dataset", "ljspeech", "--bf16"], "bf16"),
     (["--model", "vqvae", "--dataset", "ljspeech", "--mesh-data", "2"], "parallel"),
     (["--model", "vqvae", "--dataset", "ljspeech", "--mesh-model", "2"], "parallel"),
 ])
 def test_flags_of_later_slices_refuse(flags, slice_name):
     with pytest.raises(SystemExit, match=slice_name):
         main.main(flags + ["--device", "cpu", "--datadir", "/nonexistent"])
+
+
+def test_rvq_bf16_trains_an_f32_checkpoint_that_restores_and_evaluates(trained, tmp_path):
+    """--num-quantizers 2 --bf16 with EMA codebooks, restarts and data init:
+    the checkpoint is float32 (a (2, K, D) codebook, (2, K) EMA clusters)
+    and restores into a float32 model; cli.evaluate runs on it with and
+    without --bf16; a mismatched --num-quantizers is refused at evaluate
+    and at --resume."""
+    _, datadir, _, _ = trained
+    rvq = ["--num-quantizers", "2", "--bf16", "--ema-codebook", "--restart-dead-threshold",
+           "1.0", "--codebook-init", "data"]
+    main.main(_train_args(tmp_path, datadir, "--epochs", "1", *rvq))
+    ckpt = os.path.join(tmp_path, "models", "vqvae", f"checkpoint_ljspeech_{DIM}_{Z_DIM}")
+    step = checkpoint.latest_step(ckpt)
+    assert step == 4
+    assert checkpoint.read_extra(ckpt) == {"epoch": 1, "arch": "vqvae", "num_quantizers": 2,
+                                           "num_downsample": 6}
+    saved = torch.load(os.path.join(ckpt, f"step_{step}", "state.pt"), weights_only=True)
+    assert saved["params/codebook"].shape == (2, Z_DIM, DIM)
+    assert saved["codebook_ema/cluster"].shape == (2, Z_DIM)
+    assert all(t.dtype == torch.float32 for k, t in saved.items()
+               if k.startswith(("params/", "ema_params/", "opt_state/m/", "batch_stats/")))
+    # into the default float32 model of the same shape
+    args = main.parse_args(_train_args(tmp_path, datadir, "--num-quantizers", "2"))
+    cfg = main.build_config(args)
+    model = main.make_model(cfg)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+
+    state, _ = checkpoint.restore(ckpt, create_train_state(model, cfg.train))
+    assert torch.equal(model.codebook.detach(), saved["params/codebook"])
+
+    common = ["--datadir", datadir, "--ckpt-dir", ckpt, "--dim", str(DIM), "--z-dim",
+              str(Z_DIM), "--batch-size", "4", "--device", "cpu", "--max-batches", "1"]
+    bf16 = evaluate.main(common + ["--num-quantizers", "2", "--bf16"])
+    f32 = evaluate.main(common + ["--num-quantizers", "2"])
+    for means in (bf16, f32):
+        assert np.isfinite(means["loss"]) and means["perplexity"] >= 1.0
+    assert abs(bf16["loss"] - f32["loss"]) <= 0.05 * f32["loss"]
+    with pytest.raises(SystemExit, match="num_quantizers"):
+        evaluate.main(common)
+    with pytest.raises(SystemExit, match="num_quantizers"):
+        main.main(_train_args(tmp_path, datadir, "--epochs", "2", "--num-quantizers", "3",
+                              "--resume"))
+    # the server serves single-codebook models: it refuses by the metadata
+    with pytest.raises(SystemExit, match="num_quantizers"):
+        serve.build_service(serve.parse_args(["--device", "cpu", "--ckpt-dir", ckpt, "--dim",
+                                              str(DIM), "--z-dim", str(Z_DIM), "--frames", "16"]))

@@ -249,3 +249,144 @@ def test_discarded_train_pass_leaves_the_statistics():
     assert moved  # the pass did update them inside
     for k, b in tm.named_buffers():
         assert torch.equal(b, before[k]), k
+
+
+def _stagewise_codebook(ze, num_quantizers, z_dim, rng):
+    """A (Q, K, D) stack seeded stage by stage from what the stages before
+    leave of ``ze`` (N, D), so every stage's codes vary."""
+    books, residual = [], ze.copy()
+    for _ in range(num_quantizers):
+        pick = rng.choice(residual.shape[0], z_dim, replace=False)
+        book = (residual[pick] + 0.01 * rng.standard_normal(
+            (z_dim, ze.shape[1]))).astype(np.float32)
+        books.append(book)
+        residual = residual - book[((residual[:, None] - book[None]) ** 2).sum(-1).argmin(1)]
+    return np.stack(books)
+
+
+def _rvq_pair(num_quantizers, bf16=False, dim=32, z_dim=64, seed=0):
+    """A JAX residual-VQ (or bf16) VQ-VAE with perturbed statistics and a
+    codebook seeded from its own encoder outputs, and the port's copy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, 80, 16, 1)).astype(np.float32)
+    jm = JaxVQVAE(input_dim=1, dim=dim, z_dim=z_dim, num_quantizers=num_quantizers,
+                  dtype=jnp.bfloat16 if bf16 else jnp.float32)
+    v = _perturb_stats(_np_tree(jm.init(jax.random.PRNGKey(seed), jnp.asarray(x[:1]),
+                                        train=False)), seed + 1)
+    ze = np.asarray(jm.apply(v, jnp.asarray(x), train=False)[1]).reshape(-1, dim)
+    cb = _stagewise_codebook(ze, num_quantizers, z_dim, rng)
+    v["params"]["codebook"] = cb if num_quantizers > 1 else cb[0]
+    tm = VQVAE(1, dim, z_dim, num_quantizers=num_quantizers,
+               dtype=torch.bfloat16 if bf16 else torch.float32)
+    tm.load_state_dict(convert.flax_to_state_dict(v))
+    tm.eval()
+    return jm, v, tm, x
+
+
+@pytest.mark.parametrize("num_quantizers", [2, 3])
+def test_rvq_vqvae_matches_jax(num_quantizers):
+    """Residual VQ: a (Q, K, D) codebook, codes (Q, B, H', W'), the decoder
+    summing the stage lookups; 1e-5 (f32 sums in another order)."""
+    jm, v, tm, x = _rvq_pair(num_quantizers)
+    assert tuple(tm.codebook.shape) == (num_quantizers, 64, 32)
+    xt, ze, zq = jm.apply(v, jnp.asarray(x), train=False)
+    codes = np.array(jm.apply(v, jnp.asarray(x), train=False, method=JaxVQVAE.encode))
+    dec = jm.apply(v, jnp.asarray(codes), train=False, method=JaxVQVAE.decode)
+    with torch.no_grad():
+        txt, tze, tzq = tm(torch.from_numpy(x))
+        tcodes = tm.encode(torch.from_numpy(x))
+        tdec = tm.decode(torch.from_numpy(codes))
+    assert codes.shape == (num_quantizers, 2, 20, 4) and tcodes.dtype == torch.int32
+    for q in range(num_quantizers):
+        assert len(np.unique(codes[q])) > 8, q  # every stage is exercised
+    np.testing.assert_array_equal(tcodes.numpy(), codes)
+    for got, want in ((tze, ze), (tzq, zq), (txt, xt), (tdec, dec)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    # the port's own init: a (Q, K, D) stack in U(-1/K, 1/K)
+    fresh = VQVAE(1, 16, 32, num_quantizers=num_quantizers,
+                  generator=torch.Generator().manual_seed(0))
+    assert tuple(fresh.codebook.shape) == (num_quantizers, 32, 16)
+    assert float(fresh.codebook.detach().abs().max()) <= 1 / 32
+    with pytest.raises(ValueError):
+        VQVAE(1, 16, 32, num_quantizers=0)
+
+
+@pytest.mark.parametrize("num_quantizers", [1, 2])
+def test_bf16_vqvae_matches_jax_bf16(num_quantizers):
+    """bf16 compute (flax's per-module dtype) in eval mode: float32
+    parameters, convs in bf16 with the bias added after rounding, norms in
+    float32 rounded once, the encoder output to float32 before the VQ, tanh
+    in float32. Both sides round at the same points; where a float32 sum in
+    another order flips a bf16 rounding, the flip travels: within 2e-2 of
+    the largest |x_tilde|, >= 99% of the codes equal."""
+    jm, v, tm, x = _rvq_pair(num_quantizers, bf16=True)
+    xt, _, _ = jm.apply(v, jnp.asarray(x), train=False)
+    codes = np.array(jm.apply(v, jnp.asarray(x), train=False, method=JaxVQVAE.encode))
+    with torch.no_grad():
+        txt, tze, _ = tm(torch.from_numpy(x))
+        tcodes = tm.encode(torch.from_numpy(x))
+    assert txt.dtype == torch.float32 and tze.dtype == torch.float32
+    assert all(p.dtype == torch.float32 for p in tm.parameters())
+    scale = float(np.abs(np.asarray(xt)).max())
+    assert float(np.abs(txt.numpy() - np.asarray(xt)).max()) <= 2e-2 * scale
+    assert float((tcodes.numpy() == codes).mean()) >= 0.99
+    assert len(np.unique(codes)) > 8
+
+
+@pytest.mark.parametrize("shape", [(4, 9, 7, 16), (2, 3, 5, 16)])
+def test_bf16_train_mode_batchnorm_matches_flax(shape):
+    """flax's BatchNorm(dtype=bfloat16) on a bf16 input: batch statistics and
+    the normalization in float32, one rounding to bf16, float32 running
+    averages of the biased variance. The two sides take the variance by
+    different formulas (flax E[x^2] - E[x]^2, the port two passes), a few
+    float32 ulps apart, which flips a bf16 rounding now and then: outputs
+    within 1 bf16 ulp, >= 99% bit-equal; statistics within 1e-5."""
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal(shape) * 2.0 + 0.5).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    fmod = fnn.BatchNorm(use_running_average=False, dtype=jnp.bfloat16)
+    v = _perturb_stats(_np_tree(fmod.init(jax.random.PRNGKey(0), xb)), 9)
+    v["params"] = {"scale": rng.uniform(0.5, 1.5, shape[-1]).astype(np.float32),
+                   "bias": rng.standard_normal(shape[-1]).astype(np.float32)}
+    want, mut = fmod.apply(v, xb, mutable=["batch_stats"])
+    tmod = layers.make_norm("batch", shape[-1], torch.bfloat16)
+    holder = _Holder("BatchNorm_0", tmod)
+    holder.load_state_dict(convert.flax_to_state_dict(
+        {"params": {"BatchNorm_0": v["params"]}, "batch_stats": {"BatchNorm_0": v["batch_stats"]}}))
+    tmod.train()
+    with torch.no_grad():
+        got = _nhwc(tmod(_nchw(np.asarray(xb, np.float32)).bfloat16()))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    from neural_sound_generation_tpu_torch.ops.cuda.conv3x3 import bf16_ulp_error
+    ulps = bf16_ulp_error(got, torch.from_numpy(np.asarray(want, np.float32)))
+    assert float(ulps.max()) <= 1 and float((ulps == 0).float().mean()) >= 0.99
+    stats = _np_tree(mut["batch_stats"])
+    assert tmod.running_mean.dtype == torch.float32
+    np.testing.assert_allclose(tmod.running_mean.numpy(), stats["mean"], atol=1e-5)
+    np.testing.assert_allclose(tmod.running_var.numpy(), stats["var"], atol=1e-5)
+
+
+def test_bf16_layers_round_where_flax_does():
+    """A bf16 conv's output is bf16 (the bias added in bf16 after the
+    convolution is rounded); a bf16 norm normalizes the float32 view of its
+    input and rounds once; a ResBlock's skip keeps a float32 input's dtype."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 5, 6)).astype(np.float32))
+    conv = layers.Conv2d(16, 16, 3, padding=1, dtype=torch.bfloat16)
+    nn.init.normal_(conv.bias)
+    with torch.no_grad():
+        y = conv(x)
+        raw = torch.nn.functional.conv2d(x.bfloat16(), conv.weight.bfloat16(), None, padding=1)
+        assert y.dtype == torch.bfloat16
+        assert torch.equal(y, raw + conv.bias.bfloat16()[:, None, None])
+        for norm in ("batch", "group"):
+            f32, bf = layers.make_norm(norm, 16), layers.make_norm(norm, 16, torch.bfloat16)
+            for m in (f32, bf):
+                m.train()
+            out = bf(y)
+            assert out.dtype == torch.bfloat16
+            assert torch.equal(out, f32(y.float()).bfloat16()), norm
+        block = layers.ResBlock(16, dtype=torch.bfloat16)
+        block.eval()
+        assert block(x).dtype == torch.float32
+        assert block(x.bfloat16()).dtype == torch.bfloat16

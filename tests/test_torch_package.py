@@ -36,7 +36,7 @@ def test_importing_every_module_loads_no_jax():
                  "training.checkpoint", "data.pipeline", "ops.cuda.fused_adam",
                  "ops.cuda.flash_attention", "ops.attention", "models.transformer_prior",
                  "inference.audio", "models.wavenet", "ops.cuda.wavenet_gen", "cli.vocoder",
-                 "serving.mux"):
+                 "serving.mux", "ops.cuda.conv3x3"):
         assert f"neural_sound_generation_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -60,6 +60,10 @@ def _python_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    scripts = os.path.join(REPO, "scripts")
+    for f in sorted(os.listdir(scripts)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(scripts, f)
 
 
 def test_sources_import_nothing_of_jax():

@@ -35,6 +35,7 @@ from neural_sound_generation_tpu.training import trainer as jtrainer
 from neural_sound_generation_tpu_torch import convert
 from neural_sound_generation_tpu_torch.config import Config
 from neural_sound_generation_tpu_torch.models import VQVAE
+from neural_sound_generation_tpu_torch.ops import vq as vq_ops
 from neural_sound_generation_tpu_torch.training import losses, train_state, trainer
 
 torch.set_num_threads(1)
@@ -47,9 +48,10 @@ TRAIN = dict(clip_thresh=1.0, weight_decay=1e-4, ema_decay=0.95, ema_warmup=True
              initial_learning_rate=1e-3)
 
 
-def _cfgs(ema_codebook=False):
+def _cfgs(ema_codebook=False, num_quantizers=1, restart=0.0):
     model = dict(beta=0.25, dim=DIM, z_dim=Z_DIM, ema_codebook=ema_codebook,
-                 restart_dead_threshold=0.0, ema_codebook_decay=0.9)
+                 restart_dead_threshold=restart, ema_codebook_decay=0.9,
+                 num_quantizers=num_quantizers)
     out = []
     for base in (JaxConfig(), Config()):
         out.append(dataclasses.replace(
@@ -65,21 +67,34 @@ def _batches(n, seed):
 
 class Pair:
     """A JAX train state and the port's, with the same weights, batch
-    statistics, warm moments and EMA shadow."""
+    statistics, warm moments and EMA shadow; ``num_quantizers`` residual-VQ
+    stages, bf16 compute under ``bf16``."""
 
-    def __init__(self, ema_codebook=False, seed=0):
-        self.jcfg, self.tcfg = _cfgs(ema_codebook)
+    def __init__(self, ema_codebook=False, seed=0, num_quantizers=1, bf16=False, restart=0.0):
+        self.jcfg, self.tcfg = _cfgs(ema_codebook, num_quantizers, restart)
         rng = np.random.default_rng(seed)
         x0 = _batches(1, seed + 100)[0]
-        self.jm = JaxVQVAE(input_dim=1, dim=DIM, z_dim=Z_DIM)
+        self.jm = JaxVQVAE(input_dim=1, dim=DIM, z_dim=Z_DIM, num_quantizers=num_quantizers,
+                           dtype=jnp.bfloat16 if bf16 else jnp.float32)
         v = jax.tree_util.tree_map(
             np.asarray, self.jm.init(jax.random.PRNGKey(seed), jnp.asarray(x0[:1]), train=False))
         # a codebook drawn from train-mode encoder outputs: every code in use
         (_, z_e, _), _ = self.jm.apply(v, jnp.asarray(x0), train=True, mutable=["batch_stats"])
         ze = np.asarray(z_e).reshape(-1, DIM)
-        pick = rng.choice(ze.shape[0], Z_DIM, replace=False)
-        v["params"]["codebook"] = ze[pick] + 0.05 * rng.standard_normal((Z_DIM, DIM)).astype(
-            np.float32)
+        if num_quantizers == 1:
+            pick = rng.choice(ze.shape[0], Z_DIM, replace=False)
+            v["params"]["codebook"] = ze[pick] + 0.05 * rng.standard_normal(
+                (Z_DIM, DIM)).astype(np.float32)
+        else:  # stage q from what stages < q leave
+            books, residual = [], ze
+            for _ in range(num_quantizers):
+                pick = rng.choice(ze.shape[0], Z_DIM, replace=False)
+                book = (residual[pick] + 0.05 * rng.standard_normal((Z_DIM, DIM))).astype(
+                    np.float32)
+                books.append(book)
+                near = ((residual[:, None] - book[None]) ** 2).sum(-1).argmin(1)
+                residual = residual - book[near]
+            v["params"]["codebook"] = np.stack(books)
         self.variables = v
         flat_p = np.asarray(ravel_pytree(v["params"])[0])
         n = flat_p.size
@@ -95,7 +110,8 @@ class Pair:
             ema_params=jnp.asarray(ema0),
         )
 
-        self.tm = VQVAE(1, DIM, Z_DIM)
+        self.tm = VQVAE(1, DIM, Z_DIM, num_quantizers=num_quantizers,
+                        dtype=torch.bfloat16 if bf16 else torch.float32)
         self.tm.load_state_dict(convert.flax_to_state_dict(v))
         ts = train_state.create_train_state(self.tm, self.tcfg.train, ema_codebook=ema_codebook)
         names = ts.flat.names
@@ -333,3 +349,130 @@ def test_trainer_epochs_pull_metrics_and_warn_on_empty_epochs(tmp_path):
     records = [line for line in open(tmp_path / "m.jsonl")]
     assert len(records) == 3 and '"phase": "test"' in records[-1]
 
+
+
+def test_rvq_ema_codebook_step_with_restarts_matches_jax(monkeypatch):
+    """Residual VQ under EMA codebooks with dead-code restarts: per-stage
+    statistics against each stage's residual, per-stage restarts from each
+    stage's own residuals. jax.random cannot be reproduced in torch, so the
+    port's restart draw is replaced by JAX's (randint of fold_in(key, q)),
+    stage by stage; everything else is the port's. The f32 step limits."""
+    pair = Pair(ema_codebook=True, seed=7, num_quantizers=2, restart=1.0)
+    x = _batches(1, 17)[0]
+    key = jax.random.PRNGKey(3)
+    jstep = jtrainer.make_train_step(pair.jm, pair.jcfg, donate=False)
+    jstate, jmetrics = jstep(pair.jstate, {"x": jnp.asarray(x)}, key)
+
+    stages = []
+
+    def jax_draw(codebook, usage, batch_flat, generator, threshold, cluster, embed_sum):
+        q = len(stages)
+        stages.append(q)
+        idx = np.array(jax.random.randint(jax.random.fold_in(key, q), (codebook.shape[0],), 0,
+                                          batch_flat.shape[0]))
+        return vq_ops.restart_rows(codebook, usage, batch_flat[torch.from_numpy(idx).long()],
+                                   threshold, cluster, embed_sum)
+
+    monkeypatch.setattr(trainer, "restart_dead_codes", jax_draw)
+    tstep = trainer.make_train_step(pair.tm, pair.tcfg)
+    _, tmetrics = tstep(pair.tstate, {"x": torch.from_numpy(x)})
+    assert stages == [0, 1]
+    _assert_metrics(tmetrics, jmetrics)
+    pair.assert_states_match(jstate)
+    ce = pair.tstate.codebook_ema
+    assert ce["cluster"].shape == (2, Z_DIM) and ce["embed_sum"].shape == (2, Z_DIM, DIM)
+    for k in ("cluster", "embed_sum"):
+        np.testing.assert_allclose(ce[k].numpy(), np.asarray(jstate.codebook_ema[k]),
+                                   atol=PARAM_ATOL, rtol=1e-5, err_msg=k)
+    # both stages restarted some codes (cluster reset to exactly 1)
+    for q in range(2):
+        assert 0 < int((ce["cluster"][q] == 1.0).sum()) < Z_DIM, q
+    # the port's own draws: reproducible from the step's generator
+    runs = []
+    monkeypatch.undo()
+    for _ in range(2):
+        p2 = Pair(ema_codebook=True, seed=7, num_quantizers=2, restart=1.0)
+        trainer.make_train_step(p2.tm, p2.tcfg)(p2.tstate, {"x": torch.from_numpy(x)},
+                                                torch.Generator().manual_seed(5))
+        runs.append(p2.tm.codebook.detach().clone())
+    assert torch.equal(runs[0], runs[1])
+
+
+def test_rvq_eval_step_pools_perplexity_over_stages_as_jax_does():
+    pair = Pair(seed=9, num_quantizers=2)
+    x = _batches(1, 19)[0]
+    jrecon, jmetrics = jtrainer.make_eval_step(pair.jm, pair.jcfg)(pair.jstate,
+                                                                  {"x": jnp.asarray(x)})
+    trecon, tmetrics = trainer.make_eval_step(pair.tm, pair.tcfg)(pair.tstate,
+                                                                  {"x": torch.from_numpy(x)})
+    for k in ("loss", "loss_recons", "loss_vq", "loss_commit", "perplexity"):
+        np.testing.assert_allclose(np.asarray(tmetrics[k]), np.asarray(jmetrics[k]),
+                                   rtol=LOSS_RTOL, err_msg=k)
+    np.testing.assert_allclose(trecon.numpy(), np.asarray(jrecon), atol=1e-4)
+
+
+def test_bf16_train_step_matches_jax_bf16():
+    """One bf16 step from the same state: the loss terms within 2e-2
+    relative (bf16 roundings flip where float32 sums run in another order);
+    the parameters, gradients and moments stay float32."""
+    pair = Pair(seed=8, bf16=True)
+    x = _batches(1, 21)[0]
+    jstep = jtrainer.make_train_step(pair.jm, pair.jcfg, donate=False)
+    jstate, jmetrics = jstep(pair.jstate, {"x": jnp.asarray(x)}, jax.random.PRNGKey(0))
+    _, tmetrics = trainer.make_train_step(pair.tm, pair.tcfg)(pair.tstate,
+                                                              {"x": torch.from_numpy(x)})
+    for k in ("loss", "loss_recons", "loss_vq", "loss_commit", "train_loss"):
+        np.testing.assert_allclose(np.asarray(tmetrics[k]), np.asarray(jmetrics[k]), rtol=2e-2,
+                                   err_msg=k)
+    ts = pair.tstate
+    assert ts.flat.flat.dtype == ts.flat.grad.dtype == ts.opt_state.m.dtype == torch.float32
+    assert all(p.dtype == torch.float32 for p in pair.tm.parameters())
+    assert float(ts.flat.grad.abs().max()) > 0
+
+
+def test_bf16_training_tracks_float32():
+    """tests/test_models.py::test_vqvae_bf16_training_parity on the port:
+    bf16 compute must track float32's convergence on a learnable input
+    (sinusoidal ridges and noise), not merely stay finite: over 40 steps
+    both learn (the loss falls by a third), and bf16's final loss is under
+    1.25x float32's."""
+    rng = np.random.default_rng(0)
+    t = np.linspace(0, 1, 16)[None, :, None, None]
+    x = torch.from_numpy((0.5 * np.sin(2 * np.pi * 4 * t)
+                          + 0.1 * rng.standard_normal((4, 16, 16, 1))).astype(np.float32))
+    cfg = Config()
+    finals = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = VQVAE(1, 16, 32, dtype=dtype, generator=torch.Generator().manual_seed(0))
+        state = train_state.create_train_state(model, cfg.train)
+        step = trainer.make_train_step(model, cfg)
+        losses = [float(step(state, {"x": x})[1]["loss"]) for _ in range(40)]
+        assert np.isfinite(losses).all()
+        assert losses[-1] < 0.67 * losses[0], (dtype, losses[0], losses[-1])
+        finals[dtype] = losses[-1]
+    assert finals[torch.bfloat16] < 1.25 * finals[torch.float32], finals
+
+
+def test_rvq_train_state_and_bridges():
+    """RVQ EMA-codebook state as JAX builds it ((Q, K) clusters of 1,
+    embed_sum the codebook); the flat-vector orders and the EMA statistics
+    carried both ways for an RVQ model."""
+    pair = Pair(ema_codebook=True, seed=10, num_quantizers=3)
+    ce, jce = pair.tstate.codebook_ema, pair.jstate.codebook_ema
+    assert torch.equal(ce["cluster"], torch.ones(3, Z_DIM))
+    np.testing.assert_array_equal(ce["embed_sum"].numpy(), np.asarray(jce["embed_sum"]))
+    back = convert.codebook_ema_to_port(jax.tree_util.tree_map(np.asarray, jce))
+    for k in ("cluster", "embed_sum"):
+        assert torch.equal(back[k], ce[k]), k
+        np.testing.assert_array_equal(convert.codebook_ema_to_flax(ce)[k], np.asarray(jce[k]))
+    with pytest.raises(ValueError):
+        convert.codebook_ema_to_port({"cluster": np.ones((2, Z_DIM)),
+                                      "embed_sum": np.ones((3, Z_DIM, DIM))})
+    names = pair.tstate.flat.names
+    params = pair.variables["params"]
+    jflat = np.random.default_rng(1).standard_normal(pair.tstate.flat.numel).astype(np.float32)
+    np.testing.assert_array_equal(
+        pair.to_jax_order(convert.flax_flat_to_port(jflat, params, names)), jflat)
+    np.testing.assert_array_equal(pair.to_jax_order(pair.tstate.flat.flat),
+                                  np.asarray(ravel_pytree(params)[0]))
+    assert pair.tstate.flat.view("codebook").shape == (3, Z_DIM, DIM)
