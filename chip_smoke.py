@@ -11,7 +11,11 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 3. kernels: holds each kernel against its plain PyTorch version at the
    shapes the serving path and the flagship training step give it, and
    times kernel, plain version, one PyTorch library call and the card's
-   bound: the nearest-code search at serving and training shapes, the
+   bound: the nearest-code search at serving and training shapes (each
+   row also with its cluster size and CTA count, which must cover the
+   SMs, its registers and spills, device-only times and a second call
+   that must return the same indices bit for bit; four edge shapes held
+   untimed, and a tie case), the
    fused Adam update at the flagship's parameter count in three
    configurations over three chained steps, and the causal-attention
    forward, dQ and dK/dV kernels at the prior's grids (T = 140, 560 in f32
@@ -100,9 +104,12 @@ import urllib.request
 import numpy as np
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): f32 outside the tensor
-# cores, dense bf16 on the tensor cores and HBM bandwidth. The kernels below
-# do f32 FMA on the CUDA cores; a bf16 input's bound takes the bf16 rate.
+# cores, dense TF32 and bf16 on the tensor cores and HBM bandwidth. An f32
+# kernel's bound takes the f32 rate, a bf16 input's the bf16 rate; the
+# nearest-code search, which multiplies in 3xTF32, also reports its bound at
+# the TF32 rate.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
@@ -115,6 +122,10 @@ VQ_D = 256
 # scale.
 VQ_SHAPES = [(840, 512), (6720, 512), (8960, 512), (26880, 512), (1500, 1536),
              (8192, 65536)]
+# (N, K, D) held against the plain version but not timed: one row and one
+# code, D not a multiple of 4 (the threads stage instead of TMA), D = MAX_D,
+# ragged tiles
+VQ_EDGE_SHAPES = [(1, 1, 1), (333, 77, 37), (100, 300, 1024), (65, 129, 4)]
 VQ_MAIN_SHAPE = (6720, 512)  # what an 8 s request gives the kernel
 VQ_TRAIN_SHAPE = (8960, 512)
 NEAR_TIE_REL = 1e-5
@@ -256,6 +267,28 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_time_ms(torch, fn, iters: int) -> tuple[float, float]:
+    """(device ms per call, host enqueue us per call). The stream first
+    sleeps for longer than the host takes to enqueue all `iters` calls, so
+    the events time the kernels back to back, not the host's launches."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fn()
+    host_s = (time.perf_counter() - t0) / 5
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(3e9 * (2 * iters * host_s + 1e-3)))  # > 2x the enqueue at <= 3 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, 1e6 * host_s
+
+
 def vq_bound_ms(n: int, k: int, d: int) -> tuple[float, str]:
     """Least time for (N, D) x (K, D) -> (N,) int32: inputs read once, the
     output written once, and the 2*N*K*D f32 FMA operations."""
@@ -264,17 +297,34 @@ def vq_bound_ms(n: int, k: int, d: int) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def compare_vq(torch, vq_kernel, x, cb) -> dict:
+def vq_tensor_core_bound_ms(n: int, k: int, d: int) -> float:
+    """The same products as three TF32 products each (3xTF32) at the dense
+    TF32 tensor-core rate, the kernel's own route to f32 accuracy."""
+    return 1e3 * 3 * 2 * n * k * d / PEAK_TF32_FLOPS
+
+
+def ptxas_lines(build, name: str) -> list[str]:
+    """Registers, shared memory and spills of each kernel in one library."""
+    return [ln.strip() for ln in build.build_info[name]["log"].splitlines()
+            if "Used" in ln or "spill" in ln]
+
+
+def compare_vq(torch, vq_kernel, x, cb, timed: bool = True) -> dict:
     """Kernel vs plain version on the same inputs. A mismatch counts as a
     near-tie when the two codes' float64 distances differ by at most
     NEAR_TIE_REL of the smaller one: f32 sums in another order may pick
-    either."""
+    either. A second call must return the same indices bit for bit."""
     n, d = x.shape
     k = cb.shape[0]
     before = vq_kernel.launch_count()
     got = vq_kernel.nearest_codebook_indices(x, cb).long()
+    again = vq_kernel.nearest_codebook_indices(x, cb).long()
     want = vq_kernel.nearest_codebook_indices_plain(x, cb).long()
     torch.cuda.synchronize()
+    plan = vq_kernel.launch_plan(x, cb)
+    row = {"phase": "kernel", "name": "vq_nearest", "n": n, "k": k, "d": d, **plan,
+           "sms": torch.cuda.get_device_properties(x.device).multi_processor_count,
+           "run_to_run_identical": bool(torch.equal(got, again))}
     rows = torch.nonzero(got != want).flatten()
     near, err = 0, 0.0
     if rows.numel():
@@ -284,24 +334,32 @@ def compare_vq(torch, vq_kernel, x, cb) -> dict:
         gap = (d_got - d_want).abs()
         near = int((gap <= NEAR_TIE_REL * torch.minimum(d_got, d_want)).sum())
         err = float(gap.max())
-    iters = 10 if k * n > 1e8 else 50
-    kernel_ms = time_ms(torch, lambda: vq_kernel.nearest_codebook_indices(x, cb), iters)
-    plain_ms = time_ms(torch, lambda: vq_kernel.nearest_codebook_indices_plain(x, cb), iters)
-    library_ms = time_ms(torch, lambda: torch.cdist(x, cb).argmin(dim=1), iters)
-    bound_ms, bound_by = vq_bound_ms(n, k, d)
-    return {
-        "phase": "kernel", "name": "vq_nearest", "n": n, "k": k, "d": d,
-        "mismatches": int(rows.numel()), "near_ties": near, "max_abs_err": err,
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "launches": vq_kernel.launch_count() - before,
-    }
+    row.update(mismatches=int(rows.numel()), near_ties=near, max_abs_err=err)
+    if timed:
+        iters = 10 if k * n > 1e8 else 50
+        bound_ms, bound_by = vq_bound_ms(n, k, d)
+        row.update(
+            kernel_ms=time_ms(torch, lambda: vq_kernel.nearest_codebook_indices(x, cb), iters),
+            plain_ms=time_ms(torch, lambda: vq_kernel.nearest_codebook_indices_plain(x, cb),
+                             iters),
+            library_ms=time_ms(torch, lambda: torch.cdist(x, cb).argmin(dim=1), iters),
+            bound_ms=bound_ms, bound_by=bound_by,
+            tensor_core_bound_ms=vq_tensor_core_bound_ms(n, k, d))
+        kernel_dev, kernel_host = device_time_ms(
+            torch, lambda: vq_kernel.nearest_codebook_indices(x, cb), iters)
+        library_dev, library_host = device_time_ms(
+            torch, lambda: torch.cdist(x, cb).argmin(dim=1), iters)
+        row.update(kernel_device_ms=kernel_dev, kernel_host_us=kernel_host,
+                   library_device_ms=library_dev, library_host_us=library_host)
+    row["launches"] = vq_kernel.launch_count() - before
+    return row
 
 
 def vq_tie_case(torch, vq_kernel, gen) -> dict:
-    """Duplicated codes at 7, 23 (another lane of the same tile), 71 (the
-    same thread as 7, second half of the tile) and 400 (another codebook
-    split): the earliest index, 7, must win every row."""
+    """Duplicated codes at 7, 23 (the same thread as 7, another column
+    group of its tile), 71 and 400 (other CTAs of the cluster: at N = 300
+    the codebook is split 16 ways): the earliest index, 7, must win every
+    row."""
     cb = torch.randn(512, VQ_D, generator=gen, device="cuda")
     for j in (23, 71, 400):
         cb[j] = cb[7]
@@ -1848,8 +1906,7 @@ def build_phase(build, modules) -> list[dict]:
         check("sm_90a" in info["log"], f"ptxas did not compile {name} for sm_90a")
         rows.append({"phase": "build", "kernel": name, "seconds": seconds,
                      "nvcc_seconds": info["seconds"], "library": info["path"],
-                     "ptxas": [ln.strip() for ln in info["log"].splitlines()
-                               if "Used" in ln or "spill" in ln]})
+                     "ptxas": ptxas_lines(build, name)})
     return rows
 
 
@@ -1894,15 +1951,23 @@ def main() -> int:
         # phase 3: kernels against their plain versions
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         rows = {}
-        for n, k in VQ_SHAPES:
-            x = torch.randn(n, VQ_D, generator=gen, device="cuda")
-            cb = torch.randn(k, VQ_D, generator=gen, device="cuda")
-            row = compare_vq(torch, vq_kernel, x, cb)
+        vq_ptxas = ptxas_lines(build, "vq_nearest")
+        for n, k, d in [(n, k, VQ_D) for n, k in VQ_SHAPES] + VQ_EDGE_SHAPES:
+            x = torch.randn(n, d, generator=gen, device="cuda")
+            cb = torch.randn(k, d, generator=gen, device="cuda")
+            timed = (n, k) in VQ_SHAPES and d == VQ_D
+            row = compare_vq(torch, vq_kernel, x, cb, timed=timed)
+            row["ptxas"] = vq_ptxas
             emit(row)
             check(row["mismatches"] == row["near_ties"],
-                  f"vq_nearest N={n} K={k}: {row['mismatches'] - row['near_ties']} "
+                  f"vq_nearest N={n} K={k} D={d}: {row['mismatches'] - row['near_ties']} "
                   f"mismatches that are not near-ties")
-            rows[(n, k)] = row
+            check(row["run_to_run_identical"],
+                  f"vq_nearest N={n} K={k} D={d}: two calls differ")
+            if timed:
+                check(row["ctas"] >= row["sms"],
+                      f"vq_nearest N={n} K={k}: {row['ctas']} CTAs on {row['sms']} SMs")
+                rows[(n, k)] = row
             del x, cb
         emit(vq_tie_case(torch, vq_kernel, gen))
         n_params = sum(p.numel() for p in VQVAE(1, TRAIN_DIM, TRAIN_CODES).parameters())

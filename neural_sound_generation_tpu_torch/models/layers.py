@@ -56,7 +56,11 @@ class BatchNorm(nn.BatchNorm2d):
     batch with that biased variance, where ``BatchNorm2d`` would store the
     unbiased one. ``num_batches_tracked`` is not used (flax has no
     counter). Under a compute ``dtype`` other than float32 the input is
-    taken to float32 first and the output rounded once to ``dtype``."""
+    taken to float32 first and the output rounded once to ``dtype``. The
+    variance is the two-pass one, not flax's float32 E[x^2] - E[x]^2: that
+    formula cancels as (|mean| / std)^2 grows, and the two-pass one stays
+    within 1e-5 of the exact statistics where flax drifts 5e-2 away at
+    |mean| / std = 100 (tests/test_torch_norm_stats.py)."""
 
     def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__(dim, eps=BATCH_NORM_EPS, momentum=BATCH_NORM_MOMENTUM)

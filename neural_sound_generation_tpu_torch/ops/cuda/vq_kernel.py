@@ -2,11 +2,22 @@
 
 Counterpart of ``neural_sound_generation_tpu/ops/pallas/vq_kernel.py``. The
 kernel (``csrc/vq_nearest.cu``) computes, for (N, D) inputs and a (K, D)
-codebook, ``argmin_k(|e_k|^2 - 2 x.e_k)`` with the dot products inside the
-kernel and a running (min, index) per row, so the (N, K) score matrix never
-reaches device memory. Ties go to the first index, as ``torch.argmin`` and
-``jnp.argmin`` break them. Unlike the Pallas version it has no alignment
-constraint: any N, any K, and D up to ``MAX_D``.
+codebook, ``argmin_k(|e_k|^2 - 2 x.e_k)`` in one launch, with the dot
+products inside the kernel and a running (min, index) per row, so the
+(N, K) score matrix never reaches device memory. Ties go to the first
+index, as ``torch.argmin`` and ``jnp.argmin`` break them, and an all-NaN
+row gives 0. Unlike the Pallas version it has no alignment constraint: any
+N, any K, and D up to ``MAX_D``.
+
+The kernel is built for Hopper: each CTA takes 64 rows against a slice of
+the codebook, the slices of one row tile form a thread-block cluster that
+merges its (min, index) pairs through distributed shared memory, the
+codebook streams in through TMA, and the products run on the tensor cores
+as three TF32 products (3xTF32) summed per 32-feature step into a fresh
+accumulator, so that they keep float32's accuracy and near-ties stay
+near-ties. The arithmetic rate bounds it. ``launch_plan`` reports the
+cluster size and CTA count of a launch. The result is deterministic run
+to run.
 
 ``nearest_codebook_indices`` runs the plain version for tensors on the CPU
 and the kernel for tensors on a CUDA device; there is no fallback between
@@ -83,13 +94,41 @@ def load(rebuild: bool = False) -> ctypes.CDLL:
     if _lib is None:
         lib = build.load_library("vq_nearest", [SOURCE], rebuild)
         lib.vq_nearest_f32.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         )
         lib.vq_nearest_f32.restype = ctypes.c_int
+        lib.vq_nearest_plan.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+            + [ctypes.POINTER(ctypes.c_int)] * 3
+        )
+        lib.vq_nearest_plan.restype = ctypes.c_int
         lib.vq_nearest_error_string.argtypes = [ctypes.c_int]
         lib.vq_nearest_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.vq_nearest_error_string(err).decode()
+        raise RuntimeError(f"vq_nearest {what} failed: {msg} ({err})")
+
+
+def launch_plan(inputs_flat: torch.Tensor, codebook: torch.Tensor) -> dict:
+    """The launch the kernel makes for these CUDA tensors: cluster size
+    ``split`` (CTAs sharing one 64-row tile), ``ctas`` and whether it
+    stages through ``tma``."""
+    _check(inputs_flat, codebook)
+    lib = load()
+    n, d = inputs_flat.shape
+    split, ctas, tma = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(inputs_flat.device):
+        err = lib.vq_nearest_plan(
+            inputs_flat.data_ptr(), codebook.data_ptr(), n, codebook.shape[0], d,
+            ctypes.byref(split), ctypes.byref(ctas), ctypes.byref(tma),
+        )
+    _raise_on(lib, err, "launch plan")
+    return {"split": split.value, "ctas": ctas.value, "tma": bool(tma.value)}
 
 
 def nearest_codebook_indices(
@@ -112,15 +151,12 @@ def nearest_codebook_indices(
     out = torch.empty(n, dtype=torch.int32, device=device)
     if n == 0:
         return out
-    cbsq = torch.sum(codebook * codebook, dim=1)
     with torch.cuda.device(device):
         err = lib.vq_nearest_f32(
-            inputs_flat.data_ptr(), codebook.data_ptr(), cbsq.data_ptr(),
-            out.data_ptr(), n, k, d, torch.cuda.current_stream(device).cuda_stream,
+            inputs_flat.data_ptr(), codebook.data_ptr(), out.data_ptr(), n, k, d,
+            torch.cuda.current_stream(device).cuda_stream,
         )
-    if err != 0:
-        msg = lib.vq_nearest_error_string(err).decode()
-        raise RuntimeError(f"vq_nearest kernel launch failed: {msg} ({err})")
+    _raise_on(lib, err, "kernel launch")
     with _count_lock:
         _launches += 1
     return out
