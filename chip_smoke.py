@@ -75,9 +75,11 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 9. conv A/B: runs ``scripts/torch_ab_conv3x3.py``'s ``main()``, the
    entry point of the 3x3 bf16 convolution's two kernels (taps and im2col;
    held against their plain version in phase 3 at the A/B shape (64, 20, 7,
-   256) and a ragged (3, 13, 5, 64), and timed beside cuDNN): parity, then
-   cuDNN, taps, im2col and cuDNN legs of 400 chained convolutions, with
-   each kernel's launch count over it;
+   256), a ragged (3, 13, 5, 64) and four shapes at the ends of their
+   contract, each run twice for bit-identical output, with each launch's
+   CTAs, registers and spills, and timed beside cuDNN, back to back and
+   device-only): parity, then cuDNN, taps, im2col and cuDNN legs of 400
+   chained convolutions, with each kernel's launch count over it;
 10. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
@@ -165,9 +167,14 @@ ATTN_F32_REL, ATTN_BF16_REL = 1e-5, 2e-2
 
 # the 3x3 bf16 convolution (kernel 6): the A/B shape, the ResBlock's conv
 # at the flagship's training step (batch 64 of 80 x 28 crops after two
-# stride-2 convs), and a ragged one, held to the A/B script's limits
-# (ULP_LIMIT, BIT_EQUAL_MIN)
-CONV_SHAPES = [("ab_64x20x7x256", (64, 20, 7, 256)), ("ragged_3x13x5x64", (3, 13, 5, 64))]
+# stride-2 convs), a ragged one, and the ends of the contract: C = 16 (the
+# least, under one 128-channel tile), C = 512, W > 66 (the taps route's
+# halo in three segments), and H = 1 with 150 pixels (not a multiple of 64)
+# and C = 48 (a partial 64-channel chunk); each held to the A/B script's
+# limits (ULP_LIMIT, BIT_EQUAL_MIN) and run twice for bit-identical output
+CONV_SHAPES = [("ab_64x20x7x256", (64, 20, 7, 256)), ("ragged_3x13x5x64", (3, 13, 5, 64)),
+               ("c16_2x5x3x16", (2, 5, 3, 16)), ("c512_4x9x11x512", (4, 9, 11, 512)),
+               ("w70_1x3x70x32", (1, 3, 70, 32)), ("h1_3x1x50x48", (3, 1, 50, 48))]
 CONV_MAIN = "ab_64x20x7x256"
 
 # the residual-VQ / bf16 training phase: the training phase's shape with
@@ -460,24 +467,49 @@ def conv_bound_ms(b: int, h: int, w: int, c: int) -> tuple[float, str]:
 def compare_conv3x3(torch, conv3x3, ab, shape, gen) -> dict:
     """Both conv kernels against the plain version on the same bf16 inputs
     (the A/B script's ``parity``; cuDNN's difference is reported, not
-    held), then the times of each kernel, the plain version and cuDNN."""
+    held), a second call of each for bit-identical output, each kernel's
+    launch plan, then the times of each kernel, the plain version and cuDNN:
+    back to back with the host's enqueue, and device-only (``device_time_ms``)."""
     name, (b, h, w, c) = shape
     x = torch.randn(b, h, w, c, generator=gen, device="cuda").to(torch.bfloat16)
     wt = (0.02 * torch.randn(3, 3, c, c, generator=gen, device="cuda")).to(torch.bfloat16)
     library = ab.cudnn_conv(torch, wt)
     parity = ab.parity(torch, conv3x3, x, wt, library)
-    ms = {k: time_ms(torch, lambda fn=getattr(conv3x3, k): fn(x, wt), 50)
-          for k in conv3x3.KERNELS}
+    identical = {}
+    for k in conv3x3.KERNELS:
+        fn = getattr(conv3x3, k)
+        identical[k] = bool(torch.equal(fn(x, wt), fn(x, wt)))
+    ms, device_ms, host_us = {}, {}, {}
+    for k in conv3x3.KERNELS:
+        fn = getattr(conv3x3, k)
+        ms[k] = time_ms(torch, lambda fn=fn: fn(x, wt), 50)
+        device_ms[k], host_us[k] = device_time_ms(torch, lambda fn=fn: fn(x, wt), 50)
+    library_device_ms, _ = device_time_ms(torch, lambda: library(x), 50)
     bound_ms, bound_by = conv_bound_ms(b, h, w, c)
     return {
         "phase": "kernel", "name": "conv3x3", "shape_name": name, "shape": [b, h, w, c],
         "errors": {k: parity[k] for k in conv3x3.KERNELS},
+        "run_to_run_identical": identical,
+        "plan": {k: conv3x3.launch_plan(k, x, wt) for k in conv3x3.KERNELS},
+        "sms": torch.cuda.get_device_properties(x.device).multi_processor_count,
         "cudnn_vs_plain_max_abs_err": parity["cudnn_vs_plain_max_abs_err"],
-        "kernel_ms": ms, "plain_ms": time_ms(torch, lambda: conv3x3.conv3x3_plain(x, wt), 10),
+        "kernel_ms": ms, "kernel_device_ms": device_ms, "kernel_host_us": host_us,
+        "plain_ms": time_ms(torch, lambda: conv3x3.conv3x3_plain(x, wt), 10),
         "library_ms": time_ms(torch, lambda: library(x), 50),
+        "library_device_ms": library_device_ms,
         "library": "F.conv2d (cuDNN) on channels-last bf16",
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+
+
+def check_conv_row(row: dict, ab) -> None:
+    for kernel, err in row["errors"].items():
+        check(err["max_ulp"] <= ab.ULP_LIMIT and err["bit_equal_frac"] >= ab.BIT_EQUAL_MIN,
+              f"{kernel} {row['shape_name']}: {err} against the plain version")
+        check(row["run_to_run_identical"][kernel],
+              f"{kernel} {row['shape_name']}: two calls differ")
+        check(row["plan"][kernel]["spill_bytes"] == 0,
+              f"{kernel}: {row['plan'][kernel]['spill_bytes']} bytes spilled per thread")
 
 
 def attention_bounds(bh: int, t: int, d: int, bf16: bool) -> dict:
@@ -1868,13 +1900,20 @@ def conv_summary(rows: dict, ab_run: dict) -> list[dict]:
         "max_abs_err": main["errors"][name]["max_abs_err"],
         "max_ulp": main["errors"][name]["max_ulp"],
         "bit_equal_frac": main["errors"][name]["bit_equal_frac"],
-        "ms": main["kernel_ms"][name], "plain_ms": main["plain_ms"],
+        "ms": main["kernel_ms"][name], "device_ms": main["kernel_device_ms"][name],
+        "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"], "library": main["library"],
+        "library_ms": main["library_ms"], "library_device_ms": main["library_device_ms"],
+        "library": main["library"], "plan": main["plan"][name],
         "ab_us_per_iter": legs[name.split("_", 1)[1] + "_us"],
         "ab_cudnn_us_per_iter": legs["cudnn_us"],
-        "by_shape": {shape: {"ms": r["kernel_ms"][name], "bound_ms": r["bound_ms"],
+        "by_shape": {shape: {"ms": r["kernel_ms"][name],
+                             "device_ms": r["kernel_device_ms"][name],
+                             "bound_ms": r["bound_ms"],
                              "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                             "library_device_ms": r["library_device_ms"],
+                             "ctas": r["plan"][name]["ctas"],
+                             "registers": r["plan"][name]["registers"],
                              "max_ulp": r["errors"][name]["max_ulp"],
                              "bit_equal_frac": r["errors"][name]["bit_equal_frac"]}
                      for shape, r in rows.items()},
@@ -1990,9 +2029,7 @@ def main() -> int:
         for shape in CONV_SHAPES:
             row = compare_conv3x3(torch, conv3x3, ab, shape, gen)
             emit(row)
-            for kernel, err in row["errors"].items():
-                check(err["max_ulp"] <= ab.ULP_LIMIT and err["bit_equal_frac"] >= ab.BIT_EQUAL_MIN,
-                      f"{kernel} {shape[0]}: {err} against the plain version")
+            check_conv_row(row, ab)
             conv_rows[shape[0]] = row
         torch.cuda.empty_cache()
 

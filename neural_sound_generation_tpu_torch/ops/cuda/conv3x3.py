@@ -6,10 +6,16 @@ row), and of ``xla_conv``, the function both compute: ``x`` (B, H, W, C)
 bf16 NHWC and ``w`` (3, 3, C, C) bf16 HWIO, zero padding of 1, products
 summed in float32 and rounded once to a bf16 output.
 
-``csrc/conv3x3.cu`` holds ``conv3x3_taps`` (nine shifted products of a tile
-staged once in shared memory, no patch matrix) and ``conv3x3_im2col`` (a
-contraction of length 9C, each K-tile of the patch row gathered into shared
-memory). They take any B, H, W >= 1 and C a multiple of 16 up to 512.
+``csrc/conv3x3.cu`` holds both as one kernel template for Hopper: a CTA
+takes a run of 64 pixels in (b, h, w) order against 128 output channels,
+the weights stream in by TMA through an mbarrier-guarded ring, and the
+products run on the tensor cores (``wgmma``, bf16 in, f32 out, each short
+chain summed into a fresh accumulator and added to the running sum in
+IEEE f32). ``conv3x3_taps`` stages each 64-channel chunk's halo once for
+the nine taps (no patch matrix); ``conv3x3_im2col`` gathers each
+(tap, chunk) slice of the patch row. They take any B, H, W >= 1 and C a
+multiple of 16 up to 512, in one launch per call. ``launch_plan`` reports
+a launch's CTAs, registers, spills and shared memory.
 
 The kernels sit on no training path: the port's ``--bf16`` step runs
 cuDNN's convolution, as the JAX package's runs XLA's. Their entry point is
@@ -32,6 +38,7 @@ from neural_sound_generation_tpu_torch.ops.cuda import build
 SOURCE = build.CSRC / "conv3x3.cu"
 KERNELS = ("conv3x3_taps", "conv3x3_im2col")
 MAX_C = 512
+_PLAN_KEYS = ("ctas", "threads", "registers", "spill_bytes", "smem_bytes", "ctas_per_sm")
 
 _count_lock = threading.Lock()
 _launches = dict.fromkeys(KERNELS, 0)
@@ -108,10 +115,35 @@ def load(rebuild: bool = False) -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.conv3x3_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        lib.conv3x3_plan.restype = ctypes.c_int
         lib.conv3x3_error_string.argtypes = [ctypes.c_int]
         lib.conv3x3_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.conv3x3_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: {msg} ({err})")
+
+
+def launch_plan(name: str, x: torch.Tensor, w: torch.Tensor) -> dict:
+    """The launch kernel ``name`` makes for these CUDA tensors: ``ctas``,
+    ``threads`` per CTA, ``registers`` per thread, ``spill_bytes`` per
+    thread, ``smem_bytes`` per CTA and ``ctas_per_sm`` resident."""
+    if name not in KERNELS:
+        raise ValueError(f"unknown kernel {name!r}: expected one of {KERNELS}")
+    _check(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} launches only for CUDA tensors, got {x.device}")
+    lib = load()
+    info = (ctypes.c_int * len(_PLAN_KEYS))()
+    with torch.cuda.device(x.device):
+        err = lib.conv3x3_plan(KERNELS.index(name), *x.shape, info)
+    _raise_on(lib, err, f"{name} launch plan")
+    return dict(zip(_PLAN_KEYS, info))
 
 
 def _conv(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -130,9 +162,7 @@ def _conv(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             x.data_ptr(), w.data_ptr(), out.data_ptr(), *x.shape,
             torch.cuda.current_stream(device).cuda_stream,
         )
-    if err != 0:
-        msg = lib.conv3x3_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+    _raise_on(lib, err, f"{name} kernel launch")
     with _count_lock:
         _launches[name] += 1
     return out

@@ -56,12 +56,21 @@ def _jax(t):
 
 
 # (B, H, W, C, BT, BT2): odd W, C 32 and 64; each shape distinct, so each
-# traces the script's jitted functions anew with its globals
+# traces the script's jitted functions anew with its globals. The last four
+# are the ends of the kernels' contract that chip_smoke.py's CONV_SHAPES
+# holds the kernels to on the card: C = 16 (the least, under one
+# 128-channel tile), C = 512, W > 66 (the taps route's halo in three
+# segments), and H = 1 with 150 pixels (not a multiple of 64) and C = 48 (a
+# partial 64-channel chunk)
 @pytest.mark.parametrize("b,h,w,c,bt,bt2", [
     (4, 5, 3, 32, 2, 2),
     (2, 3, 5, 64, 1, 1),
     (3, 7, 1, 32, 3, 1),
     (2, 4, 7, 64, 2, 2),
+    (2, 5, 3, 16, 2, 1),
+    (4, 9, 11, 512, 2, 4),
+    (1, 3, 70, 32, 1, 1),
+    (3, 1, 50, 48, 3, 1),
 ])
 def test_plain_matches_xla_and_both_pallas_kernels_within_one_ulp(ab, b, h, w, c, bt, bt2):
     ab.B, ab.H, ab.W, ab.C, ab.BT, ab.BT2 = b, h, w, c, bt, bt2
@@ -129,6 +138,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                 getattr(conv3x3, name)(a, b)
 
 
+@pytest.mark.parametrize("name", conv3x3.KERNELS)
+def test_launch_plan_refuses_without_a_card(name):
+    """launch_plan reports a launch only for CUDA tensors the kernels take:
+    it checks the name, the shapes and the device before it loads the
+    library."""
+    x, wt = _inputs(1, 2, 3, 32)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        conv3x3.launch_plan("conv3x3_" + name, x, wt)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv3x3.launch_plan(name, x, wt)
+    with pytest.raises(ValueError):
+        conv3x3.launch_plan(name, x, wt[:, :, :16])
+    with pytest.raises(ValueError):
+        conv3x3.launch_plan(name, x.float(), wt.float())
+
+
 def test_cuda_route_raises_without_cuda(monkeypatch):
     """The kernels' loader refuses rather than falling back to the CPU."""
     from neural_sound_generation_tpu_torch.ops.cuda import build
@@ -147,3 +172,33 @@ def test_ab_script_refuses_without_a_card():
     )
     assert out.returncode != 0
     assert "CUDA" in out.stderr and "summary" not in out.stdout
+
+
+def _phase_script():
+    spec = importlib.util.spec_from_file_location(
+        "torch_conv3x3_phases", os.path.join(REPO, "scripts", "torch_conv3x3_phases.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_phase_profile_instruments_the_current_mainloop():
+    """The phase profile's insertions each find exactly one place in the
+    kernel source, so a change to the mainloop stops the script instead of
+    timing the wrong phases."""
+    script = _phase_script()
+    src = conv3x3.SOURCE.read_text()
+    out = script.instrumented_source(src)
+    assert out.count("clock64()") == 10  # start, eight per step, end
+    assert "int conv3x3_phases(" in out
+    with pytest.raises(RuntimeError, match="mainloop changed"):
+        script.instrumented_source(src.replace("wgmma_wait<1>();  // block 0 is done", ""))
+
+
+def test_phase_profile_refuses_without_a_card():
+    out = subprocess.run(
+        [sys.executable, os.path.join(REPO, "scripts", "torch_conv3x3_phases.py")],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and "warp0" not in out.stdout
