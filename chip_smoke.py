@@ -19,8 +19,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    fused Adam update at the flagship's parameter count in three
    configurations over three chained steps, and the causal-attention
    forward, dQ and dK/dV kernels at the prior's grids (T = 140, 560 in f32
-   and bf16, 2240, a ragged T = 37 and D = 128), each run twice to show the
-   backward is bit-identical run to run, and both 3x3 bf16 convolution
+   and bf16, 2240, a ragged T = 37, D = 128, and the contract's ends T = 1
+   and bf16 D = 20), each run twice to show the backward is bit-identical
+   run to run, with each kernel's launch plan (no spills) and times back to
+   back and device-only beside SDPA's, and both 3x3 bf16 convolution
    kernels (phase 9 is their path);
 4. serving: builds the mel VQ-VAE service at full width (dim 256, 512
    codes, 84-frame windows) on the card with seeded weights, serves it over
@@ -156,13 +158,17 @@ ADAM_BF16_ULPS = 1
 # causal attention: (name, BH, T, D, bf16). BH = batch 32 x 2 heads of 64
 # for the prior the smoke trains; T = 140 is the CLI's 20 x 7 training
 # grid, 560 the flagship 20 x 28 grid (cli.prior sample's default), 2240
-# the hierarchical bottom grid
+# the hierarchical bottom grid; then the ends of the kernels' contract: one
+# row (T = 1), and bf16 rows of 40 bytes (D = 20), which TMA cannot stage
 ATTN_SHAPES = [("train_T140", 64, 140, 64, False), ("flagship_T560", 64, 560, 64, False),
                ("flagship_T560_bf16", 64, 560, 64, True), ("hier_T2240", 16, 2240, 64, False),
-               ("ragged_T37_D32", 64, 37, 32, False), ("D128_T560", 64, 560, 128, False)]
+               ("ragged_T37_D32", 64, 37, 32, False), ("D128_T560", 64, 560, 128, False),
+               ("T1", 64, 1, 64, False), ("D20_bf16", 64, 300, 20, True)]
 ATTN_MAIN = "train_T140"
 # error against the plain pair, relative to the plain output's largest
-# magnitude: f32 sums in another order; bf16 P and dS rounded at other sums
+# magnitude floored at 1, the unit-normal inputs' scale (at T = 1 dQ and dK
+# are zero up to rounding, in both): f32 sums in another order; bf16 P and
+# dS rounded at other sums
 ATTN_F32_REL, ATTN_BF16_REL = 1e-5, 2e-2
 
 # the 3x3 bf16 convolution (kernel 6): the A/B shape, the ResBlock's conv
@@ -518,7 +524,10 @@ def attention_bounds(bh: int, t: int, d: int, bf16: bool) -> dict:
     products (2 operations per multiply-add over the T(T+1)/2 visible
     pairs) over the peak rate of the input type. The forward does Q K^T
     and P V; the dQ kernel recomputes S, then dP and dQ; the dK/dV kernel
-    recomputes S and dP, then dV and dK."""
+    recomputes S and dP, then dV and dK. For f32 inputs each kernel's
+    3xTF32 bound sits beside: three TF32 products per product (the
+    kernels' own route to f32 accuracy) at the dense TF32 rate, or the
+    bytes if they take longer."""
     es = 2 if bf16 else 4
     n, rows = bh * t * d, bh * t
     mac = bh * t * (t + 1) // 2 * d
@@ -530,16 +539,22 @@ def attention_bounds(bh: int, t: int, d: int, bf16: bool) -> dict:
     for name, (nbytes, ops) in work.items():
         bytes_ms, ops_ms = 1e3 * nbytes / PEAK_HBM_BYTES, 1e3 * ops / peak
         out[name] = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+        if not bf16:
+            tf32_ms = 1e3 * 3 * ops / PEAK_TF32_FLOPS
+            out[name] += ((tf32_ms, "operations") if tf32_ms >= bytes_ms
+                          else (bytes_ms, "bytes"))
     return out
 
 
 def compare_attention(torch, fa, shape, gen) -> dict:
     """The three kernels, each against its plain version on the same inputs
     (the dQ part of the plain backward takes the kernel's O, the dK/dV part
-    the kernel's delta), each run twice for determinism; then the times of
-    each kernel and of its plain version, of scaled_dot_product_attention's
-    forward, and of the whole backward: both kernels, the plain backward and
-    SDPA's backward, which computes dQ, dK and dV in one call."""
+    the kernel's delta), each run twice for determinism; each kernel's
+    launch plan; then the times of each kernel and of its plain version, of
+    scaled_dot_product_attention's forward, and of the whole backward: both
+    kernels, the plain backward and SDPA's backward, which computes dQ, dK
+    and dV in one call. Kernels and SDPA are timed back to back (the host's
+    enqueue included) and device-only (device_time_ms)."""
     import torch.nn.functional as F
 
     name, bh, t, d, bf16 = shape
@@ -563,9 +578,11 @@ def compare_attention(torch, fa, shape, gen) -> dict:
     rdk, rdv = fa.flash_attention_bwd_dkdv_plain(q, k, v, do, delta, scale)
 
     def rel(a, b):
-        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+        return float((a.float() - b.float()).abs().max() / max(float(b.float().abs().max()), 1.0))
 
     errs = {"o": rel(o, ro), "dq": rel(dq, rdq), "dk": rel(dk, rdk), "dv": rel(dv, rdv)}
+    plain_max = {name: float(x.float().abs().max())
+                 for name, x in (("o", ro), ("dq", rdq), ("dk", rdk), ("dv", rdv))}
     lse_err = float((lse - rlse).abs().max())
     delta_err = float((delta - rdelta).abs().max())
     iters = 10 if t >= 2000 else 30
@@ -585,28 +602,51 @@ def compare_attention(torch, fa, shape, gen) -> dict:
                         iters)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=scale)
-    sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=scale), iters)
-    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
-                       iters)
+
+    def sdpa_fwd_call():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale)
+
+    def sdpa_bwd_call():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    sdpa_fwd = time_ms(torch, sdpa_fwd_call, iters)
+    sdpa_bwd = time_ms(torch, sdpa_bwd_call, iters)
+    device = {
+        "flash_fwd": device_time_ms(torch, lambda: fa.launch_fwd(q, k, v, scale), iters)[0],
+        "flash_bwd_dq": device_time_ms(
+            torch, lambda: fa.launch_bwd_dq(q, k, v, o, do, lse, scale), iters)[0],
+        "flash_bwd_dkdv": device_time_ms(
+            torch, lambda: fa.launch_bwd_dkdv(q, k, v, do, lse, delta, scale), iters)[0]}
+    device_bwd = device_time_ms(torch, lambda: fa.launch_bwd(q, k, v, o, do, lse, scale),
+                                iters)[0]
+    device_sdpa_fwd = device_time_ms(torch, sdpa_fwd_call, iters)[0]
+    device_sdpa_bwd = device_time_ms(torch, sdpa_bwd_call, iters)[0]
     bounds = attention_bounds(bh, t, d, bf16)
+    plans = {name: fa.launch_plan(name, q) for name in fa.KERNELS}
     return {
         "phase": "kernel", "name": "flash_attention", "shape_name": name, "bh": bh, "t": t,
-        "d": d, "dtype": "bf16" if bf16 else "f32", "rel_err": errs, "lse_max_abs_err": lse_err,
+        "d": d, "dtype": "bf16" if bf16 else "f32", "rel_err": errs, "plain_max": plain_max,
+        "lse_max_abs_err": lse_err,
         "delta_max_abs_err": delta_err,
         "max_abs_err": {"flash_fwd": float((o.float() - ro.float()).abs().max()),
                         "flash_bwd_dq": float((dq.float() - rdq.float()).abs().max()),
                         "flash_bwd_dkdv": max(float((a.float() - b.float()).abs().max())
                                               for a, b in ((dk, rdk), (dv, rdv)))},
         "run_to_run_identical": identical, "kernel_ms": ms, "plain_ms": plain,
+        "device_ms": device,
         # no library call computes dQ alone or dK/dV alone
         "library_ms": {"flash_fwd": sdpa_fwd, "flash_bwd_dq": None, "flash_bwd_dkdv": None},
+        "library_device_ms": {"flash_fwd": device_sdpa_fwd, "flash_bwd_dq": None,
+                              "flash_bwd_dkdv": None},
         "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True)",
-        "backward": {"ms": backward_ms, "plain_ms": plain_bwd, "library_ms": sdpa_bwd,
+        "backward": {"ms": backward_ms, "device_ms": device_bwd, "plain_ms": plain_bwd,
+                     "library_ms": sdpa_bwd, "library_device_ms": device_sdpa_bwd,
                      "note": "dQ then dK/dV kernels, the plain backward, and SDPA's "
                              "backward (dQ, dK and dV in one call)"},
         "bound_ms": {k: b[0] for k, b in bounds.items()},
         "bound_by": {k: b[1] for k, b in bounds.items()},
+        "bound_3xtf32_ms": {k: b[2] if len(b) > 2 else None for k, b in bounds.items()},
+        "plan": plans,
     }
 
 
@@ -1795,7 +1835,10 @@ def attention_summary(rows: dict, name: str, launches: int) -> dict:
         "ms": main["kernel_ms"][name], "plain_ms": main["plain_ms"][name],
         "bound_ms": main["bound_ms"][name], "bound_by": main["bound_by"][name],
         "library_ms": main["library_ms"][name],
-        "by_shape": {shape: {"ms": r["kernel_ms"][name], "bound_ms": r["bound_ms"][name],
+        "device_ms": main["device_ms"][name], "plan": main["plan"][name],
+        "by_shape": {shape: {"ms": r["kernel_ms"][name], "device_ms": r["device_ms"][name],
+                             "bound_ms": r["bound_ms"][name],
+                             "bound_3xtf32_ms": r["bound_3xtf32_ms"][name],
                              "plain_ms": r["plain_ms"][name],
                              "library_ms": r["library_ms"][name]}
                      for shape, r in rows.items()},
@@ -2024,6 +2067,9 @@ def main() -> int:
                   f"flash attention {shape[0]}: errors {row['rel_err']} above {limit}")
             check(row["run_to_run_identical"],
                   f"flash attention {shape[0]}: two runs differ")
+            for kernel, plan in row["plan"].items():
+                check(plan["spill_bytes"] == 0,
+                      f"{kernel} {shape[0]}: {plan['spill_bytes']} bytes spilled per thread")
             attn_rows[shape[0]] = row
         conv_rows = {}
         for shape in CONV_SHAPES:

@@ -10,7 +10,11 @@ float32.
 
 ``csrc/flash_attention.cu`` holds three kernels: the forward (O and the
 float32 row log-sum-exp), a dQ kernel (which also writes delta =
-rowsum(dO * O)) and a dK/dV kernel. The Pallas backward keeps no residual
+rowsum(dO * O)) and a dK/dV kernel. Their products run on the tensor cores
+(``wgmma``): bf16 inputs in bf16, float32 inputs as three TF32 products
+each (3xTF32, float32-accurate); this does not turn TF32 on anywhere else.
+``launch_plan`` reports a launch's CTAs, registers, spills and shared
+memory. The Pallas backward keeps no residual
 beyond O, because (T, 1) rows lane-pad 1 -> 128 in the TPU's VMEM; here the
 dK/dV kernel walks key tiles and never sees a whole softmax row, so the
 forward saves the LSE for the backward.
@@ -39,6 +43,8 @@ MAX_D = 128
 MAX_BH = 65535  # the kernels' grid y dimension
 NEG = -1e30  # the masked logit (attention.py _NEG)
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+_PLAN_KEYS = ("ctas", "threads", "registers", "spill_bytes", "smem_bytes", "ctas_per_sm",
+              "streamed_rows", "tma")
 
 _count_lock = threading.Lock()
 _launches = dict.fromkeys(KERNELS, 0)
@@ -170,6 +176,9 @@ def load(rebuild: bool = False) -> ctypes.CDLL:
         for fn in (lib.flash_attention_fwd, lib.flash_attention_bwd_dq,
                    lib.flash_attention_bwd_dkdv):
             fn.restype = ctypes.c_int
+        lib.flash_attention_plan.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+                                             + [ctypes.POINTER(ctypes.c_int)])
+        lib.flash_attention_plan.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -194,6 +203,28 @@ def _require_cuda(q: torch.Tensor) -> None:
         raise ValueError(f"the flash attention kernels need CUDA tensors, got {q.device}")
     if q.shape[0] > MAX_BH:
         raise ValueError(f"BH={q.shape[0]} exceeds the kernels' grid ({MAX_BH})")
+
+
+def launch_plan(name: str, q: torch.Tensor) -> dict:
+    """The launch kernel ``name`` makes for CUDA tensors shaped and placed as
+    ``q``: ``ctas``, ``threads`` per CTA, ``registers`` and ``spill_bytes``
+    per thread, ``smem_bytes`` per CTA, ``ctas_per_sm`` resident,
+    ``streamed_rows`` per streamed tile and ``tma`` (1 when the tiles are
+    staged by TMA, 0 by cp.async). Refuses non-CUDA tensors."""
+    if name not in KERNELS:
+        raise ValueError(f"unknown kernel {name!r}: expected one of {KERNELS}")
+    _check(q)
+    _require_cuda(q)
+    lib = load()
+    bh, t, d = q.shape
+    info = (ctypes.c_int * len(_PLAN_KEYS))()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_plan(KERNELS.index(name), q.data_ptr(), bh, t, d,
+                                       int(q.dtype == torch.bfloat16), info)
+    if err != 0:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"{name} launch plan failed: {msg} ({err})")
+    return dict(zip(_PLAN_KEYS, info))
 
 
 def launch_fwd(

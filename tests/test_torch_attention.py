@@ -179,3 +179,105 @@ def test_kernels_refuse_cpu_tensors():
         fa.launch_fwd(q, q, q, 0.5)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa.launch_bwd(q, q, q, q, q, torch.zeros(1, 4), 0.5)
+
+
+def _as_inputs(arrays, bf16):
+    """(torch tensors, jax arrays) of the same values: bf16-rounded when bf16."""
+    if not bf16:
+        return [_t(x) for x in arrays], [jnp.asarray(x) for x in arrays]
+    j = [jnp.asarray(x, jnp.bfloat16) for x in arrays]
+    return [_t(np.array(x.astype(jnp.float32)), torch.bfloat16) for x in j], j
+
+
+# the ends of the kernels' contract that chip_smoke.ATTN_SHAPES holds them
+# at: one row (T = 1; dQ and dK are zero up to rounding, so the float32
+# limit is taken of max(|want|, 1)), and bf16 rows of 40 bytes (D = 20),
+# which TMA cannot stage. bf16 tolerances: 3e-2 absolute against the float32
+# oracle, 1e-2 of the largest magnitude against the interpreted bf16 kernel
+# (the same roundings of P and dS; sums in another order flip a few bf16
+# roundings).
+@pytest.mark.parametrize("t,d,bf16,bq", [(1, 64, False, 16), (300, 20, True, 64)])
+def test_plain_pair_at_the_contract_edges_matches_jax(t, d, bf16, bq):
+    arrays = _qkv(200 + t, bh=2, t=t, d=d, n=4)
+    (q, k, v, do), (jq, jk, jv, jdo) = _as_inputs(arrays, bf16)
+    scale = d**-0.5
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, scale)
+    grads = fa.flash_attention_bwd_plain(q, k, v, o, do, scale)
+    exact = [np.asarray(x.float()) for x in (q, k, v)]
+    want_xla = jfa._xla_causal_attention(*(jnp.asarray(x)[None] for x in exact), scale)[0]
+    want_o, vjp = jax.vjp(lambda a, b, c: _jax_interpret(a, b, c, scale, bq), jq, jk, jv)
+    want_grads = vjp(jdo)
+    assert o.dtype == q.dtype and lse.dtype == torch.float32 and lse.shape == (2, t)
+    got_o = o.float().numpy()
+    if bf16:
+        np.testing.assert_allclose(got_o, np.asarray(want_xla), atol=3e-2, rtol=0)
+        _close(got_o, want_o.astype(jnp.float32), frac=1e-2)
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want_grads):
+            assert g.dtype == torch.bfloat16
+            _close(g.float().numpy(), w.astype(jnp.float32), frac=1e-2, err_msg=name)
+    else:
+        _close(got_o, want_xla)
+        _close(got_o, want_o)
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want_grads):
+            w = np.asarray(w, np.float32)
+            np.testing.assert_allclose(g.numpy(), w, rtol=0, err_msg=name,
+                                       atol=F32_FRAC * max(float(np.abs(w).max()), 1.0))
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 in torch: float32 rounded to 10 mantissa bits, to
+    nearest with ties away from zero (adding half of the dropped 13 bits'
+    range to the magnitude, then clearing them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _three_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b^T as the kernels form an f32 product on the tensor cores:
+    hi.hi + hi.lo + lo.hi with hi = tf32(x), lo = tf32(x - hi). Each product
+    of two TF32 values is exact in float32."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    return a_lo @ b_hi.T + a_hi @ b_lo.T + a_hi @ b_hi.T
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one = 1.0 + 2.0**-10  # the TF32 ulp at 1
+    x = torch.tensor([1.0 + 2.0**-11, 1.0 + 2.0**-11 + 2.0**-20, 1.0 + 2.0**-12,
+                      -(1.0 + 2.0**-11), one + 2.0**-11], dtype=torch.float32)
+    want = torch.tensor([one, one, 1.0, -one, 1.0 + 2.0**-9], dtype=torch.float32)
+    assert torch.equal(_tf32_rna(x), want)
+
+
+# The premise of the kernels' float32 route: three TF32 products per
+# element pair stay within 1e-5 of float64, relative to the largest
+# magnitude, where one TF32 product does not. Rows of S = Q K^T at D = 128
+# (the widest head) and of P V over a 64-key tile (P in [0, 1], as the
+# online softmax feeds it).
+@pytest.mark.parametrize("what", ["qk_d128", "pv_64keys"])
+def test_three_tf32_products_are_float32_accurate(what):
+    rng = np.random.default_rng(17)
+    if what == "qk_d128":
+        a = rng.standard_normal((64, 128)).astype(np.float32)
+        b = rng.standard_normal((64, 128)).astype(np.float32)
+    else:
+        s = rng.standard_normal((64, 64)).astype(np.float32) * 3
+        a = np.exp(s - s.max(1, keepdims=True)).astype(np.float32)
+        b = rng.standard_normal((64, 64)).astype(np.float32).T.copy()  # V^T: (D, keys)
+    want = torch.from_numpy(a).double() @ torch.from_numpy(b).double().T
+    top = float(want.abs().max())
+    got = _three_tf32(torch.from_numpy(a), torch.from_numpy(b)).double()
+    assert float((got - want).abs().max()) <= 1e-5 * top
+    one = (_tf32_rna(torch.from_numpy(a)) @ _tf32_rna(torch.from_numpy(b)).T).double()
+    assert float((one - want).abs().max()) > 1e-5 * top
+
+
+def test_launch_plan_refuses_without_a_card():
+    q = torch.zeros(2, 16, 64)
+    for name in fa.KERNELS:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fa.launch_plan(name, q)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        fa.launch_plan("flash_bwd", q)
+    with pytest.raises(ValueError, match="D <= 128"):
+        fa.launch_plan("flash_fwd", torch.zeros(2, 16, 129))
