@@ -62,13 +62,19 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 8. vocoder: holds both variants of the whole-loop WaveNet kernel (sampling
    and teacher-forced) against their plain versions at its production
    configuration (24 layers, R 128, G 256, S 128, cin 80; T = 4096 and a
-   ragged 1000) and the CPU tests' 4-layer one (T = 64): the teacher's
+   ragged 1000), the CPU tests' 4-layer one (T = 64) and an 8-layer one
+   at R 256, G 512, S 256 whose chain weights are partly read from device
+   memory, 2 of its 8 layers not resident (T = 64): the teacher's
    logits within a tolerance, both against the float32 incremental_forward,
    and the kernel's samples reproduced by the plain teacher on its own
-   trajectory with the same noise; times both, the plain versions and the
-   bound. Then the kernel's main path, ``make_generate_fn(use_kernel=True)``
-   generating one second twice with injected noise, with its launch count,
-   each call's samples reproduced by the plain teacher; then the CLI's
+   trajectory with the same noise, each variant launched twice for
+   bit-identical output, with its launch plan (one cluster, no spills, an
+   active cluster); times both back to back and device-only, the plain
+   versions and the bound. Then the kernel's main path,
+   ``make_generate_fn(use_kernel=True)`` generating one second twice with
+   injected noise, with its launch count, each call's samples reproduced by
+   the plain teacher, a third launch on the first call's noise bit-identical
+   to it, and the kernel's device-only time at that length; then the CLI's
    default vocoder at full width (24 layers, R = G = 512, S = 256) from a
    seeded-init artifact: ``cli.vocoder synthesize``, and ``cli.serve
    --vocoder wavenet`` on the trained VQ-VAE and prior answering
@@ -207,8 +213,13 @@ WN_PROD = dict(out_channels=30, layers=24, stacks=4, residual_channels=128,
                gate_channels=256, skip_out_channels=128, kernel_size=3, cin_channels=80,
                upsample_scales=(4, 4, 4, 4))
 WN_TESTS = {**WN_PROD, "layers": 4, "stacks": 2, "upsample_scales": (2, 2)}
+# a shape inside generate_supported whose chain weights do not all fit the
+# cluster's shared memory: 6 of its 8 layers are resident, the other 2 and
+# their [W_res | W_skip] are read from device memory
+WN_STREAMED = {**WN_TESTS, "layers": 8, "residual_channels": 256, "gate_channels": 512,
+               "skip_out_channels": 256}
 WN_SHAPES = [("production_T4096", WN_PROD, 4096), ("production_T1000", WN_PROD, 1000),
-             ("tests_T64", WN_TESTS, 64)]
+             ("tests_T64", WN_TESTS, 64), ("streamed_T64", WN_STREAMED, 64)]
 WN_MAIN = "production_T4096"
 # teacher logits, kernel vs plain: the same rounding points and order of
 # sums, so they differ only where CUDA's tanhf/expf/log1pf and PyTorch's
@@ -1540,12 +1551,13 @@ def check_samples(row: dict, what: str) -> None:
 
 def compare_wavenet(torch, wn, wavenet_gen, shape, gen) -> dict:
     """Both variants of kernel 5 at one configuration and length: the
-    kernel samples t steps; its trajectory, shifted, goes through the
-    teacher kernel, the plain teacher and the float32 incremental_forward;
-    the plain teacher's logits, sampled with the kernel's noise, must give
-    back the kernel's samples. Then the times of both variants, of the
-    plain teacher over the same steps and of the plain sampler over
-    WN_PLAIN_STEPS steps."""
+    kernel samples t steps, twice on the same noise (bit-identical); its
+    trajectory, shifted, goes through the teacher kernel (twice), the plain
+    teacher and the float32 incremental_forward; the plain teacher's
+    logits, sampled with the kernel's noise, must give back the kernel's
+    samples. Then both variants' launch plans, their times back to back and
+    device-only (behind torch.cuda._sleep), the plain teacher's over the
+    same steps and the plain sampler's over WN_PLAIN_STEPS steps."""
     import torch.nn.functional as F
 
     name, cfg, t = shape
@@ -1557,8 +1569,10 @@ def compare_wavenet(torch, wn, wavenet_gen, shape, gen) -> dict:
     packed = wavenet_gen.pack_weights(model)
     gum, unif = (a[:, 0] for a in wn.draw_noise(model, gen, t, 1))
     samples = wavenet_gen.wavenet_generate(packed, c_up, gum, unif, t)
+    again = wavenet_gen.wavenet_generate(packed, c_up, gum, unif, t)
     x_in = F.pad(samples[:-1], (1, 0))
     logits = wavenet_gen.wavenet_teacher_logits(packed, c_up, x_in)
+    logits_again = wavenet_gen.wavenet_teacher_logits(packed, c_up, x_in)
     plain = wavenet_gen.wavenet_teacher_logits_plain(packed, c_up, x_in)
     f32 = wn.incremental_forward(model, x_in[None, :, None], c)[0]
     sync(torch)
@@ -1568,6 +1582,11 @@ def compare_wavenet(torch, wn, wavenet_gen, shape, gen) -> dict:
                         iters, warmup=1)
     teacher_ms = time_ms(torch, lambda: wavenet_gen.wavenet_teacher_logits(packed, c_up, x_in),
                          iters, warmup=1)
+    device_ms = {
+        "wavenet_gen_sample": device_time_ms(
+            torch, lambda: wavenet_gen.wavenet_generate(packed, c_up, gum, unif, t), iters)[0],
+        "wavenet_gen_teacher": device_time_ms(
+            torch, lambda: wavenet_gen.wavenet_teacher_logits(packed, c_up, x_in), iters)[0]}
     plain_teacher_ms = time_ms(
         torch, lambda: wavenet_gen.wavenet_teacher_logits_plain(packed, c_up, x_in), 2, warmup=1)
     n = min(t, WN_PLAIN_STEPS)
@@ -1585,15 +1604,41 @@ def compare_wavenet(torch, wn, wavenet_gen, shape, gen) -> dict:
         "plain_vs_f32_incremental_max_abs_err": float((plain - f32).abs().max()),
         "f32_control_fails_teacher_limit": f32_gap > WN_TEACHER_TOL,
         **sample_consistency(torch, wn, plain, gum, unif, samples),
+        "run_to_run_identical": bool(torch.equal(samples, again))
+        and bool(torch.equal(logits, logits_again)),
+        "plan": {name: wavenet_gen.launch_plan(packed, name) for name in wavenet_gen.KERNELS},
         "ms": {"wavenet_gen_sample": kernel_ms, "wavenet_gen_teacher": teacher_ms},
+        "device_ms": device_ms,
         "us_per_step": {"wavenet_gen_sample": 1e3 * kernel_ms / t,
                         "wavenet_gen_teacher": 1e3 * teacher_ms / t},
+        "device_us_per_step": {k: 1e3 * v / t for k, v in device_ms.items()},
         "plain_ms": {"wavenet_gen_sample_per_step": plain_sample_ms / n,
                      "plain_sample_steps_timed": n,
                      "wavenet_gen_teacher": plain_teacher_ms},
         "bound": {"wavenet_gen_sample": wavenet_bound_ms(packed, t, False),
                   "wavenet_gen_teacher": wavenet_bound_ms(packed, t, True)},
     }
+
+
+def check_plan(plan: dict, what: str) -> None:
+    """Kernel 5's launch: no spills, and its cluster can run."""
+    check(plan["spill_bytes"] == 0 and plan["max_active_clusters"] >= 1,
+          f"{what}: {plan['spill_bytes']} bytes spilled per thread, "
+          f"{plan['max_active_clusters']} active clusters of {plan['cluster']} CTAs")
+
+
+def check_wavenet_row(row: dict) -> None:
+    """compare_wavenet's limits: teacher logits within WN_TEACHER_TOL of the
+    plain teacher, the samples reproduced, both variants bit-identical run
+    to run, their launch plans without spills and with an active cluster."""
+    name = row["shape_name"]
+    check(row["teacher_max_abs_err"] <= WN_TEACHER_TOL,
+          f"wavenet_gen {name}: teacher logits differ by "
+          f"{row['teacher_max_abs_err']} from the plain version")
+    check_samples(row, f"wavenet_gen {name}")
+    check(row["run_to_run_identical"], f"wavenet_gen {name}: two launches differ")
+    for kernel, plan in row["plan"].items():
+        check_plan(plan, f"{kernel} {name}")
 
 
 def wavenet_api_path(torch, wn, wavenet_gen, gen) -> dict:
@@ -1642,8 +1687,15 @@ def wavenet_api_path(torch, wn, wavenet_gen, gen) -> dict:
         consistency.append(row)
         del plain
     gum, unif = (a[:, 0] for a in noises[0])
+    again = wavenet_gen.wavenet_generate(packed, c_up, gum, unif, WN_API_SAMPLES)
+    check(torch.equal(again, outs[0][0]),
+          f"two launches on the same noise differ at T = {WN_API_SAMPLES}")
     kernel_ms = time_ms(torch, lambda: wavenet_gen.wavenet_generate(
         packed, c_up, gum, unif, WN_API_SAMPLES), 1, warmup=0)
+    device_ms = device_time_ms(torch, lambda: wavenet_gen.wavenet_generate(
+        packed, c_up, gum, unif, WN_API_SAMPLES), 2)[0]
+    api_plan = wavenet_gen.launch_plan(packed)
+    check_plan(api_plan, f"wavenet_gen_sample at T = {WN_API_SAMPLES}")
     audio_s = WN_API_SAMPLES / 22050
     return {"phase": "vocoder_api_path", "samples": WN_API_SAMPLES, "calls": WN_API_CALLS,
             "launches": launches, "seconds": seconds,
@@ -1652,6 +1704,11 @@ def wavenet_api_path(torch, wn, wavenet_gen, gen) -> dict:
             "vs_plain_teacher": consistency,
             "sample_max_abs_err": max(r["sample_max_abs_err"] for r in consistency),
             "kernel_ms": kernel_ms, "kernel_us_per_step": 1e3 * kernel_ms / WN_API_SAMPLES,
+            "kernel_device_ms": device_ms,
+            "kernel_device_us_per_step": 1e3 * device_ms / WN_API_SAMPLES,
+            "kernel_realtime_factor": 1e3 * audio_s / device_ms,
+            "run_to_run_identical": True,
+            "plan": api_plan,
             "bound": wavenet_bound_ms(packed, WN_API_SAMPLES, False)}
 
 
@@ -1863,6 +1920,7 @@ def wavenet_summary(rows: dict, api: dict) -> list[dict]:
               "library": "none: no PyTorch call computes a WaveNet step",
               "per": "generated sample (one step)"}
     by_shape = {name: {"t": r["t"], "us_per_step": r["us_per_step"],
+                       "device_us_per_step": r["device_us_per_step"],
                        "plain_ms_per_step": r["plain_ms"]["wavenet_gen_sample_per_step"],
                        "teacher_max_abs_err": r["teacher_max_abs_err"],
                        "sample_agree_frac": r["sample_agree_frac"]}
@@ -1875,6 +1933,8 @@ def wavenet_summary(rows: dict, api: dict) -> list[dict]:
         "ms": api["kernel_ms"] / t,
         "plain_ms": main["plain_ms"]["wavenet_gen_sample_per_step"],
         "bound_ms": api["bound"]["bound_ms"] / t, "bound_by": api["bound"]["bound_by"],
+        "device_ms": api["kernel_device_ms"] / t,
+        "realtime_factor": api["kernel_realtime_factor"], "plan": api["plan"],
         "call_ms": api["kernel_ms"], "by_shape": by_shape,
     }
     tb = main["bound"]["wavenet_gen_teacher"]
@@ -1885,6 +1945,8 @@ def wavenet_summary(rows: dict, api: dict) -> list[dict]:
         "ms": main["ms"]["wavenet_gen_teacher"] / main["t"],
         "plain_ms": main["plain_ms"]["wavenet_gen_teacher"] / main["t"],
         "bound_ms": tb["bound_ms"] / main["t"], "bound_by": tb["bound_by"],
+        "device_ms": main["device_ms"]["wavenet_gen_teacher"] / main["t"],
+        "plan": main["plan"]["wavenet_gen_teacher"],
         "call_ms": main["ms"]["wavenet_gen_teacher"],
     }
     return [sample, teacher]
@@ -2112,11 +2174,13 @@ def main() -> int:
         for shape in WN_SHAPES:
             row = compare_wavenet(torch, wn, wavenet_gen, shape, gen)
             emit(row)
-            check(row["teacher_max_abs_err"] <= WN_TEACHER_TOL,
-                  f"wavenet_gen {shape[0]}: teacher logits differ by "
-                  f"{row['teacher_max_abs_err']} from the plain version")
-            check_samples(row, f"wavenet_gen {shape[0]}")
+            check_wavenet_row(row)
             wn_rows[shape[0]] = row
+        residency = {name: r["plan"]["wavenet_gen_sample"]["resident_whole"]
+                     for name, r in wn_rows.items()}
+        check(residency[WN_MAIN] and not residency["streamed_T64"],
+              f"wavenet_gen: chain weights resident whole by shape {residency}, expected "
+              f"whole at {WN_MAIN} and partly streamed at streamed_T64")
         torch.cuda.empty_cache()
         wn_api = wavenet_api_path(torch, wn, wavenet_gen, gen)
         wn_api["card"] = card

@@ -30,14 +30,22 @@ What it computes, with its rounding points (those of the Pallas kernel):
   * the ring starts at zero (causal zero padding); tap j of layer l reads
     the input of d_l * (K - 1 - j) steps ago.
 
-The products accumulate in float32 in a fixed order: each output column is
-split into ``_slices(cols)`` consecutive row slices, each summed row by row
-from zero, and the slice sums are added in slice order. The plain versions
-sum in that same order (``_matvec``), so the kernel and its plain version
-differ only where CUDA's and PyTorch's tanh, exp and log differ. The noise
-is drawn outside the kernel: gumbel (T, n_mix) and uniform (T,) in the
-layout of ``models/wavenet.draw_noise``, so the plain version and the
-scan sampler can take the same numbers.
+The products accumulate in float32 in the kernel's order, which the plain
+versions repeat (``_matvec``, ``_layer``): a product's rows are cut into
+``SLICES`` = 16 slices of consecutive rows (padded with zeros to a multiple
+of 16), each summed row by row from zero, and the slice sums are added by
+halving (slice s + slice s + 8, then + 4, + 2, + 1). A z column is ((tap
+part + h part) + b_dil) + condz, the tap part the product of the taps
+[tap_0 | ... | tap_{K-2}] and the h part that of h. So the kernel and its
+plain version differ only where CUDA's and PyTorch's tanh, exp and log
+differ. The noise is drawn outside the kernel: gumbel (T, n_mix) and
+uniform (T,) in the layout of ``models/wavenet.draw_noise``, so the plain
+version and the scan sampler can take the same numbers.
+
+The kernel runs as one thread-block cluster of ``CLUSTER`` = 16 CTAs; CTA
+c owns 1/16 of the columns of every product and holds its slices of the
+chain's weights in shared memory (``kernel_layout``, ``kernel_weights``:
+the per-CTA blobs, in the order in which a warp's lanes read them).
 
 ``wavenet_generate`` and ``wavenet_teacher_logits`` run the plain versions
 for tensors on the CPU and launch the kernel for tensors on a CUDA device,
@@ -58,17 +66,26 @@ from neural_sound_generation_tpu_torch.ops.cuda import build
 
 SOURCE = build.CSRC / "wavenet_gen.cu"
 KERNELS = ("wavenet_gen_sample", "wavenet_gen_teacher")
-#: the kernel's block size; the plain versions' summation order follows it
-THREADS = 512
+#: threads of each CTA: warp 0 runs the chain, warps 1-3 the off-chain parts
+THREADS = 128
+ROLES = "warp 0: chain, exchanges, head, sample; warps 1-3: taps and condz one step ahead"
+#: row slices of every product (a half-warp's lanes); the summation order follows it
+SLICES = 16
 #: bf16 columns per 16-byte load: every product's width is a multiple
 VEC = 8
 U_LO, U_HI = 1e-5, 1.0 - 1e-5
 #: the Pallas kernel's lane width; its shape rules are kept unchanged
 _P = 128
-SMEM_LIMIT = 232448  # dynamic shared memory a block may use on Hopper
+SMEM_LIMIT = 232448  # dynamic shared memory a CTA may use on Hopper
+CLUSTER = 16  # CTAs of the one cluster (a non-portable cluster size)
+X_BUFS = 4  # the kernel's exchange buffers, used in turn
+PASS_ROW = 512  # bytes of one row of a pass: 32 lanes x 16 bytes
+_PLAN_KEYS = ("smem_bytes", "resident_bytes", "resident_blob_bytes", "streamed_blob_bytes",
+              "threads", "registers", "spill_bytes", "max_active_clusters")
 
 _count_lock = threading.Lock()
 _launches = dict.fromkeys(KERNELS, 0)
+_plans: dict = {}
 
 
 def launch_counts() -> dict[str, int]:
@@ -184,37 +201,30 @@ def pack_weights(model) -> PackedWeights:
 # ---------------------------------------------------------------------------
 
 
-def _slices(cols: int) -> int:
-    """Row slices per output column in the kernel's products: THREADS
-    threads over cols/8 column groups, the rest of the threads splitting
-    the rows."""
-    groups = cols // VEC
-    return THREADS // groups if groups < THREADS else 1
-
-
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
 def _matvec(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (N, rows) float32 holding bf16 values, w (rows, cols) bf16 ->
-    (N, cols) float32 summed in the kernel's order: slice s covers rows
-    [s*rps, (s+1)*rps) and is summed row by row from zero (each bf16 x bf16
-    product is exact in float32, so the kernel's fma rounds as this add
-    does); the slice sums are then added in order."""
+    (N, cols) float32 summed in the kernel's order: the rows, padded with
+    zeros to a multiple of SLICES, form SLICES slices of rps consecutive rows,
+    each summed row by row from zero (each bf16 x bf16 product is exact in
+    float32, so the kernel's fma rounds as this add does); the slice sums
+    are then added by halving: slice s + slice s + 8, then + 4, + 2, + 1."""
     rows, cols = w.shape
-    ns = _slices(cols)
-    rps = -(-rows // ns)
-    pad = ns * rps - rows
-    xs = F.pad(x, (0, pad)).reshape(x.shape[0], ns, rps)
-    ws = F.pad(w.float(), (0, 0, 0, pad)).reshape(ns, rps, cols)
-    acc = torch.zeros(x.shape[0], ns, cols, dtype=torch.float32, device=x.device)
+    rps = -(-rows // SLICES)
+    pad = SLICES * rps - rows
+    xs = F.pad(x, (0, pad)).reshape(x.shape[0], SLICES, rps)
+    ws = F.pad(w.float(), (0, 0, 0, pad)).reshape(SLICES, rps, cols)
+    acc = torch.zeros(x.shape[0], SLICES, cols, dtype=torch.float32, device=x.device)
     for i in range(rps):
         acc = acc + xs[:, :, i, None] * ws[None, :, i, :]
-    y = acc[:, 0]
-    for s in range(1, ns):
-        y = y + acc[:, s]
-    return y
+    n = SLICES
+    while n > 1:
+        n //= 2
+        acc = acc[:, :n] + acc[:, n : 2 * n]
+    return acc[:, 0]
 
 
 def _embed(p: PackedWeights, x: torch.Tensor) -> torch.Tensor:
@@ -222,13 +232,21 @@ def _embed(p: PackedWeights, x: torch.Tensor) -> torch.Tensor:
     return _bf16(x[:, None] * p.w_first + p.b_first)
 
 
+def _condz(p: PackedWeights, c_up: torch.Tensor, layer: int) -> torch.Tensor:
+    """(N, C) conditioning rows -> layer ``layer``'s (N, G) condz."""
+    G = p.dims["G"]
+    return _matvec(_bf16(c_up.float()), p.w_cdot[:, layer * G : (layer + 1) * G])
+
+
 def _layer(p: PackedWeights, layer: int, h: torch.Tensor, taps: list, condz: torch.Tensor,
            skips: torch.Tensor):
-    """One residual layer over N rows: (h_next, skips)."""
+    """One residual layer over N rows: (h_next, skips). z is summed in the
+    kernel's order: ((tap part + h part) + b_dil) + condz."""
     d = p.dims
-    G, G2, S = d["G"], d["G"] // 2, d["S"]
-    z = _matvec(torch.cat([h] + taps, dim=1), p.w_in[layer]) + p.b_dil[layer]
-    z = z + condz[:, layer * G : (layer + 1) * G]
+    G2, R, S = d["G"] // 2, d["R"], d["S"]
+    w = p.w_in[layer]
+    z = _matvec(torch.cat(taps, dim=1), w[R:]) + _matvec(h, w[:R])
+    z = (z + p.b_dil[layer]) + condz
     gated = _bf16(torch.tanh(z[:, :G2]) * torch.sigmoid(z[:, G2:]))
     sr = _matvec(gated, p.w_sr[layer])
     skips = skips + sr[:, :S]
@@ -241,10 +259,6 @@ def _head(p: PackedWeights, skips: torch.Tensor) -> torch.Tensor:
     return (_matvec(_bf16(o1), p.w_post2) + p.b_post2)[:, : p.out_channels]
 
 
-def _cond(p: PackedWeights, c_up: torch.Tensor) -> torch.Tensor:
-    return _matvec(_bf16(c_up.float()), p.w_cdot)
-
-
 @torch.no_grad()
 def wavenet_teacher_logits_plain(p: PackedWeights, c_up: torch.Tensor,
                                  x: torch.Tensor) -> torch.Tensor:
@@ -255,13 +269,12 @@ def wavenet_teacher_logits_plain(p: PackedWeights, c_up: torch.Tensor,
     kernel's."""
     t_len = x.shape[0]
     d = p.dims
-    condz = _cond(p, c_up[:t_len])
     h = _embed(p, x.float())
     skips = torch.zeros(t_len, d["S"], device=x.device)
     for layer, dil in enumerate(p.dilations):
         taps = [F.pad(h, (0, 0, off, 0))[:t_len]
                 for off in (dil * (d["K"] - 1 - j) for j in range(d["K"] - 1))]
-        h, skips = _layer(p, layer, h, taps, condz, skips)
+        h, skips = _layer(p, layer, h, taps, _condz(p, c_up[:t_len], layer), skips)
     return _head(p, skips)
 
 
@@ -276,7 +289,7 @@ def wavenet_generate_plain(p: PackedWeights, c_up: torch.Tensor, gumbel: torch.T
     d = p.dims
     dev = c_up.device
     ring = torch.zeros(d["L"], d["RD"], d["R"], device=dev)
-    condz_all = _cond(p, c_up[:length])
+    condz_all = [_condz(p, c_up[:length], layer) for layer in range(d["L"])]
     h = _embed(p, torch.zeros(1, device=dev))
     out = torch.empty(length, device=dev)
     for t in range(length):
@@ -285,7 +298,7 @@ def wavenet_generate_plain(p: PackedWeights, c_up: torch.Tensor, gumbel: torch.T
             taps = [ring[layer, (t - dil * (d["K"] - 1 - j)) % d["RD"]][None]
                     for j in range(d["K"] - 1)]
             ring[layer, t % d["RD"]] = h[0]
-            h, skips = _layer(p, layer, h, taps, condz_all[t : t + 1], skips)
+            h, skips = _layer(p, layer, h, taps, condz_all[layer][t : t + 1], skips)
         logits = _head(p, skips)
         u = uniform[t : t + 1].clamp(U_LO, U_HI)
         x = sample_mol(logits, gumbel[t : t + 1], u)
@@ -295,11 +308,171 @@ def wavenet_generate_plain(p: PackedWeights, c_up: torch.Tensor, gumbel: torch.T
 
 
 # ---------------------------------------------------------------------------
+# The kernel's per-CTA layout
+# ---------------------------------------------------------------------------
+
+
+def kernel_layout(d: dict, nc: int = CLUSTER) -> dict:
+    """The kernel's layout for shape ``d`` (``PackedWeights.dims``) on a
+    cluster of ``nc`` CTAs: the same formulas as ``make_layout`` in
+    ``csrc/wavenet_gen.cu``. Byte offsets of each section of a CTA's
+    resident blob (biases, the head's weights, then per layer W_cur and
+    [W_res | W_skip]) and of its streamed blob (per layer W_tap and
+    W_cdot); ``res``, the blob's prefix held in shared memory (whole
+    sections while they fit beside the buffers); ``smem``, the shared memory
+    of a CTA. A pass is one warp's product of rows x 16 columns: rps rows of
+    32 lanes x 16 bytes. Raises ValueError for a shape the kernel cannot
+    lay out."""
+    L, K, R, G2, S, C, OUTP = d["L"], d["K"], d["R"], d["G"] // 2, d["S"], d["C"], d["OUTP"]
+    if nc < 1 or L < 1 or K < 2 or C < 1:
+        raise ValueError(f"no layout for L={L}, K={K}, C={C} on {nc} CTAs")
+    for name, n in (("R", R), ("G/2", G2), ("S", S)):
+        if n % (VEC * nc):
+            raise ValueError(f"{name} = {n} is not a multiple of {VEC} x {nc} CTAs: each CTA "
+                             f"owns whole 8-column chunks")
+    if OUTP < VEC or OUTP % VEC:
+        raise ValueError(f"OUTP = {OUTP} is not a positive multiple of {VEC}")
+    g8, r8, s8 = G2 // nc, R // nc, S // nc
+    y = {"nc": nc, "g8": g8, "r8": r8, "s8": s8, "z": 2 * g8, "npz": g8 // 8,
+         "nprs": max(r8, s8) // 8, "np1": -(-(s8 // 8) // 2), "np2": -(-(OUTP // 8) // 2),
+         "cp": -(-C // SLICES) * SLICES}
+    y.update(rps_r=R // SLICES, rps_g=G2 // SLICES, rps_s=S // SLICES,
+             rps_t=(K - 1) * R // SLICES, rps_c=y["cp"] // SLICES)
+
+    def sections(sizes: list) -> tuple[list, int]:
+        offs, off = [], 0
+        for n in sizes:
+            offs.append(off)
+            off += -(-n // 16) * 16
+        return offs, off
+
+    names = ("bdil", "bres", "bskip", "bp1", "bp2", "wfirst", "bfirst", "wp1", "wp2")
+    offs, head = sections([4 * L * y["z"], 4 * L * 8 * y["nprs"], 4 * 8 * y["nprs"],
+                           4 * 16 * y["np1"], 4 * 16 * y["np2"], 4 * R, 4 * R,
+                           y["np1"] * y["rps_s"] * PASS_ROW, y["np2"] * y["rps_s"] * PASS_ROW])
+    y.update(zip(names, offs))
+    y["layer0"] = head
+    y["wcur_bytes"] = y["npz"] * y["rps_r"] * PASS_ROW
+    y["layer_bytes"] = y["wcur_bytes"] + y["nprs"] * y["rps_g"] * PASS_ROW
+    y["rb"] = head + L * y["layer_bytes"]
+    y["tap_bytes"] = y["npz"] * y["rps_t"] * PASS_ROW
+    y["slayer_bytes"] = y["tap_bytes"] + y["npz"] * y["rps_c"] * PASS_ROW
+    y["sb"] = L * y["slayer_bytes"]
+    y["xw"] = max(G2, R, S)
+    bnames = ("b_pre", "b_xbuf", "b_h0", "b_mine", "b_skacc", "b_logits", "b_score", "b_bars")
+    boffs, buf = sections([4 * 2 * 2 * L * y["z"], 2 * X_BUFS * y["xw"], 2 * R,
+                           2 * 8 * max(y["npz"], y["nprs"], 2 * y["np1"]), 4 * 8 * y["nprs"],
+                           4 * 16 * y["np2"], 4 * 16 * y["np2"], 8 * (X_BUFS + 2 * L + 1)])
+    y.update(zip(bnames, boffs))
+    budget = SMEM_LIMIT - buf
+    if budget < 0:
+        raise ValueError(f"the kernel's buffers need {buf} bytes of shared memory a CTA "
+                         f"(> {SMEM_LIMIT}) at L={L}, R={R}, G={2 * G2}, S={S} on {nc} CTAs")
+    ends = [y["wp1"], y["wp2"], head] + [head + (n + 1) * y["layer_bytes"] for n in range(L)]
+    res = 0
+    for n, end in enumerate(ends):
+        if end > budget:
+            break
+        res = end
+    y["res"] = res
+    y["resident_layers"] = max(0, (res - head) // y["layer_bytes"]) if res >= head else 0
+    y["smem"] = res + buf
+    return y
+
+
+def smem_bytes(p: PackedWeights) -> int:
+    """A CTA's dynamic shared memory (the same formula as the C side's
+    ``make_layout``)."""
+    return kernel_layout(p.dims)["smem"]
+
+
+def _passes(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Passes in the lane order the kernel reads: lo and hi (..., P, rows, 8)
+    are each pass's chunks for lanes 0-15 and 16-31; lane l reads rows (l %
+    16) * rps .. + rps of its chunk, vector i at [i * 32 + l]. Returns
+    (..., P * rows * 32 * 8 / 16) elements."""
+    *lead, n, rows, _ = lo.shape
+    rps = rows // SLICES
+    x = torch.stack([lo, hi], dim=-3).reshape(*lead, n, 2, SLICES, rps, VEC)
+    return x.movedim(-2, -4).reshape(*lead, n * rps * 2 * SLICES * VEC)
+
+
+def _chunks(w: torch.Tensor, nc: int, n: int) -> torch.Tensor:
+    """(..., rows, nc * k * 8) -> (nc, ..., n, rows, 8): CTA c's k column
+    chunks, zero chunks added up to n."""
+    *lead, rows, cols = w.shape
+    k = cols // (nc * VEC)
+    x = w.reshape(*lead, rows, nc, k, VEC)
+    x = F.pad(x, (0, 0, 0, n - k))
+    return x.movedim(-3, 0).movedim(-2, -3)
+
+
+def _bias_chunks(b: torch.Tensor, nc: int, n: int) -> torch.Tensor:
+    """(..., nc * k) -> (nc, ..., n): CTA c's k columns, zeros up to n."""
+    *lead, cols = b.shape
+    x = F.pad(b.reshape(*lead, nc, cols // nc), (0, n - cols // nc))
+    return x.movedim(-2, 0)
+
+
+def _bytes(x: torch.Tensor, nc: int) -> torch.Tensor:
+    return x.contiguous().reshape(nc, -1).view(torch.uint8)
+
+
+@torch.no_grad()
+def kernel_weights(p: PackedWeights, nc: int = CLUSTER) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's (nc, RB) resident and (nc, SB) streamed blobs, uint8 on
+    the weights' device, laid out by ``kernel_layout``."""
+    d = p.dims
+    y = kernel_layout(d, nc)
+    L, R, G2, S, C, OUTP = d["L"], d["R"], d["G"] // 2, d["S"], d["C"], d["OUTP"]
+    dev = p.w_in.device
+
+    def zpasses(w):  # (L, rows, G) -> (nc, L, bytes): z column passes (a, b halves)
+        return _bytes(_passes(_chunks(w[..., :G2], nc, y["npz"]),
+                              _chunks(w[..., G2:], nc, y["npz"])), nc)
+
+    def pair_passes(w, n_chunks):  # (rows, cols) -> (nc, bytes): chunks 2q, 2q + 1 a pass
+        x = _chunks(w, nc, 2 * n_chunks)
+        return _bytes(_passes(x[..., 0::2, :, :], x[..., 1::2, :, :]), nc)
+
+    res = torch.zeros(nc, y["rb"], dtype=torch.uint8, device=dev)
+    bdil = torch.stack([_bias_chunks(p.b_dil[:, :G2], nc, y["g8"]).reshape(nc, L, y["npz"], 8),
+                        _bias_chunks(p.b_dil[:, G2:], nc, y["g8"]).reshape(nc, L, y["npz"], 8)],
+                       dim=-2)
+    w_post2 = p.w_post2.expand(nc, S, OUTP).permute(1, 0, 2).reshape(S, nc * OUTP)
+    parts = {
+        "bdil": _bytes(bdil, nc),
+        "bres": _bytes(_bias_chunks(p.b_res, nc, 8 * y["nprs"]), nc),
+        "bskip": _bytes(_bias_chunks(p.b_skip, nc, 8 * y["nprs"]), nc),
+        "bp1": _bytes(_bias_chunks(p.b_post1, nc, 16 * y["np1"]), nc),
+        "bp2": _bytes(F.pad(p.b_post2, (0, 16 * y["np2"] - OUTP)).expand(nc, -1), nc),
+        "wfirst": _bytes(p.w_first.expand(nc, R), nc),
+        "bfirst": _bytes(p.b_first.expand(nc, R), nc),
+        "wp1": pair_passes(p.w_post1, y["np1"]),
+        "wp2": pair_passes(w_post2, y["np2"]),
+    }
+    for name, blob in parts.items():
+        res[:, y[name] : y[name] + blob.shape[1]] = blob
+    w_rs = _passes(_chunks(p.w_sr[..., S:], nc, y["nprs"]),
+                   _chunks(p.w_sr[..., :S], nc, y["nprs"]))
+    layers = torch.cat([zpasses(p.w_in[:, :R]).reshape(nc, L, -1),
+                        _bytes(w_rs, nc).reshape(nc, L, -1)], dim=2)
+    res[:, y["layer0"] :] = layers.reshape(nc, -1)
+    w_cdot = F.pad(p.w_cdot, (0, 0, 0, y["cp"] - C)).reshape(y["cp"], L, 2 * G2)
+    stream = torch.cat([zpasses(p.w_in[:, R:]).reshape(nc, L, -1),
+                        zpasses(w_cdot.permute(1, 0, 2)).reshape(nc, L, -1)], dim=2)
+    return res, stream.reshape(nc, -1).contiguous()
+
+
+# ---------------------------------------------------------------------------
 # The kernel
 # ---------------------------------------------------------------------------
 
 
 _lib: ctypes.CDLL | None = None
+#: the C entries' parameters, in order (pointers, then ints, then the stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+PLAN_ARGTYPES = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
 
 
 def load(rebuild: bool = False) -> ctypes.CDLL:
@@ -307,24 +480,61 @@ def load(rebuild: bool = False) -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.load_library("wavenet_gen", [SOURCE], rebuild)
-        lib.wavenet_gen_launch.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 13 + [
-            ctypes.c_void_p]
+        lib.wavenet_gen_launch.argtypes = LAUNCH_ARGTYPES
         lib.wavenet_gen_launch.restype = ctypes.c_int
-        lib.wavenet_gen_smem_bytes.argtypes = [ctypes.c_int] * 9
-        lib.wavenet_gen_smem_bytes.restype = ctypes.c_int
+        lib.wavenet_gen_plan.argtypes = PLAN_ARGTYPES
+        lib.wavenet_gen_plan.restype = ctypes.c_int
         lib.wavenet_gen_error_string.argtypes = [ctypes.c_int]
         lib.wavenet_gen_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def smem_bytes(p: PackedWeights) -> int:
-    """The kernel's dynamic shared memory (the same formula as the C
-    side's ``wavenet_gen_smem_bytes``)."""
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.wavenet_gen_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: {msg} ({err})")
+
+
+def launch_plan(p: PackedWeights, name: str = KERNELS[0], device=None) -> dict:
+    """The launch variant ``name`` makes for these weights on a CUDA device
+    (the weights' own unless ``device`` is given): ``cluster`` (CTAs in the
+    one cluster), ``threads`` per CTA and their ``roles``, ``smem_bytes``
+    and ``resident_bytes`` per CTA, ``resident_layers`` of ``layers`` held
+    in shared memory and ``resident_whole`` (all of the chain's weights and
+    the head; else the rest streams from L2), ``registers`` and
+    ``spill_bytes`` per thread, and ``max_active_clusters``
+    (cudaOccupancyMaxActiveClusters). Raises when no cluster fits on the
+    device, and for non-CUDA devices."""
+    if name not in KERNELS:
+        raise ValueError(f"unknown kernel {name!r}: expected one of {KERNELS}")
+    dev = torch.device(device) if device is not None else p.w_in.device
+    if dev.type != "cuda":
+        raise ValueError(f"the wavenet_gen kernel launches only for CUDA tensors, got {dev}")
     d = p.dims
-    floats = (d["L"] * d["G"] + d["K"] * d["R"] + d["G"] + d["G"] // 2 + (d["S"] + d["R"])
-              + d["S"] + d["R"] + d["S"] + d["S"] + d["OUTP"] + d["C"] + THREADS * VEC + 4)
-    return 4 * floats
+    key = (tuple(sorted(d.items())), dev.index, name)
+    if key in _plans:
+        return dict(_plans[key])
+    lib = load()
+    y = kernel_layout(d)
+    info = (ctypes.c_int * len(_PLAN_KEYS))()
+    with torch.cuda.device(dev):
+        err = lib.wavenet_gen_plan(d["L"], d["K"], d["R"], d["G"] // 2, d["S"], d["C"],
+                                   d["OUTP"], CLUSTER, int(name == KERNELS[1]), info)
+    _raise_on(lib, err, f"{name} launch plan")
+    got = dict(zip(_PLAN_KEYS, info))
+    want = {"smem_bytes": y["smem"], "resident_bytes": y["res"],
+            "resident_blob_bytes": y["rb"], "streamed_blob_bytes": y["sb"]}
+    if any(got[k] != v for k, v in want.items()):
+        raise RuntimeError(f"the kernel's layout {got} differs from the wrapper's {want}")
+    if got["max_active_clusters"] < 1:
+        raise RuntimeError(f"no cluster of {CLUSTER} CTAs with {y['smem']} bytes of shared "
+                           f"memory each fits on {dev}")
+    plan = {"cluster": CLUSTER, "ctas": CLUSTER, **got, "roles": ROLES,
+            "resident_layers": y["resident_layers"], "layers": d["L"],
+            "resident_whole": y["res"] == y["rb"]}
+    _plans[key] = plan
+    return dict(plan)
 
 
 def _check(p: PackedWeights, c_up: torch.Tensor, length: int) -> None:
@@ -351,37 +561,27 @@ def _launch(name: str, p: PackedWeights, c_up, gumbel, uniform, x_teacher, out, 
     dev = c_up.device
     if dev.type != "cuda":
         raise ValueError(f"the wavenet_gen kernel needs CUDA tensors, got {dev}")
-    need = smem_bytes(p)
-    if need > SMEM_LIMIT:
-        raise ValueError(f"the model needs {need} bytes of shared memory (> {SMEM_LIMIT})")
-    lib = load()
-    if lib.wavenet_gen_smem_bytes(d["L"], d["K"], d["R"], d["G"], d["S"], d["C"], d["OUTP"],
-                                  THREADS, VEC) != need:
-        raise RuntimeError("the kernel's shared-memory layout differs from the wrapper's")
-    ring = torch.zeros(d["L"], d["RD"], d["R"], dtype=torch.bfloat16, device=dev)
-    dil = torch.tensor(p.dilations, dtype=torch.int32, device=dev)
+    plan = launch_plan(p, name, dev)
+    if length == 0:
+        return
+    nc = plan["cluster"]
+    res, stream_blob = kernel_weights(p, nc)
+    # from pinned memory, so that the copy does not wait for the stream
+    dil = torch.tensor(p.dilations, dtype=torch.int32).pin_memory().to(dev, non_blocking=True)
+    ring = torch.zeros(nc, d["L"], d["RD"], d["R"], dtype=torch.bfloat16, device=dev)
     c_bf = c_up[:length].to(torch.bfloat16).contiguous()
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    args = [t.data_ptr() for t in p.tensors()] + [
-        c_bf.data_ptr(), dil.data_ptr(), ptr(gumbel), ptr(uniform), ptr(x_teacher),
-        ring.data_ptr(), out.data_ptr(),
-        length, d["L"], d["K"], d["R"], d["G"], d["S"], d["C"], d["OUT"], d["OUTP"],
-        d["RD"], THREADS, need, int(name == "wavenet_gen_teacher"),
-    ]
-    if length == 0:
-        return
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if dev.index == torch.cuda.current_device():
-        err = lib.wavenet_gen_launch(*args, stream)
-    else:
-        with torch.cuda.device(dev):
-            err = lib.wavenet_gen_launch(*args, stream)
-    if err != 0:
-        msg = lib.wavenet_gen_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+    args = [res.data_ptr(), stream_blob.data_ptr(), c_bf.data_ptr(), dil.data_ptr(), ptr(gumbel),
+            ptr(uniform), ptr(x_teacher), ring.data_ptr(), out.data_ptr(),
+            length, d["L"], d["K"], d["R"], d["G"] // 2, d["S"], d["C"], d["OUT"], d["OUTP"],
+            d["RD"], nc, plan["smem_bytes"], int(name == KERNELS[1])]
+    lib = load()
+    with torch.cuda.device(dev):
+        err = lib.wavenet_gen_launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, f"{name} kernel launch")
     with _count_lock:
         _launches[name] += 1
 
