@@ -8,8 +8,11 @@ dimensions instead: a signal is (..., samples) and a spectrogram
 (..., frames, bins) or (..., mels, frames), as in the JAX functions.
 
 Mu-law companding and its inverse (the vocoder's output for ``mulaw`` and
-``mulaw-quantize`` inputs) are here. The LWS convention (``cfg.use_lws``)
-and silence trimming are not ported yet; ``use_lws=True`` raises.
+``mulaw-quantize`` inputs) are here, with the silence trims and the frame
+padding math of both STFT conventions that corpus preprocessing needs.
+``cfg.use_lws`` switches analysis to the LWS framing and inversion to LWS
+phase estimation (``ops/lws.py``); the default is the librosa-centered
+STFT and Griffin-Lim.
 """
 
 from __future__ import annotations
@@ -227,19 +230,44 @@ def _mels(cfg: AudioConfig, device) -> tuple[torch.Tensor, torch.Tensor]:
     )
 
 
-def _check_no_lws(cfg: AudioConfig) -> None:
+def _analysis_stft(y: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    """STFT under the configured convention: librosa-centered by default,
+    or the LWS speech-mode framing when ``cfg.use_lws``
+    (``src/audio_tacotron.py:154-158`` dispatches the same way)."""
     if cfg.use_lws:
-        raise NotImplementedError("the LWS convention (use_lws) is not ported yet")
+        from neural_sound_generation_tpu_torch.ops.lws import lws_stft
+
+        return lws_stft(y, cfg.fft_size, cfg.effective_hop_size)
+    return stft(y, cfg.fft_size, cfg.effective_hop_size, cfg.effective_win_size)
+
+
+def linearspectrogram(wav: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    """Normalized linear dB spectrogram: (..., samples) -> (..., 1 + fft_size//2,
+    n_frames)."""
+    y = preemphasis(wav, cfg.preemphasis, cfg.preemphasize)
+    D = _analysis_stft(y, cfg)
+    S = amp_to_db(torch.abs(D), cfg.min_level_db) - cfg.ref_level_db
+    if cfg.signal_normalization:
+        S = normalize_spectrogram(S, cfg)
+    return S.transpose(-1, -2)
+
+
+def linearspectrogram_batch(wavs: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    """(B, T) padded waveforms -> (B, 1 + fft_size//2, n_frames)."""
+    if wavs.ndim != 2:
+        raise ValueError(f"expected (B, T) waveforms, got {tuple(wavs.shape)}")
+    return linearspectrogram(wavs, cfg)
 
 
 def melspectrogram(wav: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     """Normalized mel dB spectrogram: (..., samples) -> (..., num_mels, n_frames).
 
-    Parity target: ``src/audio_tacotron.py:70-78`` with the librosa-centered
-    STFT (the reference tacotron default, use_lws=False)."""
-    _check_no_lws(cfg)
+    Parity target: ``src/audio_tacotron.py:70-78``. The default is the
+    librosa-centered STFT (the reference tacotron default, use_lws=False);
+    ``cfg.use_lws`` switches to the LWS speech-mode framing of the
+    wavenet-variant chain (``src/audio.py:95-101``)."""
     y = preemphasis(wav, cfg.preemphasis, cfg.preemphasize)
-    D = stft(y, cfg.fft_size, cfg.effective_hop_size, cfg.effective_win_size)
+    D = _analysis_stft(y, cfg)
     basis, _ = _mels(cfg, wav.device)
     mel_mag = torch.abs(D) @ basis.T
     S = amp_to_db(mel_mag, cfg.min_level_db) - cfg.ref_level_db
@@ -304,6 +332,29 @@ def griffin_lim(
     return y
 
 
+def _phase_reconstruct(
+    S_pow: torch.Tensor,
+    cfg: AudioConfig,
+    generator: torch.Generator | None = None,
+    init_angles: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Waveform from a linear magnitude**power spectrogram (..., n_freq, T):
+    LWS phase estimation and LWS synthesis when ``cfg.use_lws``
+    (``src/audio_tacotron.py:109-112``, ``src/audio.py:86-92``), Griffin-Lim
+    otherwise (``audio_tacotron.py:113-116``), whose initial phase is
+    ``init_angles`` or a draw from ``generator``. LWS starts from zero phase
+    and draws nothing."""
+    S = S_pow.transpose(-1, -2)
+    if cfg.use_lws:
+        from neural_sound_generation_tpu_torch.ops.lws import lws_istft, run_lws
+
+        D = run_lws(S, cfg.fft_size, cfg.effective_hop_size,
+                    iterations=cfg.lws_iterations, k_radius=cfg.lws_k_radius)
+        return lws_istft(D, cfg.fft_size, cfg.effective_hop_size)
+    return griffin_lim(S, cfg, generator, momentum=cfg.griffin_lim_momentum,
+                       init_angles=init_angles)
+
+
 def inv_mel_spectrogram(
     mel_spectrogram: torch.Tensor,
     cfg: AudioConfig,
@@ -313,20 +364,33 @@ def inv_mel_spectrogram(
     """Mel dB spectrogram (..., num_mels, n_frames) -> waveform (..., samples).
 
     Parity target: ``src/audio_tacotron.py:99-116``: denormalize ->
-    db_to_amp -> pinv mel basis -> power -> Griffin-Lim -> inverse
-    preemphasis. ``generator``/``init_angles`` set Griffin-Lim's initial
-    phase (see ``griffin_lim``)."""
-    _check_no_lws(cfg)
+    db_to_amp -> pinv mel basis -> power -> phase reconstruction (LWS when
+    ``cfg.use_lws``, else Griffin-Lim) -> inverse preemphasis.
+    ``generator``/``init_angles`` set Griffin-Lim's initial phase (see
+    ``griffin_lim``)."""
     D = mel_spectrogram
     if cfg.signal_normalization:
         D = denormalize_spectrogram(D, cfg)
     amp = db_to_amp(D + cfg.ref_level_db)  # (..., n_mels, T)
     _, inv_basis = _mels(cfg, D.device)
     S = torch.clamp(inv_basis @ amp, min=1e-10)  # (..., n_freq, T)
-    y = griffin_lim(
-        (S**cfg.power).transpose(-1, -2), cfg, generator,
-        momentum=cfg.griffin_lim_momentum, init_angles=init_angles,
-    )
+    y = _phase_reconstruct(S**cfg.power, cfg, generator, init_angles)
+    return inv_preemphasis(y, cfg.preemphasis, cfg.preemphasize)
+
+
+def inv_linear_spectrogram(
+    linear_spectrogram: torch.Tensor,
+    cfg: AudioConfig,
+    generator: torch.Generator | None = None,
+    init_angles: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Linear dB spectrogram (..., n_freq, n_frames) -> waveform
+    (``src/audio_tacotron.py:80-96``)."""
+    D = linear_spectrogram
+    if cfg.signal_normalization:
+        D = denormalize_spectrogram(D, cfg)
+    S = db_to_amp(D + cfg.ref_level_db)
+    y = _phase_reconstruct(S**cfg.power, cfg, generator, init_angles)
     return inv_preemphasis(y, cfg.preemphasis, cfg.preemphasize)
 
 
@@ -366,6 +430,112 @@ def mulaw_quantize(x: torch.Tensor, mu: int = 256) -> torch.Tensor:
 
 def inv_mulaw_quantize(y: torch.Tensor, mu: int = 256) -> torch.Tensor:
     return inv_mulaw(2.0 * y.to(torch.float32) / mu - 1.0, mu)
+
+
+# ---------------------------------------------------------------------------
+# Silence trimming
+# ---------------------------------------------------------------------------
+
+
+def start_and_end_indices(
+    quantized: torch.Tensor, silence_threshold: int = 2, midpoint: int = 127
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """First/last sample where |q - midpoint| > threshold; (0, n - 1) when
+    no sample is loud.
+
+    The reference's Python scan (``src/audio_tacotron.py:34-45``) hard-codes
+    midpoint 127 although ``mulaw_quantize(0, 256) == 128``; 127 is the
+    default for parity and the midpoint is a parameter."""
+    loud = (torch.abs(quantized.to(torch.int64) - midpoint) > silence_threshold).to(torch.uint8)
+    n = quantized.shape[0]
+    start = torch.argmax(loud)
+    end = n - 1 - torch.argmax(loud.flip(0))
+    return start, end
+
+
+def trim_silence(wav: np.ndarray, cfg: AudioConfig) -> np.ndarray:
+    """Energy-based leading/trailing silence trim, on the host.
+
+    Equivalent of ``librosa.effects.trim(wav, top_db, frame_length,
+    hop_length)`` as used by ``src/audio_tacotron.py:47-52``: frame RMS
+    power in dB relative to the peak, keep [first, last] non-silent frames.
+    It runs on ragged raw wavs before they are batched."""
+    frame_length = cfg.trim_fft_size
+    hop_length = cfg.trim_hop_size
+    y = np.asarray(wav)
+    if len(y) < frame_length:
+        return y
+    # Centered RMS frames (librosa.feature.rms convention: constant padding)
+    pad = frame_length // 2
+    yp = np.pad(y, (pad, pad), mode="constant")
+    n_frames = 1 + (len(yp) - frame_length) // hop_length
+    idx = np.arange(n_frames)[:, None] * hop_length + np.arange(frame_length)[None, :]
+    mse = np.mean(yp[idx] ** 2, axis=-1)
+    ref = mse.max()
+    db = 10.0 * np.log10(np.maximum(mse, 1e-20) / max(ref, 1e-20))
+    nonsilent = np.flatnonzero(db > -cfg.trim_top_db)
+    if len(nonsilent) == 0:
+        return y[:0]
+    start = int(nonsilent[0] * hop_length)
+    end = min(len(y), int((nonsilent[-1] + 1) * hop_length))
+    return y[start:end]
+
+
+# ---------------------------------------------------------------------------
+# Frame padding math of both conventions (src/audio_tacotron.py:122-140)
+# ---------------------------------------------------------------------------
+
+
+def lws_num_frames(length: int, fsize: int, fshift: int) -> int:
+    """Frame count of an LWS spectrogram (pure integer math)."""
+    pad = fsize - fshift
+    if length % fshift == 0:
+        return (length + pad * 2 - fsize) // fshift + 1
+    return (length + pad * 2 - fsize) // fshift + 2
+
+
+def lws_pad_lr(length: int, fsize: int, fshift: int) -> tuple[int, int]:
+    """Left/right padding that LWS applies internally; aligns the quantized
+    waveform with the mel frames (src/ljspeech.py:66-82)."""
+    m = lws_num_frames(length, fsize, fshift)
+    pad = fsize - fshift
+    t = length + 2 * pad
+    r = (m - 1) * fshift + fsize - t
+    return pad, pad + r
+
+
+def librosa_pad_lr(length: int, fsize: int, fshift: int) -> tuple[int, int]:
+    """Padding for the librosa-centered convention: the analysis pads
+    fft_size//2 on each side, so audio/mel alignment needs
+    (fsize//2, fsize//2 + r) with r completing the final frame."""
+    pad = fsize // 2
+    m = num_stft_frames(length, fsize, fshift)
+    r = (m - 1) * fshift + fsize - (length + 2 * pad)
+    return pad, pad + r
+
+
+# ---------------------------------------------------------------------------
+# Time-resolution adjustment (src/audio.py:30-52)
+# ---------------------------------------------------------------------------
+
+
+def adjust_time_resolution(
+    quantized: torch.Tensor, mel: torch.Tensor, silence_threshold: int = 2
+):
+    """Repeat mel frames to the sample rate and align lengths with the
+    waveform. Returns (quantized, upsampled mel, start, end); the caller
+    slices with (start, end)."""
+    if quantized.ndim != 1 or mel.ndim != 2:
+        raise ValueError(
+            f"expected (samples,) and (frames, mels), got {tuple(quantized.shape)} "
+            f"and {tuple(mel.shape)}")
+    upsample_factor = quantized.shape[0] // mel.shape[0]
+    mel_up = torch.repeat_interleave(mel, upsample_factor, dim=0)
+    n_pad = quantized.shape[0] - mel_up.shape[0]
+    if n_pad > 0:
+        mel_up = F.pad(mel_up, (0, 0, 0, n_pad))
+    start, end = start_and_end_indices(quantized, silence_threshold)
+    return quantized, mel_up, start, end
 
 
 # ---------------------------------------------------------------------------

@@ -182,14 +182,6 @@ def test_griffin_lim_generator_is_deterministic_and_zero_bins_keep_phase():
     assert a.shape == (256 * 11,)
 
 
-def test_use_lws_raises():
-    cfg = AudioConfig(use_lws=True)
-    with pytest.raises(NotImplementedError):
-        dsp.melspectrogram(torch.zeros(2000), cfg)
-    with pytest.raises(NotImplementedError):
-        dsp.inv_mel_spectrogram(torch.zeros(80, 5), cfg)
-
-
 def test_wav_io_matches_jax(tmp_path):
     from scipy.io import wavfile
 

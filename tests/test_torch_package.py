@@ -36,7 +36,10 @@ def test_importing_every_module_loads_no_jax():
                  "training.checkpoint", "data.pipeline", "ops.cuda.fused_adam",
                  "ops.cuda.flash_attention", "ops.attention", "models.transformer_prior",
                  "inference.audio", "models.wavenet", "ops.cuda.wavenet_gen", "cli.vocoder",
-                 "serving.mux", "ops.cuda.conv3x3"):
+                 "serving.mux", "ops.cuda.conv3x3", "ops.lws", "data.corpora",
+                 "data.corpora.engine", "data.corpora.ljspeech", "data.corpora.cmu_arctic",
+                 "data.corpora.jsut", "data.corpora.librivox", "cli.preprocess",
+                 "cli.invert"):
         assert f"neural_sound_generation_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
