@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port's serving, training (single-codebook float32 and
 residual-VQ bf16), prior, vocoder, 3x3-convolution A/B, corpus
-preprocessing and mel-inversion paths on one CUDA card and checks them.
+preprocessing, mel-inversion and other-autoencoder (HierVQVAE, WaveVQVAE,
+VAE) paths on one CUDA card and checks them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
@@ -111,7 +112,25 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
     ``cli.invert`` on one mel; and ``inv_mel_spectrogram`` by Griffin-Lim
     (60 iterations from injected phases) and by LWS (100) on the card and
     the CPU, their spectral convergence held against each other and timed;
-11. summary: one JSON line per kernel, then the result line.
+11. other autoencoders, at the training phase's width (dim 256, 512 codes,
+    batch 64), each run's launch counts checked against what it must
+    launch and its loss finite and falling: ``cli.main --model hiervqvae
+    --codebook-init data`` on phase 5's corpus (80 x 24 crops), its
+    checkpoint's metadata, ``cli.evaluate``, one f32 step card vs CPU
+    (every top flip, and every bottom flip no top flip explains, a
+    near-tie), and ``cli.serve --model hiervqvae`` (80-frame windows)
+    answering /encode, /decode and /reconstruct of 1 s and 8 s chirps with
+    aligned grids, finite audio and card-vs-CPU codes equal but at
+    near-ties and their cascades; ``cli.main --model wavevqvae`` raw with
+    EMA codebooks, restarts and data init (7168-sample crops), one raw
+    step card vs CPU under the RVQ step's rules, then mulaw-quantize with 2
+    residual stages from a preset the script writes on a mu-law copy of
+    the corpus; ``cli.main --model vae`` on an idx-format MNIST of stroke
+    images and one epoch of a CIFAR-10 pickle batch; steps/s of each; then
+    the nearest-code kernel against its plain version at the new shapes
+    (1920, 7680 and 7168 rows of the trained models' z_e against 512
+    codes of 256), timed device-only beside cdist+argmin;
+12. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -221,6 +240,22 @@ RVQ_TIMED_STEPS = 50
 # roundings flip where float32 sums run in another order, as the CPU tests
 # hold the port's bf16 step against JAX's)
 RVQ_BF16_LOSS_REL = 2e-2
+
+# the other autoencoders: the training phase's width (dim 256, 512 codes,
+# batch 64, BATCHES_PER_EPOCH batches an epoch), cut in depth only. The
+# hierarchy's crops are 80 x 24 (static_crop_frames(8000, 256, 8)), so the
+# kernel sees 1920 top and 7680 bottom rows; the wave model's are 7168
+# samples (28 frames of 256), 7168 units of 2**6 samples at batch 64
+OTHER_EPOCHS = 2
+OTHER_TIMED_STEPS = 20
+HIER_SERVE_REPEATS = 10  # timed requests per endpoint and length
+HIER_CHIRP_SECONDS = (1.0, 8.0)
+WAVE_DOWNSAMPLE = 6
+VAE_Z = 128
+MNIST_IMAGES = (1024, 128)  # (train, test): 16 batches of 64 an epoch, cut to 8
+CIFAR_IMAGES = (512, 128)
+OTHER_VQ_SHAPES = {"hier_top": (1920, 512, 256), "hier_bottom": (7680, 512, 256),
+                   "wave_units": (7168, 512, 256)}  # (N, K, D)
 
 # the prior phase: the configuration the JAX package measured (--prior-dim
 # 128 --prior-layers 4: 2 heads of 64), full width, cut in depth only
@@ -1211,10 +1246,12 @@ def identical_rows(torch, z) -> dict:
 
 
 def rvq_card_vs_cpu(torch, cli_main, checkpoint, trainer, cfg, ckpt: str, batch,
-                    dtype) -> dict:
+                    dtype, encode=None) -> dict:
     """One residual-VQ train step (EMA codebooks with restarts) on the card
     and on the CPU from the same checkpoint and batch, with the same restart
-    draws. The new codebook rows are EMA means of the stages' residuals and
+    draws. A single (K, D) codebook is held as one stage; ``encode(model,
+    x)`` gives the encoder's output (the flat model's ``_encode_latents`` by
+    default). The new codebook rows are EMA means of the stages' residuals and
     restarted rows copies of them; with the same assignments a residual
     differs between the devices only as the encoder output does, so a row
     may differ by more than 1e-5 + max |z_e card - z_e CPU| only where an
@@ -1238,12 +1275,13 @@ def rvq_card_vs_cpu(torch, cli_main, checkpoint, trainer, cfg, ckpt: str, batch,
         state = create_train_state(model, cfg.train, ema_codebook=True)
         checkpoint.restore(ckpt, state)
         x = torch.from_numpy(batch["x"]).to(device)
+        stages = model.codebook if model.codebook.ndim == 3 else model.codebook[None]
         with torch.no_grad(), batch_stats_discarded(model):
             model.train()
-            z = model._encode_latents(x)
-            codes[device] = residual_vq(z, model.codebook)[2].cpu()
+            z = encode(model, x) if encode else model._encode_latents(x)
+            codes[device] = residual_vq(z, stages)[2].cpu()
             z_e[device] = z.cpu()
-            codebooks[device] = model.codebook.detach().cpu().double()  # before the step
+            codebooks[device] = stages.detach().cpu().double()  # before the step
         draws[device] = []
         with cpu_drawn_restarts(torch, trainer, SEED, draws[device]):
             _, m = trainer.make_train_step(model, cfg)(state, {"x": x})
@@ -1284,7 +1322,7 @@ def rvq_card_vs_cpu(torch, cli_main, checkpoint, trainer, cfg, ckpt: str, batch,
     cb_tol = 1e-5 + z_err
     diff = (states[DEVICE].flat.flat.cpu() - states["cpu"].flat.flat).abs()
     by_name = states["cpu"].flat.named(diff)
-    cb_diff = by_name.pop("codebook")
+    cb_diff = by_name.pop("codebook").reshape(q_stages, k_codes, -1)
     cb_rows = (cb_diff > cb_tol).any(dim=-1)  # (Q, K)
     rest = torch.cat([t.reshape(-1) for t in by_name.values()])
     return {
@@ -1304,6 +1342,39 @@ def rvq_card_vs_cpu(torch, cli_main, checkpoint, trainer, cfg, ckpt: str, batch,
         "other_params_max_abs_err": float(rest.max()),
         "grad_norm": metrics[DEVICE]["grad_norm"], "loss": metrics[DEVICE]["loss"],
     }
+
+
+def check_ema_step(f32: dict, what: str) -> None:
+    """The limits of an f32 EMA-codebook step card vs CPU
+    (``rvq_card_vs_cpu``'s record)."""
+    flips = sum(f32["code_flips_by_stage"])
+    rel = f32["metrics_rel_err"]
+    # every flip, a row's first and its cascades alike, is a near-tie
+    # between the two devices' residuals, and at most 1e-3 of the
+    # assignments are flipped decisions. The corpus's mels sit at the floor
+    # in most bins, so a batch's z_e repeats rows bit for bit (z_e_cpu_rows)
+    # and one near-tie flips every row of such a group: the bound counts
+    # decisions, not rows
+    check(f32["flips_not_near_ties"] == 0,
+          f"{what} card vs CPU: {f32['flips_not_near_ties']} of {flips} code flips are not "
+          f"near-ties")
+    stages = len(f32["code_flips_by_stage"])
+    check(f32["flipped_vectors"] <= 1e-3 * stages * f32["rows"],
+          f"{what} card vs CPU: {f32['flipped_vectors']} distinct vectors flipped "
+          f"({flips} codes)")
+    # with no flip the rest is the whole difference; with flips, what the
+    # flipped vectors' quantization error explains is taken out first
+    rest = f32["metrics_rel_err_rest"]
+    check(max(v for k, v in rest.items() if k != "grad_norm") <= 1e-5,
+          f"{what} card vs CPU train step: loss terms differ {rel}, "
+          f"{rest} beyond what the flips explain")
+    check(rel["grad_norm"] <= (2e-3 if flips else 1e-5),
+          f"{what} card vs CPU train step: grad_norm differs by {rel['grad_norm']:.3g}")
+    check(f32["other_params_beyond_1e-5_frac"] <= 1e-3 and f32["other_params_max_abs_err"] <= 1e-2,
+          f"{what} card vs CPU train step: parameters differ {f32}")
+    check(f32["codebook_rows_not_from_a_flip"] == 0,
+          f"{what} card vs CPU train step: {f32['codebook_rows_not_from_a_flip']} codebook rows "
+          f"differ by more than 1e-5 + max |dz_e| without a flipped assignment")
 
 
 def rvq_steps_per_s(torch, cli_main, cfg, batch, dtype, num_quantizers: int) -> float:
@@ -1399,33 +1470,7 @@ def rvq_phase(torch, cli_main, cli_evaluate, checkpoint, vq_kernel, fused_adam, 
     batch = next(iter(train_loader))
     f32 = rvq_card_vs_cpu(torch, cli_main, checkpoint, trainer, cfg, ckpt, batch, torch.float32)
     emit({"phase": "rvq_card_vs_cpu_step", **f32})
-    flips = sum(f32["code_flips_by_stage"])
-    rel = f32["metrics_rel_err"]
-    # every flip, a row's first and its cascades alike, is a near-tie
-    # between the two devices' residuals, and at most 1e-3 of the
-    # assignments are flipped decisions. The corpus's mels sit at the floor
-    # in most bins, so a batch's z_e repeats rows bit for bit (z_e_cpu_rows)
-    # and one near-tie flips every row of such a group: the bound counts
-    # decisions, not rows
-    check(f32["flips_not_near_ties"] == 0,
-          f"RVQ card vs CPU: {f32['flips_not_near_ties']} of {flips} code flips are not "
-          f"near-ties")
-    check(f32["flipped_vectors"] <= 1e-3 * RVQ_Q * f32["rows"],
-          f"RVQ card vs CPU: {f32['flipped_vectors']} distinct vectors flipped "
-          f"({flips} codes)")
-    # with no flip the rest is the whole difference; with flips, what the
-    # flipped vectors' quantization error explains is taken out first
-    rest = f32["metrics_rel_err_rest"]
-    check(max(v for k, v in rest.items() if k != "grad_norm") <= 1e-5,
-          f"RVQ card vs CPU train step: loss terms differ {rel}, "
-          f"{rest} beyond what the flips explain")
-    check(rel["grad_norm"] <= (2e-3 if flips else 1e-5),
-          f"RVQ card vs CPU train step: grad_norm differs by {rel['grad_norm']:.3g}")
-    check(f32["other_params_beyond_1e-5_frac"] <= 1e-3 and f32["other_params_max_abs_err"] <= 1e-2,
-          f"RVQ card vs CPU train step: parameters differ {f32}")
-    check(f32["codebook_rows_not_from_a_flip"] == 0,
-          f"RVQ card vs CPU train step: {f32['codebook_rows_not_from_a_flip']} codebook rows "
-          f"differ by more than 1e-5 + max |dz_e| without a flipped assignment")
+    check_ema_step(f32, "RVQ")
     bf16 = rvq_card_vs_cpu(torch, cli_main, checkpoint, trainer, cfg, ckpt, batch,
                            torch.bfloat16)
     emit({"phase": "rvq_card_vs_cpu_step", **bf16})
@@ -2505,6 +2550,567 @@ def preprocess_phase(torch, serve, dsp, vq_kernel, VQVAE, root: str, card: str) 
             "card": card}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the other autoencoders (HierVQVAE, WaveVQVAE, VAE)
+# ---------------------------------------------------------------------------
+
+
+def other_argv(model: str, out: str, datadir: str, dataset: str = "ljspeech",
+               z_dim: int | None = None) -> list:
+    """``cli.main``'s arguments at the training phase's full width (dim 256,
+    512 codes unless ``z_dim``, batch 64, BATCHES_PER_EPOCH batches an
+    epoch), less --epochs; the checkpoints and samples under ``out``."""
+    return ["--model", model, "--dataset", dataset, "--datadir", datadir,
+            "--dim", str(TRAIN_DIM), "--z-dim", str(z_dim or TRAIN_CODES),
+            "--batch-size", str(TRAIN_BATCH),
+            "--max-batches-per-epoch", str(BATCHES_PER_EPOCH), "--log-interval", "1",
+            "--device", DEVICE, "--ckpt-dir", os.path.join(out, "models"),
+            "--sampledir", os.path.join(out, "results")]
+
+
+def check_run(run: dict, tag: str, epochs: int, want_vq: int) -> int:
+    """A ``run_cli_main`` record: its epochs and evals, fused_adam once per
+    optimizer step, vq_nearest ``want_vq`` times, the loss finite and
+    falling. Returns the optimizer steps."""
+    steps = epochs * BATCHES_PER_EPOCH
+    check(run["epochs_logged"] == epochs and run["evals"] == epochs,
+          f"{tag}: {run['epochs_logged']} epochs and {run['evals']} evals, expected {epochs}")
+    check(run["launches"]["fused_adam"] == steps,
+          f"{tag}: fused_adam launched {run['launches']['fused_adam']} times for {steps} steps")
+    check(run["launches"]["vq_kernel"] == want_vq,
+          f"{tag}: vq_nearest launched {run['launches']['vq_kernel']} times, expected {want_vq}")
+    losses = run["losses"]
+    check(len(losses) == steps and all(np.isfinite(losses)), f"{tag}: losses {losses}")
+    check(losses[-1] < losses[0], f"{tag}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    run.update(optimizer_steps=steps, vq_launches_expected=want_vq, first_loss=losses[0],
+               last_loss=losses[-1], steps_per_s_cli=steps / run["seconds"])
+    return steps
+
+
+def run_record(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k != "losses"}
+
+
+def timed_steps_per_s(torch, model, cfg, batch, ema_codebook: bool = False) -> float:
+    """Train steps/s of a seeded model with a device-resident batch (the
+    step's generator draws the VAE's noise and the dead-code restarts)."""
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+    from neural_sound_generation_tpu_torch.training.trainer import make_train_step
+
+    state = create_train_state(model, cfg.train, ema_codebook=ema_codebook)
+    step = make_train_step(model, cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    on_device = {k: torch.from_numpy(np.asarray(v)).to(DEVICE) for k, v in batch.items()
+                 if v is not None}
+    for _ in range(3):
+        step(state, on_device, gen)
+    sync(torch)
+    t0 = time.perf_counter()
+    for _ in range(OTHER_TIMED_STEPS):
+        step(state, on_device, gen)
+    sync(torch)
+    return OTHER_TIMED_STEPS / (time.perf_counter() - t0)
+
+
+def level_flips(torch, z_cpu, z_card, codebook, cpu_codes, card_codes, cascade=None) -> dict:
+    """The card-vs-CPU code flips of one VQ level (``rvq_flip_causes`` on a
+    single stage): z (..., D), codes of z's leading shape, ``codebook`` (K,
+    D). Rows marked in ``cascade`` (a flattened bool mask) follow an earlier
+    flip and are counted apart, not held to the near-tie rule."""
+    d = codebook.shape[-1]
+    cpu_c, card_c = cpu_codes.reshape(1, -1).long(), card_codes.reshape(1, -1).long()
+    flips = int((cpu_c != card_c).sum())
+    cascaded = 0
+    if cascade is not None:
+        cascaded = int((cascade & (cpu_c[0] != card_c[0])).sum())
+        card_c = torch.where(cascade[None], cpu_c, card_c)
+    causes = rvq_flip_causes(torch, z_cpu.reshape(-1, d), z_card.reshape(-1, d),
+                             codebook[None].double(), cpu_c, card_c)
+    return {"flips": flips, "cascaded": cascaded, "rows": int(cpu_c.shape[1]), **causes}
+
+
+def bottom_cascade(torch, top_flipped, radius: int | None):
+    """Bottom-grid rows that a top flip reaches: with ``radius`` the bottom
+    positions within ``radius`` top positions of a flip in the same window
+    (eval mode: the decoded top's 3x3 ResBlock and 4x4 transpose conv reach
+    two top positions); with None every row of the batch once any top code
+    flipped (train mode: the flip moves the batch's BatchNorm statistics)."""
+    b, h, w = top_flipped.shape
+    if radius is None:
+        return torch.full((b * 2 * h * 2 * w,), bool(top_flipped.any()), dtype=torch.bool)
+    near = torch.nn.functional.max_pool2d(top_flipped.float()[:, None], 2 * radius + 1,
+                                          stride=1, padding=radius)[:, 0] > 0
+    return near.repeat_interleave(2, 1).repeat_interleave(2, 2).reshape(-1)
+
+
+def quantization_error_part(torch, z, codebook, cpu_codes, card_codes, rows) -> float:
+    """What the flipped ``rows`` change in mean((z_q - z_e)^2) under the
+    card's codes rather than the CPU's: float64, from the CPU's z_e and the
+    pre-step codebook."""
+    d = codebook.shape[-1]
+    z64 = z.reshape(-1, d).double()[rows]
+    cb = codebook.double()
+
+    def err(codes):
+        return float(((cb[codes.reshape(-1).long()[rows]] - z64) ** 2).sum())
+
+    return (err(card_codes) - err(cpu_codes)) / z.numel()
+
+
+def hier_card_vs_cpu(torch, cli_main, checkpoint, cfg, ckpt: str, batch) -> tuple[dict, dict]:
+    """One f32 HierVQVAE train step on the card and on the CPU from the same
+    checkpoint and batch (gradient codebooks). Each level's codes (train
+    mode, statistics discarded) are compared as the RVQ step's are: every
+    top flip and every bottom flip that no top flip explains is a near-tie
+    between the devices' z_e. A top flip moves the batch's decoded top, so
+    in train mode every bottom flip of that step counts as its cascade, and
+    only the top's loss terms are then held; without one the loss terms are
+    held to 1e-5 once the bottom flips' quantization error is taken out.
+    Returns (the record, the card's z_e and codebooks of both levels)."""
+    from neural_sound_generation_tpu_torch.models.layers import batch_stats_discarded
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+    from neural_sound_generation_tpu_torch.training.trainer import make_train_step
+
+    states, metrics, levels, books = {}, {}, {}, {}
+    for device in (DEVICE, "cpu"):
+        model = cli_main.make_model(cfg).to(device)
+        state = create_train_state(model, cfg.train)
+        checkpoint.restore(ckpt, state)
+        x = torch.from_numpy(batch["x"]).to(device)
+        with torch.no_grad(), batch_stats_discarded(model):
+            model.train()
+            top, bottom = model.levels(x)
+            levels[device] = (top[1], top[3], bottom[1], bottom[3])
+        books[device] = (model.codebook_top.detach().clone(),
+                         model.codebook_bottom.detach().clone())  # before the step
+        _, m = make_train_step(model, cfg)(state, {"x": x})
+        states[device], metrics[device] = state, {k: float(v) for k, v in m.items()}
+    card_levels = levels[DEVICE]
+    zt, it, zb, ib = (t.cpu() for t in levels["cpu"])
+    zt_a, it_a, zb_a, ib_a = (t.cpu() for t in card_levels)
+    cb_t, cb_b = (b.cpu() for b in books["cpu"])
+    top_flipped = it != it_a
+    top = level_flips(torch, zt, zt_a, cb_t, it, it_a)
+    cascade = bottom_cascade(torch, top_flipped, None)
+    bot = level_flips(torch, zb, zb_a, cb_b, ib, ib_a, cascade)
+    beta = cfg.model.beta
+    part_t = quantization_error_part(torch, zt, cb_t, it, it_a, top_flipped.reshape(-1))
+    part_b = quantization_error_part(torch, zb, cb_b, ib, ib_a,
+                                     (ib != ib_a).reshape(-1) & ~cascade)
+    explained = {"loss_vq_top": part_t, "loss_commit_top": part_t,
+                 "loss_vq_bottom": part_b, "loss_commit_bottom": part_b,
+                 "loss_vq": part_t + part_b, "loss_commit": part_t + part_b,
+                 "train_loss": part_t + part_b, "loss": (1 + beta) * (part_t + part_b)}
+    cpu_m, card_m = metrics["cpu"], metrics[DEVICE]
+    rel = {k: abs(card_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in cpu_m}
+    rest = {k: abs(card_m[k] - cpu_m[k] - explained.get(k, 0.0)) / abs(cpu_m[k]) for k in cpu_m}
+    diff = (states[DEVICE].flat.flat.cpu() - states["cpu"].flat.flat).abs()
+    record = {"metrics_rel_err": rel, "metrics_rel_err_rest": rest, "top": top, "bottom": bot,
+              "params_beyond_1e-5_frac": float((diff > 1e-5).float().mean()),
+              "params_max_abs_err": float(diff.max()),
+              "z_e_top_max_abs_err": float((zt_a - zt).abs().max()),
+              "z_e_bottom_max_abs_err": float((zb_a - zb).abs().max()),
+              "z_e_bottom_cpu_rows": identical_rows(torch, zb),
+              "grad_norm": card_m["grad_norm"], "loss": card_m["loss"]}
+    for name, level in (("top", top), ("bottom", bot)):
+        check(level["flips_not_near_ties"] == 0,
+              f"hier card vs CPU: {level['flips_not_near_ties']} {name} flips are not near-ties")
+        check(level["flipped_vectors"] <= 1e-3 * level["rows"],
+              f"hier card vs CPU: {level['flipped_vectors']} {name} vectors flipped")
+    held = ("loss_vq_top", "loss_commit_top") if top["flips"] else tuple(
+        k for k in cpu_m if k != "grad_norm")
+    check(max(rest[k] for k in held) <= 1e-5,
+          f"hier card vs CPU train step: loss terms differ {rel}, {rest} beyond the flips")
+    if not top["flips"]:
+        flips = bot["flips"]
+        check(rel["grad_norm"] <= (2e-3 if flips else 1e-5),
+              f"hier card vs CPU train step: grad_norm differs by {rel['grad_norm']:.3g}")
+        check(record["params_beyond_1e-5_frac"] <= 1e-3 and float(diff.max()) <= 1e-2,
+              f"hier card vs CPU train step: parameters differ {record}")
+    z = {"hier_top": (card_levels[0], books[DEVICE][0]),
+         "hier_bottom": (card_levels[2], books[DEVICE][1])}
+    return record, z
+
+
+def hier_serve(torch, serve, vq_kernel, ckpt: str) -> dict:
+    """``cli.serve --model hiervqvae`` from the checkpoint (its 80-frame
+    default): /encode, /decode and /reconstruct of 1 s and 8 s chirps
+    answer 200 with finite audio of the right length and both grids
+    aligned; vq_nearest's launches over the requests alone (two per /encode
+    and per /reconstruct: the top and the bottom search); the card's codes
+    against the same model on the CPU on the same windows (mismatches only
+    at near-ties, or at bottom positions within reach of a flipped top
+    code); p50 over HIER_SERVE_REPEATS requests after a warm-up."""
+    from neural_sound_generation_tpu_torch.models import HierVQVAE
+
+    args = serve.parse_args(["--device", DEVICE, "--model", "hiervqvae", "--ckpt-dir", ckpt,
+                             "--dim", str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES)])
+    check(args.frames == 80, f"serve --model hiervqvae: --frames defaults to {args.frames}")
+    service = serve.build_service(args)
+    cfg = service.cfg.audio
+    sr, hop = cfg.sample_rate, cfg.effective_hop_size
+    httpd = serve.ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    lat: dict = {}
+    outs = {}
+    vq_kernel.reset_launch_count()
+    try:
+        for rep in range(1 + HIER_SERVE_REPEATS):
+            for seconds in HIER_CHIRP_SECONDS:
+                wav_bytes, n = chirp_wav_bytes(seconds, sr)
+                t = service._wav_to_mel(wav_bytes)[1]
+                status, body, dt_enc = request(base + "/encode", wav_bytes)
+                check(status == 200, f"hier /encode {seconds}s: {status} {body[:200]!r}")
+                enc = json.loads(body)
+                top, bottom = np.asarray(enc["codes_top"]), np.asarray(enc["codes_bottom"])
+                want_top = [cfg.num_mels // 8, -(-t // 8)]
+                check(enc["shape_top"] == want_top == list(top.shape)
+                      and enc["shape_bottom"] == [cfg.num_mels // 4, 2 * want_top[1]]
+                      == list(bottom.shape),
+                      f"hier /encode {seconds}s: grids {enc['shape_top']} {enc['shape_bottom']}")
+                status, body, dt_dec = request(base + "/decode", json.dumps(
+                    {"codes_top": enc["codes_top"], "codes_bottom": enc["codes_bottom"]}).encode())
+                check(status == 200, f"hier /decode {seconds}s: {status} {body[:200]!r}")
+                dec = read_wav(body, sr)
+                want_len = hop * (8 * top.shape[1] - 1)
+                check(len(dec) == want_len,
+                      f"hier /decode {seconds}s: {len(dec)} samples, expected {want_len}")
+                status, body, dt_rec = request(base + "/reconstruct", wav_bytes)
+                check(status == 200, f"hier /reconstruct {seconds}s: {status} {body[:200]!r}")
+                check(len(read_wav(body, sr)) == n, f"hier /reconstruct {seconds}s: length")
+                if rep:
+                    for path, dt in (("/encode", dt_enc), ("/decode", dt_dec),
+                                     ("/reconstruct", dt_rec)):
+                        lat.setdefault(f"{path}@{seconds:g}s", []).append(1e3 * dt)
+                outs[seconds] = (wav_bytes, enc, t)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    launches = vq_kernel.launch_count()
+    want = 2 * 2 * len(HIER_CHIRP_SECONDS) * (1 + HIER_SERVE_REPEATS)
+    check(launches == want, f"hier serving launched vq_nearest {launches} times, expected {want}")
+
+    ref = HierVQVAE(1, args.dim, args.z_dim)
+    ref.load_state_dict({k: v.cpu() for k, v in service.model.state_dict().items()})
+    ref.eval()
+    compare = {}
+    with torch.inference_mode():
+        for seconds, (wav_bytes, enc, _) in outs.items():
+            padded, _ = service._pad_for_reconstruct(wav_bytes)
+            wav = service._reconstruct_wav(torch.from_numpy(padded).to(DEVICE)[None])
+            top = torch.from_numpy(np.asarray(enc["codes_top"])).to(DEVICE)[None]
+            bottom = torch.from_numpy(np.asarray(enc["codes_bottom"])).to(DEVICE)[None]
+            dec = service._vocode(service.model.decode(top, bottom)[0, :, :, 0])
+            check(bool(torch.isfinite(wav).all()) and bool(torch.isfinite(dec).all()),
+                  f"hier {seconds}s: non-finite /reconstruct or /decode waveform")
+            windows, t, n_win = service._wav_to_mel(wav_bytes)
+            card_t, card_b = service.model.levels(windows)
+            cpu_t, cpu_b = ref.levels(windows.cpu())
+            stitched = service._stitch(card_t[3][:n_win].cpu().numpy(), t, 8)
+            check(np.array_equal(stitched, np.asarray(enc["codes_top"])),
+                  f"hier /encode {seconds}s: codes differ from the service's own windows")
+            top_flipped = cpu_t[3] != card_t[3].cpu()
+            cb_t = ref.codebook_top.detach()
+            cb_b = ref.codebook_bottom.detach()
+            lt = level_flips(torch, cpu_t[1], card_t[1].cpu(), cb_t, cpu_t[3], card_t[3].cpu())
+            lb = level_flips(torch, cpu_b[1], card_b[1].cpu(), cb_b, cpu_b[3], card_b[3].cpu(),
+                             bottom_cascade(torch, top_flipped, 2))
+            for name, level in (("top", lt), ("bottom", lb)):
+                check(level["flips_not_near_ties"] == 0,
+                      f"hier serving {seconds}s: {level['flips_not_near_ties']} {name} code "
+                      f"flips card vs CPU are not near-ties")
+            compare[f"{seconds:g}s"] = {"top": lt, "bottom": lb}
+    return {"frames": args.frames, "vq_launches": launches, "vq_launches_expected": want,
+            "latency_ms": {k: {"n": len(v), "p50": float(np.percentile(v, 50))}
+                           for k, v in sorted(lat.items())},
+            "card_vs_cpu_codes": compare}
+
+
+def hier_part(torch, cli_main, cli_evaluate, serve, checkpoint, vq_kernel, fused_adam,
+              root: str, corpus: str) -> tuple[dict, dict]:
+    """``cli.main --model hiervqvae --codebook-init data`` at full width,
+    ``cli.evaluate`` and ``cli.serve`` on its checkpoint, one step card vs
+    CPU, steps/s."""
+    t0 = time.perf_counter()
+    out = os.path.join(root, "hier")
+    argv = other_argv("hiervqvae", out, corpus) + ["--codebook-init", "data"]
+    run = run_cli_main(cli_main, (vq_kernel, fused_adam),
+                       argv + ["--epochs", str(OTHER_EPOCHS)])
+    # the data init's two train-mode passes each search the top and the
+    # bottom grid (4); a step searches both in its forward (2); an eval
+    # batch in the forward and in encode (4), one eval batch an epoch
+    steps = OTHER_EPOCHS * BATCHES_PER_EPOCH
+    check_run(run, "hiervqvae", OTHER_EPOCHS, 4 + 2 * steps + 4 * OTHER_EPOCHS)
+    ckpt = os.path.join(out, "models", "hiervqvae",
+                        f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")
+    extra = checkpoint.read_extra(ckpt)
+    check(extra == {"epoch": OTHER_EPOCHS, "arch": "hiervqvae", "num_quantizers": 1,
+                    "num_downsample": 6}, f"hiervqvae: checkpoint metadata {extra}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        evaluated = cli_evaluate.main([
+            "--model", "hiervqvae", "--datadir", corpus, "--ckpt-dir", ckpt,
+            "--dim", str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES),
+            "--batch-size", str(TRAIN_BATCH), "--max-batches", "1", "--device", DEVICE])
+    check(np.isfinite(evaluated["loss"]) and evaluated["perplexity_top"] >= 1.0
+          and evaluated["perplexity"] >= 1.0, f"cli.evaluate --model hiervqvae: {evaluated}")
+    args = cli_main.parse_args(argv + ["--epochs", "1"])
+    cfg = cli_main.build_config(args)
+    batch = next(iter(cli_main.audio_loaders(args, cfg)[0]))
+    crop = tuple(batch["x"].shape)
+    check(crop == (TRAIN_BATCH, 80, 24, 1), f"hiervqvae: batches of {crop}, expected 80 x 24")
+    step, z = hier_card_vs_cpu(torch, cli_main, checkpoint, cfg, ckpt, batch)
+    emit({"phase": "hier_card_vs_cpu_step", **step})
+    served = hier_serve(torch, serve, vq_kernel, ckpt)
+    steps_per_s = timed_steps_per_s(
+        torch, cli_main.make_model(cfg, generator=torch.Generator().manual_seed(SEED)).to(DEVICE),
+        cfg, {"x": batch["x"]})
+    return {"phase": "other_autoencoders_hiervqvae", "dim": TRAIN_DIM, "codes": TRAIN_CODES,
+            "batch": TRAIN_BATCH, "crop": list(crop[1:3]), "run": run_record(run),
+            "evaluate": evaluated, "card_vs_cpu_step": step, "served": served,
+            "train_steps_per_s": steps_per_s, "timed_steps": OTHER_TIMED_STEPS,
+            "seconds": time.perf_counter() - t0}, z
+
+
+def mulaw_corpus(torch, dsp, corpus: str, out: str, channels: int) -> str:
+    """The chirp corpus with its audio as mu-law integers (``channels``
+    levels, as preprocessing writes a mulaw-quantize corpus); mels as they
+    were."""
+    from neural_sound_generation_tpu_torch.data.manifest import read_manifest, write_manifest
+
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    entries = read_manifest(corpus)
+    for e in entries:
+        wav = torch.from_numpy(np.load(os.path.join(corpus, e.audio_path)))
+        np.save(os.path.join(out, e.audio_path),
+                dsp.mulaw_quantize(wav, channels).numpy().astype(np.int16))
+        shutil.copy(os.path.join(corpus, e.mel_path), os.path.join(out, e.mel_path))
+    write_manifest(out, entries)
+    return out
+
+
+def wave_part(torch, cli_main, dsp, checkpoint, vq_kernel, fused_adam, root: str,
+              corpus: str) -> tuple[dict, dict]:
+    """``cli.main --model wavevqvae`` at full width: raw input with EMA
+    codebooks, restarts and data init for OTHER_EPOCHS, then mulaw-quantize
+    (256 levels, from a preset) with 2 residual stages for one epoch; one
+    raw step card vs CPU; steps/s."""
+    from neural_sound_generation_tpu_torch.training import trainer
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, "wave")
+    argv = other_argv("wavevqvae", out, corpus) + [
+        "--num-downsample", str(WAVE_DOWNSAMPLE), "--ema-codebook",
+        "--restart-dead-threshold", "1.0", "--codebook-init", "data"]
+    run = run_cli_main(cli_main, (vq_kernel, fused_adam),
+                       argv + ["--epochs", str(OTHER_EPOCHS)])
+    # data init seeds one codebook without a search; a step searches in its
+    # forward and in the EMA branch (2); an eval batch in the forward and in
+    # encode (2)
+    steps = OTHER_EPOCHS * BATCHES_PER_EPOCH
+    check_run(run, "wavevqvae raw", OTHER_EPOCHS, 2 * steps + 2 * OTHER_EPOCHS)
+    ckpt = os.path.join(out, "models", "wavevqvae",
+                        f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")
+    extra = checkpoint.read_extra(ckpt)
+    check(extra == {"epoch": OTHER_EPOCHS, "arch": "wavevqvae", "num_quantizers": 1,
+                    "num_downsample": WAVE_DOWNSAMPLE}, f"wavevqvae raw: checkpoint {extra}")
+    args = cli_main.parse_args(argv + ["--epochs", "1"])
+    cfg = cli_main.build_config(args)
+    batch = next(iter(cli_main.audio_loaders(args, cfg)[0]))
+    crop = tuple(batch["x"].shape)
+    check(crop == (TRAIN_BATCH, 7168, 1), f"wavevqvae: batches of {crop}, expected 7168 samples")
+    step = rvq_card_vs_cpu(torch, cli_main, checkpoint, trainer, cfg, ckpt, batch, torch.float32,
+                           encode=lambda m, x: m.encode_latents(x))
+    emit({"phase": "wave_card_vs_cpu_step", **step})
+    check_ema_step(step, "wavevqvae raw")
+    from neural_sound_generation_tpu_torch.models.layers import batch_stats_discarded
+
+    model = cli_main.make_model(cfg).to(DEVICE)
+    checkpoint.restore_params(ckpt, model)
+    model.train()  # the z_e training quantizes
+    with torch.no_grad(), batch_stats_discarded(model):
+        z = {"wave_units": (model.encode_latents(torch.from_numpy(batch["x"]).to(DEVICE)),
+                            model.codebook.detach())}
+    steps_per_s = timed_steps_per_s(
+        torch, cli_main.make_model(cfg, generator=torch.Generator().manual_seed(SEED)).to(DEVICE),
+        cfg, {"x": batch["x"]}, ema_codebook=True)
+
+    mu_corpus = mulaw_corpus(torch, dsp, corpus, os.path.join(root, "corpus_mulaw"), 256)
+    preset = os.path.join(root, "mulaw_quantize.json")
+    with open(preset, "w", encoding="utf-8") as f:
+        json.dump({"input_type": "mulaw-quantize", "quantize_channels": 256}, f)
+    mu_out = os.path.join(root, "wave_mulaw")
+    mu_run = run_cli_main(cli_main, (vq_kernel, fused_adam), other_argv(
+        "wavevqvae", mu_out, mu_corpus) + [
+        "--preset", preset, "--num-quantizers", "2", "--num-downsample", str(WAVE_DOWNSAMPLE),
+        "--codebook-init", "data", "--epochs", "1"])
+    # data init: one search to seed the second stage from the first's
+    # residual; a step: one search a stage (2); an eval batch: 2 + 2
+    check_run(mu_run, "wavevqvae mulaw-quantize RVQ", 1, 1 + 2 * BATCHES_PER_EPOCH + 4)
+    mu_ckpt = os.path.join(mu_out, "models", "wavevqvae",
+                           f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")
+    extra = checkpoint.read_extra(mu_ckpt)
+    check(extra == {"epoch": 1, "arch": "wavevqvae", "num_quantizers": 2,
+                    "num_downsample": WAVE_DOWNSAMPLE}, f"wavevqvae mulaw: checkpoint {extra}")
+    saved = torch.load(os.path.join(mu_ckpt, f"step_{BATCHES_PER_EPOCH}", "state.pt"),
+                       weights_only=True)
+    shapes = {k: tuple(saved[f"params/{k}"].shape) for k in ("codebook", "decoder.out.weight")}
+    check(shapes == {"codebook": (2, TRAIN_CODES, TRAIN_DIM),
+                     "decoder.out.weight": (TRAIN_DIM, 256, 4)},
+          f"wavevqvae mulaw: checkpoint shapes {shapes}")
+    del saved
+    return {"phase": "other_autoencoders_wavevqvae", "dim": TRAIN_DIM, "codes": TRAIN_CODES,
+            "batch": TRAIN_BATCH, "crop_samples": crop[1], "num_downsample": WAVE_DOWNSAMPLE,
+            "raw": run_record(run), "mulaw_quantize_rvq2": run_record(mu_run),
+            "card_vs_cpu_step": step, "train_steps_per_s_raw_ema": steps_per_s,
+            "timed_steps": OTHER_TIMED_STEPS, "seconds": time.perf_counter() - t0}, z
+
+
+def stroke_images(rng, n: int, size: int) -> np.ndarray:
+    """(n, size, size) uint8 images of 2-4 random straight strokes, 2-3
+    pixels wide: structure for a VAE to learn."""
+    imgs = np.zeros((n, size, size), np.float32)
+    yy, xx = np.mgrid[:size, :size]
+    for img in imgs:
+        for _ in range(rng.integers(2, 5)):
+            (y0, x0), (y1, x1) = rng.uniform(3, size - 3, (2, 2))
+            t = np.clip(((yy - y0) * (y1 - y0) + (xx - x0) * (x1 - x0))
+                        / max((y1 - y0) ** 2 + (x1 - x0) ** 2, 1e-6), 0, 1)
+            dist = np.hypot(yy - y0 - t * (y1 - y0), xx - x0 - t * (x1 - x0))
+            img[dist <= rng.uniform(1.0, 1.5)] = 1.0
+    return (255 * imgs).astype(np.uint8)
+
+
+def write_mnist(root: str) -> str:
+    """MNIST in the idx format (train-* and t10k-*), stroke images."""
+    os.makedirs(root)
+    rng = np.random.default_rng(SEED)
+    for prefix, n in (("train", MNIST_IMAGES[0]), ("t10k", MNIST_IMAGES[1])):
+        imgs = stroke_images(rng, n, 28)
+        with open(os.path.join(root, f"{prefix}-images-idx3-ubyte"), "wb") as f:
+            f.write(np.array([2051, n, 28, 28], ">u4").tobytes() + imgs.tobytes())
+        with open(os.path.join(root, f"{prefix}-labels-idx1-ubyte"), "wb") as f:
+            f.write(np.array([2049, n], ">u4").tobytes()
+                    + rng.integers(0, 10, n).astype(np.uint8).tobytes())
+    return root
+
+
+def write_cifar(root: str) -> str:
+    """CIFAR-10 as its pickle batches (data_batch_1, test_batch), stroke
+    images in three tinted channels."""
+    import pickle
+
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base)
+    rng = np.random.default_rng(SEED + 1)
+    for name, n in (("data_batch_1", CIFAR_IMAGES[0]), ("test_batch", CIFAR_IMAGES[1])):
+        strokes = stroke_images(rng, n, 32).astype(np.float32)
+        tint = rng.uniform(0.3, 1.0, (n, 3, 1, 1))
+        data = (strokes[:, None] * tint).astype(np.uint8).reshape(n, 3072)
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump({b"data": data, b"labels": rng.integers(0, 10, n).tolist()}, f)
+    return root
+
+
+def vae_part(torch, cli_main, checkpoint, vq_kernel, fused_adam, root: str) -> dict:
+    """``cli.main --model vae`` at dim 256, 128 latents: OTHER_EPOCHS on an
+    idx-format MNIST of stroke images, one epoch on a CIFAR-10 pickle batch
+    (3 channels); fused_adam once a step, no nearest-code search; steps/s."""
+    t0 = time.perf_counter()
+    runs, ckpts = {}, {}
+    for dataset, epochs, write in (("MNIST", OTHER_EPOCHS, write_mnist),
+                                   ("CIFAR10", 1, write_cifar)):
+        datadir = write(os.path.join(root, dataset.lower()))
+        out = os.path.join(root, f"vae_{dataset.lower()}")
+        argv = other_argv("vae", out, datadir, dataset, VAE_Z)
+        run = run_cli_main(cli_main, (vq_kernel, fused_adam), argv + ["--epochs", str(epochs)])
+        check_run(run, f"vae {dataset}", epochs, 0)
+        ckpts[dataset] = os.path.join(out, "models", "vae",
+                                      f"checkpoint_{dataset}_{TRAIN_DIM}_{VAE_Z}")
+        extra = checkpoint.read_extra(ckpts[dataset])
+        check(extra is not None and extra["arch"] == "vae" and extra["epoch"] == epochs,
+              f"vae {dataset}: checkpoint metadata {extra}")
+        runs[dataset] = run_record(run)
+    saved = torch.load(os.path.join(ckpts["CIFAR10"], f"step_{BATCHES_PER_EPOCH}", "state.pt"),
+                       weights_only=True)
+    conv0 = tuple(saved["params/Conv_0.weight"].shape)
+    check(conv0 == (TRAIN_DIM, 3, 4, 4), f"vae CIFAR10: Conv_0 {conv0}, expected 3 channels")
+    del saved
+    args = cli_main.parse_args(other_argv("vae", root, os.path.join(root, "mnist"), "MNIST",
+                                          VAE_Z) + ["--epochs", "1"])
+    cfg = cli_main.build_config(args)
+    batch = next(cli_main.image_loaders(args)[0](1))
+    steps_per_s = timed_steps_per_s(
+        torch, cli_main.make_model(cfg, generator=torch.Generator().manual_seed(SEED)).to(DEVICE),
+        cfg, {"x": batch["x"]})
+    return {"phase": "other_autoencoders_vae", "dim": TRAIN_DIM, "z_dim": VAE_Z,
+            "batch": TRAIN_BATCH, "images": {"MNIST": MNIST_IMAGES, "CIFAR10": CIFAR_IMAGES},
+            "runs": runs, "train_steps_per_s_mnist": steps_per_s,
+            "timed_steps": OTHER_TIMED_STEPS, "seconds": time.perf_counter() - t0}
+
+
+def vq_other_shapes(torch, vq_kernel, sources: dict) -> dict:
+    """vq_nearest against its plain version at the shapes the new paths
+    give it, on z_e of the trained models (``compare_vq``: mismatches only
+    at near-ties, bit-identical over two calls, CTAs covering the SMs,
+    device-only times beside cdist+argmin's)."""
+    rows = {}
+    for name, (z, codebook) in sources.items():
+        x = z.reshape(-1, z.shape[-1]).contiguous()
+        cb = codebook.contiguous()
+        want = OTHER_VQ_SHAPES[name]
+        check(tuple(x.shape) + (cb.shape[0],) == (want[0], want[2], want[1]),
+              f"vq_nearest {name}: ({tuple(x.shape)}, {tuple(cb.shape)}), expected {want}")
+        row = compare_vq(torch, vq_kernel, x, cb)
+        row["shape_of"] = name
+        emit(row)
+        check(row["mismatches"] == row["near_ties"],
+              f"vq_nearest {name}: {row['mismatches'] - row['near_ties']} mismatches that are "
+              f"not near-ties")
+        check(row["run_to_run_identical"], f"vq_nearest {name}: two calls differ")
+        check(row["ctas"] >= row["sms"], f"vq_nearest {name}: {row['ctas']} CTAs")
+        rows[name] = row
+    return rows
+
+
+def other_autoencoders_phase(torch, cli_main, cli_evaluate, serve, checkpoint, dsp, vq_kernel,
+                             fused_adam, root: str, corpus: str, card: str) -> dict:
+    """Phase 11: the HierVQVAE, WaveVQVAE and VAE paths at full width, then
+    the nearest-code kernel at their shapes. One record line a part."""
+    t0 = time.perf_counter()
+    hier, hier_z = hier_part(torch, cli_main, cli_evaluate, serve, checkpoint, vq_kernel,
+                             fused_adam, root, corpus)
+    hier["card"] = card
+    emit(hier)
+    wave, wave_z = wave_part(torch, cli_main, dsp, checkpoint, vq_kernel, fused_adam, root,
+                             corpus)
+    wave["card"] = card
+    emit(wave)
+    vae = vae_part(torch, cli_main, checkpoint, vq_kernel, fused_adam, root)
+    vae["card"] = card
+    emit(vae)
+    t_kernel = time.perf_counter()
+    rows = vq_other_shapes(torch, vq_kernel, {**hier_z, **wave_z})
+    kernel = {"phase": "other_autoencoders_vq_shapes", "card": card,
+              "seconds": time.perf_counter() - t_kernel,
+              "rows": {name: {k: r[k] for k in ("n", "k", "d", "kernel_device_ms", "kernel_ms",
+                                                "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms", "library_device_ms",
+                                                "mismatches", "near_ties", "split", "ctas")}
+                       for name, r in rows.items()}}
+    emit(kernel)
+    runs = [hier["run"], wave["raw"], wave["mulaw_quantize_rvq2"], *vae["runs"].values()]
+    return {"phase": "other_autoencoders", "card": card, "seconds": time.perf_counter() - t0,
+            "parts_seconds": {"hiervqvae": hier["seconds"], "wavevqvae": wave["seconds"],
+                              "vae": vae["seconds"], "vq_shapes": kernel["seconds"]},
+            "vq_launches": (sum(r["launches"]["vq_kernel"] for r in runs)
+                            + hier["served"]["vq_launches"]),
+            "adam_launches": sum(r["launches"]["fused_adam"] for r in runs),
+            "vq_rows": rows}
+
+
 ATTN_REPLACES = {
     "flash_fwd": "neural_sound_generation_tpu/ops/pallas/attention.py:165",
     "flash_bwd_dq": "neural_sound_generation_tpu/ops/pallas/attention.py:233",
@@ -2834,13 +3440,20 @@ def main() -> int:
         # through kernel 1 with its launch count, mel inversion
         prep = preprocess_phase(torch, serve, dsp, vq_kernel, VQVAE, root, card)
         emit(prep)
+        torch.cuda.empty_cache()
+
+        # phase 11: the other autoencoders through cli.main, cli.evaluate and
+        # cli.serve, with launch counts from each run; kernel 1 at their shapes
+        others = other_autoencoders_phase(torch, cli_main, cli_evaluate, serve, checkpoint, dsp,
+                                          vq_kernel, fused_adam, root, corpus, card)
+        emit(others)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # phase 11: summary and result
+    # phase 12: summary and result
     train_runs = [*training["runs"].values(), rvq["run"]]
     train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
     train_adam = sum(r["launches"]["fused_adam"] for r in train_runs)
@@ -2855,10 +3468,11 @@ def main() -> int:
         "replaces": "neural_sound_generation_tpu/ops/pallas/vq_kernel.py:49",
         "status": "ported", "shape": {"n": VQ_MAIN_SHAPE[0], "k": VQ_MAIN_SHAPE[1], "d": VQ_D},
         "launches": (serving["vq_launches"] + train_vq + prior_launches["vq_nearest"]
-                     + prep["vq_launches"]),
+                     + prep["vq_launches"] + others["vq_launches"]),
         "launches_by_path": {"serving": serving["vq_launches"], "training": train_vq,
                              "prior": prior_launches["vq_nearest"],
-                             "preprocess_units": prep["vq_launches"]},
+                             "preprocess_units": prep["vq_launches"],
+                             "other_autoencoders": others["vq_launches"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2866,13 +3480,19 @@ def main() -> int:
         "training_shape": {"n": VQ_TRAIN_SHAPE[0], "ms": train_row["kernel_ms"],
                            "plain_ms": train_row["plain_ms"], "bound_ms": train_row["bound_ms"],
                            "library_ms": train_row["library_ms"]},
+        "other_autoencoder_shapes": {
+            name: {"n": r["n"], "ms": r["kernel_ms"], "device_ms": r["kernel_device_ms"],
+                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                   "library_ms": r["library_ms"], "max_abs_err": r["max_abs_err"]}
+            for name, r in others["vq_rows"].items()},
     }, {
         "name": "fused_adam", "route": "cuda",
         "source": "neural_sound_generation_tpu_torch/csrc/fused_adam.cu",
         "replaces": "neural_sound_generation_tpu/ops/pallas/fused_adam.py:49",
         "status": "ported", "shape": {"n": n_params, "config": adam_row["config"]},
-        "launches": train_adam + prior_launches["fused_adam"],
-        "launches_by_path": {"training": train_adam, "prior": prior_launches["fused_adam"]},
+        "launches": train_adam + prior_launches["fused_adam"] + others["adam_launches"],
+        "launches_by_path": {"training": train_adam, "prior": prior_launches["fused_adam"],
+                             "other_autoencoders": others["adam_launches"]},
         "max_abs_err": adam_row["max_abs_err"],
         "ms": adam_row["kernel_ms"], "plain_ms": adam_row["plain_ms"],
         "bound_ms": adam_row["bound_ms"], "bound_by": adam_row["bound_by"],

@@ -1,8 +1,10 @@
 """Standalone evaluation of a saved checkpoint against the test split.
 
-Counterpart of ``neural_sound_generation_tpu/cli/evaluate.py`` for the flat
-mel VQ-VAE: per-batch metric accumulation, the averaged summary as one JSON
-line, and the last reconstruction batch as ``.npy`` (``--dump-npy``). The
+Counterpart of ``neural_sound_generation_tpu/cli/evaluate.py`` for the four
+families of ``cli.main`` (``--model vae|vqvae|hiervqvae|wavevqvae``) over
+an audio corpus or, beyond the JAX command, MNIST/CIFAR10: per-batch metric
+accumulation, the averaged summary as one JSON line, and the last
+reconstruction batch as ``.npy`` (``--dump-npy``). The
 EMA shadow is evaluated when the checkpoint carries one, unless
 ``--no-ema``. The checkpoint's recorded metadata (``arch``,
 ``num_quantizers``, ``num_downsample``) must match the flags;
@@ -24,9 +26,11 @@ import numpy as np
 import torch
 
 from neural_sound_generation_tpu_torch.cli.main import (
+    AUDIO_DATASETS,
     audio_loaders,
     build_config,
     checkpoint_metadata,
+    image_loaders,
     make_model,
     refuse_later_slices,
 )
@@ -80,9 +84,13 @@ def main(argv=None):
     except ValueError as e:
         raise SystemExit(str(e)) from e
 
-    _, test_loader = audio_loaders(args, cfg, test_shuffle=False)
-    sample = next(iter(test_loader))
-    n_speakers = cfg.arch.n_speakers if "g" in sample else 0
+    if args.dataset in AUDIO_DATASETS:
+        _, test_loader = audio_loaders(args, cfg, test_shuffle=False)
+        n_speakers = cfg.arch.n_speakers if "g" in next(iter(test_loader)) else 0
+        test_batches = iter(test_loader)
+    else:
+        test_batches = image_loaders(args)[1]()
+        n_speakers = 0
     model = make_model(cfg, n_speakers, norm=args.norm,
                        generator=torch.Generator().manual_seed(0),
                        dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
@@ -97,7 +105,7 @@ def main(argv=None):
     print(f"loaded checkpoint step={int(state.step)} extra={extra}")
 
     trainer = Trainer(model, cfg, state, log_fn=print)
-    batches = iter(test_loader)
+    batches = test_batches
     if args.max_batches:
         batches = itertools.islice(batches, args.max_batches)
     means, recon = trainer.eval_epoch(batches)

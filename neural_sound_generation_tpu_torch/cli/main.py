@@ -1,4 +1,4 @@
-"""Training CLI: the mel VQ-VAE on the audio datasets.
+"""Training CLI: the VAE and the VQ-VAE families on images and audio.
 
 Counterpart of ``neural_sound_generation_tpu/cli/main.py`` with its flag
 surface (the reference's ``--batch-size --lr-rate --dataset --datadir
@@ -11,12 +11,21 @@ Griffin-Lim ``.wav`` per epoch, ``metrics.jsonl``, a checkpoint every
 epoch, every ``checkpoint_interval`` steps and on Ctrl-C, and ``--resume``
 that replays the data order of the interrupted epoch.
 
-``--num-quantizers Q`` trains residual VQ with a (Q, K, D) codebook;
-``--bf16`` runs the convolutions in bfloat16 (parameters, VQ, loss and
-optimizer stay float32, and the checkpoint is float32). Flags of later
-slices refuse with the slice named: ``--model vae|hiervqvae|wavevqvae``,
-MNIST/CIFAR10 and ``--mesh-*`` beyond one device. ``--device`` defaults to
-the CUDA card.
+``--model`` picks the family: ``vae`` (the conv VAE, ELBO with MSE),
+``vqvae`` (the flat mel VQ-VAE), ``hiervqvae`` (two levels over 8-aligned
+mel crops) or ``wavevqvae`` (the raw-waveform model over crops of
+2**num_downsample-aligned samples, ``--num-downsample``; the preset's
+``input_type`` picks raw, mulaw or mulaw-quantize). ``--dataset`` is one of
+the audio corpora or MNIST/CIFAR10 (``data/images.py`` reads the local
+idx and pickle files; CIFAR10 makes the input 3 channels).
+``--num-quantizers Q`` trains residual VQ with a (Q, K, D) codebook (the
+flat and the wave model); ``--bf16`` runs the convolutions of the mel
+families in bfloat16 (parameters, VQ, loss and optimizer stay float32, and
+the checkpoint is float32). ``--codebook-init data`` seeds the codebook(s)
+from train-mode encoder outputs of a train batch; the hierarchy seeds its
+top codebook, then its bottom one from a second pass under the seeded top.
+``--mesh-*`` beyond one device refuses with the parallel slice named.
+``--device`` defaults to the CUDA card.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.main --model vqvae
 --dataset ljspeech --datadir <corpus> --dim 256 [--device cuda]``
@@ -36,7 +45,12 @@ import torch
 from neural_sound_generation_tpu_torch.config import Config, load_preset
 from neural_sound_generation_tpu_torch.data.pipeline import get_audio_data_loaders
 from neural_sound_generation_tpu_torch.device import resolve_device
-from neural_sound_generation_tpu_torch.models import VQVAE
+from neural_sound_generation_tpu_torch.data.images import (
+    image_batches,
+    load_cifar10,
+    load_mnist,
+)
+from neural_sound_generation_tpu_torch.models import VAE, VQVAE, HierVQVAE, WaveVQVAE
 from neural_sound_generation_tpu_torch.models.layers import batch_stats_discarded
 from neural_sound_generation_tpu_torch.ops import dsp
 from neural_sound_generation_tpu_torch.ops.vq import data_codebook_init
@@ -45,14 +59,15 @@ from neural_sound_generation_tpu_torch.training.train_state import create_train_
 from neural_sound_generation_tpu_torch.training.trainer import Trainer
 
 AUDIO_DATASETS = ("ljspeech", "cmu_arctic", "jsut", "librivox")
+IMAGE_DATASETS = ("MNIST", "CIFAR10")
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="Train the mel VQ-VAE")
+    p = argparse.ArgumentParser(description="Train a VAE or a VQ-VAE")
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--lr-rate", type=float, default=1e-3)
     p.add_argument("--dataset", type=str, default="MNIST",
-                   choices=["MNIST", "CIFAR10", *AUDIO_DATASETS])
+                   choices=[*IMAGE_DATASETS, *AUDIO_DATASETS])
     p.add_argument("--datadir", type=str, default="./data/")
     p.add_argument("--sampledir", type=str, default="./results/")
     p.add_argument("--epochs", type=int, default=3000)
@@ -101,17 +116,8 @@ def parse_args(argv=None):
 
 
 def refuse_later_slices(args) -> None:
-    """Flags whose code paths the port does not have yet."""
-    if args.model != "vqvae":
-        raise SystemExit(
-            f"--model {args.model}: the port trains the flat mel vqvae; "
-            f"vae, hiervqvae and wavevqvae come with the other-autoencoders slice"
-        )
-    if args.dataset not in AUDIO_DATASETS:
-        raise SystemExit(
-            f"--dataset {args.dataset}: the image datasets come with the "
-            f"other-autoencoders slice"
-        )
+    """Flags whose code paths the port does not have yet, and a stage count
+    below one."""
     if getattr(args, "num_quantizers", 1) < 1:
         raise SystemExit(f"--num-quantizers {args.num_quantizers}: must be at least 1")
     if (args.mesh_data or 1) > 1 or args.mesh_model > 1:
@@ -168,45 +174,101 @@ def checkpoint_metadata(cfg: Config) -> dict:
 
 def make_model(cfg: Config, n_speakers: int = 0, norm: str = "batch",
                generator: torch.Generator | None = None,
-               dtype: torch.dtype | None = None) -> VQVAE:
-    """The flat mel VQ-VAE of ``cfg.model`` (its ``num_quantizers`` residual
-    stages) with compute ``dtype`` (float32 by default, bfloat16 under
-    ``--bf16``)."""
+               dtype: torch.dtype | None = None):
+    """The ``cfg.model.model`` family at ``cfg.model``'s widths, weights
+    from ``generator``. ``dtype`` (float32 by default, bfloat16 under
+    ``--bf16``) is the compute dtype of the mel VQ families; the VAE and the
+    wave model run float32, as in the JAX package. The hierarchy takes no
+    speakers."""
     mc = cfg.model
-    if mc.model != "vqvae":
-        raise NotImplementedError(f"--model {mc.model}: not in the port yet")
+    dtype = dtype or torch.float32
+    if mc.model == "vae":
+        return VAE(input_dim=mc.input_dim, dim=mc.dim, z_dim=mc.z_dim, generator=generator)
+    if mc.model == "hiervqvae":
+        return HierVQVAE(input_dim=mc.input_dim, dim=mc.dim, z_dim=mc.z_dim, norm=norm,
+                         generator=generator, dtype=dtype)
     gin = cfg.arch.gin_channels if n_speakers > 0 else -1
+    if mc.model == "wavevqvae":
+        return WaveVQVAE(
+            dim=mc.dim, z_dim=mc.z_dim, num_downsample=mc.num_downsample,
+            input_type=cfg.audio.input_type, quantize_channels=cfg.audio.quantize_channels,
+            n_speakers=n_speakers if gin > 0 else 0, gin_channels=gin,
+            num_quantizers=mc.num_quantizers, generator=generator,
+        )
     return VQVAE(
         input_dim=mc.input_dim, dim=mc.dim, z_dim=mc.z_dim,
         n_speakers=n_speakers if gin > 0 else 0, gin_channels=gin,
-        norm=norm, generator=generator, num_quantizers=mc.num_quantizers,
-        dtype=dtype or torch.float32,
+        norm=norm, generator=generator, num_quantizers=mc.num_quantizers, dtype=dtype,
     )
 
 
 def audio_loaders(args, cfg: Config, test_shuffle: bool = True):
+    """Train and test loaders over an audio corpus: waveform crops for
+    wavevqvae, mel crops otherwise, cropped to a multiple of 8 frames for
+    the hierarchy (its top grid has stride 8) and of 4 for the rest."""
     loaders = get_audio_data_loaders(
         args.datadir, args.speaker_id, args.batch_size, cfg,
-        test_shuffle=test_shuffle, batch_mode="mel", latent_stride=4,
+        test_shuffle=test_shuffle,
+        batch_mode="wave" if args.model == "wavevqvae" else "mel",
+        latent_stride=8 if args.model == "hiervqvae" else 4,
     )
     return loaders["train"], loaders["test"]
 
 
+def image_loaders(args):
+    """``(train_iter(epoch), test_iter())`` over MNIST or CIFAR-10 read from
+    ``--datadir``: batches ``{"x": (B, H, W, C) in [-1, 1], "label"}``,
+    the train order a function of the epoch, the test order fixed."""
+    load = load_mnist if args.dataset == "MNIST" else load_cifar10
+    train_x, train_y = load(args.datadir, train=True)
+    test_x, test_y = load(args.datadir, train=False)
+
+    def train_iter(epoch):
+        return image_batches(train_x, train_y, args.batch_size, seed=epoch)
+
+    def test_iter():
+        return image_batches(test_x, test_y, args.batch_size, seed=0, shuffle=False)
+
+    return train_iter, test_iter
+
+
+def _wave_artifact(cfg: Config, recon: torch.Tensor) -> np.ndarray:
+    """The last reconstruction of a wave batch as a waveform: the argmax of
+    mulaw-quantize logits decoded, or the scalar output (inverse mu-law
+    under mulaw). The branch follows the configured head, not the shape."""
+    a = cfg.audio
+    if a.is_mulaw_quantize:
+        return dsp.inv_mulaw_quantize(recon[-1].argmax(-1), a.quantize_channels).cpu().numpy()
+    wav = recon[-1].reshape(-1)
+    if a.is_mulaw:
+        wav = dsp.inv_mulaw(wav, a.quantize_channels)
+    return wav.cpu().numpy()
+
+
 def dump_reconstruction(args, cfg: Config, recon: torch.Tensor, epoch: int) -> None:
     """Per-epoch artifacts (main.py:137-220): the reconstruction batch as
-    ``.npy`` and a Griffin-Lim ``.wav`` of its last element, with the
-    initial phase drawn from a generator seeded with the epoch."""
+    ``.npy``; for wavevqvae the last element as a ``.wav``; for the mel
+    models on an audio corpus a Griffin-Lim ``.wav`` of the last element,
+    with the initial phase drawn from a generator seeded with the epoch.
+    Image datasets get the ``.npy`` alone."""
     sample_dir = os.path.join(args.sampledir, args.dataset)
     os.makedirs(sample_dir, exist_ok=True)
-    recon_np = recon.detach().cpu().numpy()
+    recon = recon.detach()
+    recon_np = recon.cpu().numpy()
     if recon_np.ndim == 4:
         recon_np = recon_np[..., 0]
     tag = f"{args.model}_data_{args.dataset}_dim_{args.dim}_z_dim_{args.z_dim}_epoch_{epoch}"
     np.save(os.path.join(sample_dir, f"reconstruction_{tag}.npy"), recon_np)
+    if args.model == "wavevqvae":
+        dsp.save_wav(_wave_artifact(cfg, recon), os.path.join(sample_dir, f"audio_recon_{tag}.wav"),
+                     cfg.audio.sample_rate)
+        return
+    if args.dataset not in AUDIO_DATASETS:
+        return
     mel = recon[-1, ..., 0] if recon.ndim == 4 else recon[-1]
     gen = torch.Generator(device=mel.device).manual_seed(epoch)
     with torch.no_grad():
-        wav = dsp.inv_mel_spectrogram(mel.detach(), cfg.audio, generator=gen)
+        wav = dsp.inv_mel_spectrogram(mel, cfg.audio, generator=gen)
     dsp.save_wav(
         wav.cpu().numpy(),
         os.path.join(
@@ -218,19 +280,40 @@ def dump_reconstruction(args, cfg: Config, recon: torch.Tensor, epoch: int) -> N
     )
 
 
+def _seed_codebook(param: torch.nn.Parameter, z_e: torch.Tensor, generator, name: str) -> None:
+    param.copy_(data_codebook_init(z_e, tuple(param.shape), generator))
+    print(f"{name} seeded from encoder outputs ({tuple(param.shape)})")
+
+
 @torch.no_grad()
-def apply_data_codebook_init(model: VQVAE, x: torch.Tensor, generator: torch.Generator) -> None:
-    """--codebook-init data: replace the codebook with rows drawn from the
-    encoder outputs of a train batch, in train mode (batch statistics, as
-    training quantizes them) with the running statistics left as they
+def apply_data_codebook_init(model, x: torch.Tensor, generator: torch.Generator) -> None:
+    """--codebook-init data: replace the codebook(s) with rows drawn from
+    the encoder outputs of a train batch, in train mode (batch statistics,
+    as training quantizes them) with the running statistics left as they
     were; a residual-VQ (Q, K, D) codebook is seeded stage by stage from the
-    residuals. Runs before ``create_train_state`` so the EMA shadows copy
-    the seeded rows."""
+    residuals. The hierarchy takes two passes: its bottom z_e depends on
+    the decoded top codes, so the top codebook is seeded from the first
+    pass's z_e_top and the bottom one from a second pass's z_e_bottom,
+    under the seeded top (each pass runs both levels' searches). Runs
+    before ``create_train_state`` so the EMA shadows copy the seeded rows."""
     model.train()
-    with batch_stats_discarded(model):
-        z_e = model._encode_latents(x)
-    model.codebook.copy_(data_codebook_init(z_e, tuple(model.codebook.shape), generator))
-    print(f"codebook seeded from encoder outputs ({tuple(model.codebook.shape)})")
+    if isinstance(model, HierVQVAE):
+        with batch_stats_discarded(model):
+            z_e_top = model.levels(x)[0][1]
+        _seed_codebook(model.codebook_top, z_e_top, generator, "codebook_top")
+        with batch_stats_discarded(model):
+            z_e_bottom = model.levels(x)[1][1]
+        _seed_codebook(model.codebook_bottom, z_e_bottom, generator, "codebook_bottom")
+        return
+    if isinstance(model, WaveVQVAE):
+        with batch_stats_discarded(model):
+            z_e = model.encode_latents(x)
+    elif isinstance(model, VQVAE):
+        with batch_stats_discarded(model):
+            z_e = model._encode_latents(x)
+    else:
+        raise SystemExit("--codebook-init data supports the vqvae/wavevqvae/hiervqvae families")
+    _seed_codebook(model.codebook, z_e, generator, "codebook")
 
 
 def epoch_generator(seed: int, epoch: int, device: torch.device) -> torch.Generator:
@@ -245,16 +328,21 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = build_config(args)
 
-    train_loader, test_loader = audio_loaders(args, cfg)
-    sample_batch = next(iter(test_loader))
-    n_speakers = cfg.arch.n_speakers if "g" in sample_batch else 0
+    audio_mode = args.dataset in AUDIO_DATASETS
+    if audio_mode:
+        train_loader, test_loader = audio_loaders(args, cfg)
+        sample_batch = next(iter(test_loader))
+        n_speakers = cfg.arch.n_speakers if "g" in sample_batch else 0
+    else:
+        train_iter, test_iter = image_loaders(args)
+        n_speakers = 0
     model = make_model(
         cfg, n_speakers, norm=args.norm, generator=torch.Generator().manual_seed(args.seed),
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
     ).to(device)
     if args.codebook_init == "data":
         # a TRAIN batch: a test-seeded codebook would leak held-out data
-        warm = next(iter(train_loader))
+        warm = next(iter(train_loader)) if audio_mode else next(train_iter(0))
         apply_data_codebook_init(
             model, torch.from_numpy(warm["x"]).to(device), epoch_generator(args.seed, 0, device)
         )
@@ -303,11 +391,14 @@ def main(argv=None):
         for epoch in range(start_epoch, args.epochs + 1):
             # data order is f(seed, epoch): a resumed run sees the batches
             # an uninterrupted run's epoch-N pass would
-            train_loader.set_epoch(epoch - 1)
-            trainer.train_epoch(limit(iter(train_loader)),
-                                epoch_generator(args.seed, epoch, device),
+            if audio_mode:
+                train_loader.set_epoch(epoch - 1)
+                batches, test_batches = iter(train_loader), iter(test_loader)
+            else:
+                batches, test_batches = train_iter(epoch), test_iter()
+            trainer.train_epoch(limit(batches), epoch_generator(args.seed, epoch, device),
                                 epoch=epoch, checkpoint_cb=interval_ckpt(epoch))
-            _, recon = trainer.eval_epoch(limit(iter(test_loader)))
+            _, recon = trainer.eval_epoch(limit(test_batches))
             if recon is not None:
                 print("Evaluating samples")
                 dump_reconstruction(args, cfg, recon, epoch)

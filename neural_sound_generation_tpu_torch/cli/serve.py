@@ -1,11 +1,16 @@
 """Inference server: HTTP endpoints over a mel VQ-VAE, in PyTorch.
 
 Counterpart of ``neural_sound_generation_tpu/cli/serve.py`` for the flat
-mel VQ-VAE. Stdlib-only HTTP server:
+mel VQ-VAE and (``--model hiervqvae``) the two-level one. Stdlib-only HTTP
+server:
 
-  POST /encode       wav bytes (RIFF) -> {"codes": [[...]], "shape": [...]}
+  POST /encode       wav bytes (RIFF) -> {"codes": [[...]], "shape": [...]};
+                     --model hiervqvae: {"codes_top", "shape_top",
+                     "codes_bottom", "shape_bottom"}, the bottom grid
+                     exactly twice the top's width
   POST /reconstruct  wav bytes -> reconstructed wav bytes
-  POST /decode       {"codes": [[...]]} JSON -> wav bytes
+  POST /decode       {"codes": [[...]]} JSON -> wav bytes; --model
+                     hiervqvae: {"codes_top": ..., "codes_bottom": ...}
   POST /sample       {"n": 1, "label": 0, "seed": 0} -> wav bytes: the prior
                      (--prior-ckpt) samples n code grids of (num_mels/4,
                      frames/4), decoded and concatenated in time
@@ -27,14 +32,18 @@ that steps up to N concurrent sessions as one batch (``serving/mux.py``;
 stream cannot know its future peak; a failure after the first piece drops
 the connection rather than write a status line into the chunked body.
 
-Long inputs are tiled over serving windows of ``--frames`` mel frames and
-stitched. With ``--batch-window-ms`` concurrent /reconstruct requests are
-coalesced into one batch per length bucket; each result equals the
-unbatched one. ``--ckpt-dir`` serves a checkpoint written by ``cli.main``
+Long inputs are tiled over serving windows of ``--frames`` mel frames (84
+for the flat model, 80 for the hierarchy, whose windows must be a multiple
+of 8) and stitched. With ``--batch-window-ms`` concurrent /reconstruct
+requests are coalesced into one batch per length bucket; each result
+equals the unbatched one. ``--ckpt-dir`` serves a checkpoint written by ``cli.main``
 (its live parameters, or with ``--ema`` its averaged model); without one
 the server serves weights initialized from seed 0, as the JAX server does.
 ``--prior-ckpt`` serves a ``cli.prior`` transformer checkpoint over
 ``/sample``; its recorded ``prior_heads`` and widths must match the flags.
+The hierarchy's ``/sample`` (``--prior-ckpt`` with ``--model hiervqvae``,
+``--bottom-*``) comes with the hierarchical-prior slice and refuses, as do
+speaker-conditioned presets under ``--model hiervqvae``.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.serve [--device cuda]``
 """
@@ -62,7 +71,7 @@ from neural_sound_generation_tpu_torch.cli import vocoder as cli_vocoder
 from neural_sound_generation_tpu_torch.config import Config, load_preset
 from neural_sound_generation_tpu_torch.device import resolve_device
 from neural_sound_generation_tpu_torch.inference import sample_prior_mels
-from neural_sound_generation_tpu_torch.models import VQVAE
+from neural_sound_generation_tpu_torch.models import VQVAE, HierVQVAE
 from neural_sound_generation_tpu_torch.models.wavenet import make_chunked_generate_fn
 from neural_sound_generation_tpu_torch.ops import dsp
 from neural_sound_generation_tpu_torch.serving import MuxOverloaded, WaveNetStreamMux
@@ -170,17 +179,23 @@ class InferenceService:
     ``torch.inference_mode``. ``device=None`` means the CUDA card and
     raises without one."""
 
-    #: encoder time-axis downsampling (two stride-2 convs)
+    #: encoder time-axis downsampling (two stride-2 convs); the hierarchy's
+    #: top grid has twice this stride
     STRIDE = 4
     #: samples per chunk of the WaveNet streaming sampler and the mux
     STREAM_CHUNK = 4096
 
-    def __init__(self, cfg: Config, model: VQVAE, frames: int = 84,
+    def __init__(self, cfg: Config, model: VQVAE | HierVQVAE, frames: int = 84,
                  device=None, default_speaker=None):
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.hier = isinstance(model, HierVQVAE)
+        if self.hier and frames % 8:
+            raise ValueError(
+                f"hiervqvae serving window must be a multiple of 8, got frames={frames}")
         self.model = model.to(self.device).eval()
-        n_spk = model.n_speakers if model.speakered else 0
+        self.speakered = getattr(model, "speakered", False)
+        n_spk = model.n_speakers if self.speakered else 0
         if n_spk > 0 and (
             default_speaker is None or not 0 <= int(default_speaker) < n_spk
         ):
@@ -201,12 +216,14 @@ class InferenceService:
 
     def _g(self, n: int):
         """Per-window speaker ids for a speaker-conditioned decoder."""
-        if not self.model.speakered:
+        if not self.speakered:
             return None
         return torch.full((n,), int(self.default_speaker), device=self.device)
 
     def _reconstruct(self, windows: torch.Tensor) -> torch.Tensor:
         """(n, n_mels, frames, 1) -> the VQ-VAE's reconstruction, same shape."""
+        if self.hier:
+            return self.model(windows)[0]
         x_tilde, _, _ = self.model(windows, g=self._g(windows.shape[0]))
         return x_tilde
 
@@ -341,6 +358,15 @@ class InferenceService:
     @torch.inference_mode()
     def encode(self, wav_bytes: bytes) -> dict:
         windows, t, n_win = self._wav_to_mel(wav_bytes)
+        if self.hier:
+            idx_t, idx_b = self.model.encode(windows)
+            top = self._stitch(idx_t[:n_win].cpu().numpy(), t, 2 * self.STRIDE)
+            # the bottom trims to exactly twice the top's width (ceil(t / 4)
+            # can be a column short): /decode requires the alignment
+            bottom = np.concatenate(list(idx_b[:n_win].cpu().numpy()), axis=-1)
+            bottom = bottom[:, : 2 * top.shape[-1]]
+            return {"codes_top": top.tolist(), "shape_top": list(top.shape),
+                    "codes_bottom": bottom.tolist(), "shape_bottom": list(bottom.shape)}
         codes = self.model.encode(windows)[:n_win].cpu().numpy()  # (n, H', W')
         stitched = self._stitch(codes, t, self.STRIDE)
         return {"codes": stitched.tolist(), "shape": list(stitched.shape)}
@@ -420,7 +446,7 @@ class InferenceService:
         n_classes = int(self.prior.n_classes)
         if not 0 <= label < n_classes:
             raise ValueError(f"label must be in [0, {n_classes}), got {label}")
-        n_speakers = self.model.n_speakers if self.model.speakered else 0
+        n_speakers = self.model.n_speakers if self.speakered else 0
         if n_speakers > 0 and label >= n_speakers:
             # a multispeaker decoder takes the label as the speaker id
             raise ValueError(
@@ -533,17 +559,31 @@ class InferenceService:
                 for chunk in self._vocode_stream(m, seed + i):
                     yield self._pcm_s16le(chunk)
 
-    @torch.inference_mode()
-    def decode(self, payload: dict) -> bytes:
-        idx_np = np.asarray(payload["codes"], np.int64)
-        height = self.cfg.audio.num_mels // self.STRIDE
+    def _code_grid(self, payload: dict, key: str, stride: int, limit: int) -> torch.Tensor:
+        """A (num_mels / stride, cols) grid of codes in [0, limit) from the
+        payload, as a (1, H', cols) tensor on the device."""
+        idx_np = np.asarray(payload[key], np.int64)
+        height = self.cfg.audio.num_mels // stride
         if idx_np.ndim != 2 or idx_np.shape[0] != height or idx_np.shape[1] < 1:
             raise ValueError(
-                f"codes must be a ({height}, cols) grid, got shape {idx_np.shape}"
+                f"{key} must be a ({height}, cols) grid, got shape {idx_np.shape}"
             )
-        self._check_codes(idx_np, self.model.z_dim, "codes")
-        idx = torch.from_numpy(idx_np).to(self.device)[None]
-        mel = self.model.decode(idx, g=self._g(1))[0, :, :, 0]
+        self._check_codes(idx_np, limit, key)
+        return torch.from_numpy(idx_np).to(self.device)[None]
+
+    @torch.inference_mode()
+    def decode(self, payload: dict) -> bytes:
+        if self.hier:
+            idx_t = self._code_grid(payload, "codes_top", 2 * self.STRIDE, self.model.k_top)
+            idx_b = self._code_grid(payload, "codes_bottom", self.STRIDE, self.model.z_dim)
+            if 2 * idx_t.shape[-1] != idx_b.shape[-1]:
+                raise ValueError(
+                    "codes_bottom must be exactly twice as wide as codes_top, got "
+                    f"{idx_b.shape[-1]} vs {idx_t.shape[-1]}")
+            mel = self.model.decode(idx_t, idx_b)[0, :, :, 0]
+        else:
+            idx = self._code_grid(payload, "codes", self.STRIDE, self.model.z_dim)
+            mel = self.model.decode(idx, g=self._g(1))[0, :, :, 0]
         return self._encode_wav_bytes(self._synthesize(mel))
 
 
@@ -693,11 +733,22 @@ def build_service(args) -> InferenceService:
         audio["griffin_lim_momentum"] = gl_momentum
     cfg = dataclasses.replace(cfg, audio=dataclasses.replace(cfg.audio, **audio))
 
-    # a multispeaker preset (gin_channels > 0) serves the speaker-conditioned
-    # model, with --speaker-id as the voice of /reconstruct and /decode
     gin = cfg.arch.gin_channels
-    n_speakers = cfg.arch.n_speakers if gin > 0 else 0
-    sid = args.speaker_id
+    frames = resolve_frames(args)
+    if getattr(args, "model", "vqvae") == "hiervqvae":
+        model = hier_model(args, cfg, frames)
+        n_speakers, sid = 0, None
+    else:
+        # a multispeaker preset (gin_channels > 0) serves the
+        # speaker-conditioned model, with --speaker-id as the voice of
+        # /reconstruct and /decode
+        n_speakers = cfg.arch.n_speakers if gin > 0 else 0
+        sid = args.speaker_id
+        model = VQVAE(
+            input_dim=1, dim=args.dim, z_dim=args.z_dim, n_speakers=n_speakers,
+            gin_channels=gin if n_speakers else -1,
+            generator=torch.Generator().manual_seed(0),
+        )
     if n_speakers and sid is None:
         raise SystemExit(
             f"this preset serves a speaker-conditioned model (gin_channels "
@@ -708,18 +759,13 @@ def build_service(args) -> InferenceService:
             f"--speaker-id {sid} out of range: this model has {n_speakers} "
             f"speakers (0..{n_speakers - 1})"
         )
-    model = VQVAE(
-        input_dim=1, dim=args.dim, z_dim=args.z_dim, n_speakers=n_speakers,
-        gin_channels=gin if n_speakers else -1,
-        generator=torch.Generator().manual_seed(0),
-    )
     ckpt_dir, ema = getattr(args, "ckpt_dir", None), getattr(args, "ema", False)
     if ckpt_dir:
         restore_weights(model, cfg, ckpt_dir, ema)
     elif ema:
         raise SystemExit("--ema needs --ckpt-dir")
     service = InferenceService(
-        cfg, model, args.frames, device=args.device, default_speaker=sid
+        cfg, model, frames, device=args.device, default_speaker=sid
     )
     if getattr(args, "prior_ckpt", None):
         from neural_sound_generation_tpu_torch.cli.prior import PriorSpec, load_prior
@@ -743,6 +789,38 @@ def build_service(args) -> InferenceService:
     return service
 
 
+def resolve_frames(args) -> int:
+    """``--frames``, or its default: 80 for the hierarchy, 84 otherwise."""
+    if getattr(args, "frames", None) is not None:
+        return args.frames
+    return 80 if getattr(args, "model", "vqvae") == "hiervqvae" else 84
+
+
+def hier_model(args, cfg: Config, frames: int) -> HierVQVAE:
+    """The ``--model hiervqvae`` template (seeded weights): refuses a window
+    that is not a multiple of 8, a speaker-conditioned preset (the hierarchy
+    has no speaker embedding) and the hierarchical ``/sample`` flags."""
+    if frames % 8:
+        raise SystemExit(
+            f"--frames must be a multiple of 8 for hiervqvae (got {frames}); "
+            f"try {frames - frames % 8}")
+    if cfg.arch.gin_channels > 0:
+        raise SystemExit(
+            "--model hiervqvae does not support speaker-conditioned presets "
+            f"(gin_channels {cfg.arch.gin_channels}): serve the multispeaker checkpoint "
+            "with the flat model, or drop the preset's gin_channels")
+    bottom = [flag for flag in ("bottom_ckpt", "bottom_prior_arch", "bottom_prior_dim",
+                                "bottom_prior_layers", "bottom_prior_heads")
+              if getattr(args, flag, None) is not None]
+    if getattr(args, "prior_ckpt", None) or bottom:
+        raise SystemExit(
+            "--model hiervqvae /sample (--prior-ckpt, --bottom-*) needs the top and the "
+            "spatially conditioned bottom prior: it comes with the hierarchical-prior "
+            "slice of the port")
+    return HierVQVAE(input_dim=1, dim=args.dim, z_dim=args.z_dim,
+                     generator=torch.Generator().manual_seed(0))
+
+
 def load_serving_vocoder(args, cfg: Config, device):
     """The ``--vocoder-ckpt`` WaveNet at ``--vocoder-*`` widths over the
     preset's arch, in eval mode on ``device``. Serve synthesizes from mels,
@@ -760,13 +838,14 @@ def load_serving_vocoder(args, cfg: Config, device):
     return cli_vocoder.load_vocoder(args.vocoder_ckpt, model, device)
 
 
-def restore_weights(model: VQVAE, cfg: Config, ckpt_dir: str, ema: bool) -> None:
+def restore_weights(model: VQVAE | HierVQVAE, cfg: Config, ckpt_dir: str, ema: bool) -> None:
     """Load a ``cli.main`` checkpoint into ``model`` (on the CPU, before
     the service moves it): the live parameters, or the EMA shadow with
     ``ema``, and the BatchNorm running statistics. Refuses a checkpoint of
     another architecture or shape, and ``ema`` on one without a shadow."""
     try:
-        checkpoint.check_extra(ckpt_dir, arch="vqvae", num_quantizers=1)
+        arch = "hiervqvae" if isinstance(model, HierVQVAE) else "vqvae"
+        checkpoint.check_extra(ckpt_dir, arch=arch, num_quantizers=1)
         state, _ = checkpoint.restore(ckpt_dir, create_train_state(model, cfg.train))
     except ValueError as e:
         raise SystemExit(str(e)) from e
@@ -792,8 +871,9 @@ def parse_args(argv=None):
     p.add_argument("--preset", default=None)
     p.add_argument("--dim", type=int, default=256)
     p.add_argument("--z-dim", type=int, default=512)
-    p.add_argument("--frames", type=int, default=84,
-                   help="serving mel window in frames")
+    p.add_argument("--frames", type=int, default=None,
+                   help="serving mel window in frames (default 84 flat, 80 hier)")
+    p.add_argument("--model", default="vqvae", choices=["vqvae", "hiervqvae"])
     p.add_argument("--gl-iters", type=int, default=None,
                    help="Griffin-Lim iterations (default: the --preset "
                         "value, or 30 with momentum when no preset is "
@@ -819,6 +899,13 @@ def parse_args(argv=None):
     p.add_argument("--prior-layers", type=int, default=15)
     p.add_argument("--prior-heads", type=int, default=8)
     p.add_argument("--n-classes", type=int, default=10)
+    p.add_argument("--bottom-ckpt", default=None,
+                   help="bottom prior checkpoint (hiervqvae /sample; the hierarchical-prior "
+                        "slice)")
+    p.add_argument("--bottom-prior-arch", choices=["pixelcnn", "transformer"], default=None)
+    p.add_argument("--bottom-prior-dim", type=int, default=None)
+    p.add_argument("--bottom-prior-layers", type=int, default=None)
+    p.add_argument("--bottom-prior-heads", type=int, default=None)
     p.add_argument("--vocoder", choices=["griffin-lim", "wavenet"], default="griffin-lim",
                    help="synthesis backend for /reconstruct, /decode and /sample: "
                         "Griffin-Lim, or a WaveNet vocoder artifact (--vocoder-ckpt) "
@@ -839,7 +926,9 @@ def parse_args(argv=None):
                         "sessions wait for a slot (default: unbounded)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, cuda:N or cpu)")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    args.frames = resolve_frames(args)
+    return args
 
 
 def main(argv=None):

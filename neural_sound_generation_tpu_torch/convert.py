@@ -3,7 +3,10 @@
 ``flax_to_state_dict`` turns flax's nested ``{"params": ..., "batch_stats":
 ...}`` tree (leaves as numpy arrays) into a PyTorch ``state_dict`` for the
 port's module of the same structure; ``module_to_flax`` reads such a module
-back into that tree (it needs the module's layer types). The
+back into that tree. Both take the transpose convolutions from the module's
+layer types; ``flax_to_state_dict`` without a module takes them from
+flax's auto-names (``ConvTranspose_i``), which ``WaveDecoder``'s ``conv_i``
+and ``out`` are not. The
 port's modules carry the flax names (``encoder.ResBlock_0.Conv_0``), so the
 bridge only changes each leaf's name and layout:
 
@@ -35,7 +38,8 @@ over and check that the two agree.
 Flat vectors. The JAX package keeps the fused optimizer's moments and the
 parameter EMA as one vector in ``ravel_pytree`` order (the params tree
 flattened with sorted keys); the port keeps them in its flat buffer's
-order (``FlatParams``: ``named_parameters()`` order, PyTorch layouts).
+order (``FlatParams``: ``named_parameters()`` order, PyTorch layouts, each
+parameter at a 16-byte-aligned offset).
 ``flax_flat_to_port`` and ``port_flat_to_flax`` map any param-shaped
 vector between the two through the named tree, never index to index.
 """
@@ -47,6 +51,8 @@ from typing import Any, Iterator, Mapping
 import numpy as np
 import torch
 
+from neural_sound_generation_tpu_torch.training.train_state import flat_offsets
+
 
 def _walk(tree: Mapping[str, Any], prefix=()) -> Iterator[tuple[tuple[str, ...], Any]]:
     for key, value in tree.items():
@@ -56,16 +62,34 @@ def _walk(tree: Mapping[str, Any], prefix=()) -> Iterator[tuple[tuple[str, ...],
             yield prefix + (key,), value
 
 
-def _param_to_torch(path: tuple[str, ...], leaf: np.ndarray) -> tuple[str, np.ndarray]:
+def _transpose_rule(model: torch.nn.Module | None):
+    """Whether the flax module at a path is a transpose convolution. With the
+    target ``model``, its layer type at that path decides; without one,
+    flax's auto-name (``ConvTranspose_i``) does, which holds for every tree
+    that does not name its transpose convs itself (``WaveDecoder``'s
+    ``conv_i`` and ``out`` do)."""
+    if model is None:
+        return lambda module: bool(module) and module[-1].startswith("ConvTranspose")
+
+    def from_model(module: tuple[str, ...]) -> bool:
+        try:
+            layer = model.get_submodule(".".join(module))
+        except AttributeError as e:
+            raise ValueError(f"no port module at {'/'.join(module)}") from e
+        return isinstance(layer, (torch.nn.ConvTranspose1d, torch.nn.ConvTranspose2d))
+
+    return from_model
+
+
+def _param_to_torch(path: tuple[str, ...], leaf: np.ndarray, is_transpose) -> tuple[str, np.ndarray]:
     module, name = path[:-1], path[-1]
-    owner = module[-1] if module else ""
     prefix = ".".join(module) + "." if module else ""
     if name == "kernel":
-        if leaf.ndim == 4 and owner.startswith("ConvTranspose"):
+        if leaf.ndim == 4 and is_transpose(module):
             return prefix + "weight", leaf[::-1, ::-1].transpose(2, 3, 0, 1)
         if leaf.ndim == 4:
             return prefix + "weight", leaf.transpose(3, 2, 0, 1)
-        if leaf.ndim == 3 and owner.startswith("ConvTranspose"):
+        if leaf.ndim == 3 and is_transpose(module):
             return prefix + "weight", leaf[::-1].transpose(1, 2, 0)
         if leaf.ndim == 3:
             return prefix + "weight", leaf.transpose(2, 1, 0)
@@ -78,11 +102,17 @@ def _param_to_torch(path: tuple[str, ...], leaf: np.ndarray) -> tuple[str, np.nd
     raise ValueError(f"no port counterpart for flax leaf {'/'.join(path)}")
 
 
-def flax_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """flax variables (numpy leaves) -> the port's ``state_dict``."""
+def flax_to_state_dict(
+    variables: Mapping[str, Any], model: torch.nn.Module | None = None
+) -> dict[str, torch.Tensor]:
+    """flax variables (numpy leaves) -> the port's ``state_dict``. With the
+    target ``model``, its layer types decide which kernels are transpose
+    convolutions (as in ``module_to_flax``); without one, flax's
+    auto-names do (see ``_transpose_rule``)."""
+    is_transpose = _transpose_rule(model)
     sd: dict[str, torch.Tensor] = {}
     for path, leaf in _walk(variables["params"]):
-        key, value = _param_to_torch(path, np.asarray(leaf))
+        key, value = _param_to_torch(path, np.asarray(leaf), is_transpose)
         sd[key] = torch.from_numpy(np.array(value, order="C"))
     for path, leaf in _walk(variables.get("batch_stats", {})):
         module = ".".join(path[:-1])
@@ -208,13 +238,20 @@ def unravel_flax(flat: np.ndarray, template: Mapping[str, Any]) -> dict[str, Any
 
 
 def flax_flat_to_port(
-    flat: np.ndarray, params_template: Mapping[str, Any], names: list[str]
+    flat: np.ndarray, params_template: Mapping[str, Any], names: list[str],
+    model: torch.nn.Module | None = None,
 ) -> torch.Tensor:
     """A JAX ``ravel_pytree``-order vector over ``params_template`` (the
-    flax params tree) -> the port's flat order for parameters ``names``
-    (``FlatParams.names``), float32."""
-    sd = flax_to_state_dict({"params": unravel_flax(flat, params_template)})
-    return torch.cat([sd[name].reshape(-1) for name in names])
+    flax params tree) -> the port's flat layout for parameters ``names``
+    (``FlatParams.names``: their order, each at its aligned offset, zeros
+    between), float32. ``model`` lays out the kernels as in
+    ``flax_to_state_dict``."""
+    sd = flax_to_state_dict({"params": unravel_flax(flat, params_template)}, model)
+    offsets, n = flat_offsets([tuple(sd[name].shape) for name in names])
+    out = torch.zeros(n, dtype=torch.float32)
+    for name, offset in zip(names, offsets):
+        out[offset : offset + sd[name].numel()] = sd[name].reshape(-1)
+    return out
 
 
 def port_flat_to_flax(vector: torch.Tensor, model: torch.nn.Module, flat_params) -> np.ndarray:

@@ -71,12 +71,25 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x32).to(self.compute_dtype)
         with torch.no_grad():
-            var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
+            # every axis but the channels': (B, H, W), or (B, T) in 1-D
+            dims = (0, *range(2, x32.dim()))
+            var, mean = torch.var_mean(x32, dim=dims, unbiased=False)
             keep = 1.0 - self.momentum
             self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
             self.running_var.copy_(keep * self.running_var + self.momentum * var)
         y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return y.to(self.compute_dtype)
+
+
+class BatchNorm1d(BatchNorm):
+    """``BatchNorm`` over (B, C, T): flax's ``nn.BatchNorm`` on the JAX
+    package's (B, T, C), its statistics over (B, T). A subclass, so every
+    BatchNorm rule (the bridge, ``batch_stats_discarded``, checkpoints)
+    covers it."""
+
+    def _check_input_dim(self, x: torch.Tensor) -> None:
+        if x.dim() != 3:
+            raise ValueError(f"expected a (B, C, T) input, got {x.dim()}-D")
 
 
 class GroupNorm(nn.GroupNorm):
@@ -165,6 +178,13 @@ def conv_up(in_dim: int, dim: int, dtype: torch.dtype = torch.float32) -> ConvTr
     with a spatially flipped kernel whose in/out axes are swapped;
     ``convert.py`` applies that mapping."""
     return ConvTranspose2d(in_dim, dim, 4, stride=2, padding=1, dtype=dtype)
+
+
+def conv1d_down(in_dim: int, dim: int) -> nn.Conv1d:
+    """Stride-2 width-4 downsampling conv over (B, C, T), output T/2: the
+    JAX package's 1-D ``Conv(dim, (4,), strides=(2,), padding=((1, 1),))``,
+    whose ``_s2d_conv`` lowering computes the same function."""
+    return nn.Conv1d(in_dim, dim, 4, stride=2, padding=1)
 
 
 class ConvTranspose1dSame(nn.ConvTranspose1d):

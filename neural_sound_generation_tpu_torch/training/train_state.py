@@ -12,7 +12,12 @@ parameter's ``.grad`` is a view into it, zeroed in place every step, never
 set to ``None``, which would break the views). The fused kernel then
 updates the model in place. The flat order is the module's
 ``named_parameters()`` order, not JAX's sorted-key order; ``convert.py``
-maps one onto the other by name.
+maps one onto the other by name. Each parameter's view starts on a 16-byte
+boundary (``flat_offsets``), the gaps held at zero: cuDNN's training-mode
+batch norm on channels-last input (what a model's first convolution gives
+its permuted one-channel NHWC input) faults (CUDNN_STATUS_EXECUTION_FAILED)
+on a scale 4 bytes off one, which a (1,) bias ahead of it in the buffer
+leaves it (``scripts/torch_flat_alignment_check.py``).
 
 The per-leaf optax path (``fused=False``) exists in the JAX package for
 tensor parallelism only and comes with the parallel slice.
@@ -32,6 +37,20 @@ from neural_sound_generation_tpu_torch.config import TrainConfig
 from neural_sound_generation_tpu_torch.ops.cuda.fused_adam import fused_adam_update
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
+
+#: parameter views start at multiples of this many float32 elements (16 bytes)
+ALIGN = 4
+
+
+def flat_offsets(shapes) -> tuple[list[int], int]:
+    """Where each parameter of ``shapes`` starts in the flat buffer (a
+    multiple of ALIGN), and the buffer's length."""
+    offsets, n = [], 0
+    for shape in shapes:
+        n = -(-n // ALIGN) * ALIGN
+        offsets.append(n)
+        n += math.prod(shape)
+    return offsets, n
 
 
 def make_lr_schedule(cfg: TrainConfig) -> Schedule:
@@ -86,7 +105,9 @@ class FlatParams:
     """Every parameter of ``module`` as a view into one float32 buffer.
 
     ``flat`` holds the values and ``grad`` the gradients in the same
-    layout; each parameter's ``.data`` and ``.grad`` are views into them.
+    layout; each parameter's ``.data`` and ``.grad`` are views into them,
+    each starting on a 16-byte boundary (``flat_offsets``); the gaps stay
+    zero in every flat vector, so the optimizer leaves them zero.
     Build it after the module is on its device: ``module.to()`` would
     replace the views with copies. ``load_state_dict`` copies in place and
     keeps them."""
@@ -98,12 +119,8 @@ class FlatParams:
         device = named[0][1].device
         self.names = [name for name, _ in named]
         self.shapes = [tuple(p.shape) for _, p in named]
-        self.offsets = []
-        n = 0
-        for _, p in named:
-            self.offsets.append(n)
-            n += p.numel()
-        self.flat = torch.empty(n, dtype=torch.float32, device=device)
+        self.offsets, n = flat_offsets(self.shapes)
+        self.flat = torch.zeros(n, dtype=torch.float32, device=device)
         self.grad = torch.zeros(n, dtype=torch.float32, device=device)
         self._params = [p for _, p in named]
         with torch.no_grad():

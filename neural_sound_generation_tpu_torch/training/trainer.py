@@ -1,16 +1,21 @@
-"""Training step and epoch driver for the mel VQ-VAE and the prior.
+"""Training steps and the epoch loop of the autoencoders and the prior.
 
 Counterpart of ``neural_sound_generation_tpu/training/trainer.py`` for the
-flat ``VQVAE`` and the ``TransformerPrior`` on one device. The JAX package
+``VQVAE``, ``HierVQVAE``, ``WaveVQVAE``, ``VAE`` and ``TransformerPrior`` on
+one device. The JAX package
 returns a new state from a jitted pure step; here the step updates the
 state in place (the model's parameters are views of the flat buffer the
 fused kernel writes) and returns the same object, so the call sites read
 alike. Metrics stay device tensors until the caller asks for them.
 
-A VQ-VAE train step runs the nearest-code kernel once per VQ stage (the
-forward), as often again under ``ema_codebook``, and the fused-Adam kernel
-once; each eval batch runs the nearest-code kernel twice per stage (the
-forward and ``encode``). Under a bf16 compute dtype (``--bf16``) the model's
+A VQ-VAE or WaveVQVAE train step runs the nearest-code kernel once per VQ
+stage (the forward), as often again under ``ema_codebook``, and the
+fused-Adam kernel once; each eval batch runs the nearest-code kernel twice
+per stage (the forward and ``encode``). A HierVQVAE step runs the search
+twice (top, then bottom) and an eval batch four times; its two codebooks
+always learn by gradient. A VAE step draws its noise from the step's
+generator and runs the fused-Adam kernel alone. Under a bf16 compute dtype
+(``--bf16``) the model's
 convolutions run in bf16 while the VQ, the loss, the gradients in the flat
 float32 buffer and the fused update stay float32. A prior train step
 (batches ``{"codes", "labels"}``) runs the flash-attention forward and both
@@ -28,7 +33,13 @@ import torch
 
 from neural_sound_generation_tpu_torch.config import Config
 from neural_sound_generation_tpu_torch.data.pipeline import device_prefetch
-from neural_sound_generation_tpu_torch.models import VQVAE, TransformerPrior
+from neural_sound_generation_tpu_torch.models import (
+    VAE,
+    VQVAE,
+    HierVQVAE,
+    TransformerPrior,
+    WaveVQVAE,
+)
 from neural_sound_generation_tpu_torch.ops.vq import (
     codebook_ema_update,
     residual_codebook_ema_update,
@@ -38,6 +49,9 @@ from neural_sound_generation_tpu_torch.ops.vq import (
 )
 from neural_sound_generation_tpu_torch.training.losses import (
     codebook_perplexity,
+    elbo_mse,
+    hier_vqvae_loss,
+    masked_cross_entropy,
     prior_nll,
     vqvae_loss,
 )
@@ -47,34 +61,72 @@ from neural_sound_generation_tpu_torch.training.train_state import (
 )
 
 Batch = Dict[str, torch.Tensor]
+FAMILIES = (VQVAE, HierVQVAE, WaveVQVAE, VAE, TransformerPrior)
 
 
-def _check_model(model) -> None:
-    if not isinstance(model, (VQVAE, TransformerPrior)):
-        raise NotImplementedError(
-            f"{type(model).__name__}: the port trains the flat mel VQVAE and the "
-            f"TransformerPrior; the other families come with later slices"
-        )
+def _wave_recon_loss(model: WaveVQVAE, out: torch.Tensor, batch: Batch) -> torch.Tensor:
+    """MSE for scalar input; masked cross entropy over ``input_lengths``
+    for mulaw-quantize (the softmax-output convention)."""
+    if model.categorical:
+        return masked_cross_entropy(out, batch["x"], batch.get("input_lengths"))
+    return torch.mean((out - batch["x"]) ** 2)
 
 
 def _loss_fn(model, cfg: Config) -> Callable:
-    """Per-family loss closure: ``batch -> (total, metrics, z_e or None)``."""
+    """Per-family loss closure: ``(batch, generator) -> (total, metrics,
+    z_e or None)``; ``z_e`` feeds the EMA-codebook branch."""
+    beta = cfg.model.beta
     if isinstance(model, TransformerPrior):
-        def prior_loss(batch: Batch):
+        def prior_loss(batch: Batch, generator):
             codes = batch["codes"]
             total, metrics = prior_nll(model(codes, batch["labels"]), codes)
             return total, metrics, None
 
         return prior_loss
-    beta = cfg.model.beta
+    if isinstance(model, WaveVQVAE):
+        def wave_loss(batch: Batch, generator):
+            out, z_e, z_q = model(batch["x"], g=batch.get("g"))
+            loss_recons = _wave_recon_loss(model, out, batch)
+            loss_vq = torch.mean((z_q - z_e.detach()) ** 2)
+            loss_commit = torch.mean((z_e - z_q.detach()) ** 2)
+            total = loss_recons + loss_vq + beta * loss_commit
+            return total, {"loss": total, "loss_recons": loss_recons, "loss_vq": loss_vq,
+                           "loss_commit": loss_commit,
+                           "train_loss": loss_recons + loss_vq}, z_e
 
-    def vqvae_step_loss(batch: Batch):
-        x = batch["x"]
-        x_tilde, z_e, z_q = model(x, g=batch.get("g"))
-        total, metrics = vqvae_loss(x_tilde, x, z_e, z_q, beta)
-        return total, metrics, z_e
+        return wave_loss
+    if isinstance(model, HierVQVAE):
+        def hier_loss(batch: Batch, generator):
+            x = batch["x"]
+            x_tilde, top, bottom = model(x)
+            total, metrics = hier_vqvae_loss(x_tilde, x, (top, bottom), beta)
+            return total, metrics, None
 
-    return vqvae_step_loss
+        return hier_loss
+    if isinstance(model, VQVAE):
+        def vqvae_step_loss(batch: Batch, generator):
+            x = batch["x"]
+            x_tilde, z_e, z_q = model(x, g=batch.get("g"))
+            total, metrics = vqvae_loss(x_tilde, x, z_e, z_q, beta)
+            return total, metrics, z_e
+
+        return vqvae_step_loss
+    if isinstance(model, VAE):
+        def vae_loss(batch: Batch, generator):
+            x = batch["x"]
+            x_tilde, kl = model(x, generator=generator)
+            total = elbo_mse(x_tilde, x, kl)
+            return total, {"loss": total, "kl": kl}, None
+
+        return vae_loss
+    raise TypeError(f"unsupported model: {type(model).__name__}")
+
+
+def uses_ema_codebook(model, cfg: Config) -> bool:
+    """EMA codebooks serve the single- and residual-codebook families; the
+    hierarchy trains its two codebooks by gradient (the JAX
+    ``_uses_ema_codebook``)."""
+    return bool(cfg.model.ema_codebook) and isinstance(model, (VQVAE, WaveVQVAE))
 
 
 def make_train_step(model, cfg: Config) -> Callable:
@@ -86,15 +138,14 @@ def make_train_step(model, cfg: Config) -> Callable:
     codebook is overwritten after it (from the pre-update codebook and the
     step's encoder outputs), and ``grad_norm`` is the norm after the
     zeroing. ``generator`` draws the dead-code restarts (on the batch's
-    device)."""
-    _check_model(model)
+    device) and a VAE's noise."""
     loss_fn = _loss_fn(model, cfg)
-    ema_codebook = bool(cfg.model.ema_codebook) and isinstance(model, VQVAE)
+    ema_codebook = uses_ema_codebook(model, cfg)
 
     def train_step(state: TrainState, batch: Batch, generator: torch.Generator | None = None):
         model.train()
         state.flat.zero_grad()
-        total, metrics, z_e = loss_fn(batch)
+        total, metrics, z_e = loss_fn(batch, generator)
         total.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         with torch.no_grad():
@@ -187,27 +238,48 @@ def stack_batches(batches):
 def make_eval_step(model, cfg: Config) -> Callable:
     """Eval forward with running statistics: ``eval_step(state, batch) ->
     (reconstruction or prior logits, metrics)``, on the EMA shadow when the
-    state has one (``TrainState.eval_params``)."""
-    _check_model(model)
+    state has one (``TrainState.eval_params``). The JAX eval step's metrics
+    per family: the VQ families add the code perplexity (``perplexity_top``
+    too for the hierarchy), the VAE's noise is 0."""
+    if not isinstance(model, FAMILIES):
+        raise TypeError(f"unsupported model: {type(model).__name__}")
     beta = cfg.model.beta
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
         model.eval()
+        with state.flat.swapped(state.eval_params()):
+            return _eval_forward(batch)
+
+    def _eval_forward(batch: Batch):
         if isinstance(model, TransformerPrior):
-            with state.flat.swapped(state.eval_params()):
-                logits = model(batch["codes"], batch["labels"])
+            logits = model(batch["codes"], batch["labels"])
             _, metrics = prior_nll(logits, batch["codes"])
             return logits, metrics
         x = batch["x"]
-        with state.flat.swapped(state.eval_params()):
+        if isinstance(model, WaveVQVAE):
+            out, z_e, z_q = model(x, g=batch.get("g"))
+            loss_recons = _wave_recon_loss(model, out, batch)
+            metrics = {"loss": loss_recons + torch.mean((z_q - z_e) ** 2),
+                       "loss_recons": loss_recons,
+                       "perplexity": codebook_perplexity(model.encode(x), model.z_dim)}
+            return out, metrics
+        if isinstance(model, HierVQVAE):
+            x_tilde, top, bottom = model(x)
+            _, metrics = hier_vqvae_loss(x_tilde, x, (top, bottom), beta)
+            idx_t, idx_b = model.encode(x)
+            metrics["perplexity_top"] = codebook_perplexity(idx_t, model.k_top)
+            metrics["perplexity"] = codebook_perplexity(idx_b, model.z_dim)
+            return x_tilde, metrics
+        if isinstance(model, VQVAE):
             x_tilde, z_e, z_q = model(x, g=batch.get("g"))
             _, metrics = vqvae_loss(x_tilde, x, z_e, z_q, beta)
-            indices = model.encode(x)
-        # residual VQ: the (Q, ...) indices pool usage over the stages, as
-        # the JAX eval step's codebook_perplexity does
-        metrics["perplexity"] = codebook_perplexity(indices, model.z_dim)
-        return x_tilde, metrics
+            # residual VQ: the (Q, ...) indices pool usage over the stages,
+            # as the JAX eval step's codebook_perplexity does
+            metrics["perplexity"] = codebook_perplexity(model.encode(x), model.z_dim)
+            return x_tilde, metrics
+        x_tilde, kl = model(x)
+        return x_tilde, {"loss": elbo_mse(x_tilde, x, kl), "kl": kl}
 
     return eval_step
 

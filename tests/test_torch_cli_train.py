@@ -144,10 +144,6 @@ def test_serve_ema_refuses_a_checkpoint_without_a_shadow(trained, tmp_path):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--model", "vae"], "other-autoencoders"),
-    (["--model", "hiervqvae"], "other-autoencoders"),
-    (["--model", "wavevqvae"], "other-autoencoders"),
-    (["--model", "vqvae", "--dataset", "MNIST"], "other-autoencoders"),
     (["--model", "vqvae", "--dataset", "ljspeech", "--mesh-data", "2"], "parallel"),
     (["--model", "vqvae", "--dataset", "ljspeech", "--mesh-model", "2"], "parallel"),
 ])
