@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port's serving, training (single-codebook float32 and
 residual-VQ bf16), prior, vocoder, 3x3-convolution A/B, corpus
-preprocessing, mel-inversion and other-autoencoder (HierVQVAE, WaveVQVAE,
-VAE) paths on one CUDA card and checks them.
+preprocessing, mel-inversion, other-autoencoder (HierVQVAE, WaveVQVAE,
+VAE), PixelCNN-prior and hierarchical-chain paths on one CUDA card and
+checks them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
@@ -18,7 +19,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    that must return the same indices bit for bit; four edge shapes held
    untimed, and a tie case), the
    fused Adam update at the flagship's parameter count in three
-   configurations over three chained steps, and the causal-attention
+   configurations over three chained steps (and at the default PixelCNN's
+   count in the first), and the causal-attention
    forward, dQ and dK/dV kernels at the prior's grids (T = 140, 560 in f32
    and bf16, 2240, a ragged T = 37, D = 128, and the contract's ends T = 1
    and bf16 D = 20), each run twice to show the backward is bit-identical
@@ -130,7 +132,26 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
     the nearest-code kernel against its plain version at the new shapes
     (1920, 7680 and 7168 rows of the trained models' z_e against 512
     codes of 256), timed device-only beside cdist+argmin;
-12. summary: one JSON line per kernel, then the result line.
+12. priors: the GatedPixelCNN at the CLI's defaults (dim 64, 15 layers, a
+    512-wide head over 512 codes) through ``cli.prior train`` on phase 5's
+    VQ-VAE and corpus (batch 32 of 20 x 7 grids, three epochs, then
+    --resume), each run's launch counts (nearest-code: encoded batches,
+    fused Adam: steps, attention: none), the NLL falling, one step card vs
+    CPU, steps/s, the row-cached logits against the forward and the fast
+    sampler against the naive one on the same noise, the sampler's
+    launches per code, ``cli.prior sample`` and /sample at n = 1 and 4
+    from ``serve --prior-ckpt``; then the hierarchical chain on phase 11's
+    HierVQVAE: ``cli.prior train --hier`` for the transformer top prior
+    (phase 7's width, 10 x 3 grids) and the PixelCNN bottom prior (20 x 6
+    grids conditioned on 256-channel maps), their launch counts (2
+    nearest-code searches per encoded batch; attention layers x steps for
+    the top), the distinct top and bottom codes the priors trained on, one
+    bottom step card vs CPU, one step of a spatially conditioned
+    transformer bottom card vs CPU, steps/s, ``cli.prior sample --hier``
+    and ``serve --model hiervqvae`` /sample at n = 1 and 4 (10 x 10 top, 20 x
+    20 bottom); then one train step of each family timed at the 40 x 56
+    bottom grid;
+13. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -1530,8 +1551,6 @@ def prior_phase(torch, cli_prior, serve, checkpoint, counters, root: str, vq_ckp
     from neural_sound_generation_tpu_torch.config import Config
     from neural_sound_generation_tpu_torch.data.pipeline import get_audio_data_loaders
     from neural_sound_generation_tpu_torch.models.transformer_prior import incremental_logits
-    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
-    from neural_sound_generation_tpu_torch.training.trainer import make_train_step
 
     ckpt = os.path.join(root, "prior", "models")
     widths = ["--arch", "transformer", "--prior-dim", str(PRIOR_DIM),
@@ -1577,46 +1596,12 @@ def prior_phase(torch, cli_prior, serve, checkpoint, counters, root: str, vq_ckp
 
     # one train step on the card against the same step on the CPU, from the
     # resumed run's full state (warm moments) on the same codes
-    pcfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, initial_learning_rate=3e-4, batch_size=PRIOR_BATCH))
-    states, metrics = {}, {}
-    for device in (DEVICE, "cpu"):
-        model = spec.build().to(device)
-        state = create_train_state(model, pcfg.train)
-        checkpoint.restore(ckpt + "_train", state)
-        _, m = make_train_step(model, pcfg)(
-            state, {"codes": codes.to(device), "labels": labels.to(device)})
-        states[device], metrics[device] = state, {k: float(v) for k, v in m.items()}
-    rel = {k: abs(metrics[DEVICE][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
-           for k in metrics["cpu"]}
-    diff = (states[DEVICE].flat.flat.cpu() - states["cpu"].flat.flat).abs()
-    compare = {"metrics_rel_err": rel, "params_max_abs_err": float(diff.max()),
-               "params_beyond_1e-6_frac": float((diff > 1e-6).float().mean()),
-               "grad_norm": metrics[DEVICE]["grad_norm"]}
-    emit({"phase": "prior_card_vs_cpu_step", **compare})
-    # TF32 is off: only the order of f32 sums differs (LayerNorm, matrix
-    # products, the kernels' online softmax). The NLL within 1e-5 relative,
-    # grad_norm within 1e-4; each parameter moves by about lr = 3e-4 per
-    # step, so the updated parameters agree to a small part of that
-    check(rel["loss"] <= 1e-5, f"prior card vs CPU: NLL differs by {rel['loss']:.3g}")
-    check(rel["grad_norm"] <= 1e-4,
-          f"prior card vs CPU: grad_norm differs by {rel['grad_norm']:.3g}")
-    check(float(diff.max()) <= 1e-4, f"prior card vs CPU: parameters differ by {float(diff.max())}")
-
-    # train steps/s with a device-resident batch
-    state = states[DEVICE]
-    step = make_train_step(state.model, pcfg)
+    pcfg = prior_cfg(cfg)
     batch = {"codes": codes, "labels": labels}
-    for _ in range(5):
-        step(state, batch)
-    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(PRIOR_TIMED_STEPS):
-        step(state, batch)
-    sync()
-    step_s = (time.perf_counter() - t0) / PRIOR_TIMED_STEPS
-    del states, state, step
+    compare, state = prior_step_card_vs_cpu(torch, checkpoint, spec, ckpt + "_train", pcfg,
+                                            batch, "prior")
+    step_s = prior_step_seconds(torch, state, pcfg, batch, PRIOR_TIMED_STEPS)
+    del state
 
     # the KV-cached decode against the kernel's forward, on the trained prior
     prior = cli_prior.load_prior(ckpt, spec, DEVICE)
@@ -1626,8 +1611,14 @@ def prior_phase(torch, cli_prior, serve, checkpoint, counters, root: str, vq_ckp
     inc_err = float((cached - forward).abs().max())
     check(inc_err <= 1e-4, f"incremental_logits differ from the forward by {inc_err}")
 
-    sampled = sample_cli(cli_prior, vq_ckpt, ckpt, widths, root)
-    served = serve_samples(torch, serve, vq_ckpt, ckpt, counters)
+    sampled = run_sample_cli(cli_prior, ["sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt",
+                                         ckpt + "_ema", *widths],
+                             os.path.join(root, "prior", "samples"), "prior_sample", 4 * 28)
+    served = serve_sample_requests(torch, serve, [
+        "--device", DEVICE, "--ckpt-dir", vq_ckpt, "--dim", str(TRAIN_DIM),
+        "--z-dim", str(TRAIN_CODES), "--prior-ckpt", ckpt, "--prior-arch", "transformer",
+        "--prior-dim", str(PRIOR_DIM), "--prior-layers", str(PRIOR_LAYERS),
+        "--prior-heads", str(PRIOR_HEADS)], counters, SAMPLE_REPEATS)
     return {
         "phase": "prior", "prior_dim": PRIOR_DIM, "prior_layers": PRIOR_LAYERS,
         "prior_heads": PRIOR_HEADS, "codes": TRAIN_CODES, "batch": PRIOR_BATCH,
@@ -1641,36 +1632,91 @@ def prior_phase(torch, cli_prior, serve, checkpoint, counters, root: str, vq_ckp
     }
 
 
-def sample_cli(cli_prior, vq_ckpt: str, ckpt: str, widths: list, root: str) -> dict:
-    """``cli.prior sample`` from the EMA artifact at the default 20 x 28
-    grid writes finite WAVs of the decoded length."""
-    out = os.path.join(root, "prior", "samples")
-    n, (h, w) = 4, (20, 28)
+def prior_cfg(cfg):
+    """The prior runs' train config: the CLI's lr and batch."""
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, initial_learning_rate=3e-4, batch_size=PRIOR_BATCH))
+
+
+def prior_step_card_vs_cpu(torch, checkpoint, spec, train_dir: str, pcfg, batch: dict,
+                           what: str, step: int | None = None) -> tuple[dict, object]:
+    """One prior train step on the card and the same step on the CPU from
+    the full state in ``train_dir`` (warm moments; its ``step``, else the
+    latest) on the same ``batch``; emits and checks the comparison, returns
+    it and the card's state.
+
+    TF32 is off: only the order of f32 sums differs (LayerNorm, matrix
+    products, convolutions, the kernels' online softmax). The NLL within
+    1e-5 relative, grad_norm within 1e-4; each parameter moves by about
+    lr = 3e-4 per step, so the updated parameters agree to a small part of
+    that (1e-4)."""
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+    from neural_sound_generation_tpu_torch.training.trainer import make_train_step
+
+    states, metrics = {}, {}
+    for device in (DEVICE, "cpu"):
+        model = spec.build().to(device)
+        state = create_train_state(model, pcfg.train)
+        checkpoint.restore(train_dir, state, step)
+        _, m = make_train_step(model, pcfg)(state, {k: v.to(device) for k, v in batch.items()})
+        states[device], metrics[device] = state, {k: float(v) for k, v in m.items()}
+    rel = {k: abs(metrics[DEVICE][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
+           for k in metrics["cpu"]}
+    diff = (states[DEVICE].flat.flat.cpu() - states["cpu"].flat.flat).abs()
+    compare = {"metrics_rel_err": rel, "params_max_abs_err": float(diff.max()),
+               "params_beyond_1e-6_frac": float((diff > 1e-6).float().mean()),
+               "grad_norm": metrics[DEVICE]["grad_norm"], "nll": metrics[DEVICE]["loss"],
+               "from_step": checkpoint.latest_step(train_dir) if step is None else step}
+    emit({"phase": f"{what}_card_vs_cpu_step", **compare})
+    check(rel["loss"] <= 1e-5, f"{what} card vs CPU: NLL differs by {rel['loss']:.3g}")
+    check(rel["grad_norm"] <= 1e-4,
+          f"{what} card vs CPU: grad_norm differs by {rel['grad_norm']:.3g}")
+    check(float(diff.max()) <= 1e-4,
+          f"{what} card vs CPU: parameters differ by {float(diff.max())}")
+    return compare, states[DEVICE]
+
+
+def prior_step_seconds(torch, state, pcfg, batch: dict, steps: int) -> float:
+    """Seconds per train step with a device-resident batch, after 5 warm-up
+    steps; the state's model trains on."""
+    from neural_sound_generation_tpu_torch.training.trainer import make_train_step
+
+    step = make_train_step(state.model, pcfg)
+    for _ in range(5):
+        step(state, batch)
+    sync(torch)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(state, batch)
+    sync(torch)
+    return (time.perf_counter() - t0) / steps
+
+
+def run_sample_cli(cli_prior, argv: list, out: str, stem: str, frames: int, n: int = 4) -> dict:
+    """``cli.prior sample`` (``argv`` plus the output directory and n)
+    writes n finite WAVs of the decoded length (``frames`` mel frames, one
+    hop fewer samples); the CLI's default --code-shape is 20 x 28."""
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
-        cli_prior.main(["sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt", ckpt + "_ema",
-                        "--output-dir", out, "--num-samples", str(n), *widths])
+        cli_prior.main(argv + ["--output-dir", out, "--num-samples", str(n)])
     seconds = time.perf_counter() - t0
     names = sorted(os.listdir(out))
-    check(names == [f"prior_sample_{i:03d}.wav" for i in range(n)], f"sample wrote {names}")
+    check(names == [f"{stem}_{i:03d}.wav" for i in range(n)], f"sample wrote {names}")
     sr, hop = 22050, 256
     for name in names:
         with open(os.path.join(out, name), "rb") as f:
             wav = read_wav(f.read(), sr)
-        check(len(wav) == hop * (4 * w - 1), f"{name}: {len(wav)} samples")
-    return {"num_samples": n, "code_grid": [h, w], "seconds": seconds}
+        check(len(wav) == hop * (frames - 1), f"{name}: {len(wav)} samples")
+    return {"num_samples": n, "mel_frames": frames, "seconds": seconds}
 
 
-def serve_samples(torch, serve, vq_ckpt: str, ckpt: str, counters) -> dict:
-    """``serve --prior-ckpt`` answers /sample at n = 1 and n = 4 with
-    finite audio of the decoded length; p50 over SAMPLE_REPEATS requests
-    after a warm-up."""
-    service = serve.build_service(serve.parse_args([
-        "--device", DEVICE, "--ckpt-dir", vq_ckpt, "--dim", str(TRAIN_DIM),
-        "--z-dim", str(TRAIN_CODES), "--prior-ckpt", ckpt, "--prior-arch", "transformer",
-        "--prior-dim", str(PRIOR_DIM), "--prior-layers", str(PRIOR_LAYERS),
-        "--prior-heads", str(PRIOR_HEADS)]))
-    sr, hop, frames = service.cfg.audio.sample_rate, service.cfg.audio.effective_hop_size, 84
+def serve_sample_requests(torch, serve, argv: list, counters, repeats: int) -> dict:
+    """The server of ``argv`` answers /sample at n = 1 and n = 4 with
+    finite audio of the decoded length; p50 over ``repeats`` requests after
+    a warm-up, launch counts over the requests."""
+    service = serve.build_service(serve.parse_args(argv))
+    sr, hop = service.cfg.audio.sample_rate, service.cfg.audio.effective_hop_size
+    frames = service.frames
     httpd = serve.ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
@@ -1680,7 +1726,7 @@ def serve_samples(torch, serve, vq_ckpt: str, ckpt: str, counters) -> dict:
         k.reset_launch_count()
     try:
         for n in (1, 4):
-            for i in range(1 + SAMPLE_REPEATS):
+            for i in range(1 + repeats):
                 status, body, dt = request(url, json.dumps({"n": n, "label": 1, "seed": i}).encode())
                 check(status == 200, f"/sample n={n}: {status} {body[:200]!r}")
                 wav = read_wav(body, sr)
@@ -1697,7 +1743,8 @@ def serve_samples(torch, serve, vq_ckpt: str, ckpt: str, counters) -> dict:
         mels, gen = service._sample_mels({"n": 4, "label": 1, "seed": 0})
         wav = dsp.inv_mel_spectrogram_batch(mels, service.cfg.audio, gen)
     check(bool(torch.isfinite(wav).all()), "non-finite /sample waveform")
-    return {"code_grid": [service.cfg.audio.num_mels // 4, frames // 4],
+    stride = 2 * service.STRIDE if service.hier else service.STRIDE
+    return {"code_grid": [service.cfg.audio.num_mels // stride, frames // stride],
             "launches_over_requests": launches,
             "latency_ms": {f"n={n}": {"n": len(v), "p50": float(np.percentile(v, 50)),
                                       "max": float(max(v))} for n, v in lat.items()}}
@@ -3111,6 +3158,398 @@ def other_autoencoders_phase(torch, cli_main, cli_evaluate, serve, checkpoint, d
             "vq_rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the priors, the PixelCNN and the hierarchical chain
+# ---------------------------------------------------------------------------
+
+# the PixelCNN at the CLI's defaults (--prior-dim 64 --prior-layers 15, a
+# 512-wide head over 512 codes); the hierarchy's top prior at phase 7's
+# transformer width. Both cut in depth (steps, timed requests) only
+PIXELCNN_DIM, PIXELCNN_LAYERS = 64, 15
+HIER_PRIOR_EPOCHS = 2
+PRIORS_TIMED_STEPS = 20
+PRIORS_SAMPLE_REPEATS = 3  # timed /sample requests per n (the sampler is launch-bound)
+NAIVE_CHECK = (2, 20, 7)  # batch and grid of the fast-vs-naive sampler check
+SAMPLER_TIE_GAP = 1e-5
+LAUNCH_COUNT_GRID = (2, 21)  # rows x columns the launches per code are counted over
+# the hierarchy's bottom grid at the JAX CLI's default --code-shape 20 28
+# (long_t_warning's case): one train step of each family timed there
+LONG_GRID, LONG_GRID_BATCH, LONG_GRID_STEPS = (40, 56), 32, 10
+
+
+def zero_launches(counters) -> dict:
+    return dict.fromkeys(read_launches(*counters), 0)
+
+
+def check_prior_run(run: dict, what: str, epochs: int, want: dict) -> None:
+    check(run["launches"] == want, f"{what}: launches {run['launches']}, expected {want}")
+    check(len(run["epoch_nll"]) == epochs and all(np.isfinite(run["epoch_nll"])),
+          f"{what}: epoch NLLs {run['epoch_nll']}")
+
+
+def pixelcnn_sampler_checks(torch, prior, codes, labels) -> dict:
+    """On the card: the row-cached logits against the parallel forward
+    (1e-4), and the fast sampler against the naive one on the same noise:
+    equal codes, except where the naive draw's Gumbel-max gap is below
+    SAMPLER_TIE_GAP (its first difference in a sample; later pixels are
+    conditioned on it)."""
+    from neural_sound_generation_tpu_torch.models import pixelcnn
+    from neural_sound_generation_tpu_torch.models.transformer_prior import gumbel_noise
+
+    with torch.no_grad():
+        forward = prior(codes[:4], labels[:4])
+    inc = pixelcnn.incremental_logits(prior, codes[:4], labels[:4])
+    inc_err = float((inc - forward).abs().max())
+    check(inc_err <= 1e-4, f"pixelcnn incremental_logits differ from the forward by {inc_err}")
+    b, h, w = NAIVE_CHECK
+    noise = gumbel_noise((h * w, b, prior.input_dim),
+                         torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    lab = labels[:b]
+    t0 = time.perf_counter()
+    fast = pixelcnn.fast_generate(prior, lab, shape=(h, w), batch_size=b, gumbel=noise)
+    sync(torch)
+    fast_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    naive = pixelcnn.generate(prior, lab, shape=(h, w), batch_size=b, gumbel=noise)
+    sync(torch)
+    naive_s = time.perf_counter() - t0
+    with torch.no_grad():
+        naive_logits = prior(naive, lab)
+    gaps = []
+    for bi in range(b):
+        diff = (fast[bi] != naive[bi]).nonzero()
+        if len(diff):
+            i, j = (int(v) for v in diff[0])
+            top2 = torch.topk(naive_logits[bi, i, j] + noise[i * w + j, bi], 2).values
+            gaps.append(float(top2[0] - top2[1]))
+            check(gaps[-1] < SAMPLER_TIE_GAP,
+                  f"fast vs naive sampler: sample {bi} differs at ({i}, {j}) with gap {gaps[-1]}")
+    return {"incremental_vs_forward_max_abs_err": inc_err, "naive_check": list(NAIVE_CHECK),
+            "fast_vs_naive_codes_equal": bool(torch.equal(fast, naive)),
+            "fast_vs_naive_gaps": gaps, "fast_s": fast_s, "naive_s": naive_s,
+            "launches_per_code": sampler_launches(torch, prior, lab[:1])}
+
+
+def sampler_launches(torch, prior, labels) -> dict:
+    """What one fast_generate call over LAUNCH_COUNT_GRID launches per grid
+    position: the ATen operators dispatched (a dispatch mode counts them;
+    each launches at most one kernel) and the CUDA kernels the profiler
+    records (None where it records none)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from neural_sound_generation_tpu_torch.models import pixelcnn
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    h, w = LAUNCH_COUNT_GRID
+    run = lambda: pixelcnn.fast_generate(prior, labels, torch.Generator(device=DEVICE),  # noqa: E731
+                                         shape=(h, w), batch_size=1)
+    run()
+    with Count():
+        run()
+    kernels = None
+    try:
+        if DEVICE == "cuda":
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                sync(torch)
+            n = sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+            kernels = n / (h * w) if n else None
+    except (RuntimeError, AssertionError) as e:  # a record, not a check: it stays None
+        print(f"profiler: {e}", file=sys.stderr)
+    return {"grid": [h, w], "aten_ops_per_code": Count.n / (h * w),
+            "cuda_kernels_per_code": kernels}
+
+
+def encode_batch(torch, cli_prior, args, corpus: str, stride: int):
+    """The CLI's encoder over one training batch: (codes, cond or None,
+    the model, the loader)."""
+    from neural_sound_generation_tpu_torch.config import Config
+    from neural_sound_generation_tpu_torch.data.pipeline import get_audio_data_loaders
+
+    cfg = Config()
+    loader = get_audio_data_loaders(corpus, None, PRIOR_BATCH, cfg, latent_stride=stride)["train"]
+    model = cli_prior.load_vqvae(args, cfg, DEVICE)
+    encode = cli_prior.make_encoder(args, model)
+    codes, cond = encode(torch.from_numpy(next(iter(loader))["x"]).to(DEVICE))
+    return codes, cond, model, loader
+
+
+def pixelcnn_part(torch, cli_prior, serve, checkpoint, counters, root: str, vq_ckpt: str,
+                  corpus: str) -> dict:
+    """The flat PixelCNN at the CLI's defaults on phase 5's VQ-VAE and
+    corpus: ``cli.prior train`` for PRIOR_EPOCHS epochs and once more with
+    --resume, one step card vs CPU, steps/s, the sampler on the card,
+    ``cli.prior sample`` and ``serve --prior-ckpt`` /sample."""
+    from neural_sound_generation_tpu_torch.config import Config
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(root, "pixelcnn", "models")
+    widths = ["--dim", str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES), "--device", DEVICE]
+    train = ["train", "--datadir", corpus, "--vqvae-ckpt", vq_ckpt, "--ckpt-dir", ckpt,
+             "--batch-size", str(PRIOR_BATCH),
+             "--max-batches-per-epoch", str(PRIOR_BATCHES_PER_EPOCH), *widths]
+    runs = {"train": run_cli_prior(cli_prior, counters, train + ["--epochs", str(PRIOR_EPOCHS)])}
+    runs["resume"] = run_cli_prior(cli_prior, counters,
+                                   train + ["--epochs", str(PRIOR_EPOCHS + 1), "--resume"])
+    for tag, epochs in (("train", PRIOR_EPOCHS), ("resume", 1)):
+        steps = epochs * PRIOR_BATCHES_PER_EPOCH
+        runs[tag]["optimizer_steps"] = steps
+        # one nearest-code search per encoded batch, one update per step
+        check_prior_run(runs[tag], f"pixelcnn {tag}", epochs,
+                        {**zero_launches(counters), "vq_nearest": steps, "fused_adam": steps})
+    nll = runs["train"]["epoch_nll"]
+    check(nll[-1] < nll[0], f"pixelcnn: the NLL did not fall ({nll})")
+    spec = cli_prior.PriorSpec.create("pixelcnn", TRAIN_CODES, PIXELCNN_DIM, PIXELCNN_LAYERS,
+                                      None, 10)
+    extra = checkpoint.read_extra(ckpt)
+    check(extra == {"epoch": PRIOR_EPOCHS + 1, **spec.metadata()},
+          f"pixelcnn checkpoint metadata {extra}")
+
+    args = cli_prior.parse_args(train + ["--epochs", "1"])
+    codes, _, vqvae, _ = encode_batch(torch, cli_prior, args, corpus, 4)
+    del vqvae
+    labels = torch.zeros(codes.shape[0], dtype=torch.int32, device=DEVICE)
+    pcfg = prior_cfg(Config())
+    batch = {"codes": codes, "labels": labels}
+    # from the first epoch's state: the resumed run's prior predicts these
+    # regular chirp codes almost surely (an NLL of some 4e-6 nats on an
+    # H100), where a relative NLL says nothing about the arithmetic
+    compare, state = prior_step_card_vs_cpu(torch, checkpoint, spec, ckpt + "_train", pcfg,
+                                            batch, "pixelcnn", PRIOR_BATCHES_PER_EPOCH)
+    step_s = prior_step_seconds(torch, state, pcfg, batch, PRIORS_TIMED_STEPS)
+    del state
+    prior = cli_prior.load_prior(ckpt, spec, DEVICE)
+    sampler = pixelcnn_sampler_checks(torch, prior, codes, labels)
+    emit({"phase": "pixelcnn_sampler", **sampler})
+    sampled = run_sample_cli(cli_prior, ["sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt",
+                                         ckpt + "_ema", *widths],
+                             os.path.join(root, "pixelcnn", "samples"), "prior_sample", 4 * 28)
+    served = serve_sample_requests(torch, serve, [
+        "--device", DEVICE, "--ckpt-dir", vq_ckpt, "--dim", str(TRAIN_DIM),
+        "--z-dim", str(TRAIN_CODES), "--prior-ckpt", ckpt], counters, PRIORS_SAMPLE_REPEATS)
+    check(served["launches_over_requests"] == zero_launches(counters),
+          f"pixelcnn /sample launched {served['launches_over_requests']}")
+    return {"phase": "priors_pixelcnn", "prior_dim": PIXELCNN_DIM,
+            "prior_layers": PIXELCNN_LAYERS, "codes": TRAIN_CODES, "batch": PRIOR_BATCH,
+            "code_grid": list(codes.shape[1:]),
+            "parameters": sum(p.numel() for p in prior.parameters()), "runs": runs,
+            "card_vs_cpu_step": compare, "train_step_ms": 1e3 * step_s,
+            "train_steps_per_s": 1.0 / step_s, "timed_steps": PRIORS_TIMED_STEPS,
+            "sampler": sampler, "sample_cli": sampled, "serve_sample": served,
+            "seconds": time.perf_counter() - t0}
+
+
+def warm_state_dir(torch, checkpoint, spec, pcfg, batch: dict, out: str) -> str:
+    """A full train state of ``spec``'s model after 3 steps on the card on
+    ``batch`` (warm moments), saved under ``out``."""
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+    from neural_sound_generation_tpu_torch.training.trainer import make_train_step
+
+    state = create_train_state(spec.build().to(DEVICE), pcfg.train)
+    step = make_train_step(state.model, pcfg)
+    for _ in range(3):
+        step(state, batch)
+    checkpoint.save(out, state, int(state.step), spec.metadata())
+    return out
+
+
+def hier_chain_part(torch, cli_prior, serve, checkpoint, counters, root: str,
+                    corpus: str) -> dict:
+    """The hierarchical chain on phase 11's HierVQVAE checkpoint: the
+    transformer top prior and the PixelCNN bottom prior through ``cli.prior
+    train --hier``, one bottom step card vs CPU, one step of a spatially
+    conditioned transformer bottom card vs CPU (built here: ``cond_proj``
+    beside kernel 4), steps/s, ``cli.prior sample --hier`` and ``serve
+    --model hiervqvae`` /sample."""
+    from neural_sound_generation_tpu_torch.config import Config
+    from neural_sound_generation_tpu_torch.inference import sample_hier_mels
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+
+    t0 = time.perf_counter()
+    vq = os.path.join(root, "hier", "models", "hiervqvae",
+                      f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")
+    check(os.path.isdir(vq), f"no HierVQVAE checkpoint at {vq}")
+    out = os.path.join(root, "hier_prior")
+    top_ckpt, bottom_ckpt = os.path.join(out, "top"), os.path.join(out, "bottom")
+    common = ["--dim", str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES), "--device", DEVICE]
+    top_w = ["--arch", "transformer", "--prior-dim", str(PRIOR_DIM),
+             "--prior-layers", str(PRIOR_LAYERS)]
+    base = ["train", "--datadir", corpus, "--vqvae-ckpt", vq, "--hier",
+            "--batch-size", str(PRIOR_BATCH), "--max-batches-per-epoch",
+            str(PRIOR_BATCHES_PER_EPOCH), "--epochs", str(HIER_PRIOR_EPOCHS), *common]
+    runs = {
+        "top": run_cli_prior(cli_prior, counters, base + [
+            "--hier-level", "top", "--ckpt-dir", top_ckpt, *top_w]),
+        "bottom": run_cli_prior(cli_prior, counters, base + [
+            "--hier-level", "bottom", "--ckpt-dir", bottom_ckpt, "--arch", "pixelcnn"]),
+    }
+    steps = HIER_PRIOR_EPOCHS * PRIOR_BATCHES_PER_EPOCH
+    # each encoded batch searches both levels (2); one update per step; the
+    # top transformer's attention kernels once per layer and step
+    base_want = {**zero_launches(counters), "vq_nearest": 2 * steps, "fused_adam": steps}
+    check_prior_run(runs["top"], "hier top prior", HIER_PRIOR_EPOCHS, {
+        **base_want, **{k: PRIOR_LAYERS * steps for k in ("flash_fwd", "flash_bwd_dq",
+                                                          "flash_bwd_dkdv")}})
+    check_prior_run(runs["bottom"], "hier bottom prior", HIER_PRIOR_EPOCHS, base_want)
+    for r in runs.values():
+        r["optimizer_steps"] = steps
+
+    # the codes the two priors trained on: one epoch's grids of each level
+    args = cli_prior.parse_args(base + ["--hier-level", "bottom"])
+    idx_b, cond, hier, loader = encode_batch(torch, cli_prior, args, corpus, 8)
+    loader.set_epoch(0)
+    top_codes, bottom_codes = set(), set()
+    with torch.no_grad():
+        for i, b in enumerate(loader):
+            if i >= PRIOR_BATCHES_PER_EPOCH:
+                break
+            t, bt = hier.encode(torch.from_numpy(b["x"]).to(DEVICE))
+            top_codes.update(t.unique().tolist())
+            bottom_codes.update(bt.unique().tolist())
+    distinct = {"top": len(top_codes), "bottom": len(bottom_codes)}
+    emit({"phase": "hier_encoded_codes", "distinct_codes": distinct,
+          "batches": PRIOR_BATCHES_PER_EPOCH})
+
+    labels = torch.zeros(idx_b.shape[0], dtype=torch.int32, device=DEVICE)
+    pcfg = prior_cfg(Config())
+    bottom_spec = cli_prior.PriorSpec.create("pixelcnn", TRAIN_CODES, PIXELCNN_DIM,
+                                             PIXELCNN_LAYERS, None, 10, cond_dim=TRAIN_DIM)
+    top_spec = cli_prior.PriorSpec.create("transformer", TRAIN_CODES, PRIOR_DIM, PRIOR_LAYERS,
+                                          None, 10)
+    check(checkpoint.read_extra(bottom_ckpt) == {"epoch": HIER_PRIOR_EPOCHS,
+                                                 **bottom_spec.metadata()},
+          f"hier bottom metadata {checkpoint.read_extra(bottom_ckpt)}")
+    bottom_batch = {"codes": idx_b, "labels": labels, "cond": cond}
+    compare_b, state = prior_step_card_vs_cpu(torch, checkpoint, bottom_spec,
+                                              bottom_ckpt + "_train", pcfg, bottom_batch,
+                                              "hier_bottom_pixelcnn", PRIOR_BATCHES_PER_EPOCH)
+    bottom_s = prior_step_seconds(torch, state, pcfg, bottom_batch, PRIORS_TIMED_STEPS)
+    del state
+    with torch.no_grad():
+        top_grid, _ = hier.encode(torch.from_numpy(next(iter(loader))["x"]).to(DEVICE))
+    state = create_train_state(top_spec.build().to(DEVICE), pcfg.train)
+    checkpoint.restore(top_ckpt + "_train", state)
+    top_s = prior_step_seconds(torch, state, pcfg, {"codes": top_grid, "labels": labels},
+                               PRIORS_TIMED_STEPS)
+    del state
+    # a spatially conditioned transformer bottom: cond_proj with kernel 4
+    tb_spec = cli_prior.PriorSpec.create("transformer", TRAIN_CODES, PRIOR_DIM, PRIOR_LAYERS,
+                                         None, 10, cond_dim=TRAIN_DIM)
+    warm = warm_state_dir(torch, checkpoint, tb_spec, pcfg, bottom_batch,
+                          os.path.join(out, "transformer_bottom"))
+    compare_tb, state = prior_step_card_vs_cpu(torch, checkpoint, tb_spec, warm, pcfg,
+                                               bottom_batch, "hier_bottom_transformer")
+    del state
+
+    sampled = run_sample_cli(cli_prior, [
+        "sample", "--hier", "--vqvae-ckpt", vq, "--prior-ckpt", top_ckpt + "_ema",
+        "--bottom-ckpt", bottom_ckpt + "_ema", *top_w, "--bottom-arch", "pixelcnn",
+        "--bottom-dim", str(PIXELCNN_DIM), "--bottom-layers", str(PIXELCNN_LAYERS),
+        "--code-shape", "10", "10", *common], os.path.join(out, "samples"), "hier_sample", 80)
+    argv = ["--device", DEVICE, "--model", "hiervqvae", "--ckpt-dir", vq, "--dim",
+            str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES), "--prior-ckpt", top_ckpt,
+            "--prior-arch", "transformer", "--prior-dim", str(PRIOR_DIM), "--prior-layers",
+            str(PRIOR_LAYERS), "--prior-heads", str(PRIOR_HEADS), "--bottom-ckpt", bottom_ckpt,
+            "--bottom-prior-arch", "pixelcnn", "--bottom-prior-dim", str(PIXELCNN_DIM),
+            "--bottom-prior-layers", str(PIXELCNN_LAYERS)]
+    served = serve_sample_requests(torch, serve, argv, counters, PRIORS_SAMPLE_REPEATS)
+    check(served["launches_over_requests"] == zero_launches(counters),
+          f"hier /sample launched {served['launches_over_requests']}")
+    top, bottom = serve.load_serving_priors(serve.parse_args(argv), DEVICE)
+    n = 4
+    idx_t, idx_b, mels = sample_hier_mels(
+        hier, top, bottom, torch.full((n,), 1, dtype=torch.int32, device=DEVICE), (10, 10),
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    check(tuple(idx_t.shape) == (n, 10, 10) and tuple(idx_b.shape) == (n, 20, 20)
+          and tuple(mels.shape) == (n, 80, 80) and bool(torch.isfinite(mels).all()),
+          f"hier chain: grids {tuple(idx_t.shape)}, {tuple(idx_b.shape)}, mels "
+          f"{tuple(mels.shape)}")
+    return {"phase": "priors_hier_chain", "top": {"arch": "transformer", "prior_dim": PRIOR_DIM,
+                                                  "prior_layers": PRIOR_LAYERS,
+                                                  "code_grid": list(idx_t.shape[1:])},
+            "bottom": {"arch": "pixelcnn", "prior_dim": PIXELCNN_DIM,
+                       "prior_layers": PIXELCNN_LAYERS, "code_grid": list(idx_b.shape[1:]),
+                       "cond_channels": TRAIN_DIM},
+            "train_grids": {"top": [int(v) for v in top_grid.shape[1:]],
+                            "bottom": [int(v) for v in bottom_batch["codes"].shape[1:]]},
+            "batch": PRIOR_BATCH, "runs": runs, "distinct_encoded_codes": distinct,
+            "card_vs_cpu_step": {"bottom_pixelcnn": compare_b,
+                                 "bottom_transformer": compare_tb},
+            "train_steps_per_s": {"top_transformer": 1.0 / top_s,
+                                  "bottom_pixelcnn": 1.0 / bottom_s},
+            "timed_steps": PRIORS_TIMED_STEPS, "sample_cli": sampled, "serve_sample": served,
+            "seconds": time.perf_counter() - t0}
+
+
+def long_grid_steps(torch, cli_prior) -> dict:
+    """One train step of each family, spatially conditioned, at the
+    hierarchy's long bottom grid (LONG_GRID, T = 2240), batch
+    LONG_GRID_BATCH, random codes and conditioning: ms per step after 3
+    warm-up steps, and the transformer's time over the PixelCNN's."""
+    from neural_sound_generation_tpu_torch.config import Config
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    h, w = LONG_GRID
+    batch = {"codes": torch.randint(0, TRAIN_CODES, (LONG_GRID_BATCH, h, w), generator=gen,
+                                    device=DEVICE, dtype=torch.int32),
+             "labels": torch.zeros(LONG_GRID_BATCH, dtype=torch.int32, device=DEVICE),
+             "cond": torch.randn(LONG_GRID_BATCH, h, w, TRAIN_DIM, generator=gen,
+                                 device=DEVICE)}
+    pcfg = prior_cfg(Config())
+    ms = {}
+    for arch, dim, layers in (("pixelcnn", PIXELCNN_DIM, PIXELCNN_LAYERS),
+                              ("transformer", PRIOR_DIM, PRIOR_LAYERS)):
+        spec = cli_prior.PriorSpec.create(arch, TRAIN_CODES, dim, layers, None, 10,
+                                          cond_dim=TRAIN_DIM)
+        state = create_train_state(spec.build().to(DEVICE), pcfg.train)
+        ms[arch] = 1e3 * prior_step_seconds(torch, state, pcfg, batch, LONG_GRID_STEPS)
+        del state
+    return {"grid": [h, w], "t": h * w, "batch": LONG_GRID_BATCH, "step_ms": ms,
+            "transformer_over_pixelcnn": ms["transformer"] / ms["pixelcnn"]}
+
+
+def priors_phase(torch, cli_prior, serve, checkpoint, counters, root: str, vq_ckpt: str,
+                 corpus: str, card: str) -> dict:
+    """Phase 12: the flat PixelCNN, the hierarchical chain and the long-grid
+    step times. One record line a part."""
+    t0 = time.perf_counter()
+    flat = pixelcnn_part(torch, cli_prior, serve, checkpoint, counters, root, vq_ckpt, corpus)
+    flat["card"] = card
+    emit(flat)
+    torch.cuda.empty_cache()
+    chain = hier_chain_part(torch, cli_prior, serve, checkpoint, counters, root, corpus)
+    chain["card"] = card
+    emit(chain)
+    torch.cuda.empty_cache()
+    long_grid = long_grid_steps(torch, cli_prior)
+    emit({"phase": "priors_long_grid", "card": card, **long_grid})
+    torch.cuda.empty_cache()
+    runs = [*flat["runs"].values(), *chain["runs"].values()]
+    return {"phase": "priors", "card": card, "seconds": time.perf_counter() - t0,
+            "parts_seconds": {"pixelcnn": flat["seconds"], "hier_chain": chain["seconds"]},
+            "launches": {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]},
+            "pixelcnn_parameters": flat["parameters"],
+            "train_steps_per_s": {"pixelcnn": flat["train_steps_per_s"],
+                                  **{f"hier_{k}": v
+                                     for k, v in chain["train_steps_per_s"].items()}},
+            "sample_p50_ms": {"pixelcnn": {n: v["p50"] for n, v in
+                                           flat["serve_sample"]["latency_ms"].items()},
+                              "hier_chain": {n: v["p50"] for n, v in
+                                             chain["serve_sample"]["latency_ms"].items()}},
+            "launches_per_code": flat["sampler"]["launches_per_code"],
+            "distinct_encoded_codes": chain["distinct_encoded_codes"],
+            "long_grid": long_grid}
+
+
 ATTN_REPLACES = {
     "flash_fwd": "neural_sound_generation_tpu/ops/pallas/attention.py:165",
     "flash_bwd_dq": "neural_sound_generation_tpu/ops/pallas/attention.py:233",
@@ -3118,7 +3557,7 @@ ATTN_REPLACES = {
 }
 
 
-def attention_summary(rows: dict, name: str, launches: int) -> dict:
+def attention_summary(rows: dict, name: str, launches_by_path: dict) -> dict:
     """One attention kernel's entry of the kernels line, at the shape the
     prior's training path gives it (ATTN_MAIN), with its time at every
     shape beside. The backward kernels have no library call of their own;
@@ -3129,7 +3568,8 @@ def attention_summary(rows: dict, name: str, launches: int) -> dict:
         "source": "neural_sound_generation_tpu_torch/csrc/flash_attention.cu",
         "replaces": ATTN_REPLACES[name], "status": "ported",
         "shape": {"bh": main["bh"], "t": main["t"], "d": main["d"], "dtype": main["dtype"]},
-        "launches": launches, "max_abs_err": main["max_abs_err"][name],
+        "launches": sum(launches_by_path.values()), "launches_by_path": launches_by_path,
+        "max_abs_err": main["max_abs_err"][name],
         "ms": main["kernel_ms"][name], "plain_ms": main["plain_ms"][name],
         "bound_ms": main["bound_ms"][name], "bound_by": main["bound_by"][name],
         "library_ms": main["library_ms"][name],
@@ -3308,7 +3748,7 @@ def main() -> int:
         from neural_sound_generation_tpu_torch.cli import serve
         from neural_sound_generation_tpu_torch.cli import vocoder as cli_vocoder
         from neural_sound_generation_tpu_torch.device import set_full_float32
-        from neural_sound_generation_tpu_torch.models import VQVAE
+        from neural_sound_generation_tpu_torch.models import VQVAE, GatedPixelCNN
         from neural_sound_generation_tpu_torch.models import wavenet as wn
         from neural_sound_generation_tpu_torch.ops import dsp
         from neural_sound_generation_tpu_torch.ops.cuda import (
@@ -3361,6 +3801,12 @@ def main() -> int:
             row = compare_fused_adam(torch, fused_adam, n_params, config, gen)
             emit(row)
             adam_rows[config[0]] = row
+        # kernel 3 at the default PixelCNN's parameter count (phase 12's steps)
+        n_pixelcnn = sum(p.numel() for p in GatedPixelCNN(
+            TRAIN_CODES, PIXELCNN_DIM, PIXELCNN_LAYERS).parameters())
+        adam_pixelcnn = compare_fused_adam(torch, fused_adam, n_pixelcnn, ADAM_CONFIGS[0], gen)
+        adam_pixelcnn["shape_of"] = "pixelcnn"
+        emit(adam_pixelcnn)
         attn_rows = {}
         for shape in ATTN_SHAPES:
             row = compare_attention(torch, fa, shape, gen)
@@ -3447,19 +3893,27 @@ def main() -> int:
         others = other_autoencoders_phase(torch, cli_main, cli_evaluate, serve, checkpoint, dsp,
                                           vq_kernel, fused_adam, root, corpus, card)
         emit(others)
+        torch.cuda.empty_cache()
+
+        # phase 12: the PixelCNN prior and the hierarchical chain through
+        # cli.prior and cli.serve, with launch counts from each run
+        priors = priors_phase(torch, cli_prior, serve, checkpoint, (vq_kernel, fused_adam, fa),
+                              root, vq_ckpt, corpus, card)
+        emit(priors)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # phase 12: summary and result
+    # phase 13: summary and result
     train_runs = [*training["runs"].values(), rvq["run"]]
     train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
     train_adam = sum(r["launches"]["fused_adam"] for r in train_runs)
     prior_runs = prior["runs"].values()
     prior_launches = {k: sum(r["launches"][k] for r in prior_runs)
                       for k in ("vq_nearest", "fused_adam", *fa.KERNELS)}
+    priors_launches = priors["launches"]
     main_row, train_row = rows[VQ_MAIN_SHAPE], rows[VQ_TRAIN_SHAPE]
     adam_row = adam_rows[ADAM_CONFIGS[0][0]]
     emit({"kernels": [{
@@ -3468,11 +3922,13 @@ def main() -> int:
         "replaces": "neural_sound_generation_tpu/ops/pallas/vq_kernel.py:49",
         "status": "ported", "shape": {"n": VQ_MAIN_SHAPE[0], "k": VQ_MAIN_SHAPE[1], "d": VQ_D},
         "launches": (serving["vq_launches"] + train_vq + prior_launches["vq_nearest"]
-                     + prep["vq_launches"] + others["vq_launches"]),
+                     + prep["vq_launches"] + others["vq_launches"]
+                     + priors_launches["vq_nearest"]),
         "launches_by_path": {"serving": serving["vq_launches"], "training": train_vq,
                              "prior": prior_launches["vq_nearest"],
                              "preprocess_units": prep["vq_launches"],
-                             "other_autoencoders": others["vq_launches"]},
+                             "other_autoencoders": others["vq_launches"],
+                             "pixelcnn_and_hier_priors": priors_launches["vq_nearest"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3490,14 +3946,20 @@ def main() -> int:
         "source": "neural_sound_generation_tpu_torch/csrc/fused_adam.cu",
         "replaces": "neural_sound_generation_tpu/ops/pallas/fused_adam.py:49",
         "status": "ported", "shape": {"n": n_params, "config": adam_row["config"]},
-        "launches": train_adam + prior_launches["fused_adam"] + others["adam_launches"],
+        "launches": (train_adam + prior_launches["fused_adam"] + others["adam_launches"]
+                     + priors_launches["fused_adam"]),
         "launches_by_path": {"training": train_adam, "prior": prior_launches["fused_adam"],
-                             "other_autoencoders": others["adam_launches"]},
+                             "other_autoencoders": others["adam_launches"],
+                             "pixelcnn_and_hier_priors": priors_launches["fused_adam"]},
         "max_abs_err": adam_row["max_abs_err"],
         "ms": adam_row["kernel_ms"], "plain_ms": adam_row["plain_ms"],
         "bound_ms": adam_row["bound_ms"], "bound_by": adam_row["bound_by"],
         "library_ms": adam_row["library_ms"],
-    }] + [attention_summary(attn_rows, name, prior_launches[name]) for name in fa.KERNELS]
+        "pixelcnn_shape": {k: adam_pixelcnn[k] for k in ("n", "max_abs_err", "kernel_ms",
+                                                         "plain_ms", "bound_ms", "library_ms")},
+    }] + [attention_summary(attn_rows, name, {"prior": prior_launches[name],
+                                              "hier_top_prior": priors_launches[name]})
+          for name in fa.KERNELS]
       + wavenet_summary(wn_rows, wn_api) + conv_summary(conv_rows, conv_ab)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,31 +1,42 @@
 """Prior training and sampling CLI.
 
-Counterpart of ``neural_sound_generation_tpu/cli/prior.py`` for ``--arch
-transformer``, with its flags and defaults. ``train`` encodes a
-preprocessed corpus into code grids with a trained VQ-VAE (a ``cli.main``
-checkpoint; the nearest-code kernel on the card) and fits the
-class-conditioned ``TransformerPrior`` by cross-entropy through the
-``Trainer`` (the flash-attention kernels forward and backward, the fused
-Adam kernel). ``sample`` draws code grids with the KV-cached sampler and
-decodes them to audio through the VQ-VAE and Griffin-Lim.
+Counterpart of ``neural_sound_generation_tpu/cli/prior.py``, with its
+flags and defaults. ``train`` encodes a preprocessed corpus into code grids
+with a trained VQ-VAE (a ``cli.main`` checkpoint; the nearest-code kernel
+on the card) and fits a class-conditioned prior by cross-entropy through
+the ``Trainer`` (the fused Adam kernel): the ``GatedPixelCNN`` (``--arch
+pixelcnn``, the default; cuDNN's masked convolutions) or the
+``TransformerPrior`` (the flash-attention kernels forward and backward).
+``sample`` draws code grids (the PixelCNN's row-cached sampler, the
+transformer's KV-cached one) and decodes them to audio through the VQ-VAE
+and Griffin-Lim.
+
+``--hier`` trains on a two-level ``HierVQVAE`` checkpoint (``cli.main
+--model hiervqvae``; crops at stride 8, both levels searched per batch):
+``--hier-level top`` fits an unconditioned prior over the top grid,
+``--hier-level bottom`` a spatially conditioned one over the bottom grid,
+whose conditioning map is the top codes' codebook vectors upsampled x2
+(``inference.hier_cond_map``). ``sample --hier`` runs the chain: the top
+prior (``--prior-ckpt``, ``--arch``/``--prior-*``), the bottom one
+(``--bottom-ckpt``, ``--bottom-*`` overriding the top's flags) on a grid
+twice ``--code-shape``, the decoder, Griffin-Lim.
 
 Checkpoints follow the JAX CLI's layout: ``--ckpt-dir`` holds the sampling
 artifact (parameters only), ``<ckpt-dir>_ema`` the averaged model and
 ``<ckpt-dir>_train`` the full train state that ``--resume`` continues. Each
-records ``arch``, ``prior_dim``, ``prior_layers``, ``prior_heads``,
-``z_dim`` and ``n_classes``, and ``sample`` and ``serve --prior-ckpt``
-refuse a checkpoint that disagrees: the qkv weights have the same shape for
-any head count, so a wrong ``--prior-heads`` would otherwise restore and
-sample wrongly.
+records ``arch``, ``prior_dim``, ``prior_layers``, ``prior_heads`` (0 for
+the PixelCNN), ``z_dim``, ``n_classes``, ``spatial_cond`` and
+``cond_dim``, and ``sample`` and ``serve --prior-ckpt`` refuse a
+checkpoint that disagrees: the qkv weights have the same shape for any
+head count, so a wrong ``--prior-heads`` would otherwise restore and
+sample wrongly, and a bottom prior is refused where a top is expected.
 
-Flags of later slices raise ``NotImplementedError``: ``--arch pixelcnn``,
-``--hier``, ``--moe-experts``, ``--bf16``, ``--mesh-pipe`` and more than one
-device. The flags that only those paths read (``--pp-microbatches``,
-``--hier-level``, ``--bottom-*``) come with them.
+Flags of later slices raise ``NotImplementedError``: ``--moe-experts``,
+``--bf16``, ``--mesh-pipe`` and more than one device.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.prior train
---arch transformer --datadir <corpus> --vqvae-ckpt <cli.main checkpoint>
-[--device cuda]``
+--datadir <corpus> --vqvae-ckpt <cli.main checkpoint> [--arch transformer]
+[--hier --hier-level top|bottom] [--device cuda]``
 """
 
 from __future__ import annotations
@@ -41,14 +52,24 @@ import torch
 from neural_sound_generation_tpu_torch.config import Config, load_preset
 from neural_sound_generation_tpu_torch.data.pipeline import get_audio_data_loaders
 from neural_sound_generation_tpu_torch.device import resolve_device
-from neural_sound_generation_tpu_torch.inference import sample_prior_audio
-from neural_sound_generation_tpu_torch.models import VQVAE, TransformerPrior
+from neural_sound_generation_tpu_torch.inference import (
+    hier_cond_map,
+    sample_hier_audio,
+    sample_prior_audio,
+)
+from neural_sound_generation_tpu_torch.models import (
+    VQVAE,
+    GatedPixelCNN,
+    HierVQVAE,
+    TransformerPrior,
+)
 from neural_sound_generation_tpu_torch.ops import dsp
 from neural_sound_generation_tpu_torch.training import checkpoint
 from neural_sound_generation_tpu_torch.training.train_state import create_train_state
 from neural_sound_generation_tpu_torch.training.trainer import Trainer
 
-#: the encoder's downsampling of both mel axes
+#: the encoder's downsampling of both mel axes (the hierarchy's top grid:
+#: twice this)
 LATENT_STRIDE = 4
 
 
@@ -64,7 +85,8 @@ def parse_args(argv=None):
     tr.add_argument("--dim", type=int, default=256, help="vqvae hidden width")
     tr.add_argument("--z-dim", type=int, default=512, help="codebook size")
     tr.add_argument("--arch", choices=["pixelcnn", "transformer"], default="pixelcnn",
-                    help="prior family (the port has the transformer)")
+                    help="prior family: the GatedPixelCNN or the causal-attention "
+                         "TransformerPrior")
     tr.add_argument("--prior-dim", type=int, default=64)
     tr.add_argument("--prior-layers", type=int, default=15)
     tr.add_argument("--prior-heads", type=int, default=None,
@@ -90,7 +112,10 @@ def parse_args(argv=None):
     tr.add_argument("--ema-warmup", action="store_true",
                     help="ramp the EMA decay min(decay, (1+t)/(10+t))")
     tr.add_argument("--hier", action="store_true",
-                    help="two-level hiervqvae checkpoint (a later slice)")
+                    help="--vqvae-ckpt is a two-level hiervqvae checkpoint")
+    tr.add_argument("--hier-level", choices=["top", "bottom"], default="top",
+                    help="which level's prior to train (bottom is spatially conditioned "
+                         "on the top codes)")
     tr.add_argument("--device", default="cuda",
                     help="torch device to train on (cuda, cuda:N or cpu)")
 
@@ -113,7 +138,17 @@ def parse_args(argv=None):
     sa.add_argument("--label", type=int, default=0)
     sa.add_argument("--seed", type=int, default=0)
     sa.add_argument("--hier", action="store_true",
-                    help="sample the two-level chain (a later slice)")
+                    help="sample the two-level chain; --prior-ckpt is the top prior, "
+                         "--bottom-ckpt the conditional bottom, --code-shape the top grid")
+    sa.add_argument("--bottom-ckpt", default=None)
+    sa.add_argument("--bottom-arch", choices=["pixelcnn", "transformer"], default=None,
+                    help="bottom prior family (default: --arch)")
+    sa.add_argument("--bottom-dim", type=int, default=None,
+                    help="bottom prior width (default: --prior-dim)")
+    sa.add_argument("--bottom-layers", type=int, default=None,
+                    help="bottom prior depth (default: --prior-layers)")
+    sa.add_argument("--bottom-heads", type=int, default=None,
+                    help="bottom attention heads (default: --prior-heads)")
     sa.add_argument("--device", default="cuda",
                     help="torch device to sample on (cuda, cuda:N or cpu)")
     return p.parse_args(argv)
@@ -121,11 +156,6 @@ def parse_args(argv=None):
 
 def refuse_later_slices(args) -> None:
     """Flags whose code paths the port does not have yet."""
-    if args.arch != "transformer":
-        raise NotImplementedError(
-            "--arch pixelcnn: the GatedPixelCNN prior comes with the PixelCNN slice of the port")
-    if args.hier:
-        raise NotImplementedError("--hier: the hierarchical chain comes with a later slice")
     if args.moe_experts > 0:
         raise NotImplementedError("--moe-experts: switch-MoE priors come with the MoE slice")
     if args.bf16:
@@ -139,7 +169,8 @@ def refuse_later_slices(args) -> None:
 @dataclasses.dataclass(frozen=True)
 class PriorSpec:
     """What a prior checkpoint was built with; ``metadata()`` is what its
-    ``_extra.json`` records and every restore checks."""
+    ``_extra.json`` records and every restore checks. Build one with
+    ``create``, which records no head count for the PixelCNN."""
 
     arch: str
     z_dim: int
@@ -147,29 +178,49 @@ class PriorSpec:
     prior_layers: int
     prior_heads: int
     n_classes: int
+    spatial_cond: bool = False
+    cond_dim: int = 0
 
     @classmethod
-    def from_args(cls, args) -> "PriorSpec":
-        heads = args.prior_heads or max(1, args.prior_dim // 64)
-        return cls(args.arch, args.z_dim, args.prior_dim, args.prior_layers, heads,
-                   args.n_classes)
+    def create(cls, arch: str, z_dim: int, prior_dim: int, prior_layers: int,
+               prior_heads: int | None, n_classes: int, cond_dim: int = 0) -> "PriorSpec":
+        """``cond_dim`` > 0: a spatially conditioned (bottom-level) prior.
+        ``prior_heads`` None sizes the transformer's heads to 64 channels."""
+        heads = (prior_heads or max(1, prior_dim // 64)) if arch == "transformer" else 0
+        return cls(arch, z_dim, prior_dim, prior_layers, heads, n_classes, cond_dim > 0,
+                   cond_dim)
+
+    @classmethod
+    def from_args(cls, args, cond_dim: int = 0) -> "PriorSpec":
+        return cls.create(args.arch, args.z_dim, args.prior_dim, args.prior_layers,
+                          args.prior_heads, args.n_classes, cond_dim)
 
     def metadata(self) -> dict:
         return dataclasses.asdict(self)
 
-    def build(self, seed: int = 0) -> TransformerPrior:
-        if self.arch != "transformer":
-            raise NotImplementedError(
-                f"--arch {self.arch}: the port has the transformer prior; the GatedPixelCNN "
-                f"comes with the PixelCNN slice")
-        return TransformerPrior(
+    def build(self, seed: int = 0) -> TransformerPrior | GatedPixelCNN:
+        gen = torch.Generator().manual_seed(seed)
+        if self.arch == "transformer":
+            return TransformerPrior(
+                input_dim=self.z_dim, dim=self.prior_dim, n_layers=self.prior_layers,
+                n_heads=self.prior_heads, n_classes=self.n_classes,
+                spatial_cond=self.spatial_cond, cond_dim=self.cond_dim, generator=gen)
+        return GatedPixelCNN(
             input_dim=self.z_dim, dim=self.prior_dim, n_layers=self.prior_layers,
-            n_heads=self.prior_heads, n_classes=self.n_classes,
-            generator=torch.Generator().manual_seed(seed),
-        )
+            n_classes=self.n_classes, spatial_cond=self.spatial_cond, cond_dim=self.cond_dim,
+            generator=gen)
 
 
-def load_prior(ckpt_dir: str, spec: PriorSpec, device) -> TransformerPrior:
+def bottom_args(args):
+    """The sample-time bottom prior's flags: ``--bottom-*`` overriding the
+    top's ``--arch``/``--prior-*`` (the JAX ``_bottom_args``)."""
+    overrides = {"arch": args.bottom_arch, "prior_dim": args.bottom_dim,
+                 "prior_layers": args.bottom_layers, "prior_heads": args.bottom_heads}
+    return argparse.Namespace(**{
+        **vars(args), **{k: v for k, v in overrides.items() if v is not None}})
+
+
+def load_prior(ckpt_dir: str, spec: PriorSpec, device) -> TransformerPrior | GatedPixelCNN:
     """The prior of a checkpoint (an artifact, its ``_ema`` sibling or a
     train state), in eval mode on ``device``; refuses one recorded with
     another spec."""
@@ -182,18 +233,26 @@ def load_prior(ckpt_dir: str, spec: PriorSpec, device) -> TransformerPrior:
     return prior.to(device).eval()
 
 
+#: one train step at the hierarchy's 40 x 56 bottom grid (T = 2240, batch 32,
+#: spatially conditioned), measured by chip_smoke.py (phase 12) on an NVIDIA
+#: H100 80GB HBM3 at a 700 W power limit: ms of the transformer (dim 128, 4
+#: layers) and of the default PixelCNN (dim 64, 15 layers)
+LONG_GRID_STEP_MS = {"transformer": 34.4, "pixelcnn": 69.1}
+
+
 def long_t_warning(arch: str, codes_shape, threshold: int = 1024):
-    """A steer (or None) for transformer priors over long code grids: the
-    JAX package measured causal attention at T = 2240 an order of
-    magnitude slower than the PixelCNN on its TPU; on the card it is not
-    measured. Long grids still train."""
+    """A note (or None) for transformer priors over long code grids, where
+    causal attention's cost grows as T^2, with the card's own measurement
+    at the hierarchy's bottom grid. Long grids still train."""
     h, w = int(codes_shape[1]), int(codes_shape[2])
     if arch != "transformer" or h * w < threshold:
         return None
+    ms = LONG_GRID_STEP_MS
     return (
         f"WARNING: transformer prior over a {h}x{w} code grid (T={h * w}): causal "
-        f"attention cost grows as T^2; the reference measured --arch pixelcnn an order "
-        f"of magnitude faster at bottom-level grids"
+        f"attention cost grows as T^2. At 40x56 (T=2240, batch 32) a train step of a "
+        f"128-wide 4-layer transformer took {ms['transformer']} ms and of the default "
+        f"--arch pixelcnn {ms['pixelcnn']} ms on an NVIDIA H100 80GB HBM3 at 700 W"
     )
 
 
@@ -204,17 +263,37 @@ def _prior_cfg(args) -> Config:
     return cfg
 
 
-def load_vqvae(args, cfg: Config, device) -> VQVAE:
+def load_vqvae(args, cfg: Config, device) -> VQVAE | HierVQVAE:
     """The ``--vqvae-ckpt`` model (live parameters and running statistics)
-    in eval mode on ``device``; speaker-conditioned when the preset says so."""
+    in eval mode on ``device``: the two-level one under ``--hier``, else
+    the flat one, speaker-conditioned when the preset says so."""
     from neural_sound_generation_tpu_torch.cli.serve import restore_weights
 
-    gin = cfg.arch.gin_channels
-    n_speakers = cfg.arch.n_speakers if gin > 0 else 0
-    model = VQVAE(1, args.dim, args.z_dim, n_speakers=n_speakers,
-                  gin_channels=gin if n_speakers else -1)
+    if args.hier:
+        model = HierVQVAE(1, args.dim, args.z_dim)
+    else:
+        gin = cfg.arch.gin_channels
+        n_speakers = cfg.arch.n_speakers if gin > 0 else 0
+        model = VQVAE(1, args.dim, args.z_dim, n_speakers=n_speakers,
+                      gin_channels=gin if n_speakers else -1)
     restore_weights(model, cfg, args.vqvae_ckpt, ema=False)
     return model.to(device).eval()
+
+
+def make_encoder(args, vqvae):
+    """``encode(x) -> (codes, cond_map or None)``: the flat model's codes,
+    or under ``--hier`` the configured level's, the bottom level with the
+    top codes' conditioning map (the JAX ``cmd_train``'s ``encode``)."""
+    bottom = args.hier and args.hier_level == "bottom"
+
+    @torch.no_grad()
+    def encode(x: torch.Tensor):
+        if not args.hier:
+            return vqvae.encode(x), None
+        idx_t, idx_b = vqvae.encode(x)
+        return (idx_b, hier_cond_map(vqvae, idx_t)) if bottom else (idx_t, None)
+
+    return encode
 
 
 def cmd_train(args) -> None:
@@ -222,9 +301,11 @@ def cmd_train(args) -> None:
     device = resolve_device(args.device)
     cfg = _prior_cfg(args)
     loaders = get_audio_data_loaders(args.datadir, None, args.batch_size, cfg,
-                                     latent_stride=LATENT_STRIDE)
+                                     latent_stride=2 * LATENT_STRIDE if args.hier else LATENT_STRIDE)
     vqvae = load_vqvae(args, cfg, device)
-    spec = PriorSpec.from_args(args)
+    encode = make_encoder(args, vqvae)
+    bottom_level = args.hier and args.hier_level == "bottom"
+    spec = PriorSpec.from_args(args, cond_dim=args.dim if bottom_level else 0)
     meta = spec.metadata()
     prior = spec.build(args.seed).to(device)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
@@ -263,15 +344,17 @@ def cmd_train(args) -> None:
         for i, batch in enumerate(loaders["train"]):
             if args.max_batches_per_epoch and i >= args.max_batches_per_epoch:
                 break
-            with torch.no_grad():
-                codes = vqvae.encode(torch.from_numpy(batch["x"]).to(device))
+            codes, cond = encode(torch.from_numpy(batch["x"]).to(device))
             if not warned:
                 warned.append(True)
                 warning = long_t_warning(args.arch, codes.shape)
                 if warning:
                     print(warning)
             labels = np.asarray(batch.get("g", np.zeros(codes.shape[0])), np.int32)
-            yield {"codes": codes, "labels": torch.from_numpy(labels).to(device)}
+            out = {"codes": codes, "labels": torch.from_numpy(labels).to(device)}
+            if bottom_level:
+                out["cond"] = cond
+            yield out
 
     def save_ckpt(state, step, completed_epoch):
         # completed_epoch is the last FINISHED epoch: an interval save inside
@@ -303,19 +386,30 @@ def cmd_sample(args) -> None:
     device = resolve_device(args.device)
     cfg = _prior_cfg(args)
     h, w = args.code_shape
+    if args.hier and not args.bottom_ckpt:
+        raise SystemExit("--hier sampling requires --bottom-ckpt")
     vqvae = load_vqvae(args, cfg, device)
     prior = load_prior(args.prior_ckpt, PriorSpec.from_args(args), device)
     labels = torch.full((args.num_samples,), args.label, dtype=torch.int32, device=device)
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    # a speaker-conditioned decoder takes the class label as the speaker id
-    g = labels if vqvae.speakered else None
-    _, wavs = sample_prior_audio(vqvae, prior, labels, (h, w), cfg.audio, generator, g=g)
+    if args.hier:
+        # --code-shape names the top grid; the bottom prior samples twice it
+        bottom = load_prior(args.bottom_ckpt,
+                            PriorSpec.from_args(bottom_args(args), cond_dim=args.dim), device)
+        _, _, wavs = sample_hier_audio(vqvae, prior, bottom, labels, (h, w), cfg.audio,
+                                       generator)
+        stem, what = "hier_sample", "hier samples"
+    else:
+        # a speaker-conditioned decoder takes the class label as the speaker id
+        g = labels if vqvae.speakered else None
+        _, wavs = sample_prior_audio(vqvae, prior, labels, (h, w), cfg.audio, generator, g=g)
+        stem, what = "prior_sample", "samples"
     os.makedirs(args.output_dir, exist_ok=True)
     wavs = wavs.cpu().numpy()
     for i in range(args.num_samples):
-        path = os.path.join(args.output_dir, f"prior_sample_{i:03d}.wav")
-        dsp.save_wav(wavs[i], path, cfg.audio.sample_rate)
-    print(f"wrote {args.num_samples} samples to {args.output_dir}")
+        dsp.save_wav(wavs[i], os.path.join(args.output_dir, f"{stem}_{i:03d}.wav"),
+                     cfg.audio.sample_rate)
+    print(f"wrote {args.num_samples} {what} to {args.output_dir}")
 
 
 def main(argv=None):

@@ -13,7 +13,9 @@ server:
                      hiervqvae: {"codes_top": ..., "codes_bottom": ...}
   POST /sample       {"n": 1, "label": 0, "seed": 0} -> wav bytes: the prior
                      (--prior-ckpt) samples n code grids of (num_mels/4,
-                     frames/4), decoded and concatenated in time
+                     frames/4), decoded and concatenated in time; --model
+                     hiervqvae: the top prior a (num_mels/8, frames/8)
+                     grid, the bottom prior (--bottom-ckpt) twice it
   POST /reconstruct_stream  wav bytes -> chunked raw s16le PCM as the
                      WaveNet vocoder emits it (--vocoder wavenet)
   POST /sample_stream  the /sample payload -> chunked raw s16le PCM, the n
@@ -39,11 +41,13 @@ requests are coalesced into one batch per length bucket; each result
 equals the unbatched one. ``--ckpt-dir`` serves a checkpoint written by ``cli.main``
 (its live parameters, or with ``--ema`` its averaged model); without one
 the server serves weights initialized from seed 0, as the JAX server does.
-``--prior-ckpt`` serves a ``cli.prior`` transformer checkpoint over
-``/sample``; its recorded ``prior_heads`` and widths must match the flags.
-The hierarchy's ``/sample`` (``--prior-ckpt`` with ``--model hiervqvae``,
-``--bottom-*``) comes with the hierarchical-prior slice and refuses, as do
-speaker-conditioned presets under ``--model hiervqvae``.
+``--prior-ckpt`` serves a ``cli.prior`` checkpoint over ``/sample`` and
+``/sample_stream``: a PixelCNN (``--prior-arch pixelcnn``, the default) or
+a transformer; its recorded family, widths and ``prior_heads`` must match
+the flags. Under ``--model hiervqvae`` it is the top prior and
+``--bottom-ckpt`` the spatially conditioned bottom one, built from
+``--bottom-prior-*`` (each defaulting to the top's flag). Speaker-conditioned
+presets under ``--model hiervqvae`` refuse.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.serve [--device cuda]``
 """
@@ -70,7 +74,7 @@ import torch
 from neural_sound_generation_tpu_torch.cli import vocoder as cli_vocoder
 from neural_sound_generation_tpu_torch.config import Config, load_preset
 from neural_sound_generation_tpu_torch.device import resolve_device
-from neural_sound_generation_tpu_torch.inference import sample_prior_mels
+from neural_sound_generation_tpu_torch.inference import sample_hier_mels, sample_prior_mels
 from neural_sound_generation_tpu_torch.models import VQVAE, HierVQVAE
 from neural_sound_generation_tpu_torch.models.wavenet import make_chunked_generate_fn
 from neural_sound_generation_tpu_torch.ops import dsp
@@ -208,6 +212,7 @@ class InferenceService:
         self.metrics = _Metrics()
         self.batcher = None  # set by enable_batching
         self.prior = None  # set by attach_prior (serving /sample)
+        self.bottom_prior = None  # the hierarchy's conditional bottom prior
         self.vocoder = None  # set by attach_vocoder (--vocoder wavenet)
         self._stream = None  # the vocoder's chunked sampler, set by attach_vocoder
         self._stream_mux = None  # set by enable_stream_mux (--stream-slots)
@@ -426,10 +431,14 @@ class InferenceService:
                     slots[i] = e
         return slots
 
-    def attach_prior(self, prior) -> None:
+    def attach_prior(self, prior, bottom=None) -> None:
         """Enable POST /sample with a trained prior over this model's code
-        grids (moved to the service's device, eval mode)."""
+        grids (moved to the service's device, eval mode); the hierarchy
+        needs its spatially conditioned ``bottom`` prior too."""
+        if self.hier and bottom is None:
+            raise ValueError("hiervqvae sampling needs top AND bottom priors")
         self.prior = prior.to(self.device).eval()
+        self.bottom_prior = None if bottom is None else bottom.to(self.device).eval()
 
     def _sample_mels(self, payload: dict):
         """Validate a /sample payload, run the prior and decode the code
@@ -455,6 +464,12 @@ class InferenceService:
         seed = int(payload.get("seed", 0))
         generator = torch.Generator(device=self.device).manual_seed(seed)
         labels = torch.full((n,), label, dtype=torch.int32, device=self.device)
+        if self.hier:
+            top = 2 * self.STRIDE
+            _, _, mels = sample_hier_mels(
+                self.model, self.prior, self.bottom_prior, labels,
+                (self.cfg.audio.num_mels // top, self.frames // top), generator)
+            return mels, generator
         code_shape = (self.cfg.audio.num_mels // self.STRIDE, self.frames // self.STRIDE)
         _, mels = sample_prior_mels(
             self.model, self.prior, labels, code_shape, generator,
@@ -767,15 +782,13 @@ def build_service(args) -> InferenceService:
     service = InferenceService(
         cfg, model, frames, device=args.device, default_speaker=sid
     )
+    bottom = [f"--{flag.replace('_', '-')}" for flag in BOTTOM_FLAGS
+              if getattr(args, flag, None) is not None]
+    if bottom and (getattr(args, "model", "vqvae") != "hiervqvae" or not args.prior_ckpt):
+        raise SystemExit(f"{' '.join(bottom)}: the bottom prior serves --model hiervqvae "
+                         f"/sample beside its top prior (--prior-ckpt)")
     if getattr(args, "prior_ckpt", None):
-        from neural_sound_generation_tpu_torch.cli.prior import PriorSpec, load_prior
-
-        spec = PriorSpec(args.prior_arch, args.z_dim, args.prior_dim, args.prior_layers,
-                         args.prior_heads, args.n_classes)
-        try:
-            service.attach_prior(load_prior(args.prior_ckpt, spec, service.device))
-        except NotImplementedError as e:
-            raise SystemExit(str(e)) from e
+        service.attach_prior(*load_serving_priors(args, service.device))
     if getattr(args, "vocoder", "griffin-lim") == "wavenet":
         service.attach_vocoder(load_serving_vocoder(args, cfg, service.device))
     if args.batch_window_ms > 0:
@@ -798,8 +811,8 @@ def resolve_frames(args) -> int:
 
 def hier_model(args, cfg: Config, frames: int) -> HierVQVAE:
     """The ``--model hiervqvae`` template (seeded weights): refuses a window
-    that is not a multiple of 8, a speaker-conditioned preset (the hierarchy
-    has no speaker embedding) and the hierarchical ``/sample`` flags."""
+    that is not a multiple of 8 and a speaker-conditioned preset (the
+    hierarchy has no speaker embedding)."""
     if frames % 8:
         raise SystemExit(
             f"--frames must be a multiple of 8 for hiervqvae (got {frames}); "
@@ -809,16 +822,38 @@ def hier_model(args, cfg: Config, frames: int) -> HierVQVAE:
             "--model hiervqvae does not support speaker-conditioned presets "
             f"(gin_channels {cfg.arch.gin_channels}): serve the multispeaker checkpoint "
             "with the flat model, or drop the preset's gin_channels")
-    bottom = [flag for flag in ("bottom_ckpt", "bottom_prior_arch", "bottom_prior_dim",
-                                "bottom_prior_layers", "bottom_prior_heads")
-              if getattr(args, flag, None) is not None]
-    if getattr(args, "prior_ckpt", None) or bottom:
-        raise SystemExit(
-            "--model hiervqvae /sample (--prior-ckpt, --bottom-*) needs the top and the "
-            "spatially conditioned bottom prior: it comes with the hierarchical-prior "
-            "slice of the port")
     return HierVQVAE(input_dim=1, dim=args.dim, z_dim=args.z_dim,
                      generator=torch.Generator().manual_seed(0))
+
+
+#: the hierarchy's bottom-prior flags
+BOTTOM_FLAGS = ("bottom_ckpt", "bottom_prior_arch", "bottom_prior_dim", "bottom_prior_layers",
+                "bottom_prior_heads")
+
+
+def load_serving_priors(args, device):
+    """(top or flat prior, the hierarchy's bottom prior or None) from
+    ``--prior-ckpt`` and ``--bottom-ckpt``, each refused unless its recorded
+    family, widths and conditioning match the flags: ``--prior-*`` for the
+    first, ``--bottom-prior-*`` (each defaulting to its ``--prior-*``) for
+    the bottom, conditioned on the hierarchy's ``--dim``-wide codebook."""
+    from neural_sound_generation_tpu_torch.cli.prior import PriorSpec, load_prior
+
+    def spec(arch, dim, layers, heads, cond_dim=0):
+        return PriorSpec.create(arch, args.z_dim, dim, layers, heads, args.n_classes, cond_dim)
+
+    hier = args.model == "hiervqvae"
+    if hier and not args.bottom_ckpt:
+        raise SystemExit("--model hiervqvae /sample needs --bottom-ckpt too")
+    top = load_prior(args.prior_ckpt, spec(args.prior_arch, args.prior_dim, args.prior_layers,
+                                           args.prior_heads), device)
+    if not hier:
+        return top, None
+    bottom = load_prior(args.bottom_ckpt, spec(
+        args.bottom_prior_arch or args.prior_arch, args.bottom_prior_dim or args.prior_dim,
+        args.bottom_prior_layers or args.prior_layers,
+        args.bottom_prior_heads or args.prior_heads, cond_dim=args.dim), device)
+    return top, bottom
 
 
 def load_serving_vocoder(args, cfg: Config, device):
@@ -893,15 +928,14 @@ def parse_args(argv=None):
     p.add_argument("--prior-ckpt", default=None,
                    help="cli.prior checkpoint directory: enables POST /sample")
     p.add_argument("--prior-arch", choices=["pixelcnn", "transformer"], default="pixelcnn",
-                   help="prior family the --prior-ckpt was trained with (cli.prior --arch; "
-                        "the port serves the transformer)")
+                   help="prior family the --prior-ckpt was trained with (cli.prior --arch)")
     p.add_argument("--prior-dim", type=int, default=64)
     p.add_argument("--prior-layers", type=int, default=15)
     p.add_argument("--prior-heads", type=int, default=8)
     p.add_argument("--n-classes", type=int, default=10)
     p.add_argument("--bottom-ckpt", default=None,
-                   help="bottom prior checkpoint (hiervqvae /sample; the hierarchical-prior "
-                        "slice)")
+                   help="spatially conditioned bottom prior checkpoint (hiervqvae /sample; "
+                        "cli.prior train --hier --hier-level bottom)")
     p.add_argument("--bottom-prior-arch", choices=["pixelcnn", "transformer"], default=None)
     p.add_argument("--bottom-prior-dim", type=int, default=None)
     p.add_argument("--bottom-prior-layers", type=int, default=None)

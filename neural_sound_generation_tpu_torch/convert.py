@@ -27,6 +27,11 @@ bridge only changes each leaf's name and layout:
   top-level leaves (codebook, bos)   the same name, the same layout: a
                                      (K, D) codebook or a residual-VQ
                                      (Q, K, D) stack
+  PixelCNN raw kernels               the same name, (out,in,kh,kw): the
+    vert_kernel, horiz_kernel        gated layer's ``self.param``s
+    (kh,kw,in,out)
+  PixelCNN raw biases                the same name, the same layout
+    vert_bias, horiz_bias
 
 Both directions copy values exactly, so a round trip is bit-exact.
 
@@ -52,6 +57,11 @@ import numpy as np
 import torch
 
 from neural_sound_generation_tpu_torch.training.train_state import flat_offsets
+
+#: HWIO kernels that are parameters of a module rather than a conv's
+#: ``kernel`` (the PixelCNN's gated layer); the port keeps them OIHW
+RAW_KERNELS = ("vert_kernel", "horiz_kernel")
+RAW_BIASES = ("vert_bias", "horiz_bias")
 
 
 def _walk(tree: Mapping[str, Any], prefix=()) -> Iterator[tuple[tuple[str, ...], Any]]:
@@ -95,9 +105,11 @@ def _param_to_torch(path: tuple[str, ...], leaf: np.ndarray, is_transpose) -> tu
             return prefix + "weight", leaf.transpose(2, 1, 0)
         if leaf.ndim == 2:
             return prefix + "weight", leaf.T
+    elif name in RAW_KERNELS:
+        return prefix + name, leaf.transpose(3, 2, 0, 1)
     elif name in ("scale", "embedding"):
         return prefix + "weight", leaf
-    elif name == "bias" or not module:
+    elif name == "bias" or name in RAW_BIASES or not module:
         return prefix + name, leaf
     raise ValueError(f"no port counterpart for flax leaf {'/'.join(path)}")
 
@@ -165,7 +177,10 @@ def module_to_flax(
                 put(stats, prefix, "var", m.running_var)
         else:
             for name, p in m.named_parameters(recurse=False):
-                put(params, prefix, name, p)
+                if name in RAW_KERNELS:
+                    put(params, prefix, name, p, lambda w: w.transpose(2, 3, 1, 0))
+                else:
+                    put(params, prefix, name, p)
             continue
         if m.bias is not None:
             put(params, prefix, "bias", m.bias)

@@ -1,4 +1,5 @@
 from neural_sound_generation_tpu_torch.models.hiervqvae import HierVQVAE  # noqa: F401
+from neural_sound_generation_tpu_torch.models.pixelcnn import GatedPixelCNN  # noqa: F401
 from neural_sound_generation_tpu_torch.models.transformer_prior import (  # noqa: F401
     TransformerPrior,
 )

@@ -20,8 +20,11 @@ argmax(logits / temperature + Gumbel), which is how ``jax.random.
 categorical`` draws; the noise comes from an explicit ``torch.Generator``
 or, for the tests, is injected.
 
-Switch-MoE feed-forwards (``n_experts > 0``) and spatial conditioning (the
-hierarchical bottom prior) come with later slices and raise.
+A spatially conditioned prior (``spatial_cond``, the hierarchical bottom
+level) adds ``cond_proj`` of a per-position conditioning map of
+``cond_dim`` channels to every position's input, on the teacher-forced path
+and on the decode step. Switch-MoE feed-forwards (``n_experts > 0``) come
+with a later slice and raise.
 """
 
 from __future__ import annotations
@@ -121,24 +124,25 @@ class TransformerPrior(nn.Module):
         mlp_ratio: int = 4,
         n_experts: int = 0,
         spatial_cond: bool = False,
+        cond_dim: int = 0,
         max_rows: int = 64,
         max_cols: int = 64,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
         _refuse_moe(n_experts)
-        if spatial_cond:
-            raise NotImplementedError(
-                "spatially conditioned priors (the hierarchical bottom level) come with "
-                "the hierarchical chain slice of the port")
+        if spatial_cond and cond_dim <= 0:
+            raise ValueError("a spatially conditioned prior needs cond_dim > 0")
         self.input_dim, self.dim, self.n_layers = input_dim, dim, n_layers
         self.n_heads, self.n_classes = n_heads, n_classes
+        self.spatial_cond, self.cond_dim = spatial_cond, cond_dim
         self.max_rows, self.max_cols = max_rows, max_cols
         self.tok_embed = nn.Embedding(input_dim, dim)
         self.class_embed = nn.Embedding(n_classes, dim)
         self.bos = nn.Parameter(torch.empty(dim))
         self.row_embed = nn.Embedding(max_rows, dim)
         self.col_embed = nn.Embedding(max_cols, dim)
+        self.cond_proj = nn.Linear(cond_dim, dim) if spatial_cond else None
         for i in range(n_layers):
             self.add_module(f"block_{i}", _Block(dim, n_heads, mlp_ratio))
         self.ln_f = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
@@ -173,37 +177,53 @@ class TransformerPrior(nn.Module):
         cols = self.col_embed.weight[:w]
         return (rows[:, None, :] + cols[None, :, :]).reshape(h * w, self.dim)
 
-    def embed_sequence(self, codes: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
-        """Shifted token embeddings + positional + class: (B, H, W) -> (B, T, D)."""
+    def _cond(self, cond: torch.Tensor | None) -> torch.Tensor:
+        """``cond_proj`` of the conditioning at one or every position."""
+        if cond is None:
+            raise ValueError("spatial_cond model needs cond_map")
+        return self.cond_proj(cond.to(self.cond_proj.weight.dtype))
+
+    def embed_sequence(self, codes: torch.Tensor, label: torch.Tensor,
+                       cond_map: torch.Tensor | None = None) -> torch.Tensor:
+        """Shifted token embeddings + positional + class (+ spatial
+        conditioning, ``cond_map`` (B, H, W, Cc)): (B, H, W) -> (B, T, D)."""
         b, h, w = codes.shape
         tok = self.tok_embed(codes.reshape(b, h * w).long())
         bos = self.bos.expand(b, 1, self.dim).to(tok.dtype)
         x = torch.cat([bos, tok[:, :-1]], dim=1)
         x = x + self._pos_table(h, w)[None]
-        return x + self.class_embed(label.long())[:, None, :]
+        x = x + self.class_embed(label.long())[:, None, :]
+        if self.spatial_cond:
+            x = x + self._cond(None if cond_map is None else cond_map.reshape(b, h * w, -1))
+        return x
 
     def head_logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final LayerNorm + vocab head: (..., D) -> (..., K) float32."""
         return self.head(self.ln_f(x)).float()
 
-    def forward(self, codes: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    def forward(self, codes: torch.Tensor, label: torch.Tensor,
+                cond_map: torch.Tensor | None = None) -> torch.Tensor:
         b, h, w = codes.shape
-        x = self.embed_sequence(codes, label)
+        x = self.embed_sequence(codes, label, cond_map)
         for blk in self.blocks:
             x = blk(x)
         return self.head_logits(x).reshape(b, h, w, self.input_dim)
 
     def embed_step(self, prev_tok: torch.Tensor, label: torch.Tensor, t: int, h: int,
-                   w: int) -> torch.Tensor:
+                   w: int, cond_row: torch.Tensor | None = None) -> torch.Tensor:
         """Input at position t while sampling: the previous token's
-        embedding (``bos`` at t = 0) + pos[t] + class. prev_tok (B,) -> (B, D)."""
+        embedding (``bos`` at t = 0) + pos[t] + class (+ ``cond_proj`` of
+        ``cond_row`` (B, Cc), the conditioning at t). prev_tok (B,) -> (B, D)."""
         if t == 0:
             x = self.bos.expand(prev_tok.shape[0], self.dim)
         else:
             x = self.tok_embed(prev_tok.long())
         r, c = divmod(t, w)
         x = x + self.row_embed.weight[r] + self.col_embed.weight[c]
-        return x + self.class_embed(label.long())
+        x = x + self.class_embed(label.long())
+        if self.spatial_cond:
+            x = x + self._cond(cond_row)
+        return x
 
     def decode_step(self, x: torch.Tensor, caches, t: int):
         """One cached position through all blocks: (logits (B, K) float32,
@@ -242,21 +262,24 @@ def generate(
     batch_size: int = 64,
     temperature: float = 1.0,
     gumbel: torch.Tensor | None = None,
+    cond_map: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """KV-cached ancestral sampling of (batch_size, H, W) int32 code grids.
 
     Position t draws argmax(logits / temperature + G_t). ``gumbel``, when
     given, is the (T, B, K) noise; otherwise it is drawn from
-    ``generator`` (on the model's device) one position at a time."""
+    ``generator`` (on the model's device) one position at a time.
+    ``cond_map`` (B, H, W, Cc) conditions a ``spatial_cond`` prior."""
     h, w = shape
     t_len = h * w
     device = model.head.weight.device
     label = label.to(device)
+    cond = _cond_rows(cond_map, batch_size, t_len, device)
     caches = init_caches(model, batch_size, t_len)
     prev = torch.zeros(batch_size, dtype=torch.long, device=device)
     out = torch.empty(batch_size, t_len, dtype=torch.int32, device=device)
     for t in range(t_len):
-        x = model.embed_step(prev, label, t, h, w)
+        x = model.embed_step(prev, label, t, h, w, None if cond is None else cond[:, t])
         logits, caches = model.decode_step(x, caches, t)
         noise = gumbel[t].to(device) if gumbel is not None else gumbel_noise(
             logits.shape, generator, device)
@@ -265,18 +288,25 @@ def generate(
     return out.reshape(batch_size, h, w)
 
 
+def _cond_rows(cond_map: torch.Tensor | None, b: int, t_len: int, device):
+    """(B, H, W, Cc) -> (B, T, Cc) on ``device``, or None."""
+    return None if cond_map is None else cond_map.to(device).reshape(b, t_len, -1)
+
+
 @torch.inference_mode()
 def incremental_logits(model: TransformerPrior, codes: torch.Tensor,
-                       label: torch.Tensor) -> torch.Tensor:
+                       label: torch.Tensor, cond_map: torch.Tensor | None = None) -> torch.Tensor:
     """Teacher-forced logits through the cached decode path, the sampler's
     parity oracle: (B, H, W) codes -> (B, H, W, K) float32."""
     b, h, w = codes.shape
     t_len = h * w
     seq = codes.reshape(b, t_len)
+    cond = _cond_rows(cond_map, b, t_len, codes.device)
     caches = init_caches(model, b, t_len)
     out = []
     for t in range(t_len):
-        x = model.embed_step(seq[:, max(t - 1, 0)], label, t, h, w)
+        x = model.embed_step(seq[:, max(t - 1, 0)], label, t, h, w,
+                             None if cond is None else cond[:, t])
         logits, caches = model.decode_step(x, caches, t)
         out.append(logits)
     return torch.stack(out, dim=1).reshape(b, h, w, model.input_dim)

@@ -102,7 +102,7 @@ def codebook_perplexity(indices: torch.Tensor, num_codes: int) -> torch.Tensor:
 
 def prior_nll(logits: torch.Tensor, codes: torch.Tensor) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Mean negative log-likelihood of the code grid under the prior's
-    logits (B, H, W, K): (nll, {"loss", "nll_per_code"})."""
+    logits (B, H, W, K), either family's: (nll, {"loss", "nll_per_code"})."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, codes.long()[..., None]).mean()
     return nll, {"loss": nll, "nll_per_code": nll}

@@ -1,8 +1,8 @@
 """Training steps and the epoch loop of the autoencoders and the prior.
 
 Counterpart of ``neural_sound_generation_tpu/training/trainer.py`` for the
-``VQVAE``, ``HierVQVAE``, ``WaveVQVAE``, ``VAE`` and ``TransformerPrior`` on
-one device. The JAX package
+``VQVAE``, ``HierVQVAE``, ``WaveVQVAE``, ``VAE``, ``TransformerPrior`` and
+``GatedPixelCNN`` on one device. The JAX package
 returns a new state from a jitted pure step; here the step updates the
 state in place (the model's parameters are views of the flat buffer the
 fused kernel writes) and returns the same object, so the call sites read
@@ -18,9 +18,11 @@ generator and runs the fused-Adam kernel alone. Under a bf16 compute dtype
 (``--bf16``) the model's
 convolutions run in bf16 while the VQ, the loss, the gradients in the flat
 float32 buffer and the fused update stay float32. A prior train step
-(batches ``{"codes", "labels"}``) runs the flash-attention forward and both
-backward kernels once per layer, and the fused-Adam kernel once; it has no
-BatchNorm and no codebook branch.
+(batches ``{"codes", "labels"}``, and ``"cond"`` for a spatially
+conditioned prior) runs the fused-Adam kernel once and, for the
+transformer, the flash-attention forward and both backward kernels once per
+layer; the PixelCNN's masked convolutions are cuDNN's. It has no BatchNorm
+and no codebook branch.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from neural_sound_generation_tpu_torch.data.pipeline import device_prefetch
 from neural_sound_generation_tpu_torch.models import (
     VAE,
     VQVAE,
+    GatedPixelCNN,
     HierVQVAE,
     TransformerPrior,
     WaveVQVAE,
@@ -61,7 +64,8 @@ from neural_sound_generation_tpu_torch.training.train_state import (
 )
 
 Batch = Dict[str, torch.Tensor]
-FAMILIES = (VQVAE, HierVQVAE, WaveVQVAE, VAE, TransformerPrior)
+PRIORS = (TransformerPrior, GatedPixelCNN)
+FAMILIES = (VQVAE, HierVQVAE, WaveVQVAE, VAE, *PRIORS)
 
 
 def _wave_recon_loss(model: WaveVQVAE, out: torch.Tensor, batch: Batch) -> torch.Tensor:
@@ -76,10 +80,9 @@ def _loss_fn(model, cfg: Config) -> Callable:
     """Per-family loss closure: ``(batch, generator) -> (total, metrics,
     z_e or None)``; ``z_e`` feeds the EMA-codebook branch."""
     beta = cfg.model.beta
-    if isinstance(model, TransformerPrior):
+    if isinstance(model, PRIORS):
         def prior_loss(batch: Batch, generator):
-            codes = batch["codes"]
-            total, metrics = prior_nll(model(codes, batch["labels"]), codes)
+            total, metrics = prior_nll(_prior_logits(model, batch), batch["codes"])
             return total, metrics, None
 
         return prior_loss
@@ -120,6 +123,14 @@ def _loss_fn(model, cfg: Config) -> Callable:
 
         return vae_loss
     raise TypeError(f"unsupported model: {type(model).__name__}")
+
+
+def _prior_logits(model, batch: Batch) -> torch.Tensor:
+    """Either prior family's logits over the batch's codes; a spatially
+    conditioned prior takes ``batch["cond"]`` (the JAX
+    ``_pixelcnn_loss_fn``)."""
+    cond = (batch["cond"],) if model.spatial_cond else ()
+    return model(batch["codes"], batch["labels"], *cond)
 
 
 def uses_ema_codebook(model, cfg: Config) -> bool:
@@ -252,8 +263,8 @@ def make_eval_step(model, cfg: Config) -> Callable:
             return _eval_forward(batch)
 
     def _eval_forward(batch: Batch):
-        if isinstance(model, TransformerPrior):
-            logits = model(batch["codes"], batch["labels"])
+        if isinstance(model, PRIORS):
+            logits = _prior_logits(model, batch)
             _, metrics = prior_nll(logits, batch["codes"])
             return logits, metrics
         x = batch["x"]

@@ -2,26 +2,36 @@
 """Where the time of one prior training step goes in the PyTorch port, on a CUDA card.
 
 Builds the transformer prior the JAX package measured (dim 128, 4 layers
-of 2 heads of 64, 512 codes, 10 classes) and its train state on the card,
-float32 with TF32 off, a batch of 32 seeded random code grids at the CLI's
-training grid (20 x 7) and at the flagship grid (20 x 28), and for each:
+of 2 heads of 64, 512 codes, 10 classes), or with ``--arch pixelcnn`` the
+CLI's default GatedPixelCNN (dim 64, 15 layers), and its train state on
+the card, float32 with TF32 off, a batch of 32 seeded random code grids at
+the CLI's training grid (20 x 7) and at the flagship grid (20 x 28), and
+for each:
 
   * times the phases of a step with CUDA events (median of REPEATS steps
     after a warm-up): forward with the loss, backward, the optimizer
     (global norm, per-step scalars and the fused kernel), the whole step;
   * times the host's enqueue of one step (no synchronization): when it is
     as long as the device's step, the host bounds the step;
-  * times the three attention kernels alone at the step's shape;
+  * times the three attention kernels alone at the step's shape (the
+    transformer);
   * traces PROFILED_STEPS steps with ``torch.profiler`` and prints the
     kernels that take the most device time, the launches per step and the
     device's busy share of the steps' wall time.
 
-Run from the repository root: ``python3 scripts/torch_prior_breakdown.py``.
-Prints one JSON line per measurement; fails without a CUDA device.
+For the PixelCNN it then traces its row-cached sampler (``fast_generate``)
+over SAMPLER_ROWS rows of the served 20 x 21 grid at n = 1 and 4: wall
+ms per sampled code, CUDA kernels per code, the busy share and the top
+kernels.
+
+Run from the repository root: ``python3 scripts/torch_prior_breakdown.py
+[--arch transformer|pixelcnn]``. Prints one JSON line per measurement;
+fails without a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -36,10 +46,15 @@ REPEATS = 20
 PROFILED_STEPS = 10
 BATCH, CODES, CLASSES = 32, 512, 10
 DIM, LAYERS, HEADS = 128, 4, 2
+PIXELCNN_DIM, PIXELCNN_LAYERS = 64, 15
 GRIDS = [(20, 7), (20, 28)]
+SAMPLER_ROWS, SAMPLER_COLS = 2, 21
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--arch", choices=["transformer", "pixelcnn"], default="transformer")
+    arch = parser.parse_args(argv).arch
     import torch
 
     if not torch.cuda.is_available():
@@ -50,7 +65,8 @@ def main() -> int:
 
     from neural_sound_generation_tpu_torch.config import Config
     from neural_sound_generation_tpu_torch.device import resolve_device
-    from neural_sound_generation_tpu_torch.models import TransformerPrior
+    from neural_sound_generation_tpu_torch.models import GatedPixelCNN, TransformerPrior
+    from neural_sound_generation_tpu_torch.models.pixelcnn import fast_generate
     from neural_sound_generation_tpu_torch.ops.cuda import flash_attention as fa
     from neural_sound_generation_tpu_torch.training.losses import prior_nll
     from neural_sound_generation_tpu_torch.training.train_state import (
@@ -82,9 +98,24 @@ def main() -> int:
     def dev_us(e):
         return getattr(e, "device_time_total", None) or e.cuda_time_total
 
+    def build():
+        seed = torch.Generator().manual_seed(0)
+        if arch == "pixelcnn":
+            return GatedPixelCNN(CODES, PIXELCNN_DIM, PIXELCNN_LAYERS, CLASSES, generator=seed)
+        return TransformerPrior(CODES, DIM, LAYERS, HEADS, CLASSES, generator=seed)
+
+    def top_kernels(prof, count: int) -> dict:
+        """Device busy ms and the top kernels of a trace, per ``count``."""
+        # device kernels only: an aten op also reports its kernels' time
+        device_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        top = sorted(device_events, key=dev_us, reverse=True)[:12]
+        return {"device_busy_ms": sum(dev_us(e) for e in device_events) / 1e3,
+                "kernel_launches": sum(e.count for e in device_events) / count,
+                "top_device_ms": {e.key[:80]: dev_us(e) / 1e3 / count for e in top},
+                "top_counts": {e.key[:80]: e.count for e in top}}
+
     for h, w in GRIDS:
-        model = TransformerPrior(CODES, DIM, LAYERS, HEADS, CLASSES,
-                                 generator=torch.Generator().manual_seed(0)).to(device)
+        model = build().to(device)
         state = create_train_state(model, cfg.train)
         step = make_train_step(model, cfg)
         batch = {"codes": torch.randint(0, CODES, (BATCH, h, w), generator=gen, device=device,
@@ -125,21 +156,24 @@ def main() -> int:
             enqueue.append(1e3 * (time.perf_counter() - t0))
         torch.cuda.synchronize()
 
-        bh, t, hd = BATCH * HEADS, h * w, DIM // HEADS
-        q, k, v, do = (torch.randn(bh, t, hd, generator=gen, device=device) for _ in range(4))
-        o, lse = fa.launch_fwd(q, k, v, hd**-0.5)
-        dq, delta = fa.launch_bwd_dq(q, k, v, o, do, lse, hd**-0.5)
-        kernels = {
-            "flash_fwd": kernel_ms(lambda: fa.launch_fwd(q, k, v, hd**-0.5)),
-            "flash_bwd_dq": kernel_ms(lambda: fa.launch_bwd_dq(q, k, v, o, do, lse, hd**-0.5)),
-            "flash_bwd_dkdv": kernel_ms(
-                lambda: fa.launch_bwd_dkdv(q, k, v, do, lse, delta, hd**-0.5)),
-        }
-        print(json.dumps({
-            "card": card, "grid": [h, w], "batch": BATCH, "params": state.flat.numel,
-            "attention_shape": [bh, t, hd], "device_ms_median": phase_ms,
-            "host_enqueue_ms_median": float(np.median(enqueue)), "kernel_ms": kernels,
-        }), flush=True)
+        record = {"card": card, "arch": arch, "grid": [h, w], "batch": BATCH,
+                  "params": state.flat.numel, "device_ms_median": phase_ms,
+                  "host_enqueue_ms_median": float(np.median(enqueue))}
+        if arch == "transformer":
+            bh, t, hd = BATCH * HEADS, h * w, DIM // HEADS
+            q, k, v, do = (torch.randn(bh, t, hd, generator=gen, device=device)
+                           for _ in range(4))
+            o, lse = fa.launch_fwd(q, k, v, hd**-0.5)
+            dq, delta = fa.launch_bwd_dq(q, k, v, o, do, lse, hd**-0.5)
+            record["attention_shape"] = [bh, t, hd]
+            record["kernel_ms"] = {
+                "flash_fwd": kernel_ms(lambda: fa.launch_fwd(q, k, v, hd**-0.5)),
+                "flash_bwd_dq": kernel_ms(
+                    lambda: fa.launch_bwd_dq(q, k, v, o, do, lse, hd**-0.5)),
+                "flash_bwd_dkdv": kernel_ms(
+                    lambda: fa.launch_bwd_dkdv(q, k, v, do, lse, delta, hd**-0.5)),
+            }
+        print(json.dumps(record), flush=True)
 
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -148,19 +182,44 @@ def main() -> int:
                 step(state, batch)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-        # device kernels only: an aten op also reports its kernels' time
-        device_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(dev_us(e) for e in device_events) / 1e3
-        top = sorted(device_events, key=dev_us, reverse=True)[:12]
+        trace = top_kernels(prof, PROFILED_STEPS)
         print(json.dumps({
-            "profile": f"{PROFILED_STEPS} train steps", "grid": [h, w], "card": card,
-            "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
-            "kernel_launches_per_step": sum(e.count for e in device_events) / PROFILED_STEPS,
-            "top_device_ms_per_step": {e.key[:80]: dev_us(e) / 1e3 / PROFILED_STEPS for e in top},
-            "top_counts": {e.key[:80]: e.count for e in top},
+            "profile": f"{PROFILED_STEPS} train steps", "arch": arch, "grid": [h, w],
+            "card": card, "wall_ms": wall_ms, "device_busy_ms": trace["device_busy_ms"],
+            "device_busy_share": trace["device_busy_ms"] / wall_ms,
+            "kernel_launches_per_step": trace["kernel_launches"],
+            "top_device_ms_per_step": trace["top_device_ms"], "top_counts": trace["top_counts"],
         }), flush=True)
         del model, state, step
         torch.cuda.empty_cache()
+    if arch == "pixelcnn":
+        model = build().to(device).eval()
+        codes = SAMPLER_ROWS * SAMPLER_COLS
+        for n in (1, 4):
+            labels = torch.zeros(n, dtype=torch.int32, device=device)
+
+            def sample():
+                fast_generate(model, labels, torch.Generator(device=device).manual_seed(0),
+                              shape=(SAMPLER_ROWS, SAMPLER_COLS), batch_size=n)
+
+            sample()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sample()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                sample()
+                torch.cuda.synchronize()
+            trace = top_kernels(prof, codes)
+            print(json.dumps({
+                "profile": "fast_generate", "grid": [SAMPLER_ROWS, SAMPLER_COLS], "n": n,
+                "card": card, "wall_ms_per_code": wall_ms / codes,
+                "device_busy_ms_per_code": trace["device_busy_ms"] / codes,
+                "device_busy_share": trace["device_busy_ms"] / wall_ms,
+                "kernel_launches_per_code": trace["kernel_launches"],
+                "top_device_ms_per_code": trace["top_device_ms"],
+            }), flush=True)
     return 0
 
 

@@ -1,10 +1,12 @@
 """The port's prior CLI end to end on the CPU (``--device cpu``) on a tiny
 synthetic corpus: a VQ-VAE trained by ``cli.main``, then ``cli.prior
-train --arch transformer`` for two epochs, ``--resume`` for a third,
-``cli.prior sample``, and ``/sample`` over HTTP from the server started
-with ``--prior-ckpt``; checkpoint metadata that disagrees with the flags
-(the head count above all) and the flags of later slices refuse."""
+train --arch transformer`` and with the default ``--arch pixelcnn``, each
+for two epochs and ``--resume`` for a third, ``cli.prior sample``, and
+``/sample`` over HTTP from the server started with ``--prior-ckpt``;
+checkpoint metadata that disagrees with the flags (the head count and the
+family above all) and the flags of later slices refuse."""
 
+import contextlib
 import io
 import json
 import os
@@ -27,6 +29,9 @@ torch.set_num_threads(1)
 DIM, Z_DIM, SR = 32, 64, 22050
 PRIOR = ["--arch", "transformer", "--prior-dim", "32", "--prior-layers", "2",
          "--prior-heads", "2", "--dim", str(DIM), "--z-dim", str(Z_DIM), "--device", "cpu"]
+# the default --arch: the GatedPixelCNN
+PIXELCNN = ["--prior-dim", "16", "--prior-layers", "3", "--dim", str(DIM), "--z-dim", str(Z_DIM),
+            "--device", "cpu"]
 
 
 def _corpus(root, n=40):
@@ -74,7 +79,7 @@ def test_train_then_resume(trained, capsys):
     for d in (ckpt, ckpt + "_ema", ckpt + "_train"):
         assert checkpoint.latest_step(d) == 9, d  # the resumed epoch continued the count
     meta = {"arch": "transformer", "prior_dim": 32, "prior_layers": 2, "prior_heads": 2,
-            "z_dim": Z_DIM, "n_classes": 10}
+            "z_dim": Z_DIM, "n_classes": 10, "spatial_cond": False, "cond_dim": 0}
     assert checkpoint.read_extra(ckpt) == {"epoch": 3, **meta}
     assert checkpoint.read_extra(ckpt + "_ema") == {"epoch": 3, "averaged": True, **meta}
     state = torch.load(os.path.join(ckpt, "step_9", "state.pt"), weights_only=True)
@@ -189,8 +194,6 @@ def test_sample_endpoint_over_http(trained):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--arch", "pixelcnn"], "PixelCNN slice"),
-    (["--arch", "transformer", "--hier"], "hierarchical"),
     (["--arch", "transformer", "--moe-experts", "4"], "MoE slice"),
     (["--arch", "transformer", "--bf16"], "bf16 slice"),
     (["--arch", "transformer", "--mesh-pipe", "2"], "parallel slice"),
@@ -205,15 +208,89 @@ def test_flags_of_later_slices_refuse(flags, match):
             prior.main(["sample", "--prior-ckpt", "/nonexistent", *common, *flags])
 
 
-def test_serve_refuses_a_pixelcnn_prior(trained):
-    _, _, _, ckpt, _, _ = trained
-    with pytest.raises(SystemExit, match="PixelCNN slice"):
-        serve.build_service(serve.parse_args([
-            "--device", "cpu", "--dim", str(DIM), "--z-dim", str(Z_DIM), "--frames", "16",
-            "--prior-ckpt", ckpt]))
+@pytest.mark.parametrize("flags", [["--arch", "pixelcnn"], ["--arch", "transformer", "--hier"]])
+def test_flags_of_this_slice_pass_the_refusals(flags):
+    """The PixelCNN and the hierarchy run (end to end below and in
+    tests/test_torch_hier_prior.py); no flag of theirs is refused."""
+    common = ["--vqvae-ckpt", "/nonexistent", "--device", "cpu", *flags]
+    for argv in (["train", "--datadir", "/nonexistent", *common],
+                 ["sample", "--prior-ckpt", "/nonexistent", *common]):
+        prior.refuse_later_slices(prior.parse_args(argv))
+
+
+@pytest.fixture(scope="module")
+def pixelcnn(trained):
+    """The default-arch prior on the same VQ-VAE: two epochs, then
+    ``--resume`` for a third."""
+    tmp, datadir, vq_ckpt, _, _, _ = trained
+    ckpt = str(tmp / "pixelcnn")
+    train = ["train", "--datadir", datadir, "--vqvae-ckpt", vq_ckpt, "--ckpt-dir", ckpt,
+             "--batch-size", "4", "--max-batches-per-epoch", "3", "--lr", "3e-3", *PIXELCNN]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        prior.main(train + ["--epochs", "2"])
+        prior.main(train + ["--epochs", "3", "--resume"])
+    return vq_ckpt, ckpt, out.getvalue()
+
+
+def test_pixelcnn_trains_and_resumes(pixelcnn):
+    _, ckpt, log = pixelcnn
+    for d in (ckpt, ckpt + "_ema", ckpt + "_train"):
+        assert checkpoint.latest_step(d) == 9, d
+    assert checkpoint.read_extra(ckpt) == {
+        "epoch": 3, "arch": "pixelcnn", "prior_dim": 16, "prior_layers": 3, "prior_heads": 0,
+        "z_dim": Z_DIM, "n_classes": 10, "spatial_cond": False, "cond_dim": 0}
+    full = torch.load(os.path.join(ckpt + "_train", "step_9", "state.pt"), weights_only=True)
+    assert int(full["opt_state/count"]) == 9
+    assert full["params/layer_0.vert_kernel"].shape == (32, 16, 4, 7)
+    assert "resumed train state from step 6, epoch 3" in log
+    nll = [float(line.split("nll/code ")[1].split()[0])
+           for line in log.splitlines() if line.startswith("prior epoch")]
+    assert len(nll) == 3 and all(np.isfinite(nll)) and nll[-1] < nll[0]
+
+
+def test_pixelcnn_sample_writes_finite_wavs(pixelcnn, tmp_path):
+    from scipy.io import wavfile
+
+    vq_ckpt, ckpt, _ = pixelcnn
+    with contextlib.redirect_stdout(io.StringIO()):
+        prior.main(["sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt", ckpt + "_ema",
+                    "--output-dir", str(tmp_path), "--code-shape", "20", "3",
+                    "--num-samples", "2", *PIXELCNN])
+    for i in range(2):
+        rate, wav = wavfile.read(tmp_path / f"prior_sample_{i:03d}.wav")
+        assert rate == SR and wav.shape == (11 * 256,) and np.abs(wav).max() > 0
+
+
+def test_serve_a_pixelcnn_prior(trained, pixelcnn):
+    """``serve --prior-ckpt`` with the default ``--prior-arch pixelcnn``
+    answers /sample; a transformer checkpoint under that flag refuses."""
+    from scipy.io import wavfile
+
+    _, _, _, transformer_ckpt, _, _ = trained
+    vq_ckpt, ckpt, _ = pixelcnn
+    base = ["--device", "cpu", "--dim", str(DIM), "--z-dim", str(Z_DIM), "--frames", "16",
+            "--ckpt-dir", vq_ckpt, "--prior-dim", "16", "--prior-layers", "3"]
+    with pytest.raises(SystemExit, match="arch='transformer'"):
+        serve.build_service(serve.parse_args(base + ["--prior-ckpt", transformer_ckpt]))
+    service = serve.build_service(serve.parse_args(base + ["--prior-ckpt", ckpt]))
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/sample"
+    try:
+        for n in (1, 2):
+            status, body = _post(url, {"n": n, "label": 2, "seed": 3})
+            assert status == 200, body[:200]
+            rate, wav = wavfile.read(io.BytesIO(body))
+            assert rate == SR and wav.shape == (n * 15 * 256,) and np.abs(wav).max() > 0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
 
 
 def test_long_t_warning():
     assert prior.long_t_warning("transformer", (1, 20, 7)) is None
-    assert "T=2240" in prior.long_t_warning("transformer", (1, 40, 56))
+    text = prior.long_t_warning("transformer", (1, 40, 56))
+    # the card's own figures, with the card (no figure measured on another device)
+    assert "T=2240" in text and "H100 80GB HBM3 at 700 W" in text and "TPU" not in text
     assert prior.long_t_warning("pixelcnn", (1, 40, 56)) is None

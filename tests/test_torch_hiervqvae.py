@@ -429,9 +429,10 @@ def test_serve_refusals(trained, tmp_path):
     _, _, ckpt, _ = trained
     with pytest.raises(SystemExit, match="multiple of 8"):
         serve.build_service(_serve_args(ckpt, "--frames", "84"))
-    with pytest.raises(SystemExit, match="hierarchical-prior slice"):
+    # /sample needs both priors (served in tests/test_torch_hier_prior.py)
+    with pytest.raises(SystemExit, match="needs --bottom-ckpt"):
         serve.build_service(_serve_args(ckpt, "--prior-ckpt", str(tmp_path)))
-    with pytest.raises(SystemExit, match="hierarchical-prior slice"):
+    with pytest.raises(SystemExit, match="beside its top prior"):
         serve.build_service(_serve_args(ckpt, "--bottom-ckpt", str(tmp_path)))
     preset = tmp_path / "multi.json"
     preset.write_text(json.dumps({"gin_channels": 16, "n_speakers": 4}))

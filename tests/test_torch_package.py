@@ -35,6 +35,7 @@ def test_importing_every_module_loads_no_jax():
     for name in ("cli.serve", "cli.main", "cli.evaluate", "cli.prior", "training.trainer",
                  "training.checkpoint", "data.pipeline", "ops.cuda.fused_adam",
                  "ops.cuda.flash_attention", "ops.attention", "models.transformer_prior",
+                 "models.pixelcnn",
                  "inference.audio", "models.wavenet", "ops.cuda.wavenet_gen", "cli.vocoder",
                  "serving.mux", "ops.cuda.conv3x3", "ops.lws", "data.corpora",
                  "data.corpora.engine", "data.corpora.ljspeech", "data.corpora.cmu_arctic",

@@ -256,7 +256,10 @@ def test_unsupported_configurations_raise():
         pair.tm(codes, torch.zeros(1, dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="MoE slice"):
         TransformerPrior(K, DIM, LAYERS, HEADS, CLASSES, n_experts=4)
-    with pytest.raises(NotImplementedError, match="hierarchical"):
+    # spatial conditioning runs (tests/test_torch_hier_prior.py) given its width
+    with pytest.raises(ValueError, match="cond_dim"):
         TransformerPrior(K, DIM, LAYERS, HEADS, CLASSES, spatial_cond=True)
+    assert TransformerPrior(K, DIM, LAYERS, HEADS, CLASSES, spatial_cond=True,
+                            cond_dim=8).cond_proj.weight.shape == (DIM, 8)
     with pytest.raises(ValueError, match="divisible"):
         TransformerPrior(K, DIM, LAYERS, 3, CLASSES)
