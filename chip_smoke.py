@@ -2,8 +2,8 @@
 """Drives the PyTorch port's serving, training (single-codebook float32 and
 residual-VQ bf16), prior, vocoder, 3x3-convolution A/B, corpus
 preprocessing, mel-inversion, other-autoencoder (HierVQVAE, WaveVQVAE,
-VAE), PixelCNN-prior and hierarchical-chain paths on one CUDA card and
-checks them.
+VAE), PixelCNN-prior, hierarchical-chain and vocoder-training paths on one
+CUDA card and checks them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
@@ -20,7 +20,7 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    untimed, and a tie case), the
    fused Adam update at the flagship's parameter count in three
    configurations over three chained steps (and at the default PixelCNN's
-   count in the first), and the causal-attention
+   count in the first; each row also device-only), and the causal-attention
    forward, dQ and dK/dV kernels at the prior's grids (T = 140, 560 in f32
    and bf16, 2240, a ragged T = 37, D = 128, and the contract's ends T = 1
    and bf16 D = 20), each run twice to show the backward is bit-identical
@@ -151,7 +151,23 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
     and ``serve --model hiervqvae`` /sample at n = 1 and 4 (10 x 10 top, 20 x
     20 bottom); then one train step of each family timed at the 40 x 56
     bottom grid;
-13. summary: one JSON line per kernel, then the result line.
+13. vocoder training: ``cli.vocoder train`` at the CLI's default width (24
+    layers, R = G = 512, S = 256; batch 2 of 7168-sample crops, 8 batches
+    an epoch): the mel chain (MoL) on phase 5's corpus for two epochs, then
+    --resume for a third and --resume --multi-steps 4 for a fourth; --bf16
+    for two; mulaw-quantize with speakers (gin_channels 16) on phase 10's
+    cmu_arctic corpus under a cmu_arctic_8bit preset the script writes;
+    --condition units on phase 11's raw WaveVQVAE (dim 256, 512 codes,
+    downsample 6). Each run's launch counts (fused Adam: steps;
+    nearest-code: one a step in the units chain, 0 otherwise), its loss
+    finite and falling, its checkpoints and their metadata; one f32 and one
+    bf16 step card vs CPU on 2048-sample crops (f32: loss 1e-5, grad_norm
+    1e-4, parameters as phase 5; bf16: loss 2e-2); the units card vs CPU
+    (flips only at near-ties); steps/s over 20 device-resident steps in f32
+    and bf16; ``cli.vocoder synthesize`` from the mel artifact and with
+    --condition units --wav-in from the units artifact; the fused Adam
+    kernel at 24,886,366 parameters (EMA) and 25,337,152 (no EMA);
+14. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -535,6 +551,10 @@ def vq_tie_case(torch, vq_kernel, gen) -> dict:
     return {"phase": "kernel_tie", "name": "vq_nearest", "winners": winners}
 
 
+ADAM_ROW_KEYS = ("n", "max_abs_err", "kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms",
+                 "library_ms", "library_device_ms")
+
+
 def adam_bound_ms(n: int, bf16: bool, has_ema: bool) -> float:
     """Least time for one fused update of n parameters: read g, p, m, v
     (and ema), write p, m, v (and ema) once each, over the HBM rate. The
@@ -592,19 +612,25 @@ def compare_fused_adam(torch, fused_adam, n: int, config, gen) -> dict:
     unaligned = sum(int((a != b).sum()) for a, b in zip(ker, ref) if a is not None)
     check(unaligned == 0, f"fused_adam {name}: {unaligned} elements differ on unaligned views")
     g = grads[0]
-    kernel_ms = time_ms(torch, lambda: fused_adam.fused_adam_update(g, *ker, scalars, **kw), 50)
+
+    def kernel():
+        fused_adam.fused_adam_update(g, *ker, scalars, **kw)
+
+    kernel_ms = time_ms(torch, kernel, 50)
+    kernel_device_ms, _ = device_time_ms(torch, kernel, 50)
     plain_ms = time_ms(torch, lambda: fused_adam.fused_adam_plain(g, *ref, scalars, **kw), 20)
     flat = torch.nn.Parameter(p.clone())
     flat.grad = g.clone()
     opt = torch.optim.Adam([flat], lr=1e-3, fused=True)
     library_ms = time_ms(torch, opt.step, 50)
+    library_device_ms, _ = device_time_ms(torch, opt.step, 50)
     return {
         "phase": "kernel", "name": "fused_adam", "config": name, "n": n, "steps": ADAM_STEPS,
         "moments": "bf16" if bf16 else "f32", "clip": clip, "wd": wd, "ema": has_ema,
         "max_abs_err": max(errs.values()), "max_abs_err_by_vector": errs,
         "mismatched_elements": mism, "unaligned_mismatches": unaligned,
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms,
+        "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "library_device_ms": library_device_ms,
         "library": "torch.optim.Adam(fused=True) on one flat parameter: no clip, "
                    "weight decay or EMA",
         "bound_ms": adam_bound_ms(n, bf16, has_ema), "bound_by": "bytes",
@@ -2052,7 +2078,7 @@ def vocoder_fullwidth(torch, serve, cli_vocoder, checkpoint, wavenet_gen, dsp, r
           f"the CLI's default vocoder: {widths}")
     work = os.path.join(root, "vocoder")
     ckpt = os.path.join(work, "models")
-    checkpoint.save_params(ckpt, model, 0, cli_vocoder.condition_meta())
+    checkpoint.save_params(ckpt, model, 0, cli_vocoder._condition_meta(types.SimpleNamespace()))
     check(checkpoint.read_extra(ckpt) == {"condition": "mel"}, "vocoder artifact metadata")
     del model
 
@@ -3550,6 +3576,431 @@ def priors_phase(torch, cli_prior, serve, checkpoint, counters, root: str, vq_ck
             "long_grid": long_grid}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: vocoder training
+# ---------------------------------------------------------------------------
+
+# the CLI's default vocoder (24 layers, 4 stacks, R = G = 512, S = 256, cin
+# 80, a 10-mixture MoL head; 256 classes under mulaw-quantize; cin 256 and
+# an upsampler by 64 under --condition units) at the presets' batch 2 of
+# 7168-sample crops (max_time_steps 8000 after the loader's 28-frame crop),
+# BATCHES_PER_EPOCH batches an epoch; its parameter counts (EMA on for the
+# mel chain, off under the cmu_arctic_8bit settings)
+VT_BATCH = 2
+VT_PARAMS = {"mel_mol": 24_886_366, "mulaw_quantize": 25_337_152, "units": 28_417_566}
+VT_ADAM = [("mel_mol", ("f32_ema", False, False, 0.0, True)),
+           ("mulaw_quantize", ("f32_plain", False, False, 0.0, False))]
+VT_SPEAKER_GIN = 16
+# every run's learning rate, from a preset the phase writes. At the CLI's
+# default (1e-3, constant: the JAX CLI builds its state without the
+# presets' schedule) the full-width MoL loss on a fixed batch wanders over
+# the first 32 steps (11.83 -> 11.39 at step 16 in one run, 11.91 in
+# another: cuDNN's weight gradients are not deterministic, and steps spike
+# to 14.4); at 1e-4 it fell by about 1 nat in 16 steps, f32 and bf16
+# (scripts/torch_vocoder_lr_probe.py)
+VT_LR = 1e-4
+VT_TIMED_STEPS = 20
+# the card-vs-CPU steps run on the first 2048 samples (8 mel frames) of a
+# batch; a bf16 step's loss within 2e-2 relative, as the CPU tests hold the
+# port's bf16 step against JAX's
+VT_CARD_CPU_SAMPLES = 2048
+VT_BF16_LOSS_REL = 2e-2
+VT_UNITS_FRAMES = 16  # synthesize --condition units: 16 unit hops of 64 samples
+VT_EPOCH_RE = re.compile(r"^wavenet epoch (\d+): loss (\S+)", re.M)
+# the width flags of every run: none, the CLI's default vocoder (a CPU
+# rehearsal of the phase may set small ones)
+VT_LAYERS = VT_STACKS = VT_RESIDUAL = None
+
+
+def vocoder_widths(**kw):
+    """``build_model``'s width arguments of the phase's vocoder."""
+    import types
+
+    return types.SimpleNamespace(residual_channels=VT_RESIDUAL, layers=VT_LAYERS,
+                                 stacks=VT_STACKS, **kw)
+
+
+def vocoder_width_flags() -> list:
+    flags = (("--layers", VT_LAYERS), ("--stacks", VT_STACKS),
+             ("--residual-channels", VT_RESIDUAL))
+    return [x for flag, v in flags if v is not None for x in (flag, str(v))]
+
+
+def units_flags(units_ckpt: str) -> list:
+    return ["--condition", "units", "--units-vqvae-ckpt", units_ckpt, "--units-dim",
+            str(TRAIN_DIM), "--units-z-dim", str(TRAIN_CODES), "--units-downsample",
+            str(WAVE_DOWNSAMPLE), "--units-num-quantizers", "1"]
+
+
+def run_cli_vocoder(cli_vocoder, kernels, argv) -> dict:
+    """One ``cli.vocoder`` run with every launch count set to 0 just before
+    it and read just after; its epoch lines parsed."""
+    for k in kernels:
+        k.reset_launch_count()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli_vocoder.main(argv)
+    seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    return {"seconds": seconds,
+            "launches": {k.__name__.rsplit(".", 1)[-1]: k.launch_count() for k in kernels},
+            "epochs": [(int(e), float(v)) for e, v in VT_EPOCH_RE.findall(text)],
+            "text": text}
+
+
+def check_vocoder_run(run: dict, tag: str, epochs: list, want_vq: int) -> None:
+    """The run's epochs, fused_adam once per optimizer step, vq_nearest
+    ``want_vq`` times, each epoch's mean loss finite. Epoch means come from
+    other batches each epoch (chirps of 0.2-0.7 peak), so whether the loss
+    falls is held on one fixed batch (``held_loss``)."""
+    steps = len(epochs) * BATCHES_PER_EPOCH
+    got = [e for e, _ in run["epochs"]]
+    check(got == epochs, f"vocoder {tag}: epochs {got}, expected {epochs}")
+    check(run["launches"]["fused_adam"] == steps,
+          f"vocoder {tag}: fused_adam launched {run['launches']['fused_adam']} times for "
+          f"{steps} steps")
+    check(run["launches"]["vq_kernel"] == want_vq,
+          f"vocoder {tag}: vq_nearest launched {run['launches']['vq_kernel']} times, "
+          f"expected {want_vq}")
+    losses = [v for _, v in run["epochs"]]
+    check(all(np.isfinite(losses)), f"vocoder {tag}: losses {losses}")
+    run.update(optimizer_steps=steps, epoch_losses=losses,
+               steps_per_s_cli=steps / run["seconds"])
+
+
+def held_loss(torch, cli_vocoder, trainer, checkpoint, cfg, widths, batch: dict,
+              ckpt: str | None = None) -> float:
+    """The vocoder's loss on one fixed device batch: the CLI's seeded
+    initial weights (``--seed`` 0), or an artifact's."""
+    model = cli_vocoder.build_model(cfg, widths, generator=torch.Generator().manual_seed(0))
+    if ckpt is not None:
+        checkpoint.restore_params(ckpt, model)
+    with torch.no_grad():
+        return float(trainer._wavenet_loss(model.to(DEVICE), cfg, batch)[1])
+
+
+def check_falls(torch, cli_vocoder, trainer, checkpoint, cfg, widths, batch: dict, ckpt: str,
+                tag: str) -> dict:
+    """The loss on one fixed batch falls from the seeded weights a run
+    starts from to the artifact it ends with."""
+    before = held_loss(torch, cli_vocoder, trainer, checkpoint, cfg, widths, batch)
+    after = held_loss(torch, cli_vocoder, trainer, checkpoint, cfg, widths, batch, ckpt)
+    check(np.isfinite(after) and after < before,
+          f"vocoder {tag}: the loss on a fixed batch did not fall ({before} -> {after})")
+    return {"before": before, "after": after}
+
+
+def on_device(torch, batch: dict) -> dict:
+    return {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(v).to(DEVICE)
+            for k, v in batch.items()}
+
+
+def vocoder_run_record(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k != "text"}
+
+
+def vocoder_batch(cli_vocoder, cfg, corpus: str, samples: int | None = None) -> dict:
+    """One raw batch of the corpus as the vocoder's numpy batch, its first
+    ``samples`` samples (and their mel frames) when given."""
+    from neural_sound_generation_tpu_torch.data.pipeline import get_audio_data_loaders
+
+    raw = next(iter(get_audio_data_loaders(corpus, None, VT_BATCH, cfg,
+                                           batch_mode="raw")["train"]))
+    y, c = cli_vocoder._batch_to_wavenet(raw, cfg)
+    lengths = np.asarray(raw["input_lengths"])
+    if samples is not None:
+        hop = cfg.audio.effective_hop_size
+        y, c = y[:, :samples], c[:, : samples // hop]
+        lengths = np.minimum(lengths, samples)
+    out = {"y": np.ascontiguousarray(y), "c": np.ascontiguousarray(c),
+           "input_lengths": lengths.astype(np.int32)}
+    g = cli_vocoder._batch_speakers(raw)
+    if g is not None:
+        out["g"] = g
+    return out
+
+
+def vocoder_card_vs_cpu(torch, cli_vocoder, checkpoint, trainer, cfg, train_dir: str,
+                        batch: dict) -> dict:
+    """One f32 and one bf16 step at full width, card vs CPU, from the same
+    restored state (warm moments and EMA) on the same batch."""
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+
+    out = {}
+    for tag, bf16 in (("f32", False), ("bf16", True)):
+        states, metrics = {}, {}
+        for device in (DEVICE, "cpu"):
+            model = cli_vocoder.build_model(cfg, vocoder_widths(bf16=bf16))
+            state = create_train_state(model.to(device), cfg.train)
+            checkpoint.restore(train_dir, state)
+            on = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+            _, m = trainer.make_train_step(model, cfg)(state, on)
+            states[device], metrics[device] = state, {k: float(v) for k, v in m.items()}
+        rel = {k: abs(metrics[DEVICE][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
+               for k in metrics["cpu"]}
+        diff = (states[DEVICE].flat.flat.cpu() - states["cpu"].flat.flat).abs()
+        far = float((diff > 1e-5).float().mean())
+        out[tag] = {"metrics": metrics, "rel_err": rel, "params_beyond_1e-5_frac": far,
+                    "params_max_abs_err": float(diff.max())}
+        del states
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    emit({"phase": "vocoder_card_vs_cpu_step", **out})
+    # TF32 is off, so only the order of f32 sums differs: the loss within
+    # 1e-5 relative, grad_norm 1e-4, and phase 5's rule for the parameters
+    # (Adam turns a near-zero gradient's sign into a step of about lr)
+    f32 = out["f32"]
+    check(f32["rel_err"]["loss"] <= 1e-5 and f32["rel_err"]["grad_norm"] <= 1e-4,
+          f"vocoder card vs CPU f32 step: {f32['rel_err']}")
+    check(f32["params_beyond_1e-5_frac"] <= 1e-3 and f32["params_max_abs_err"] <= 1e-2,
+          f"vocoder card vs CPU f32 step: {f32['params_beyond_1e-5_frac']:.3%} of parameters "
+          f"beyond 1e-5, max {f32['params_max_abs_err']}")
+    check(out["bf16"]["rel_err"]["loss"] <= VT_BF16_LOSS_REL,
+          f"vocoder card vs CPU bf16 step: {out['bf16']['rel_err']}")
+    return out
+
+
+def units_card_vs_cpu(torch, cli_vocoder, cfg, units_ckpt: str, y: np.ndarray) -> dict:
+    """The units of one batch from the frozen WaveVQVAE on the card and on
+    the CPU: every code flip a near-tie, the conditioning equal where the
+    codes agree."""
+    args = cli_vocoder.parse_args(["train", "--datadir", "-", *units_flags(units_ckpt)])
+    z_e, codes, cond, books = {}, {}, {}, {}
+    for device in (DEVICE, "cpu"):
+        units_fn, model = cli_vocoder._build_units_encoder(args, cfg, torch.device(device))
+        x = torch.from_numpy(y).to(device)
+        with torch.no_grad():
+            z = model.encode_latents(x)
+            codes[device] = model.encode(x).cpu().reshape(-1)
+        z_e[device] = z.reshape(-1, z.shape[-1]).double().cpu()
+        cond[device] = units_fn(x).reshape(-1, z.shape[-1]).cpu()
+        books[device] = model.codebook.detach().double().cpu()
+    flipped = codes[DEVICE] != codes["cpu"]
+    book = books["cpu"]
+    ties = near_ties(z_e["cpu"][flipped], z_e[DEVICE][flipped], book[codes[DEVICE][flipped]],
+                     book[codes["cpu"][flipped]])
+    same = ~flipped
+    record = {"rows": int(codes["cpu"].numel()), "code_flips": int(flipped.sum()),
+              "near_ties": int(ties.sum()),
+              "cond_equal_where_codes_agree": bool(torch.equal(cond[DEVICE][same],
+                                                               cond["cpu"][same]))}
+    check(record["code_flips"] == record["near_ties"],
+          f"units card vs CPU: {record['code_flips'] - record['near_ties']} flips that are "
+          f"not near-ties")
+    check(record["cond_equal_where_codes_agree"], "units card vs CPU: conditioning differs")
+    return record
+
+
+def vocoder_steps_per_s(torch, cli_vocoder, checkpoint, cfg, train_dir: str, batch: dict,
+                        bf16: bool) -> float:
+    """Train steps/s of the restored vocoder with a device-resident batch."""
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+    from neural_sound_generation_tpu_torch.training.trainer import make_train_step
+
+    model = cli_vocoder.build_model(cfg, vocoder_widths(bf16=bf16)).to(DEVICE)
+    state = create_train_state(model, cfg.train)
+    checkpoint.restore(train_dir, state)
+    step = make_train_step(model, cfg)
+    on = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+    for _ in range(3):
+        step(state, on)
+    sync(torch)
+    t0 = time.perf_counter()
+    for _ in range(VT_TIMED_STEPS):
+        step(state, on)
+    sync(torch)
+    return VT_TIMED_STEPS / (time.perf_counter() - t0)
+
+
+def vocoder_synthesize(cli_vocoder, vq_kernel, argv: list, out: str, want: int,
+                       sr: int) -> dict:
+    """One ``cli.vocoder synthesize``: finite audio of ``want`` samples, and
+    the nearest-code kernel's launches over it."""
+    vq_kernel.reset_launch_count()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_vocoder.main(argv + ["--output", out, "--device", DEVICE, *vocoder_width_flags()])
+    seconds = time.perf_counter() - t0
+    with open(out, "rb") as f:
+        wav = read_wav(f.read(), sr)
+    check(len(wav) == want and np.isfinite(wav).all(),
+          f"synthesize {argv[:4]}: {len(wav)} samples, expected {want} finite")
+    return {"samples": len(wav), "seconds": seconds, "vq_launches": vq_kernel.launch_count()}
+
+
+def vocoder_train_phase(torch, cli_vocoder, checkpoint, dsp, vq_kernel, fused_adam, root: str,
+                        corpus: str, card: str) -> dict:
+    """Phase 13: ``cli.vocoder train`` at the CLI's default width: the mel
+    chain (MoL) for two epochs, --resume for a third, --resume
+    --multi-steps 4 for a fourth; --bf16; mulaw-quantize with speakers on
+    phase 10's cmu_arctic corpus; --condition units on phase 11's raw
+    WaveVQVAE. Launch counts, losses, checkpoints, card-vs-CPU steps,
+    steps/s, ``synthesize`` from the mel and the units artifacts, and the
+    fused-Adam kernel at the vocoder's parameter counts."""
+    from neural_sound_generation_tpu_torch.config import Config, load_preset
+    from neural_sound_generation_tpu_torch.training import trainer
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, "vocoder_train")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    kernels = (vq_kernel, fused_adam)
+    cmu = os.path.join(root, "preprocess", "cmu_arctic_on_card")
+    units_ckpt = os.path.join(root, "wave", "models", "wavevqvae",
+                              f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")
+
+    lr_preset = os.path.join(out, "vocoder_lr.json")
+    with open(lr_preset, "w", encoding="utf-8") as f:
+        json.dump({"initial_learning_rate": VT_LR}, f)
+
+    def argv(tag, *extra, datadir=corpus, preset=lr_preset):
+        return ["train", "--datadir", datadir, "--ckpt-dir", os.path.join(out, tag),
+                "--preset", preset,
+                "--batch-size", str(VT_BATCH), "--max-batches-per-epoch",
+                str(BATCHES_PER_EPOCH), "--device", DEVICE, *vocoder_width_flags(), *extra]
+
+    steps = BATCHES_PER_EPOCH
+    runs = {}
+    mel = os.path.join(out, "mel")
+    cfg = load_preset(lr_preset, Config())
+    full = vocoder_batch(cli_vocoder, cfg, corpus)
+    check(full["y"].shape == (VT_BATCH, 7168, 1), f"vocoder batch {full['y'].shape}")
+    held = on_device(torch, full)
+    falls = {}
+    runs["mel"] = run_cli_vocoder(cli_vocoder, kernels, argv("mel", "--epochs", "2"))
+    check_vocoder_run(runs["mel"], "mel", [1, 2], 0)
+    falls["mel"] = check_falls(torch, cli_vocoder, trainer, checkpoint, cfg, vocoder_widths(),
+                               held, mel, "mel")
+    for suffix, extra in (("", {}), ("_ema", {"averaged": True}), ("_train", {})):
+        got = (checkpoint.latest_step(mel + suffix), checkpoint.read_extra(mel + suffix))
+        check(got == (2 * steps, {"epoch": 2, "condition": "mel", **extra}),
+              f"vocoder mel{suffix}: checkpoint {got}")
+    runs["resume"] = run_cli_vocoder(cli_vocoder, kernels,
+                                     argv("mel", "--epochs", "3", "--resume"))
+    check(f"resumed train state from step {2 * steps}, epoch 3" in runs["resume"]["text"],
+          f"vocoder --resume: {runs['resume']['text'][:300]}")
+    check_vocoder_run(runs["resume"], "mel --resume", [3], 0)
+    runs["multi4"] = run_cli_vocoder(cli_vocoder, kernels, argv(
+        "mel", "--epochs", "4", "--resume", "--multi-steps", "4"))
+    check(f"resumed train state from step {3 * steps}, epoch 4" in runs["multi4"]["text"],
+          f"vocoder --multi-steps 4: {runs['multi4']['text'][:300]}")
+    check_vocoder_run(runs["multi4"], "mel --multi-steps 4", [4], 0)
+    check(checkpoint.latest_step(mel) == 4 * steps, "vocoder mel: checkpoint after 4 epochs")
+    falls["mel_after_4_epochs"] = {"after": held_loss(
+        torch, cli_vocoder, trainer, checkpoint, cfg, vocoder_widths(), held, mel)}
+
+    runs["bf16"] = run_cli_vocoder(cli_vocoder, kernels, argv("bf16", "--epochs", "2", "--bf16"))
+    check_vocoder_run(runs["bf16"], "--bf16", [1, 2], 0)
+    falls["bf16"] = check_falls(torch, cli_vocoder, trainer, checkpoint, cfg,
+                                vocoder_widths(bf16=True), held, os.path.join(out, "bf16"),
+                                "--bf16")
+    saved = torch.load(os.path.join(out, "bf16", f"step_{2 * steps}", "state.pt"),
+                       weights_only=True)
+    check(all(t.dtype == torch.float32 for t in saved.values()), "vocoder --bf16: not float32")
+    del saved
+
+    preset = os.path.join(out, "cmu_arctic_8bit_speakers.json")
+    with open(preset, "w", encoding="utf-8") as f:
+        json.dump({**CMU_PRESET, "exponential_moving_average": False,
+                   "gin_channels": VT_SPEAKER_GIN, "initial_learning_rate": VT_LR}, f)
+    runs["mulaw_speakers"] = run_cli_vocoder(cli_vocoder, kernels, argv(
+        "mulaw", "--epochs", "2", datadir=cmu, preset=preset))
+    check_vocoder_run(runs["mulaw_speakers"], "mulaw-quantize speakers", [1, 2], 0)
+    mu = os.path.join(out, "mulaw")
+    saved = torch.load(os.path.join(mu, f"step_{2 * steps}", "state.pt"), weights_only=True)
+    shapes = {k: tuple(saved[f"params/{k}"].shape) for k in ("speaker_embed.weight",
+                                                             "post2.weight")}
+    # the corpus's ids index cmu_arctic's seven speakers (the preset's n_speakers)
+    check(shapes == {"speaker_embed.weight": (Config().arch.n_speakers, VT_SPEAKER_GIN),
+                     "post2.weight": (256, 256, 1)}, f"vocoder mulaw: shapes {shapes}")
+    check(checkpoint.latest_step(mu + "_ema") is None, "vocoder mulaw: an EMA without EMA")
+    del saved
+    mu_cfg = load_preset(preset, Config())
+    mu_batch = vocoder_batch(cli_vocoder, mu_cfg, cmu)
+    check(mu_batch.get("g") is not None, "vocoder mulaw: the batch carries no speakers")
+    falls["mulaw_speakers"] = check_falls(torch, cli_vocoder, trainer, checkpoint, mu_cfg,
+                                          vocoder_widths(), on_device(torch, mu_batch), mu,
+                                          "mulaw-quantize speakers")
+
+    units = units_flags(units_ckpt)
+    runs["units"] = run_cli_vocoder(cli_vocoder, kernels, argv("units", "--epochs", "2", *units))
+    # one nearest-code search a step (Q = 1): each batch's targets encoded
+    check_vocoder_run(runs["units"], "--condition units", [1, 2], 2 * steps)
+    meta = {"condition": "units", "units_dim": TRAIN_DIM, "units_z_dim": TRAIN_CODES,
+            "units_downsample": WAVE_DOWNSAMPLE, "units_num_quantizers": 1}
+    got = checkpoint.read_extra(os.path.join(out, "units"))
+    check(got == {"epoch": 2, **meta}, f"vocoder units: checkpoint {got}")
+    units_args = cli_vocoder.parse_args(["train", "--datadir", corpus, *units])
+    units_fn, _ = cli_vocoder._build_units_encoder(units_args, cfg, torch.device(DEVICE))
+    y = held["y"][:, : held["y"].shape[1] // 2**WAVE_DOWNSAMPLE * 2**WAVE_DOWNSAMPLE]
+    falls["units"] = check_falls(
+        torch, cli_vocoder, trainer, checkpoint, cfg, vocoder_widths(
+            condition="units", units_dim=TRAIN_DIM, units_downsample=WAVE_DOWNSAMPLE),
+        {**held, "y": y, "c": units_fn(y)}, os.path.join(out, "units"), "--condition units")
+    del units_fn
+    emit({"phase": "vocoder_held_batch_loss", "card": card, **falls})
+    for r in runs.values():
+        emit({"phase": "vocoder_train_run", "card": card, **vocoder_run_record(r)})
+
+    plain_mu = dataclasses.replace(cfg, audio=dataclasses.replace(
+        cfg.audio, input_type="mulaw-quantize", quantize_channels=256))
+    params = {
+        "mel_mol": cli_vocoder.build_model(cfg, vocoder_widths()),
+        "mulaw_quantize": cli_vocoder.build_model(plain_mu, vocoder_widths()),
+        "units": cli_vocoder.build_model(cfg, vocoder_widths(
+            condition="units", units_dim=TRAIN_DIM, units_downsample=WAVE_DOWNSAMPLE)),
+    }
+    params = {k: sum(p.numel() for p in m.parameters()) for k, m in params.items()}
+    check(params == VT_PARAMS, f"vocoder parameter counts {params}, expected {VT_PARAMS}")
+
+    card_cpu = vocoder_card_vs_cpu(torch, cli_vocoder, checkpoint, trainer, cfg, mel + "_train",
+                                   vocoder_batch(cli_vocoder, cfg, corpus, VT_CARD_CPU_SAMPLES))
+    units_cmp = units_card_vs_cpu(torch, cli_vocoder, cfg, units_ckpt, full["y"])
+    emit({"phase": "units_card_vs_cpu", "card": card, **units_cmp})
+    steps_per_s = {tag: vocoder_steps_per_s(torch, cli_vocoder, checkpoint, cfg, mel + "_train",
+                                            full, bf16)
+                   for tag, bf16 in (("f32", False), ("bf16", True))}
+    torch.cuda.empty_cache()
+
+    sr, hop = cfg.audio.sample_rate, cfg.audio.effective_hop_size
+    mel_npy = os.path.join(out, "mel.npy")
+    np.save(mel_npy, np.load(os.path.join(corpus, "m0.npy")))
+    synth = {"mel": vocoder_synthesize(
+        cli_vocoder, vq_kernel, ["synthesize", "--ckpt-dir", mel, "--mel-npy", mel_npy,
+                                 "--max-frames", str(WN_SYNTH_FRAMES)],
+        os.path.join(out, "mel.wav"), WN_SYNTH_FRAMES * hop, sr)}
+    wav_in = os.path.join(out, "source.wav")
+    dsp.save_wav(np.load(os.path.join(corpus, "a0.npy")), wav_in, sr)
+    synth["units"] = vocoder_synthesize(
+        cli_vocoder, vq_kernel, ["synthesize", "--ckpt-dir", os.path.join(out, "units"),
+                                 "--wav-in", wav_in, "--max-frames", str(VT_UNITS_FRAMES),
+                                 *units],
+        os.path.join(out, "units.wav"), VT_UNITS_FRAMES * 2**WAVE_DOWNSAMPLE, sr)
+    check(synth["units"]["vq_launches"] == 1 and synth["mel"]["vq_launches"] == 0,
+          f"synthesize: vq_nearest launches {synth}")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    adam = {}
+    for tag, config in VT_ADAM:
+        row = compare_fused_adam(torch, fused_adam, VT_PARAMS[tag], config, gen)
+        row["shape_of"] = f"vocoder_{tag}"
+        emit(row)
+        adam[tag] = row
+    torch.cuda.empty_cache()
+    return {"phase": "vocoder_train", "card": card, "batch": VT_BATCH,
+            "crop_samples": int(full["y"].shape[1]), "parameters": params,
+            "runs": {k: vocoder_run_record(r) for k, r in runs.items()},
+            "held_batch_loss": falls,
+            "card_vs_cpu_step": card_cpu, "units_card_vs_cpu": units_cmp,
+            "train_steps_per_s": steps_per_s, "timed_steps": VT_TIMED_STEPS,
+            "synthesize": synth, "adam_rows": adam,
+            "adam_launches": sum(r["launches"]["fused_adam"] for r in runs.values()),
+            "vq_launches": sum(r["launches"]["vq_kernel"] for r in runs.values())
+            + synth["units"]["vq_launches"],
+            "seconds": time.perf_counter() - t0}
+
+
 ATTN_REPLACES = {
     "flash_fwd": "neural_sound_generation_tpu/ops/pallas/attention.py:165",
     "flash_bwd_dq": "neural_sound_generation_tpu/ops/pallas/attention.py:233",
@@ -3900,13 +4351,20 @@ def main() -> int:
         priors = priors_phase(torch, cli_prior, serve, checkpoint, (vq_kernel, fused_adam, fa),
                               root, vq_ckpt, corpus, card)
         emit(priors)
+        torch.cuda.empty_cache()
+
+        # phase 13: vocoder training through cli.vocoder, with launch counts
+        # from each run; kernel 3 at the vocoder's parameter counts
+        vtrain = vocoder_train_phase(torch, cli_vocoder, checkpoint, dsp, vq_kernel, fused_adam,
+                                     root, corpus, card)
+        emit(vtrain)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # phase 13: summary and result
+    # phase 14: summary and result
     train_runs = [*training["runs"].values(), rvq["run"]]
     train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
     train_adam = sum(r["launches"]["fused_adam"] for r in train_runs)
@@ -3923,12 +4381,13 @@ def main() -> int:
         "status": "ported", "shape": {"n": VQ_MAIN_SHAPE[0], "k": VQ_MAIN_SHAPE[1], "d": VQ_D},
         "launches": (serving["vq_launches"] + train_vq + prior_launches["vq_nearest"]
                      + prep["vq_launches"] + others["vq_launches"]
-                     + priors_launches["vq_nearest"]),
+                     + priors_launches["vq_nearest"] + vtrain["vq_launches"]),
         "launches_by_path": {"serving": serving["vq_launches"], "training": train_vq,
                              "prior": prior_launches["vq_nearest"],
                              "preprocess_units": prep["vq_launches"],
                              "other_autoencoders": others["vq_launches"],
-                             "pixelcnn_and_hier_priors": priors_launches["vq_nearest"]},
+                             "pixelcnn_and_hier_priors": priors_launches["vq_nearest"],
+                             "vocoder_units": vtrain["vq_launches"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3947,16 +4406,18 @@ def main() -> int:
         "replaces": "neural_sound_generation_tpu/ops/pallas/fused_adam.py:49",
         "status": "ported", "shape": {"n": n_params, "config": adam_row["config"]},
         "launches": (train_adam + prior_launches["fused_adam"] + others["adam_launches"]
-                     + priors_launches["fused_adam"]),
+                     + priors_launches["fused_adam"] + vtrain["adam_launches"]),
         "launches_by_path": {"training": train_adam, "prior": prior_launches["fused_adam"],
                              "other_autoencoders": others["adam_launches"],
-                             "pixelcnn_and_hier_priors": priors_launches["fused_adam"]},
+                             "pixelcnn_and_hier_priors": priors_launches["fused_adam"],
+                             "vocoder_training": vtrain["adam_launches"]},
         "max_abs_err": adam_row["max_abs_err"],
         "ms": adam_row["kernel_ms"], "plain_ms": adam_row["plain_ms"],
         "bound_ms": adam_row["bound_ms"], "bound_by": adam_row["bound_by"],
         "library_ms": adam_row["library_ms"],
-        "pixelcnn_shape": {k: adam_pixelcnn[k] for k in ("n", "max_abs_err", "kernel_ms",
-                                                         "plain_ms", "bound_ms", "library_ms")},
+        "pixelcnn_shape": {k: adam_pixelcnn[k] for k in ADAM_ROW_KEYS},
+        "vocoder_shapes": {tag: {k: r[k] for k in ("config",) + ADAM_ROW_KEYS}
+                           for tag, r in vtrain["adam_rows"].items()},
     }] + [attention_summary(attn_rows, name, {"prior": prior_launches[name],
                                               "hier_top_prior": priors_launches[name]})
           for name in fa.KERNELS]

@@ -611,7 +611,15 @@ def make_handler(service: InferenceService):
         def log_message(self, *args):
             pass
 
+        def _observe(self, ok: bool) -> None:
+            """Count a POST in /metrics once, before its response can reach
+            the client, so a client that reads /metrics next sees it."""
+            if getattr(self, "_t0", None) is not None:
+                service.metrics.observe(self.path, time.perf_counter() - self._t0, ok)
+                self._t0 = None
+
         def _send(self, code, body: bytes, ctype="application/json", headers=()):
+            self._observe(200 <= code < 300)
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
@@ -665,12 +673,13 @@ def make_handler(service: InferenceService):
             length = int(self.headers.get("Content-Length", 0))
             body = self.rfile.read(length)
             self._streaming_started = False
-            t0 = time.perf_counter()
+            self._t0 = time.perf_counter()
             ok = False
             try:
                 ok = self._dispatch(body)
             finally:
-                service.metrics.observe(self.path, time.perf_counter() - t0, ok)
+                # streamed responses (and dropped connections) count here
+                self._observe(ok)
 
         def _dispatch(self, body) -> bool:
             """Route one POST; True when the request was served (2xx)."""

@@ -1,52 +1,109 @@
-"""WaveNet vocoder CLI: synthesize audio from a mel with a vocoder artifact.
+"""WaveNet vocoder CLI: train a vocoder on a preprocessed corpus, and
+synthesize audio from a mel or, through units, from a waveform.
 
-Counterpart of ``neural_sound_generation_tpu/cli/vocoder.py`` for the
-mel-conditioned chain. ``synthesize`` restores a vocoder artifact (the
-port's checkpoint format: ``params/<name>`` tensors and ``{"condition":
-"mel"}`` in ``_extra.json``, see ``training/checkpoint.py``), runs the
-scan sampler (``models/wavenet.make_generate_fn``; bf16 products by
-default) over a stored time-major mel, undoes mu-law companding for
-``mulaw`` and ``mulaw-quantize`` inputs and writes a WAV of frames x hop
-samples. A checkpoint recorded with another conditioning chain is refused.
+Counterpart of ``neural_sound_generation_tpu/cli/vocoder.py``, with its
+flags and defaults, on one device.
 
-``train``, ``--condition units`` (and with them ``--mesh-*``, ``--bf16``,
-``--multi-steps``) raise ``NotImplementedError``: vocoder training and the
-units chain are the next slice of the port.
+``train`` fits the WaveNet by teacher forcing (the MoL loss for scalar
+input, the masked cross entropy for mulaw-quantize; speakers when the
+preset sets ``gin_channels``) through the ``Trainer``, one fused-Adam
+kernel launch a step, on crops of the corpus's raw batches. ``--bf16`` runs
+the teacher-forced convolutions in bf16 (parameters, loss and optimizer
+float32). The learning rate is constant: the JAX CLI builds its state
+without the preset's schedule, and so does this one. Checkpoints follow the
+JAX layout: ``--ckpt-dir`` holds the ``{"params"}`` artifact that
+``synthesize`` and ``serve --vocoder-ckpt`` restore, ``<ckpt-dir>_ema`` the
+averaged model and ``<ckpt-dir>_train`` the full state that ``--resume``
+continues (without it, ``--resume`` takes the artifact's parameters and the
+EMA sibling, and Adam's moments restart). Every save records the epoch and
+the conditioning chain (``_condition_meta``), which every restore checks.
 
-Run: ``python -m neural_sound_generation_tpu_torch.cli.vocoder synthesize
---ckpt-dir <artifact> --mel-npy <frames x mels .npy> --output out.wav
-[--device cuda]``
+``--condition units`` conditions the WaveNet on a frozen WaveVQVAE's
+quantized latents (a ``cli.main --model wavevqvae`` checkpoint at the
+``--units-*`` widths; its EMA shadow when it has one): each train step
+encodes its targets, one nearest-code kernel launch a residual stage, and
+``synthesize --wav-in`` resynthesizes a WAV through wav -> units ->
+WaveNet. ``synthesize`` runs the scan sampler (``models/wavenet``; bf16
+products by default) and undoes mu-law companding for ``mulaw`` and
+``mulaw-quantize`` inputs.
+
+``--mesh-data``, ``--mesh-model``, ``--mesh-pipe`` and ``--pp-microbatches``
+raise ``NotImplementedError``: more than one device comes with the parallel
+slice of the port.
+
+Run: ``python -m neural_sound_generation_tpu_torch.cli.vocoder train
+--datadir <corpus> [--condition units --units-vqvae-ckpt <ckpt>] [--bf16]
+[--resume] [--device cuda]``; ``... synthesize --ckpt-dir <artifact>
+--mel-npy <frames x mels .npy> | --condition units --wav-in <wav> --output
+out.wav``
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 import numpy as np
 import torch
 
 from neural_sound_generation_tpu_torch.config import Config, load_preset
+from neural_sound_generation_tpu_torch.data.pipeline import get_audio_data_loaders
 from neural_sound_generation_tpu_torch.device import resolve_device
+from neural_sound_generation_tpu_torch.models import WaveVQVAE
 from neural_sound_generation_tpu_torch.models.wavenet import WaveNet, make_generate_fn
 from neural_sound_generation_tpu_torch.ops import dsp
 from neural_sound_generation_tpu_torch.training import checkpoint
-
-NEXT_SLICE = "vocoder training and the units chain come with the next slice of the port"
+from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+from neural_sound_generation_tpu_torch.training.trainer import Trainer
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="WaveNet vocoder train/synthesize")
     sub = p.add_subparsers(dest="cmd", required=True)
-    # train's flags are the next slice's; they are accepted and refused
-    sub.add_parser("train", help=f"not ported: {NEXT_SLICE}")
+
+    tr = sub.add_parser("train")
+    tr.add_argument("--datadir", required=True)
+    tr.add_argument("--ckpt-dir", default="./models/wavenet")
+    tr.add_argument("--preset", default=None)
+    tr.add_argument("--batch-size", type=int, default=2)
+    tr.add_argument("--epochs", type=int, default=2000)
+    tr.add_argument("--layers", type=int, default=None)
+    tr.add_argument("--stacks", type=int, default=None)
+    tr.add_argument("--residual-channels", type=int, default=None)
+    tr.add_argument("--max-batches-per-epoch", type=int, default=None)
+    tr.add_argument("--seed", type=int, default=0)
+    tr.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint: the *_train sibling's "
+                         "full state, else the artifact's parameters and EMA (Adam's "
+                         "moments restart)")
+    tr.add_argument("--mesh-data", type=int, default=None,
+                    help="data-parallel devices (the parallel slice)")
+    tr.add_argument("--mesh-model", type=int, default=1,
+                    help="tensor-parallel shards (the parallel slice)")
+    tr.add_argument("--mesh-pipe", type=int, default=1,
+                    help="pipeline-parallel stages (the parallel slice)")
+    tr.add_argument("--pp-microbatches", type=int, default=None,
+                    help="pipeline microbatches (the parallel slice)")
+    tr.add_argument("--multi-steps", type=int, default=1,
+                    help="optimization steps per super-batch")
+    tr.add_argument("--bf16", action="store_true",
+                    help="bfloat16 teacher-forced convolutions (parameters, loss and "
+                         "optimizer float32)")
+    tr.add_argument("--ema-warmup", action="store_true",
+                    help="ramp the EMA decay min(decay, (1+t)/(10+t))")
+    tr.add_argument("--device", default="cuda",
+                    help="torch device to train on (cuda, cuda:N or cpu)")
+    _units_args(tr)
 
     sy = sub.add_parser("synthesize")
     sy.add_argument("--ckpt-dir", required=True)
     sy.add_argument("--mel-npy", default=None, help="time-major mel .npy "
                     "(required for --condition mel)")
-    sy.add_argument("--condition", choices=["mel", "units"], default="mel",
-                    help="conditioning signal (units: the next slice)")
+    sy.add_argument("--wav-in", default=None,
+                    help="source wav for --condition units: encoded to units by the "
+                         "frozen WaveVQVAE, then resynthesized through the WaveNet")
+    _units_args(sy)
     sy.add_argument("--output", required=True)
     sy.add_argument("--preset", default=None)
     sy.add_argument("--layers", type=int, default=None)
@@ -63,19 +120,57 @@ def parse_args(argv=None):
                          "parity with teacher-forced evaluation")
     sy.add_argument("--device", default="cuda",
                     help="torch device to synthesize on (cuda, cuda:N or cpu)")
-    args, rest = p.parse_known_args(argv)
-    if rest and args.cmd != "train":
-        p.error(f"unrecognized arguments: {' '.join(rest)}")
-    return args
+    return p.parse_args(argv)
+
+
+def _units_args(p) -> None:
+    """The units -> WaveNet chain's flags, shared by train and synthesize."""
+    p.add_argument("--condition", choices=["mel", "units"], default="mel",
+                   help="conditioning signal: preprocessed mels, or a frozen "
+                        "WaveVQVAE's quantized unit latents (--units-vqvae-ckpt)")
+    p.add_argument("--units-vqvae-ckpt", default=None,
+                   help="trained WaveVQVAE checkpoint (cli.main --model wavevqvae)")
+    p.add_argument("--units-dim", type=int, default=256,
+                   help="WaveVQVAE hidden width (= conditioning channels)")
+    p.add_argument("--units-z-dim", type=int, default=512)
+    p.add_argument("--units-downsample", type=int, default=6,
+                   help="WaveVQVAE stride-2 layers (unit hop = 2^n)")
+    p.add_argument("--units-num-quantizers", type=int, default=1)
+
+
+def refuse_parallel(args) -> None:
+    """The flags of more than one device, which this port does not have yet."""
+    if ((args.mesh_data or 1) > 1 or args.mesh_model > 1 or args.mesh_pipe > 1
+            or args.pp_microbatches is not None):
+        raise NotImplementedError(
+            "--mesh-data/--mesh-model/--mesh-pipe/--pp-microbatches: data, tensor and "
+            "pipeline parallelism come with the parallel slice of the port")
+
+
+def _units_scales(num_downsample: int) -> tuple[int, ...]:
+    """Transposed-conv upsample factors multiplying to the unit hop
+    2^num_downsample (6 -> (4, 4, 4), 5 -> (4, 4, 2), 4 -> (4, 4))."""
+    scales, n = [], int(num_downsample)
+    while n >= 2:
+        scales.append(4)
+        n -= 2
+    if n:
+        scales.append(2)
+    return tuple(scales)
 
 
 def build_model(cfg: Config, args, generator: torch.Generator | None = None) -> WaveNet:
     """The vocoder of ``cfg.arch`` with the width and depth flags: gate
     channels = residual, skip = min(arch skip, residual); categorical
-    output for mulaw-quantize inputs."""
+    output for mulaw-quantize inputs; under ``--condition units`` the
+    WaveVQVAE's width as conditioning channels and an upsampler by the unit
+    hop; bf16 teacher-forced convolutions under ``--bf16``."""
     arch = cfg.arch
     scalar = cfg.audio.is_scalar_input
     residual = args.residual_channels or arch.residual_channels
+    cin, scales = arch.cin_channels, tuple(arch.upsample_scales)
+    if getattr(args, "condition", "mel") == "units":
+        cin, scales = args.units_dim, _units_scales(args.units_downsample)
     return WaveNet(
         out_channels=arch.out_channels if scalar else cfg.audio.quantize_channels,
         layers=args.layers or arch.layers,
@@ -84,31 +179,96 @@ def build_model(cfg: Config, args, generator: torch.Generator | None = None) -> 
         gate_channels=residual,
         skip_out_channels=min(arch.skip_out_channels, residual),
         kernel_size=arch.kernel_size,
-        cin_channels=arch.cin_channels,
+        cin_channels=cin,
         gin_channels=arch.gin_channels,
         n_speakers=arch.n_speakers,
-        upsample_scales=tuple(arch.upsample_scales),
+        upsample_scales=scales,
         scalar_input=scalar,
         quantize_channels=cfg.audio.quantize_channels,
         generator=generator,
+        dtype=torch.bfloat16 if getattr(args, "bf16", False) else torch.float32,
     )
 
 
-def condition_meta() -> dict:
-    """The conditioning chain a vocoder artifact records in ``extra`` (the
-    port has the mel chain)."""
-    return {"condition": "mel"}
+def _build_units_encoder(args, cfg: Config, device):
+    """The frozen WaveVQVAE of ``--units-vqvae-ckpt`` on ``device``, in eval
+    mode with its EMA shadow when the checkpoint has one (the weights
+    evaluate and serve treat as the model): ``(units_fn, model)``, with
+    ``units_fn(x)`` the quantized latents (B, T / hop, units_dim) of a
+    waveform batch ((B, T, 1) floats, or (B, T) ints for mulaw-quantize)."""
+    if not args.units_vqvae_ckpt:
+        raise SystemExit(
+            "--condition units requires --units-vqvae-ckpt (a trained wavevqvae checkpoint)")
+    model = WaveVQVAE(
+        dim=args.units_dim, z_dim=args.units_z_dim, num_downsample=args.units_downsample,
+        input_type=cfg.audio.input_type, quantize_channels=cfg.audio.quantize_channels,
+        num_quantizers=args.units_num_quantizers)
+    try:
+        checkpoint.check_extra(args.units_vqvae_ckpt, arch="wavevqvae",
+                               num_quantizers=args.units_num_quantizers,
+                               num_downsample=args.units_downsample)
+        state, _ = checkpoint.restore(args.units_vqvae_ckpt,
+                                      create_train_state(model, cfg.train))
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    with torch.no_grad():
+        state.flat.flat.copy_(state.eval_params())
+    model.zero_grad(set_to_none=True)  # frozen: no gradient buffer
+    model = model.requires_grad_(False).to(device).eval()
+
+    @torch.no_grad()
+    def units_fn(x: torch.Tensor) -> torch.Tensor:
+        return model.quantized_latents(x)
+
+    return units_fn, model
 
 
-def check_condition_meta(extra) -> None:
-    """SystemExit when the checkpoint's recorded conditioning chain is not
-    the mel chain (checkpoints without the metadata pass)."""
+def _condition_meta(args) -> dict:
+    """The conditioning chain a checkpoint records in ``extra``, checked at
+    every restore: a units checkpoint restored with other ``--units-*``
+    flags would otherwise graft another upsampler and cond convs."""
+    if getattr(args, "condition", "mel") != "units":
+        return {"condition": "mel"}
+    return {"condition": "units", "units_dim": int(args.units_dim),
+            "units_z_dim": int(args.units_z_dim),
+            "units_downsample": int(args.units_downsample),
+            "units_num_quantizers": int(args.units_num_quantizers)}
+
+
+def _check_condition_meta(args, extra) -> None:
+    """SystemExit when the checkpoint's recorded conditioning chain does not
+    match the flags (checkpoints without the metadata pass)."""
     meta = extra or {}
-    if "condition" in meta and meta["condition"] != condition_meta()["condition"]:
+    if "condition" not in meta:
+        return
+    want = _condition_meta(args)
+    if meta["condition"] != want["condition"]:
         raise SystemExit(
             f"this checkpoint was trained with --condition {meta['condition']}; "
-            f"rerun with matching flags"
-        )
+            f"rerun with matching flags")
+    for k, v in want.items():
+        if k != "condition" and int(meta.get(k, v)) != int(v):
+            raise SystemExit(
+                f"checkpoint metadata {k}={meta[k]} does not match --{k.replace('_', '-')} "
+                f"{v}; the restored model would be a silent architecture mismatch")
+
+
+def _batch_to_wavenet(batch, cfg: Config, with_mel: bool = True):
+    """A raw collate batch -> (targets, mel (B, T', n_mels) or None): int32
+    targets (B, T) for mulaw-quantize, float32 (B, T, 1) otherwise.
+    ``with_mel=False`` leaves the mel block alone (the units chain)."""
+    if cfg.audio.is_mulaw_quantize:
+        targets = np.asarray(batch["y"], np.int32)
+    else:
+        targets = np.asarray(batch["y"], np.float32)[..., None]
+    if not with_mel:
+        return targets, None
+    return targets, np.ascontiguousarray(np.asarray(batch["c"]).transpose(0, 2, 1))
+
+
+def _batch_speakers(batch):
+    g = batch.get("g")
+    return None if g is None else np.asarray(g, np.int32)
 
 
 def load_vocoder(ckpt_dir: str, model: WaveNet, device) -> WaveNet:
@@ -139,19 +299,139 @@ def _load_cfg(args) -> Config:
     return cfg
 
 
+def _resume(args, state, train_dir: str) -> int:
+    """``--resume``: the first epoch to run. The recorded chain is checked
+    first; the ``_train`` sibling restores the whole state, an artifact
+    alone its parameters, the EMA sibling and the step."""
+    for d in (train_dir, args.ckpt_dir):
+        if checkpoint.latest_step(d) is not None:
+            _check_condition_meta(args, checkpoint.read_extra(d))
+            break
+    try:
+        if checkpoint.latest_step(train_dir) is not None:
+            state, extra = checkpoint.restore(train_dir, state)
+            start_epoch = int((extra or {}).get("epoch", 0)) + 1
+            print(f"resumed train state from step {int(state.step)}, epoch {start_epoch}")
+            return start_epoch
+        at = checkpoint.latest_step(args.ckpt_dir)
+        if at is None:
+            return 1
+        extra = checkpoint.restore_params(args.ckpt_dir, state.model)
+        state.step.fill_(at)
+        checkpoint.restore_ema_sibling(args.ckpt_dir, state)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    start_epoch = int((extra or {}).get("epoch", 0)) + 1
+    print(f"resumed params from step {at}, epoch {start_epoch} (no *_train sibling: Adam "
+          f"moments restart)")
+    return start_epoch
+
+
+def cmd_train(args) -> None:
+    from neural_sound_generation_tpu_torch.cli.main import epoch_generator
+
+    refuse_parallel(args)
+    device = resolve_device(args.device)
+    cfg = _load_cfg(args)
+    loaders = get_audio_data_loaders(args.datadir, None, args.batch_size, cfg, batch_mode="raw")
+    model = build_model(cfg, args, generator=torch.Generator().manual_seed(args.seed)).to(device)
+    units_fn = None
+    if args.condition == "units":
+        units_fn, units_model = _build_units_encoder(args, cfg, device)
+        uhop = units_model.hop
+
+    def epoch_batches():
+        for i, batch in enumerate(loaders["train"]):
+            if args.max_batches_per_epoch and i >= args.max_batches_per_epoch:
+                break
+            if units_fn is not None:
+                # the units of the target waveform itself, encoded on the
+                # device; the mel block is never read
+                targets, _ = _batch_to_wavenet(batch, cfg, with_mel=False)
+                targets = targets[:, : targets.shape[1] - targets.shape[1] % uhop]
+                y = torch.from_numpy(np.ascontiguousarray(targets)).to(device)
+                out = {"y": y, "c": units_fn(y)}
+            else:
+                y, c = _batch_to_wavenet(batch, cfg)
+                out = {"y": y, "c": c}
+            out["input_lengths"] = np.asarray(batch["input_lengths"])
+            g = _batch_speakers(batch)
+            if g is not None:
+                out["g"] = g
+            yield out
+
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=args.batch_size, ema_warmup=args.ema_warmup))
+    state = create_train_state(model, cfg.train)
+    train_dir = args.ckpt_dir.rstrip("/") + "_train"
+    start_epoch = _resume(args, state, train_dir) if args.resume else 1
+    trainer = Trainer(model, cfg, state, log_fn=None, multi_steps=args.multi_steps)
+    meta = _condition_meta(args)
+
+    def save_ckpt(state, step, completed_epoch):
+        # completed_epoch is the last FINISHED epoch: an interval save inside
+        # epoch N records N-1, so --resume replays epoch N with its data order
+        extra = {"epoch": completed_epoch, **meta}
+        checkpoint.save_params(args.ckpt_dir, state.model, step, extra)
+        checkpoint.save_ema_sibling(args.ckpt_dir, state, step, extra)
+        checkpoint.save(train_dir, state, step, extra, block=False)
+
+    for epoch in range(start_epoch, args.epochs + 1):
+        # the data order is f(seed, epoch): --resume replays what an
+        # uninterrupted run's epoch N would see
+        loaders["train"].set_epoch(epoch - 1)
+        means = trainer.train_epoch(
+            epoch_batches(), epoch_generator(args.seed, epoch, device), epoch=epoch,
+            checkpoint_cb=lambda s, st, e=epoch: save_ckpt(s, st, completed_epoch=e - 1))
+        print(f"wavenet epoch {epoch}: loss {means.get('loss', float('nan')):.4f}")
+        save_ckpt(trainer.state, int(trainer.state.step), completed_epoch=epoch)
+    checkpoint.wait_for_pending()
+    if trainer.state.ema_params is not None:
+        print(f"averaged-model (EMA) artifact saved to {args.ckpt_dir.rstrip('/')}_ema")
+
+
+def _units_condition(args, cfg: Config, device):
+    """``synthesize --condition units``: the ``--wav-in`` waveform, peak
+    rescaled before companding as the corpus was, cropped to a multiple of
+    the unit hop and to ``--max-frames`` hops, as the frozen WaveVQVAE's
+    quantized latents (1, T', units_dim); and the length in samples.
+    Silence is not trimmed: that would shift timing against the source."""
+    if not args.wav_in:
+        raise SystemExit("--condition units synthesize needs --wav-in")
+    units_fn, units_model = _build_units_encoder(args, cfg, device)
+    audio = cfg.audio
+    wav = dsp.load_wav(args.wav_in, audio.sample_rate)
+    if audio.rescaling:
+        wav = wav / max(np.abs(wav).max(), 1e-8) * audio.rescaling_max
+    x = torch.from_numpy(np.asarray(wav, np.float32)).to(device)
+    if audio.is_mulaw_quantize:
+        x = torch.clamp(dsp.mulaw_quantize(x, audio.quantize_channels), 0,
+                        audio.quantize_channels - 1)
+    elif audio.is_mulaw:
+        x = dsp.mulaw(x, audio.quantize_channels)
+    uhop = units_model.hop
+    t = min(x.shape[0] - x.shape[0] % uhop, args.max_frames * uhop)
+    if t <= 0:
+        raise SystemExit(f"--wav-in shorter than one unit hop ({uhop} samples)")
+    x = x[:t] if audio.is_mulaw_quantize else x[:t, None]
+    c = units_fn(x[None])
+    return c, int(c.shape[1]) * uhop
+
+
 def cmd_synthesize(args) -> None:
-    if args.condition != "mel":
-        raise NotImplementedError(f"--condition {args.condition}: {NEXT_SLICE}")
     cfg = _load_cfg(args)
     # the recorded conditioning chain is checked before anything is built
-    check_condition_meta(checkpoint.read_extra(args.ckpt_dir))
+    _check_condition_meta(args, checkpoint.read_extra(args.ckpt_dir))
     device = resolve_device(args.device)
     model = build_model(cfg, args)
-    if not args.mel_npy:
-        raise SystemExit("--condition mel synthesize needs --mel-npy")
-    mel = np.load(args.mel_npy)[: args.max_frames]  # (frames, n_mels)
-    c = torch.from_numpy(np.asarray(mel, np.float32))[None].to(device)
-    length = mel.shape[0] * cfg.audio.effective_hop_size
+    if args.condition == "units":
+        c, length = _units_condition(args, cfg, device)
+    else:
+        if not args.mel_npy:
+            raise SystemExit("--condition mel synthesize needs --mel-npy")
+        mel = np.load(args.mel_npy)[: args.max_frames]  # (frames, n_mels)
+        c = torch.from_numpy(np.asarray(mel, np.float32))[None].to(device)
+        length = mel.shape[0] * cfg.audio.effective_hop_size
 
     g = None
     if model.speakered:
@@ -177,11 +457,7 @@ def cmd_synthesize(args) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.cmd == "train":
-        raise NotImplementedError(
-            f"cli.vocoder train (--condition units, --mesh-*, --bf16, --multi-steps): "
-            f"{NEXT_SLICE}")
-    cmd_synthesize(args)
+    {"train": cmd_train, "synthesize": cmd_synthesize}[args.cmd](args)
 
 
 if __name__ == "__main__":

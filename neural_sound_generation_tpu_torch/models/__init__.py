@@ -9,4 +9,5 @@ from neural_sound_generation_tpu_torch.models.vqvae import (  # noqa: F401
     Decoder,
     Encoder,
 )
+from neural_sound_generation_tpu_torch.models.wavenet import WaveNet  # noqa: F401
 from neural_sound_generation_tpu_torch.models.wavevqvae import WaveVQVAE  # noqa: F401

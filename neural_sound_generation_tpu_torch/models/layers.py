@@ -149,6 +149,21 @@ class Conv2d(nn.Conv2d):
         return y + self.bias.to(dt)[:, None, None]
 
 
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` with flax's compute ``dtype``, as ``Conv2d``."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None]
+
+
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` with flax's compute ``dtype``, as ``Conv2d``."""
 

@@ -8,7 +8,12 @@ tree onto the other by name. The public functions keep the JAX layout:
 inputs (B, T, 1) floats or (B, T) ints, mels (B, T', C), logits (B, T, out).
 
   * ``WaveNet.forward`` is the teacher-forced parallel pass: every dilated
-    conv runs over the whole utterance with causal left padding.
+    conv runs over the whole utterance with causal left padding. Under a
+    bf16 ``dtype`` (``cli.vocoder train --bf16``) every convolution of the
+    stack casts its input and weights to bf16, as flax's ``Conv(dtype=)``
+    does, so ``h``, the gate and the running ``skips`` are bf16 tensors;
+    the parameters, the embeddings, the ``ConditionUpsampler`` and the
+    returned logits stay float32.
   * Generation keeps the JAX package's per-step structure: one (L, B, rmax,
     R) ring of past layer inputs, the K-1 taps of every layer gathered at
     once, the conditioning of every layer in one product, and only the
@@ -35,7 +40,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neural_sound_generation_tpu_torch.models.layers import ConvTranspose1dSame, init_weights
+from neural_sound_generation_tpu_torch.models.layers import (
+    Conv1d,
+    ConvTranspose1dSame,
+    init_weights,
+)
 
 __all__ = ["WaveNet", "ConditionUpsampler", "incremental_forward", "make_generate_fn",
            "make_chunked_generate_fn", "draw_noise"]
@@ -48,6 +57,16 @@ def _dilations(layers: int, stacks: int) -> Sequence[int]:
     [1, 2, 4, 8, 16, 32])."""
     per_stack = layers // stacks
     return [2 ** (i % per_stack) for i in range(layers)]
+
+
+def _gate(z: torch.Tensor) -> torch.Tensor:
+    """tanh(a) * sigmoid(b) over the two halves of z. In bf16 the sigmoid
+    is 1 / (1 + exp(-b)) with every op rounded, as XLA lowers a bf16
+    ``jax.nn.sigmoid``; ``torch.sigmoid`` rounds once and differs from it in
+    a bf16 ulp at about 30% of inputs."""
+    a, b = z.chunk(2, dim=1)
+    sig = 1.0 / (1.0 + torch.exp(-b)) if z.dtype == torch.bfloat16 else torch.sigmoid(b)
+    return torch.tanh(a) * sig
 
 
 class ConditionUpsampler(nn.Module):
@@ -89,6 +108,7 @@ class WaveNet(nn.Module):
         scalar_input: bool = True,
         quantize_channels: int = 256,
         generator: torch.Generator | None = None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.out_channels, self.layers, self.stacks = out_channels, layers, stacks
@@ -97,25 +117,30 @@ class WaveNet(nn.Module):
         self.cin_channels, self.gin_channels, self.n_speakers = cin_channels, gin_channels, n_speakers
         self.upsample_scales = tuple(upsample_scales)
         self.scalar_input, self.quantize_channels = scalar_input, quantize_channels
+        self.dtype = dtype
         self.dilation_rates = tuple(_dilations(layers, stacks))
         r, g2 = residual_channels, gate_channels // 2
+
+        def conv(cin, cout, k=1, **kw):
+            return Conv1d(cin, cout, k, dtype=dtype, **kw)
+
         if not scalar_input:
             self.input_embed = nn.Embedding(quantize_channels, r)
-        self.first_conv = nn.Conv1d(1 if scalar_input else r, r, 1)
+        self.first_conv = conv(1 if scalar_input else r, r)
         for i, d in enumerate(self.dilation_rates):
-            self.add_module(f"dilated_{i}", nn.Conv1d(r, gate_channels, kernel_size, dilation=d))
-            self.add_module(f"res_{i}", nn.Conv1d(g2, r, 1))
-            self.add_module(f"skip_{i}", nn.Conv1d(g2, skip_out_channels, 1))
+            self.add_module(f"dilated_{i}", conv(r, gate_channels, kernel_size, dilation=d))
+            self.add_module(f"res_{i}", conv(g2, r))
+            self.add_module(f"skip_{i}", conv(g2, skip_out_channels))
         if cin_channels > 0:
             self.upsampler = ConditionUpsampler(self.upsample_scales, cin_channels)
             for i in range(layers):
-                self.add_module(f"cond_{i}", nn.Conv1d(cin_channels, gate_channels, 1, bias=False))
+                self.add_module(f"cond_{i}", conv(cin_channels, gate_channels, bias=False))
         if gin_channels > 0:
             self.speaker_embed = nn.Embedding(n_speakers, gin_channels)
             for i in range(layers):
-                self.add_module(f"g_{i}", nn.Conv1d(gin_channels, gate_channels, 1, bias=False))
-        self.post1 = nn.Conv1d(skip_out_channels, skip_out_channels, 1)
-        self.post2 = nn.Conv1d(skip_out_channels, out_channels, 1)
+                self.add_module(f"g_{i}", conv(gin_channels, gate_channels, bias=False))
+        self.post1 = conv(skip_out_channels, skip_out_channels)
+        self.post2 = conv(skip_out_channels, out_channels)
         init_weights(self, generator)
         for m in self.modules():
             if isinstance(m, nn.Embedding):
@@ -160,8 +185,7 @@ class WaveNet(nn.Module):
                 z = z + self.layer("cond", i)(c_up)
             if g_emb is not None:
                 z = z + self.layer("g", i)(g_emb)
-            a, b = z.chunk(2, dim=1)
-            gated = torch.tanh(a) * torch.sigmoid(b)
+            gated = _gate(z)
             skips = skips + self.layer("skip", i)(gated)
             h = h + self.layer("res", i)(gated)
         out = torch.relu(skips)

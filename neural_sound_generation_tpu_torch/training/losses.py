@@ -2,12 +2,12 @@
 
 Counterpart of ``neural_sound_generation_tpu/training/losses.py``
 (``elbo_bce``, ``elbo_mse``, ``vqvae_loss``, ``hier_vqvae_loss``,
-``codebook_perplexity``, ``sequence_mask``, ``masked_cross_entropy``) and of
-the prior NLL in ``training/trainer.py::_pixelcnn_loss_fn``. The VQ
-objectives keep the reference's mean reductions (src/train.py:129-134) and
-its stop-gradients, as ``.detach()`` where the JAX package has
-``jax.lax.stop_gradient``; the ELBOs keep its sums (src/loss.py:11-29).
-The mixture-of-logistics loss comes with vocoder training.
+``codebook_perplexity``, ``sequence_mask``, ``masked_cross_entropy``,
+``discretized_mix_logistic_loss``) and of the prior NLL in
+``training/trainer.py::_pixelcnn_loss_fn``. The VQ objectives keep the
+reference's mean reductions (src/train.py:129-134) and its stop-gradients,
+as ``.detach()`` where the JAX package has ``jax.lax.stop_gradient``; the
+ELBOs keep its sums (src/loss.py:11-29).
 """
 
 from __future__ import annotations
@@ -89,6 +89,54 @@ def masked_cross_entropy(
     if lengths is None:
         return torch.mean(nll)
     mask = sequence_mask(lengths, targets.shape[1])
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + exp(x)) as ``jax.nn.softplus`` computes it, logaddexp(x, 0):
+    no threshold switch, so the MoL loss picks its branches on the values
+    the JAX package sees."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def discretized_mix_logistic_loss(
+    y_hat: torch.Tensor, y: torch.Tensor, num_classes: int = 65536,
+    log_scale_min: float = -32.23619130191664, lengths: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Mean discretized mixture-of-logistics NLL over the valid positions.
+
+    y_hat (B, T, 3M) holds [logit_probs | means | log_scales]; y (B, T) or
+    (B, T, 1) in [-1, 1]. Log-scales are floored at ``log_scale_min``; a
+    target below -0.999 takes the lower tail's log-CDF, one above 0.999 the
+    upper tail's; elsewhere the log of the bin's mass, or the pdf at the
+    bin's midpoint where that mass is at most 1e-5."""
+    if y.ndim == 3:
+        y = y[..., 0]
+    logit_probs, means, log_scales = y_hat.chunk(3, dim=-1)
+    log_scales = torch.clamp(log_scales, min=log_scale_min)
+    yy = y[..., None]
+    centered = yy - means
+    inv_std = torch.exp(-log_scales)
+    half_bin = 1.0 / (num_classes - 1)
+    plus_in = inv_std * (centered + half_bin)
+    min_in = inv_std * (centered - half_bin)
+    cdf_delta = torch.sigmoid(plus_in) - torch.sigmoid(min_in)
+    log_cdf_plus = plus_in - _softplus(plus_in)
+    log_one_minus_cdf_min = -_softplus(min_in)
+    mid_in = inv_std * centered
+    log_pdf_mid = mid_in - log_scales - 2.0 * _softplus(mid_in)
+    inner = torch.where(
+        cdf_delta > 1e-5,
+        torch.log(torch.clamp(cdf_delta, min=1e-12)),
+        log_pdf_mid - torch.log(torch.tensor((num_classes - 1) / 2.0, dtype=y_hat.dtype)),
+    )
+    log_probs = torch.where(
+        yy < -0.999, log_cdf_plus, torch.where(yy > 0.999, log_one_minus_cdf_min, inner))
+    log_probs = log_probs + torch.log_softmax(logit_probs, dim=-1)
+    nll = -torch.logsumexp(log_probs, dim=-1)
+    if lengths is None:
+        return torch.mean(nll)
+    mask = sequence_mask(lengths, y.shape[1])
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 

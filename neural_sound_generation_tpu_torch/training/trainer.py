@@ -1,8 +1,8 @@
 """Training steps and the epoch loop of the autoencoders and the prior.
 
 Counterpart of ``neural_sound_generation_tpu/training/trainer.py`` for the
-``VQVAE``, ``HierVQVAE``, ``WaveVQVAE``, ``VAE``, ``TransformerPrior`` and
-``GatedPixelCNN`` on one device. The JAX package
+``VQVAE``, ``HierVQVAE``, ``WaveVQVAE``, ``VAE``, ``TransformerPrior``,
+``GatedPixelCNN`` and the ``WaveNet`` vocoder on one device. The JAX package
 returns a new state from a jitted pure step; here the step updates the
 state in place (the model's parameters are views of the flat buffer the
 fused kernel writes) and returns the same object, so the call sites read
@@ -22,7 +22,11 @@ float32 buffer and the fused update stay float32. A prior train step
 conditioned prior) runs the fused-Adam kernel once and, for the
 transformer, the flash-attention forward and both backward kernels once per
 layer; the PixelCNN's masked convolutions are cuDNN's. It has no BatchNorm
-and no codebook branch.
+and no codebook branch. A vocoder step (batches ``{"y", "c", "input_lengths"}``
+and ``"g"`` for speakers) shifts its targets into the teacher-forced inputs
+and takes the mixture-of-logistics NLL for scalar input or the masked cross
+entropy for mulaw-quantize; its convolutions are cuDNN's, and it runs the
+fused-Adam kernel once.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from neural_sound_generation_tpu_torch.models import (
     GatedPixelCNN,
     HierVQVAE,
     TransformerPrior,
+    WaveNet,
     WaveVQVAE,
 )
 from neural_sound_generation_tpu_torch.ops.vq import (
@@ -52,6 +57,7 @@ from neural_sound_generation_tpu_torch.ops.vq import (
 )
 from neural_sound_generation_tpu_torch.training.losses import (
     codebook_perplexity,
+    discretized_mix_logistic_loss,
     elbo_mse,
     hier_vqvae_loss,
     masked_cross_entropy,
@@ -65,7 +71,7 @@ from neural_sound_generation_tpu_torch.training.train_state import (
 
 Batch = Dict[str, torch.Tensor]
 PRIORS = (TransformerPrior, GatedPixelCNN)
-FAMILIES = (VQVAE, HierVQVAE, WaveVQVAE, VAE, *PRIORS)
+FAMILIES = (VQVAE, HierVQVAE, WaveVQVAE, VAE, WaveNet, *PRIORS)
 
 
 def _wave_recon_loss(model: WaveVQVAE, out: torch.Tensor, batch: Batch) -> torch.Tensor:
@@ -76,10 +82,33 @@ def _wave_recon_loss(model: WaveVQVAE, out: torch.Tensor, batch: Batch) -> torch
     return torch.mean((out - batch["x"]) ** 2)
 
 
+def _wavenet_loss(model: WaveNet, cfg: Config, batch: Batch):
+    """The vocoder's teacher-forced loss (the JAX ``_wavenet_loss_fn``):
+    (logits, loss), MoL over ``quantize_channels`` classes for scalar input,
+    masked cross entropy for mulaw-quantize, both over ``input_lengths``."""
+    targets = batch["y"]
+    y_hat = model(WaveNet.shift_inputs(targets, model.scalar_input), batch.get("c"),
+                  batch.get("g"))
+    lengths = batch.get("input_lengths")
+    if model.scalar_input:
+        loss = discretized_mix_logistic_loss(
+            y_hat, targets, num_classes=cfg.audio.quantize_channels,
+            log_scale_min=cfg.arch.log_scale_min, lengths=lengths)
+    else:
+        loss = masked_cross_entropy(y_hat, targets, lengths)
+    return y_hat, loss
+
+
 def _loss_fn(model, cfg: Config) -> Callable:
     """Per-family loss closure: ``(batch, generator) -> (total, metrics,
     z_e or None)``; ``z_e`` feeds the EMA-codebook branch."""
     beta = cfg.model.beta
+    if isinstance(model, WaveNet):
+        def vocoder_loss(batch: Batch, generator):
+            _, loss = _wavenet_loss(model, cfg, batch)
+            return loss, {"loss": loss}, None
+
+        return vocoder_loss
     if isinstance(model, PRIORS):
         def prior_loss(batch: Batch, generator):
             total, metrics = prior_nll(_prior_logits(model, batch), batch["codes"])
@@ -263,6 +292,9 @@ def make_eval_step(model, cfg: Config) -> Callable:
             return _eval_forward(batch)
 
     def _eval_forward(batch: Batch):
+        if isinstance(model, WaveNet):
+            y_hat, loss = _wavenet_loss(model, cfg, batch)
+            return y_hat, {"loss": loss}
         if isinstance(model, PRIORS):
             logits = _prior_logits(model, batch)
             _, metrics = prior_nll(logits, batch["codes"])

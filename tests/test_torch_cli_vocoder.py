@@ -1,8 +1,9 @@
 """The port's vocoder CLI (cli/vocoder.py) on the CPU: ``synthesize`` from
 an artifact converted from a JAX WaveNet built by the JAX CLI's own
 ``build_model``, the recorded-chain refusal at every restore surface
-(``synthesize`` and ``serve --vocoder-ckpt``), and the flags of the next
-slice raising NotImplementedError."""
+(``synthesize`` and ``serve --vocoder-ckpt``), ``train`` (plain, and with
+``--bf16 --multi-steps 4``) and ``synthesize --condition units`` running,
+and the flags of more than one device raising NotImplementedError."""
 
 import argparse
 import types
@@ -19,7 +20,11 @@ from neural_sound_generation_tpu.config import Config as JaxConfig
 from neural_sound_generation_tpu_torch import convert
 from neural_sound_generation_tpu_torch.cli import serve, vocoder
 from neural_sound_generation_tpu_torch.config import Config
+from neural_sound_generation_tpu_torch.models import WaveVQVAE
+from neural_sound_generation_tpu_torch.ops import dsp
 from neural_sound_generation_tpu_torch.training import checkpoint
+from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+from test_torch_vocoder_train import write_corpus
 
 torch.set_num_threads(1)
 
@@ -42,7 +47,7 @@ def artifact(tmp_path_factory):
     tm = vocoder.build_model(Config(), _ns())
     tm.load_state_dict(convert.flax_to_state_dict(v))
     ckpt = str(root / "wavenet")
-    checkpoint.save_params(ckpt, tm, 7, vocoder.condition_meta())
+    checkpoint.save_params(ckpt, tm, 7, vocoder._condition_meta(_ns()))
     mel = str(root / "mel.npy")
     np.save(mel, np.random.default_rng(0).standard_normal((FRAMES, 80)).astype(np.float32))
     return ckpt, mel, tm, root
@@ -106,13 +111,55 @@ def test_synthesize_refusals(artifact, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["train", "--datadir", "x"],
+    ["train", "--datadir", "x", "--mesh-data", "2"],
     ["train", "--datadir", "x", "--bf16", "--mesh-pipe", "2", "--multi-steps", "4"],
-    ["synthesize", "--ckpt-dir", "x", "--output", "o.wav", "--condition", "units"],
+    ["train", "--datadir", "x", "--mesh-model", "2", "--pp-microbatches", "2"],
 ])
 def test_next_slice_raises(argv):
-    with pytest.raises(NotImplementedError, match="next slice"):
+    """More than one device is the parallel slice's."""
+    with pytest.raises(NotImplementedError, match="parallel slice"):
         vocoder.main(argv)
+
+
+def _units_artifacts(root):
+    """A seeded WaveVQVAE checkpoint (dim 8, 16 codes, hop 8) and a seeded
+    units WaveNet artifact recording that chain."""
+    units = ["--condition", "units", "--units-dim", "8", "--units-z-dim", "16",
+             "--units-downsample", "3"]
+    wave = WaveVQVAE(8, 16, 3, generator=torch.Generator().manual_seed(0))
+    units_ckpt = str(root / "wave")
+    checkpoint.save(units_ckpt, create_train_state(wave, Config().train), 1,
+                    {"arch": "wavevqvae", "num_quantizers": 1, "num_downsample": 3})
+    args = vocoder.parse_args(["synthesize", "--ckpt-dir", "x", "--output", "o", *units])
+    wn = vocoder.build_model(Config(), _ns(**{**vars(args), "residual_channels": 8, "layers": 2,
+                                                        "stacks": 1}),
+                             generator=torch.Generator().manual_seed(0))
+    ckpt = str(root / "wn_units")
+    checkpoint.save_params(ckpt, wn, 1, vocoder._condition_meta(args))
+    return units + ["--units-vqvae-ckpt", units_ckpt], ckpt
+
+
+@pytest.mark.parametrize("case", ["train", "train_bf16_multi_steps", "synthesize_units"])
+def test_the_former_refusals_run(case, tmp_path, capsys):
+    """The three paths that raised before vocoder training was ported:
+    ``train``, ``train --bf16 --multi-steps 4`` and ``synthesize
+    --condition units``."""
+    if case.startswith("train"):
+        datadir = write_corpus(str(tmp_path / "corpus"))
+        extra = ["--bf16", "--multi-steps", "4"] if case != "train" else []
+        ckpt = str(tmp_path / "wn")
+        vocoder.main(["train", "--datadir", datadir, "--ckpt-dir", ckpt, "--epochs", "1",
+                      "--max-batches-per-epoch", "4", "--device", "cpu", *WIDTHS, *extra])
+        assert "wavenet epoch 1: loss" in capsys.readouterr().out
+        assert checkpoint.latest_step(ckpt) == 4
+        return
+    units, ckpt = _units_artifacts(tmp_path)
+    wav = str(tmp_path / "in.wav")
+    dsp.save_wav(0.5 * np.sin(np.arange(400) / 7.0).astype(np.float32), wav, 22050)
+    out = tmp_path / "o.wav"
+    vocoder.main(["synthesize", "--ckpt-dir", ckpt, "--wav-in", wav, "--output", str(out),
+                  "--max-frames", "5", "--device", "cpu", *WIDTHS, *units])
+    assert "synthesized 40 samples" in capsys.readouterr().out
 
 
 def test_postprocess_follows_the_input_type():
