@@ -2,8 +2,8 @@
 """Drives the PyTorch port's serving, training (single-codebook float32 and
 residual-VQ bf16), prior, vocoder, 3x3-convolution A/B, corpus
 preprocessing, mel-inversion, other-autoencoder (HierVQVAE, WaveVQVAE,
-VAE), PixelCNN-prior, hierarchical-chain and vocoder-training paths on one
-CUDA card and checks them.
+VAE), PixelCNN-prior, hierarchical-chain, vocoder-training and routed
+(switch-MoE) prior paths on one CUDA card and checks them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
@@ -20,7 +20,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    untimed, and a tie case), the
    fused Adam update at the flagship's parameter count in three
    configurations over three chained steps (and at the default PixelCNN's
-   count in the first; each row also device-only), and the causal-attention
+   and the routed prior's counts in the first; each row also device-only),
+   and the causal-attention
    forward, dQ and dK/dV kernels at the prior's grids (T = 140, 560 in f32
    and bf16, 2240, a ragged T = 37, D = 128, and the contract's ends T = 1
    and bf16 D = 20), each run twice to show the backward is bit-identical
@@ -167,7 +168,21 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
     and bf16; ``cli.vocoder synthesize`` from the mel artifact and with
     --condition units --wav-in from the units artifact; the fused Adam
     kernel at 24,886,366 parameters (EMA) and 25,337,152 (no EMA);
-14. summary: one JSON line per kernel, then the result line.
+14. the routed transformer prior: phase 7's prior with its MLPs switch-routed
+    over 4 experts (the JAX package's MoE configuration, capacity factor
+    1.25; 2,525,328 parameters): ``cli.prior train --moe-experts 4`` for
+    two epochs, then --resume --multi-steps 4 for a third, each run's
+    launch counts (attention kernels layers x steps, fused Adam steps,
+    nearest-code encoded batches), the NLL falling and each epoch's
+    load-balance mean finite, the checkpoint's n_experts; one step card vs
+    CPU from the resumed state with its routing decisions compared (a flip
+    only at a near-tie, top-2 probabilities within 1e-5, or in a flip's
+    causal cascade; phase 7's limits when none flipped) and the share of
+    tokens each layer dropped; the KV-cached routed decode against the
+    forward within 1e-4 at capacity factors 1.25 and 0.5 (every layer
+    dropping tokens at 0.5); steps/s; ``cli.prior sample --moe-experts 4``
+    and /sample at n = 1 and 4 from ``serve --prior-moe-experts 4``;
+15. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -1550,6 +1565,7 @@ def rvq_phase(torch, cli_main, cli_evaluate, checkpoint, vq_kernel, fused_adam, 
 
 
 EPOCH_RE = re.compile(r"^prior epoch (\d+): nll/code (\S+)", re.M)
+LOAD_BALANCE_RE = re.compile(r"^prior epoch \d+: .* load_balance (\S+)$", re.M)
 
 
 def read_launches(vq_kernel, fused_adam, fa) -> dict:
@@ -1559,7 +1575,8 @@ def read_launches(vq_kernel, fused_adam, fa) -> dict:
 
 def run_cli_prior(cli_prior, counters, argv) -> dict:
     """One ``cli.prior`` run with every launch count set to 0 just before
-    it and read just after; its output is kept and its epoch NLLs parsed."""
+    it and read just after; its output is kept and its epoch NLLs (and a
+    routed prior's load-balance means) parsed."""
     for k in counters:
         k.reset_launch_count()
     out = io.StringIO()
@@ -1569,7 +1586,8 @@ def run_cli_prior(cli_prior, counters, argv) -> dict:
     seconds = time.perf_counter() - t0
     text = out.getvalue()
     return {"seconds": seconds, "launches": read_launches(*counters),
-            "epoch_nll": [float(v) for _, v in EPOCH_RE.findall(text)]}
+            "epoch_nll": [float(v) for _, v in EPOCH_RE.findall(text)],
+            "epoch_load_balance": [float(v) for v in LOAD_BALANCE_RE.findall(text)]}
 
 
 def prior_phase(torch, cli_prior, serve, checkpoint, counters, root: str, vq_ckpt: str,
@@ -1675,16 +1693,21 @@ def prior_step_card_vs_cpu(torch, checkpoint, spec, train_dir: str, pcfg, batch:
     products, convolutions, the kernels' online softmax). The NLL within
     1e-5 relative, grad_norm within 1e-4; each parameter moves by about
     lr = 3e-4 per step, so the updated parameters agree to a small part of
-    that (1e-4)."""
+    that (1e-4). A routed prior's routing decisions are compared too
+    (``routing_flips``): every flip must be a near-tie or the cascade of
+    one, and the limits above hold when none flipped (a flipped token runs
+    another expert)."""
     from neural_sound_generation_tpu_torch.training.train_state import create_train_state
     from neural_sound_generation_tpu_torch.training.trainer import make_train_step
 
-    states, metrics = {}, {}
+    states, metrics, routes = {}, {}, {}
     for device in (DEVICE, "cpu"):
         model = spec.build().to(device)
         state = create_train_state(model, pcfg.train)
         checkpoint.restore(train_dir, state, step)
-        _, m = make_train_step(model, pcfg)(state, {k: v.to(device) for k, v in batch.items()})
+        with record_routing(torch, model) as routes[device]:
+            _, m = make_train_step(model, pcfg)(state,
+                                                {k: v.to(device) for k, v in batch.items()})
         states[device], metrics[device] = state, {k: float(v) for k, v in m.items()}
     rel = {k: abs(metrics[DEVICE][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
            for k in metrics["cpu"]}
@@ -1693,7 +1716,16 @@ def prior_step_card_vs_cpu(torch, checkpoint, spec, train_dir: str, pcfg, batch:
                "params_beyond_1e-6_frac": float((diff > 1e-6).float().mean()),
                "grad_norm": metrics[DEVICE]["grad_norm"], "nll": metrics[DEVICE]["loss"],
                "from_step": checkpoint.latest_step(train_dir) if step is None else step}
+    if routes["cpu"]:
+        compare["routing"] = routing_flips(torch, routes[DEVICE], routes["cpu"])
     emit({"phase": f"{what}_card_vs_cpu_step", **compare})
+    if routes["cpu"]:
+        r = compare["routing"]
+        check(r["flips"] == r["near_ties"] + r["cascade"],
+              f"{what} card vs CPU: {r['flips'] - r['near_ties'] - r['cascade']} routing "
+              f"flips that are neither near-ties nor cascades of one ({r})")
+        if r["flips"]:
+            return compare, states[DEVICE]
     check(rel["loss"] <= 1e-5, f"{what} card vs CPU: NLL differs by {rel['loss']:.3g}")
     check(rel["grad_norm"] <= 1e-4,
           f"{what} card vs CPU: grad_norm differs by {rel['grad_norm']:.3g}")
@@ -4001,6 +4033,180 @@ def vocoder_train_phase(torch, cli_vocoder, checkpoint, dsp, vq_kernel, fused_ad
             "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the routed transformer prior (switch-MoE feed-forwards)
+# ---------------------------------------------------------------------------
+
+# phase 7's prior with its MLPs routed: the JAX package's own MoE
+# configuration (tools/ab_prior.py:108-113: dim 128, 4 layers of 2 heads, 4
+# experts, mlp_ratio 4), the CLI's capacity factor 1.25; 2,525,328
+# parameters at 512 codes. Cut in steps only: 2 epochs of 8 batches, then
+# --resume --multi-steps 4 for a third
+MOE_EXPERTS, MOE_EPOCHS, MOE_PARAMS = 4, 2, 2_525_328
+# the cached decode is held at the CLI's capacity factor and at one where
+# every row must drop tokens (E * capacity < T)
+MOE_CAPACITY_FACTORS = (1.25, 0.5)
+MOE_TIE_GAP = 1e-5  # a routing flip's top-2 probability gap on the CPU
+
+
+@contextlib.contextmanager
+def record_routing(torch, model):
+    """Hooks on every routed block of ``model``: each forward appends the
+    routing of its input, (probs, expert, keep) on the CPU, computed with
+    the weights that forward ran with, to the list this yields. A dense
+    model records nothing."""
+    from neural_sound_generation_tpu_torch.models.moe import SwitchMoE
+
+    routes = []
+
+    def hook(moe, args, out):
+        with torch.no_grad():
+            probs, expert, _, _, keep = moe.dispatch(args[0])
+        routes.append((probs.cpu(), expert.cpu(), keep.cpu()))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, SwitchMoE)]
+    try:
+        yield routes
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def routing_flips(torch, card: list, cpu: list) -> dict:
+    """The routing decisions of one step on the card against the CPU's,
+    layer by layer (``record_routing``'s lists). A flip in a row at or
+    after the first position an earlier layer flipped in that row is that
+    flip's cascade (causal attention carries the other expert's output
+    there); any other flip must be a near-tie, the CPU's top-2
+    probabilities within MOE_TIE_GAP. Decisions are counted, not tokens'
+    outputs; with the share of tokens each layer dropped on the card."""
+    decisions = flips = near = cascade = 0
+    gaps, dropped, first = [], [], None
+    for (_, e_card, k_card), (p_cpu, e_cpu, _) in zip(card, cpu):
+        b, t = e_cpu.shape
+        pos = torch.arange(t).expand(b, t)
+        if first is None:
+            first = torch.full((b, 1), t)
+        flip = e_card != e_cpu
+        top2 = p_cpu.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        is_cascade = flip & (pos >= first)
+        own = flip & ~is_cascade
+        decisions += e_cpu.numel()
+        flips += int(flip.sum())
+        cascade += int(is_cascade.sum())
+        near += int((own & (gap <= MOE_TIE_GAP)).sum())
+        gaps += gap[own].tolist()
+        first = torch.minimum(first, torch.where(flip, pos, t).min(1, keepdim=True).values)
+        dropped.append(float((~k_card).float().mean()))
+    return {"decisions": decisions, "flips": flips, "near_ties": near, "cascade": cascade,
+            "flip_gaps": gaps, "dropped_share_by_layer": dropped}
+
+
+def moe_prior_phase(torch, cli_prior, serve, checkpoint, counters, root: str, vq_ckpt: str,
+                    corpus: str, card: str) -> dict:
+    """Phase 14: ``cli.prior train --arch transformer --moe-experts 4`` on
+    phase 5's VQ-VAE and corpus, launch counts per run, the NLL falling and
+    a finite load-balance mean each epoch, the checkpoint's metadata; one
+    step card vs CPU from the resumed state (routing flips only at near-ties
+    or their cascades); the cached decode against the forward at both
+    capacity factors (drops at 0.5); steps/s; ``cli.prior sample`` and
+    /sample from ``serve --prior-moe-experts``."""
+    from neural_sound_generation_tpu_torch.config import Config
+    from neural_sound_generation_tpu_torch.models import TransformerPrior
+    from neural_sound_generation_tpu_torch.models.transformer_prior import incremental_logits
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(root, "moe_prior", "models")
+    widths = ["--arch", "transformer", "--prior-dim", str(PRIOR_DIM),
+              "--prior-layers", str(PRIOR_LAYERS), "--moe-experts", str(MOE_EXPERTS),
+              "--dim", str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES), "--device", DEVICE]
+    train = ["train", "--datadir", corpus, "--vqvae-ckpt", vq_ckpt, "--ckpt-dir", ckpt,
+             "--batch-size", str(PRIOR_BATCH),
+             "--max-batches-per-epoch", str(PRIOR_BATCHES_PER_EPOCH), *widths]
+    runs = {"train": run_cli_prior(cli_prior, counters, train + ["--epochs", str(MOE_EPOCHS)])}
+    runs["resume"] = run_cli_prior(cli_prior, counters, train + [
+        "--epochs", str(MOE_EPOCHS + 1), "--resume", "--multi-steps", "4"])
+    for tag, epochs in (("train", MOE_EPOCHS), ("resume", 1)):
+        steps = epochs * PRIOR_BATCHES_PER_EPOCH
+        runs[tag]["optimizer_steps"] = steps
+        check_prior_run(runs[tag], f"moe prior {tag}", epochs, {
+            "vq_nearest": steps, "fused_adam": steps,
+            **{k: PRIOR_LAYERS * steps for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")}})
+        balance = runs[tag]["epoch_load_balance"]
+        check(len(balance) == epochs and all(np.isfinite(balance)),
+              f"moe prior {tag}: epoch load-balance means {balance}")
+    nll = runs["train"]["epoch_nll"]
+    check(nll[-1] < nll[0], f"moe prior: the NLL did not fall ({nll})")
+    spec = cli_prior.PriorSpec.create("transformer", TRAIN_CODES, PRIOR_DIM, PRIOR_LAYERS,
+                                      PRIOR_HEADS, 10, n_experts=MOE_EXPERTS)
+    extra = checkpoint.read_extra(ckpt)
+    check(extra == {"epoch": MOE_EPOCHS + 1, **spec.metadata()},
+          f"moe prior checkpoint metadata {extra}")
+    after = checkpoint.latest_step(ckpt)
+    check(after == (MOE_EPOCHS + 1) * PRIOR_BATCHES_PER_EPOCH,
+          f"moe prior checkpoint at step {after}")
+
+    # one step card vs CPU from the resumed state, on one encoded batch
+    codes, _, vqvae, _ = encode_batch(torch, cli_prior, cli_prior.parse_args(train), corpus,
+                                      cli_prior.LATENT_STRIDE)
+    del vqvae
+    labels = torch.zeros(codes.shape[0], dtype=torch.int32, device=DEVICE)
+    pcfg = prior_cfg(Config())
+    batch = {"codes": codes, "labels": labels}
+    compare, state = prior_step_card_vs_cpu(torch, checkpoint, spec, ckpt + "_train", pcfg,
+                                            batch, "moe_prior")
+    params = sum(p.numel() for p in state.model.parameters())
+    check(params == MOE_PARAMS, f"moe prior: {params} parameters, expected {MOE_PARAMS}")
+    step_s = prior_step_seconds(torch, state, pcfg, batch, PRIOR_TIMED_STEPS)
+    del state
+
+    # the KV-cached routed decode against the forward, the trained weights
+    # at the CLI's capacity factor and rebuilt at one that drops
+    trained = cli_prior.load_prior(ckpt, spec, DEVICE)
+    t_len = codes.shape[1] * codes.shape[2]
+    cached = {}
+    for cf in MOE_CAPACITY_FACTORS:
+        model = TransformerPrior(TRAIN_CODES, PRIOR_DIM, PRIOR_LAYERS, PRIOR_HEADS, 10,
+                                 n_experts=MOE_EXPERTS, capacity_factor=cf).to(DEVICE).eval()
+        model.load_state_dict(trained.state_dict())
+        with record_routing(torch, model) as routes, torch.no_grad():
+            forward = model(codes[:4], labels[:4])
+        err = float((incremental_logits(model, codes[:4], labels[:4]) - forward).abs().max())
+        cached[f"cf={cf}"] = {"capacity": model.block_0.moe.capacity(t_len),
+                              "max_abs_err": err,
+                              "dropped_share_by_layer": [float((~keep).float().mean())
+                                                         for _, _, keep in routes]}
+        check(err <= 1e-4, f"moe prior cf={cf}: incremental_logits differ from the forward "
+                           f"by {err}")
+        del model
+    low = cached[f"cf={MOE_CAPACITY_FACTORS[1]}"]
+    check(min(low["dropped_share_by_layer"]) > 0,
+          f"moe prior: no token dropped at capacity {low['capacity']} ({low})")
+
+    sampled = run_sample_cli(cli_prior, ["sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt",
+                                         ckpt + "_ema", *widths],
+                             os.path.join(root, "moe_prior", "samples"), "prior_sample", 4 * 28)
+    served = serve_sample_requests(torch, serve, [
+        "--device", DEVICE, "--ckpt-dir", vq_ckpt, "--dim", str(TRAIN_DIM),
+        "--z-dim", str(TRAIN_CODES), "--prior-ckpt", ckpt, "--prior-arch", "transformer",
+        "--prior-dim", str(PRIOR_DIM), "--prior-layers", str(PRIOR_LAYERS),
+        "--prior-heads", str(PRIOR_HEADS), "--prior-moe-experts", str(MOE_EXPERTS)],
+        counters, SAMPLE_REPEATS)
+    return {
+        "phase": "moe_prior", "card": card, "prior_dim": PRIOR_DIM, "prior_layers": PRIOR_LAYERS,
+        "prior_heads": PRIOR_HEADS, "experts": MOE_EXPERTS, "codes": TRAIN_CODES,
+        "batch": PRIOR_BATCH, "code_grid": list(codes.shape[1:]), "parameters": params,
+        "runs": runs, "launches": {k: sum(r["launches"][k] for r in runs.values())
+                                   for k in runs["train"]["launches"]},
+        "card_vs_cpu_step": compare, "train_step_ms": 1e3 * step_s,
+        "train_steps_per_s": 1.0 / step_s, "timed_steps": PRIOR_TIMED_STEPS,
+        "incremental_vs_forward": cached, "sample_cli": sampled, "serve_sample": served,
+        "seconds": time.perf_counter() - t0,
+    }
+
+
 ATTN_REPLACES = {
     "flash_fwd": "neural_sound_generation_tpu/ops/pallas/attention.py:165",
     "flash_bwd_dq": "neural_sound_generation_tpu/ops/pallas/attention.py:233",
@@ -4258,6 +4464,10 @@ def main() -> int:
         adam_pixelcnn = compare_fused_adam(torch, fused_adam, n_pixelcnn, ADAM_CONFIGS[0], gen)
         adam_pixelcnn["shape_of"] = "pixelcnn"
         emit(adam_pixelcnn)
+        # and at the routed prior's (phase 14's steps)
+        adam_moe = compare_fused_adam(torch, fused_adam, MOE_PARAMS, ADAM_CONFIGS[0], gen)
+        adam_moe["shape_of"] = "moe_prior"
+        emit(adam_moe)
         attn_rows = {}
         for shape in ATTN_SHAPES:
             row = compare_attention(torch, fa, shape, gen)
@@ -4358,13 +4568,20 @@ def main() -> int:
         vtrain = vocoder_train_phase(torch, cli_vocoder, checkpoint, dsp, vq_kernel, fused_adam,
                                      root, corpus, card)
         emit(vtrain)
+        torch.cuda.empty_cache()
+
+        # phase 14: the routed transformer prior through cli.prior and
+        # cli.serve, with launch counts from each run
+        moe = moe_prior_phase(torch, cli_prior, serve, checkpoint, (vq_kernel, fused_adam, fa),
+                              root, vq_ckpt, corpus, card)
+        emit(moe)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # phase 14: summary and result
+    # phase 15: summary and result
     train_runs = [*training["runs"].values(), rvq["run"]]
     train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
     train_adam = sum(r["launches"]["fused_adam"] for r in train_runs)
@@ -4372,6 +4589,7 @@ def main() -> int:
     prior_launches = {k: sum(r["launches"][k] for r in prior_runs)
                       for k in ("vq_nearest", "fused_adam", *fa.KERNELS)}
     priors_launches = priors["launches"]
+    moe_launches = moe["launches"]
     main_row, train_row = rows[VQ_MAIN_SHAPE], rows[VQ_TRAIN_SHAPE]
     adam_row = adam_rows[ADAM_CONFIGS[0][0]]
     emit({"kernels": [{
@@ -4381,13 +4599,15 @@ def main() -> int:
         "status": "ported", "shape": {"n": VQ_MAIN_SHAPE[0], "k": VQ_MAIN_SHAPE[1], "d": VQ_D},
         "launches": (serving["vq_launches"] + train_vq + prior_launches["vq_nearest"]
                      + prep["vq_launches"] + others["vq_launches"]
-                     + priors_launches["vq_nearest"] + vtrain["vq_launches"]),
+                     + priors_launches["vq_nearest"] + vtrain["vq_launches"]
+                     + moe_launches["vq_nearest"]),
         "launches_by_path": {"serving": serving["vq_launches"], "training": train_vq,
                              "prior": prior_launches["vq_nearest"],
                              "preprocess_units": prep["vq_launches"],
                              "other_autoencoders": others["vq_launches"],
                              "pixelcnn_and_hier_priors": priors_launches["vq_nearest"],
-                             "vocoder_units": vtrain["vq_launches"]},
+                             "vocoder_units": vtrain["vq_launches"],
+                             "moe_prior": moe_launches["vq_nearest"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -4406,20 +4626,24 @@ def main() -> int:
         "replaces": "neural_sound_generation_tpu/ops/pallas/fused_adam.py:49",
         "status": "ported", "shape": {"n": n_params, "config": adam_row["config"]},
         "launches": (train_adam + prior_launches["fused_adam"] + others["adam_launches"]
-                     + priors_launches["fused_adam"] + vtrain["adam_launches"]),
+                     + priors_launches["fused_adam"] + vtrain["adam_launches"]
+                     + moe_launches["fused_adam"]),
         "launches_by_path": {"training": train_adam, "prior": prior_launches["fused_adam"],
                              "other_autoencoders": others["adam_launches"],
                              "pixelcnn_and_hier_priors": priors_launches["fused_adam"],
-                             "vocoder_training": vtrain["adam_launches"]},
+                             "vocoder_training": vtrain["adam_launches"],
+                             "moe_prior": moe_launches["fused_adam"]},
         "max_abs_err": adam_row["max_abs_err"],
         "ms": adam_row["kernel_ms"], "plain_ms": adam_row["plain_ms"],
         "bound_ms": adam_row["bound_ms"], "bound_by": adam_row["bound_by"],
         "library_ms": adam_row["library_ms"],
         "pixelcnn_shape": {k: adam_pixelcnn[k] for k in ADAM_ROW_KEYS},
+        "moe_prior_shape": {k: adam_moe[k] for k in ADAM_ROW_KEYS},
         "vocoder_shapes": {tag: {k: r[k] for k in ("config",) + ADAM_ROW_KEYS}
                            for tag, r in vtrain["adam_rows"].items()},
     }] + [attention_summary(attn_rows, name, {"prior": prior_launches[name],
-                                              "hier_top_prior": priors_launches[name]})
+                                              "hier_top_prior": priors_launches[name],
+                                              "moe_prior": moe_launches[name]})
           for name in fa.KERNELS]
       + wavenet_summary(wn_rows, wn_api) + conv_summary(conv_rows, conv_ab)})
     emit({"ok": True, "device": {"platform": "gpu",

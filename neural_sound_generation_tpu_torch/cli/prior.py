@@ -6,7 +6,10 @@ with a trained VQ-VAE (a ``cli.main`` checkpoint; the nearest-code kernel
 on the card) and fits a class-conditioned prior by cross-entropy through
 the ``Trainer`` (the fused Adam kernel): the ``GatedPixelCNN`` (``--arch
 pixelcnn``, the default; cuDNN's masked convolutions) or the
-``TransformerPrior`` (the flash-attention kernels forward and backward).
+``TransformerPrior`` (the flash-attention kernels forward and backward),
+whose MLPs ``--moe-experts N`` makes switch-routed mixtures of N experts
+(capacity factor 1.25, the JAX CLI's; the loss adds 0.01 times the
+load-balance term, which the epoch line prints).
 ``sample`` draws code grids (the PixelCNN's row-cached sampler, the
 transformer's KV-cached one) and decodes them to audio through the VQ-VAE
 and Griffin-Lim.
@@ -24,19 +27,19 @@ twice ``--code-shape``, the decoder, Griffin-Lim.
 Checkpoints follow the JAX CLI's layout: ``--ckpt-dir`` holds the sampling
 artifact (parameters only), ``<ckpt-dir>_ema`` the averaged model and
 ``<ckpt-dir>_train`` the full train state that ``--resume`` continues. Each
-records ``arch``, ``prior_dim``, ``prior_layers``, ``prior_heads`` (0 for
-the PixelCNN), ``z_dim``, ``n_classes``, ``spatial_cond`` and
-``cond_dim``, and ``sample`` and ``serve --prior-ckpt`` refuse a
+records ``arch``, ``prior_dim``, ``prior_layers``, ``prior_heads`` and
+``n_experts`` (both 0 for the PixelCNN), ``z_dim``, ``n_classes``,
+``spatial_cond`` and ``cond_dim``, and ``sample`` and ``serve --prior-ckpt`` refuse a
 checkpoint that disagrees: the qkv weights have the same shape for any
 head count, so a wrong ``--prior-heads`` would otherwise restore and
 sample wrongly, and a bottom prior is refused where a top is expected.
 
-Flags of later slices raise ``NotImplementedError``: ``--moe-experts``,
-``--bf16``, ``--mesh-pipe`` and more than one device.
+Flags of later slices raise ``NotImplementedError``: ``--bf16`` (with or
+without ``--moe-experts``), ``--mesh-pipe`` and more than one device.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.prior train
---datadir <corpus> --vqvae-ckpt <cli.main checkpoint> [--arch transformer]
-[--hier --hier-level top|bottom] [--device cuda]``
+--datadir <corpus> --vqvae-ckpt <cli.main checkpoint> [--arch transformer
+[--moe-experts N]] [--hier --hier-level top|bottom] [--device cuda]``
 """
 
 from __future__ import annotations
@@ -93,7 +96,8 @@ def parse_args(argv=None):
                     help="attention heads; default sizes heads to 64 channels each")
     tr.add_argument("--bf16", action="store_true", help="bfloat16 compute (a later slice)")
     tr.add_argument("--moe-experts", type=int, default=0,
-                    help="switch-MoE feed-forwards (a later slice)")
+                    help="transformer arch only: switch-MoE feed-forwards with this many "
+                         "experts (0 = dense)")
     tr.add_argument("--resume", action="store_true",
                     help="continue from the latest checkpoint: the *_train sibling's "
                          "full state, else the artifact's parameters and EMA")
@@ -131,7 +135,9 @@ def parse_args(argv=None):
     sa.add_argument("--prior-layers", type=int, default=15)
     sa.add_argument("--prior-heads", type=int, default=None)
     sa.add_argument("--bf16", action="store_true")
-    sa.add_argument("--moe-experts", type=int, default=0)
+    sa.add_argument("--moe-experts", type=int, default=0,
+                    help="experts of a routed transformer prior (cli.prior train "
+                         "--moe-experts); the --hier bottom level takes it too")
     sa.add_argument("--n-classes", type=int, default=10)
     sa.add_argument("--code-shape", type=int, nargs=2, default=[20, 28])
     sa.add_argument("--num-samples", type=int, default=4)
@@ -156,10 +162,10 @@ def parse_args(argv=None):
 
 def refuse_later_slices(args) -> None:
     """Flags whose code paths the port does not have yet."""
-    if args.moe_experts > 0:
-        raise NotImplementedError("--moe-experts: switch-MoE priors come with the MoE slice")
     if args.bf16:
-        raise NotImplementedError("--bf16: the prior's bfloat16 model comes with the bf16 slice")
+        what = " (and its routed MoE)" if args.moe_experts > 0 else ""
+        raise NotImplementedError(
+            f"--bf16: the prior's bfloat16 model{what} comes with the bf16 slice")
     if getattr(args, "mesh_pipe", 1) > 1:
         raise NotImplementedError("--mesh-pipe: pipeline parallelism comes with the parallel slice")
     if (getattr(args, "mesh_data", None) or 1) > 1 or getattr(args, "mesh_model", 1) > 1:
@@ -170,7 +176,8 @@ def refuse_later_slices(args) -> None:
 class PriorSpec:
     """What a prior checkpoint was built with; ``metadata()`` is what its
     ``_extra.json`` records and every restore checks. Build one with
-    ``create``, which records no head count for the PixelCNN."""
+    ``create``, which records no head count and no experts for the
+    PixelCNN."""
 
     arch: str
     z_dim: int
@@ -180,20 +187,25 @@ class PriorSpec:
     n_classes: int
     spatial_cond: bool = False
     cond_dim: int = 0
+    n_experts: int = 0
 
     @classmethod
     def create(cls, arch: str, z_dim: int, prior_dim: int, prior_layers: int,
-               prior_heads: int | None, n_classes: int, cond_dim: int = 0) -> "PriorSpec":
+               prior_heads: int | None, n_classes: int, cond_dim: int = 0,
+               n_experts: int = 0) -> "PriorSpec":
         """``cond_dim`` > 0: a spatially conditioned (bottom-level) prior.
-        ``prior_heads`` None sizes the transformer's heads to 64 channels."""
-        heads = (prior_heads or max(1, prior_dim // 64)) if arch == "transformer" else 0
+        ``prior_heads`` None sizes the transformer's heads to 64 channels;
+        ``n_experts`` > 0 routes its MLPs (the transformer's alone, as the
+        JAX ``_build_prior`` passes it)."""
+        transformer = arch == "transformer"
+        heads = (prior_heads or max(1, prior_dim // 64)) if transformer else 0
         return cls(arch, z_dim, prior_dim, prior_layers, heads, n_classes, cond_dim > 0,
-                   cond_dim)
+                   cond_dim, n_experts if transformer else 0)
 
     @classmethod
     def from_args(cls, args, cond_dim: int = 0) -> "PriorSpec":
         return cls.create(args.arch, args.z_dim, args.prior_dim, args.prior_layers,
-                          args.prior_heads, args.n_classes, cond_dim)
+                          args.prior_heads, args.n_classes, cond_dim, args.moe_experts)
 
     def metadata(self) -> dict:
         return dataclasses.asdict(self)
@@ -203,7 +215,7 @@ class PriorSpec:
         if self.arch == "transformer":
             return TransformerPrior(
                 input_dim=self.z_dim, dim=self.prior_dim, n_layers=self.prior_layers,
-                n_heads=self.prior_heads, n_classes=self.n_classes,
+                n_heads=self.prior_heads, n_classes=self.n_classes, n_experts=self.n_experts,
                 spatial_cond=self.spatial_cond, cond_dim=self.cond_dim, generator=gen)
         return GatedPixelCNN(
             input_dim=self.z_dim, dim=self.prior_dim, n_layers=self.prior_layers,
@@ -213,7 +225,8 @@ class PriorSpec:
 
 def bottom_args(args):
     """The sample-time bottom prior's flags: ``--bottom-*`` overriding the
-    top's ``--arch``/``--prior-*`` (the JAX ``_bottom_args``)."""
+    top's ``--arch``/``--prior-*``; the rest, ``--moe-experts`` among them,
+    carry over (the JAX ``_bottom_args``)."""
     overrides = {"arch": args.bottom_arch, "prior_dim": args.bottom_dim,
                  "prior_layers": args.bottom_layers, "prior_heads": args.bottom_heads}
     return argparse.Namespace(**{
@@ -373,7 +386,10 @@ def cmd_train(args) -> None:
             checkpoint_cb=lambda s, st, e=epoch: save_ckpt(s, st, completed_epoch=e - 1),
         )
         nll = means.get("loss", float("nan"))
-        print(f"prior epoch {epoch}: nll/code {nll:.4f} (ppl {np.exp(nll):.1f} of {args.z_dim})")
+        routed = (f" load_balance {means['moe_load_balance']:.4f}"
+                  if "moe_load_balance" in means else "")
+        print(f"prior epoch {epoch}: nll/code {nll:.4f} (ppl {np.exp(nll):.1f} of "
+              f"{args.z_dim}){routed}")
         save_ckpt(trainer.state, int(trainer.state.step), completed_epoch=epoch)
     checkpoint.wait_for_pending()
     print(f"prior saved to {args.ckpt_dir}")

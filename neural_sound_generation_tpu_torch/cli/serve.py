@@ -43,8 +43,9 @@ equals the unbatched one. ``--ckpt-dir`` serves a checkpoint written by ``cli.ma
 the server serves weights initialized from seed 0, as the JAX server does.
 ``--prior-ckpt`` serves a ``cli.prior`` checkpoint over ``/sample`` and
 ``/sample_stream``: a PixelCNN (``--prior-arch pixelcnn``, the default) or
-a transformer; its recorded family, widths and ``prior_heads`` must match
-the flags. Under ``--model hiervqvae`` it is the top prior and
+a transformer, routed with ``--prior-moe-experts N`` (every transformer
+level); its recorded family, widths, ``prior_heads`` and ``n_experts``
+must match the flags. Under ``--model hiervqvae`` it is the top prior and
 ``--bottom-ckpt`` the spatially conditioned bottom one, built from
 ``--bottom-prior-*`` (each defaulting to the top's flag). Speaker-conditioned
 presets under ``--model hiervqvae`` refuse.
@@ -845,11 +846,13 @@ def load_serving_priors(args, device):
     ``--prior-ckpt`` and ``--bottom-ckpt``, each refused unless its recorded
     family, widths and conditioning match the flags: ``--prior-*`` for the
     first, ``--bottom-prior-*`` (each defaulting to its ``--prior-*``) for
-    the bottom, conditioned on the hierarchy's ``--dim``-wide codebook."""
+    the bottom, conditioned on the hierarchy's ``--dim``-wide codebook;
+    ``--prior-moe-experts`` routes every transformer level, as in JAX."""
     from neural_sound_generation_tpu_torch.cli.prior import PriorSpec, load_prior
 
     def spec(arch, dim, layers, heads, cond_dim=0):
-        return PriorSpec.create(arch, args.z_dim, dim, layers, heads, args.n_classes, cond_dim)
+        return PriorSpec.create(arch, args.z_dim, dim, layers, heads, args.n_classes, cond_dim,
+                                args.prior_moe_experts)
 
     hier = args.model == "hiervqvae"
     if hier and not args.bottom_ckpt:
@@ -941,6 +944,9 @@ def parse_args(argv=None):
     p.add_argument("--prior-dim", type=int, default=64)
     p.add_argument("--prior-layers", type=int, default=15)
     p.add_argument("--prior-heads", type=int, default=8)
+    p.add_argument("--prior-moe-experts", type=int, default=0,
+                   help="transformer prior trained with --moe-experts N (0 = dense); "
+                        "applies to the bottom level too")
     p.add_argument("--n-classes", type=int, default=10)
     p.add_argument("--bottom-ckpt", default=None,
                    help="spatially conditioned bottom prior checkpoint (hiervqvae /sample; "

@@ -32,6 +32,9 @@ bridge only changes each leaf's name and layout:
     (kh,kw,in,out)
   PixelCNN raw biases                the same name, the same layout
     vert_bias, horiz_bias
+  SwitchMoE expert leaves            the same name, the same layout: w_in
+    w_in, b_in, w_out, b_out         (E, D, F), b_in (E, F), w_out (E, F, D),
+                                     b_out (E, D) (``models/moe.py``)
 
 Both directions copy values exactly, so a round trip is bit-exact.
 
@@ -62,6 +65,8 @@ from neural_sound_generation_tpu_torch.training.train_state import flat_offsets
 #: ``kernel`` (the PixelCNN's gated layer); the port keeps them OIHW
 RAW_KERNELS = ("vert_kernel", "horiz_kernel")
 RAW_BIASES = ("vert_bias", "horiz_bias")
+#: a switch-MoE's expert weights and biases, kept in flax's layouts
+EXPERT_LEAVES = ("w_in", "b_in", "w_out", "b_out")
 
 
 def _walk(tree: Mapping[str, Any], prefix=()) -> Iterator[tuple[tuple[str, ...], Any]]:
@@ -109,7 +114,7 @@ def _param_to_torch(path: tuple[str, ...], leaf: np.ndarray, is_transpose) -> tu
         return prefix + name, leaf.transpose(3, 2, 0, 1)
     elif name in ("scale", "embedding"):
         return prefix + "weight", leaf
-    elif name == "bias" or name in RAW_BIASES or not module:
+    elif name == "bias" or name in RAW_BIASES or name in EXPERT_LEAVES or not module:
         return prefix + name, leaf
     raise ValueError(f"no port counterpart for flax leaf {'/'.join(path)}")
 

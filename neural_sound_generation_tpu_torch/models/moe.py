@@ -1,0 +1,127 @@
+"""Switch-routed mixture-of-experts feed-forward of the transformer prior.
+
+Counterpart of ``neural_sound_generation_tpu/models/moe.py``: top-1
+routing in float32 (router, softmax, argmax with the first index on ties,
+the gate the top probability), per-expert capacity ``ceil(cf * T / E)`` per
+batch row, tokens past capacity dropped (zero output, the residual carries
+them), and the Switch load-balance term E * sum_e(frac_e * mean_prob_e).
+
+The JAX package dispatches with one-hot einsums over a (B, T, E, C) slot
+tensor, the static-shape form XLA wants. Here the dispatch is indexed: each
+kept token is copied into its (expert, row, queue position) slot of an
+(E, B * C, D) block, the experts run as two batched products over the
+(E, D, F) and (E, F, D) weights, and each slot's output is copied back to
+its token, times the token's gate (a dropped token keeps a zero row). A
+slot holds at most one token, so the sums of the einsums have one nonzero
+term and both forms give the same values; the empty slots of the JAX form
+are multiplied by a zero combine and reach neither the output nor a
+gradient.
+
+The load-balance term is returned by ``forward``, not kept in module
+state. ``step`` is the causal one-position form for the KV-cached sampler:
+it carries each row's per-expert counts of *dispatched* tokens, so with the
+full sequence's capacity it drops exactly what ``forward`` drops.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["SwitchMoE"]
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # flax nn.gelu's default
+
+
+class SwitchMoE(nn.Module):
+    """Top-1 routed expert MLP: (B, T, D) -> ((B, T, D), load-balance term).
+
+    Parameters carry the flax names: ``router`` (a Linear D -> E),
+    ``w_in`` (E, D, F), ``b_in`` (E, F), ``w_out`` (E, F, D), ``b_out``
+    (E, D), F = mlp_ratio * D, in flax's layouts. Each batch row is a
+    routing group (capacity is per row)."""
+
+    def __init__(self, dim: int, n_experts: int, mlp_ratio: int = 4,
+                 capacity_factor: float = 1.25):
+        super().__init__()
+        if n_experts < 1:
+            raise ValueError(f"a switch MoE needs at least one expert, not {n_experts}")
+        e, d, f = n_experts, dim, mlp_ratio * dim
+        self.dim, self.n_experts, self.capacity_factor = dim, n_experts, capacity_factor
+        self.router = nn.Linear(d, e)
+        self.w_in = nn.Parameter(torch.empty(e, d, f))
+        self.b_in = nn.Parameter(torch.zeros(e, f))
+        self.w_out = nn.Parameter(torch.empty(e, f, d))
+        self.b_out = nn.Parameter(torch.zeros(e, d))
+
+    def capacity(self, t: int) -> int:
+        """Per-expert queue capacity of a length-``t`` sequence: what
+        ``step`` must be given so sampling reproduces the forward's drops."""
+        return max(1, int(math.ceil(self.capacity_factor * t / self.n_experts)))
+
+    def _route(self, h: torch.Tensor):
+        """(..., D) -> (probs (..., E), expert (...,), gate (...,)), in
+        float32 whatever the compute dtype."""
+        probs = torch.softmax(self.router(h.float()), dim=-1)
+        expert = torch.argmax(probs, dim=-1)
+        gate = probs.gather(-1, expert[..., None])[..., 0]
+        return probs, expert, gate
+
+    def _experts(self, xs: torch.Tensor) -> torch.Tensor:
+        """Every expert's MLP on its own rows: (E, N, D) -> (E, N, D)."""
+        hh = _gelu(torch.bmm(xs, self.w_in) + self.b_in[:, None, :])
+        return torch.bmm(hh, self.w_out) + self.b_out[:, None, :]
+
+    def dispatch(self, h: torch.Tensor):
+        """The routing of a (B, T, D) sequence: (probs (B, T, E), expert
+        (B, T), gate (B, T), pos (B, T), keep (B, T)). ``pos`` is each
+        token's 0-based place in its expert's queue within its row (a
+        cumulative sum over T), ``keep`` whether it is within capacity."""
+        probs, expert, gate = self._route(h)
+        onehot = F.one_hot(expert, self.n_experts)
+        pos = (torch.cumsum(onehot, dim=1) * onehot).sum(-1) - 1
+        return probs, expert, gate, pos, pos < self.capacity(h.shape[1])
+
+    def forward(self, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        b, t, d = h.shape
+        e, cap = self.n_experts, self.capacity(t)
+        probs, expert, gate, pos, keep = self.dispatch(h)
+        # Switch aux: E * sum_e(fraction dispatched_e * mean prob_e); the
+        # dispatched one-hot carries no gradient, the mean probabilities do
+        frac = (F.one_hot(expert, e) * keep[..., None]).float().mean(dim=(0, 1))
+        aux = e * torch.sum(frac * probs.mean(dim=(0, 1)))
+
+        n_slots = e * b * cap
+        rows = torch.arange(b, device=h.device)[:, None]
+        tokens = torch.arange(b * t, device=h.device)
+        # each kept token's slot in the (E, B, C) block; the dropped ones go
+        # to one spare row past the block, which is cut off again
+        slot = torch.where(keep, (expert * b + rows) * cap + pos, n_slots).reshape(-1)
+        xs = h.new_zeros(n_slots + 1, d).index_copy(0, slot, h.reshape(b * t, d))
+        ys = self._experts(xs[:-1].view(e, b * cap, d)).reshape(n_slots, d)
+        # and back: each slot's token, a spare token for the empty slots.
+        # Copies both ways: their gradients gather, where a gather's would
+        # accumulate every dropped token into one row, one after another
+        owner = torch.full((n_slots + 1,), b * t, device=h.device).index_copy(0, slot, tokens)
+        y = ys.new_zeros(b * t + 1, d).index_copy(0, owner[:-1], ys)[:-1]
+        return y.view(b, t, d) * gate[..., None].to(y.dtype), aux
+
+    def step(self, h: torch.Tensor, counts: torch.Tensor, cap: int) -> torch.Tensor:
+        """One causal position for the KV-cached sampler.
+
+        ``h`` (B, D) is the post-ln2 activation at position t; ``counts``
+        (B, E) int32 the tokens already *dispatched* to each expert at
+        positions < t, updated in place; ``cap`` the capacity of the full
+        sequence (``capacity(T)``). Returns y (B, D)."""
+        b = h.shape[0]
+        _, expert, gate = self._route(h)                              # (B,), (B,)
+        room = counts.gather(1, expert[:, None])[:, 0] < cap
+        ys = self._experts(h[None].expand(self.n_experts, b, h.shape[1]))
+        y = ys[expert, torch.arange(b, device=h.device)]
+        counts.scatter_add_(1, expert[:, None], room[:, None].to(counts.dtype))
+        return y * (gate * room)[:, None].to(y.dtype)

@@ -23,8 +23,16 @@ or, for the tests, is injected.
 A spatially conditioned prior (``spatial_cond``, the hierarchical bottom
 level) adds ``cond_proj`` of a per-position conditioning map of
 ``cond_dim`` channels to every position's input, on the teacher-forced path
-and on the decode step. Switch-MoE feed-forwards (``n_experts > 0``) come
-with a later slice and raise.
+and on the decode step.
+
+``n_experts > 0`` swaps every block's dense MLP for a switch-routed
+``SwitchMoE`` (``models/moe.py``, flax name ``block_i.moe``): top-1 routing
+with a per-row capacity of ``ceil(capacity_factor * T / n_experts)`` tokens
+an expert. ``forward(..., return_moe_aux=True)`` also returns each block's
+load-balance term, which the trainer adds to the NLL. The decode step then
+carries per-block (B, E) counts of dispatched tokens beside the KV cache
+and takes the capacity of the full sequence (``moe_cap``), so the sampler
+drops exactly the tokens the teacher-forced forward drops.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from neural_sound_generation_tpu_torch.models.moe import SwitchMoE
 from neural_sound_generation_tpu_torch.ops.attention import causal_attention
 
 __all__ = ["TransformerPrior", "generate", "incremental_logits", "init_caches"]
@@ -49,18 +58,13 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # flax nn.gelu's default
 
 
-def _refuse_moe(n_experts: int) -> None:
-    if n_experts > 0:
-        raise NotImplementedError(
-            "switch-MoE feed-forwards (--moe-experts) come with the MoE slice of the port")
-
-
 class _Block(nn.Module):
-    """Pre-LN transformer block: causal self-attention and an MLP."""
+    """Pre-LN transformer block: causal self-attention and an MLP, dense
+    (``mlp_in``/``mlp_out``) or switch-routed (``moe``) for n_experts > 0."""
 
-    def __init__(self, dim: int, n_heads: int, mlp_ratio: int = 4, n_experts: int = 0):
+    def __init__(self, dim: int, n_heads: int, mlp_ratio: int = 4, n_experts: int = 0,
+                 capacity_factor: float = 1.25):
         super().__init__()
-        _refuse_moe(n_experts)
         if dim % n_heads:
             raise ValueError(f"dim {dim} is not divisible by {n_heads} heads")
         self.dim, self.n_heads = dim, n_heads
@@ -68,8 +72,12 @@ class _Block(nn.Module):
         self.ln2 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
         self.attn_qkv = nn.Linear(dim, 3 * dim)
         self.attn_out = nn.Linear(dim, dim)
-        self.mlp_in = nn.Linear(dim, mlp_ratio * dim)
-        self.mlp_out = nn.Linear(mlp_ratio * dim, dim)
+        if n_experts > 0:
+            self.moe = SwitchMoE(dim, n_experts, mlp_ratio, capacity_factor)
+        else:
+            self.mlp_in = nn.Linear(dim, mlp_ratio * dim)
+            self.mlp_out = nn.Linear(mlp_ratio * dim, dim)
+        self.routed = n_experts > 0
 
     @property
     def head_dim(self) -> int:
@@ -78,8 +86,9 @@ class _Block(nn.Module):
     def _mlp(self, h: torch.Tensor) -> torch.Tensor:
         return self.mlp_out(_gelu(self.mlp_in(h)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, T, D); causal self-attention over T."""
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """x: (B, T, D); causal self-attention over T. Returns (x, the
+        routed MLP's load-balance term, or None for a dense block)."""
         b, t, d = x.shape
         hd = self.head_dim
         q, k, v = self.attn_qkv(self.ln1(x)).split(d, dim=-1)
@@ -87,13 +96,19 @@ class _Block(nn.Module):
         q, k, v = (z.reshape(b, t, self.n_heads, hd).transpose(1, 2) for z in (q, k, v))
         o = causal_attention(q, k, v, scale=1.0 / math.sqrt(hd))
         x = x + self.attn_out(o.transpose(1, 2).reshape(b, t, d))
-        return x + self._mlp(self.ln2(x))
+        if self.routed:
+            y, aux = self.moe(self.ln2(x))
+            return x + y, aux
+        return x + self._mlp(self.ln2(x)), None
 
     def decode_step(self, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                    t: int) -> torch.Tensor:
+                    t: int, moe_counts: torch.Tensor | None = None,
+                    moe_cap: int = 0) -> torch.Tensor:
         """One position with a KV cache: x (B, D) is the input at position
         t; k_cache/v_cache (B, T, H, hd) hold positions < t and get
-        position t written in place. Returns y (B, D)."""
+        position t written in place. A routed block also updates
+        ``moe_counts`` (B, E) int32 in place and drops at ``moe_cap``, the
+        full sequence's capacity. Returns y (B, D)."""
         b, d = x.shape
         hd = self.head_dim
         q, k, v = self.attn_qkv(self.ln1(x)).split(d, dim=-1)
@@ -106,6 +121,8 @@ class _Block(nn.Module):
         att = torch.softmax(att, dim=-1).to(x.dtype)
         o = torch.einsum("bhk,bkhd->bhd", att, v_cache[:, : t + 1]).reshape(b, d)
         x = x + self.attn_out(o)
+        if self.routed:
+            return x + self.moe.step(self.ln2(x), moe_counts, moe_cap)
         return x + self._mlp(self.ln2(x))
 
 
@@ -123,6 +140,7 @@ class TransformerPrior(nn.Module):
         n_classes: int = 10,
         mlp_ratio: int = 4,
         n_experts: int = 0,
+        capacity_factor: float = 1.25,
         spatial_cond: bool = False,
         cond_dim: int = 0,
         max_rows: int = 64,
@@ -130,11 +148,11 @@ class TransformerPrior(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        _refuse_moe(n_experts)
         if spatial_cond and cond_dim <= 0:
             raise ValueError("a spatially conditioned prior needs cond_dim > 0")
         self.input_dim, self.dim, self.n_layers = input_dim, dim, n_layers
         self.n_heads, self.n_classes = n_heads, n_classes
+        self.n_experts = n_experts
         self.spatial_cond, self.cond_dim = spatial_cond, cond_dim
         self.max_rows, self.max_cols = max_rows, max_cols
         self.tok_embed = nn.Embedding(input_dim, dim)
@@ -144,7 +162,8 @@ class TransformerPrior(nn.Module):
         self.col_embed = nn.Embedding(max_cols, dim)
         self.cond_proj = nn.Linear(cond_dim, dim) if spatial_cond else None
         for i in range(n_layers):
-            self.add_module(f"block_{i}", _Block(dim, n_heads, mlp_ratio))
+            self.add_module(f"block_{i}",
+                            _Block(dim, n_heads, mlp_ratio, n_experts, capacity_factor))
         self.ln_f = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
         self.head = nn.Linear(dim, input_dim)
         self.reset_parameters(generator)
@@ -166,6 +185,15 @@ class TransformerPrior(nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
+            elif isinstance(m, SwitchMoE):
+                # flax's lecun_normal on (E, fan, out) counts E as a
+                # receptive field: fan-in E * D for w_in, E * F for w_out
+                for w in (m.w_in, m.w_out):
+                    std = (w.shape[0] * w.shape[1])**-0.5 / _TRUNC_STD
+                    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                          generator=generator)
+                nn.init.zeros_(m.b_in)
+                nn.init.zeros_(m.b_out)
         self.bos.normal_(0.0, 0.02, generator=generator)
 
     def _pos_table(self, h: int, w: int) -> torch.Tensor:
@@ -202,12 +230,18 @@ class TransformerPrior(nn.Module):
         return self.head(self.ln_f(x)).float()
 
     def forward(self, codes: torch.Tensor, label: torch.Tensor,
-                cond_map: torch.Tensor | None = None) -> torch.Tensor:
+                cond_map: torch.Tensor | None = None, return_moe_aux: bool = False):
+        """Logits (B, H, W, K) float32; with ``return_moe_aux``, (logits,
+        the routed blocks' load-balance terms in block order)."""
         b, h, w = codes.shape
         x = self.embed_sequence(codes, label, cond_map)
+        aux = []
         for blk in self.blocks:
-            x = blk(x)
-        return self.head_logits(x).reshape(b, h, w, self.input_dim)
+            x, a = blk(x)
+            if a is not None:
+                aux.append(a)
+        logits = self.head_logits(x).reshape(b, h, w, self.input_dim)
+        return (logits, aux) if return_moe_aux else logits
 
     def embed_step(self, prev_tok: torch.Tensor, label: torch.Tensor, t: int, h: int,
                    w: int, cond_row: torch.Tensor | None = None) -> torch.Tensor:
@@ -225,24 +259,38 @@ class TransformerPrior(nn.Module):
             x = x + self._cond(cond_row)
         return x
 
-    def decode_step(self, x: torch.Tensor, caches, t: int):
+    def decode_step(self, x: torch.Tensor, caches, t: int, moe_cap: int = 0):
         """One cached position through all blocks: (logits (B, K) float32,
-        caches), the caches updated in place."""
-        for blk, (k_cache, v_cache) in zip(self.blocks, caches):
-            x = blk.decode_step(x, k_cache, v_cache, t)
+        caches), the caches updated in place. A block's cache is (k, v),
+        or (k, v, counts) for a routed model, whose ``moe_cap`` must be the
+        capacity of the full sequence (``_moe_cap``)."""
+        for blk, (k_cache, v_cache, *counts) in zip(self.blocks, caches):
+            x = blk.decode_step(x, k_cache, v_cache, t, *counts, moe_cap=moe_cap)
         return self.head_logits(x), caches
 
 
 def init_caches(model: TransformerPrior, batch: int, t: int):
     """Per block a zero (k, v) pair of (batch, t, H, hd) in the compute
-    dtype (the qkv projection's), on the model's device."""
+    dtype (the qkv projection's), on the model's device; a routed model's
+    blocks add zero (batch, E) int32 counts of dispatched tokens."""
     w = model.head.weight
     shape = (batch, t, model.n_heads, model.dim // model.n_heads)
-    return tuple(
-        (torch.zeros(shape, dtype=w.dtype, device=w.device),
-         torch.zeros(shape, dtype=w.dtype, device=w.device))
-        for _ in range(model.n_layers)
-    )
+
+    def cache():
+        kv = (torch.zeros(shape, dtype=w.dtype, device=w.device),
+              torch.zeros(shape, dtype=w.dtype, device=w.device))
+        if model.n_experts > 0:
+            return kv + (torch.zeros(batch, model.n_experts, dtype=torch.int32,
+                                     device=w.device),)
+        return kv
+
+    return tuple(cache() for _ in range(model.n_layers))
+
+
+def _moe_cap(model: TransformerPrior, t: int) -> int:
+    """The routed blocks' capacity at sequence length t (0 when dense): what
+    the cached decode must drop at to match teacher forcing."""
+    return model.block_0.moe.capacity(t) if model.n_experts > 0 else 0
 
 
 def gumbel_noise(shape, generator: torch.Generator | None, device) -> torch.Tensor:
@@ -276,11 +324,12 @@ def generate(
     label = label.to(device)
     cond = _cond_rows(cond_map, batch_size, t_len, device)
     caches = init_caches(model, batch_size, t_len)
+    cap = _moe_cap(model, t_len)
     prev = torch.zeros(batch_size, dtype=torch.long, device=device)
     out = torch.empty(batch_size, t_len, dtype=torch.int32, device=device)
     for t in range(t_len):
         x = model.embed_step(prev, label, t, h, w, None if cond is None else cond[:, t])
-        logits, caches = model.decode_step(x, caches, t)
+        logits, caches = model.decode_step(x, caches, t, cap)
         noise = gumbel[t].to(device) if gumbel is not None else gumbel_noise(
             logits.shape, generator, device)
         prev = torch.argmax(logits / temperature + noise, dim=-1)
@@ -303,10 +352,11 @@ def incremental_logits(model: TransformerPrior, codes: torch.Tensor,
     seq = codes.reshape(b, t_len)
     cond = _cond_rows(cond_map, b, t_len, codes.device)
     caches = init_caches(model, b, t_len)
+    cap = _moe_cap(model, t_len)
     out = []
     for t in range(t_len):
         x = model.embed_step(seq[:, max(t - 1, 0)], label, t, h, w,
                              None if cond is None else cond[:, t])
-        logits, caches = model.decode_step(x, caches, t)
+        logits, caches = model.decode_step(x, caches, t, cap)
         out.append(logits)
     return torch.stack(out, dim=1).reshape(b, h, w, model.input_dim)

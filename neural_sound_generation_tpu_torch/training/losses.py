@@ -148,9 +148,24 @@ def codebook_perplexity(indices: torch.Tensor, num_codes: int) -> torch.Tensor:
     return torch.exp(entropy)
 
 
-def prior_nll(logits: torch.Tensor, codes: torch.Tensor) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+#: weight of a routed prior's load-balance term (the Switch paper's default,
+#: the JAX ``_pixelcnn_loss_fn``'s ``aux_weight``)
+MOE_AUX_WEIGHT = 0.01
+
+
+def prior_nll(logits: torch.Tensor, codes: torch.Tensor,
+              moe_aux: list[torch.Tensor] | None = None,
+              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Mean negative log-likelihood of the code grid under the prior's
-    logits (B, H, W, K), either family's: (nll, {"loss", "nll_per_code"})."""
+    logits (B, H, W, K), either family's: (loss, {"loss", "nll_per_code"}).
+    For a routed transformer, ``moe_aux`` holds its blocks' load-balance
+    terms: the loss adds MOE_AUX_WEIGHT times their mean, reported as
+    ``moe_load_balance``, while ``loss`` and ``nll_per_code`` stay the NLL."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, codes.long()[..., None]).mean()
-    return nll, {"loss": nll, "nll_per_code": nll}
+    metrics = {"loss": nll, "nll_per_code": nll}
+    if not moe_aux:
+        return nll, metrics
+    aux = sum(moe_aux) / len(moe_aux)
+    metrics["moe_load_balance"] = aux
+    return nll + MOE_AUX_WEIGHT * aux, metrics

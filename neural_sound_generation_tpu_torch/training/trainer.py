@@ -22,7 +22,10 @@ float32 buffer and the fused update stay float32. A prior train step
 conditioned prior) runs the fused-Adam kernel once and, for the
 transformer, the flash-attention forward and both backward kernels once per
 layer; the PixelCNN's masked convolutions are cuDNN's. It has no BatchNorm
-and no codebook branch. A vocoder step (batches ``{"y", "c", "input_lengths"}``
+and no codebook branch. A routed transformer (``n_experts > 0``) adds 0.01
+times its blocks' mean load-balance term to the NLL and reports it as
+``moe_load_balance``; its eval step reports the NLL alone, as the JAX
+package's does. A vocoder step (batches ``{"y", "c", "input_lengths"}``
 and ``"g"`` for speakers) shifts its targets into the teacher-forced inputs
 and takes the mixture-of-logistics NLL for scalar input or the masked cross
 entropy for mulaw-quantize; its convolutions are cuDNN's, and it runs the
@@ -110,8 +113,14 @@ def _loss_fn(model, cfg: Config) -> Callable:
 
         return vocoder_loss
     if isinstance(model, PRIORS):
+        routed = getattr(model, "n_experts", 0) > 0
+
         def prior_loss(batch: Batch, generator):
-            total, metrics = prior_nll(_prior_logits(model, batch), batch["codes"])
+            if routed:
+                logits, aux = _prior_logits(model, batch, return_moe_aux=True)
+                total, metrics = prior_nll(logits, batch["codes"], aux)
+            else:
+                total, metrics = prior_nll(_prior_logits(model, batch), batch["codes"])
             return total, metrics, None
 
         return prior_loss
@@ -154,12 +163,12 @@ def _loss_fn(model, cfg: Config) -> Callable:
     raise TypeError(f"unsupported model: {type(model).__name__}")
 
 
-def _prior_logits(model, batch: Batch) -> torch.Tensor:
+def _prior_logits(model, batch: Batch, **kw):
     """Either prior family's logits over the batch's codes; a spatially
     conditioned prior takes ``batch["cond"]`` (the JAX
-    ``_pixelcnn_loss_fn``)."""
+    ``_pixelcnn_loss_fn``). ``kw`` goes to the model (``return_moe_aux``)."""
     cond = (batch["cond"],) if model.spatial_cond else ()
-    return model(batch["codes"], batch["labels"], *cond)
+    return model(batch["codes"], batch["labels"], *cond, **kw)
 
 
 def uses_ema_codebook(model, cfg: Config) -> bool:

@@ -3,8 +3,10 @@ synthetic corpus: a VQ-VAE trained by ``cli.main``, then ``cli.prior
 train --arch transformer`` and with the default ``--arch pixelcnn``, each
 for two epochs and ``--resume`` for a third, ``cli.prior sample``, and
 ``/sample`` over HTTP from the server started with ``--prior-ckpt``;
-checkpoint metadata that disagrees with the flags (the head count and the
-family above all) and the flags of later slices refuse."""
+checkpoint metadata that disagrees with the flags (the head count, the
+family and the experts above all) and the flags of later slices refuse.
+A routed transformer (``--moe-experts 2``) trains, resumes, samples and is
+served (``serve --prior-moe-experts 2``) on the same VQ-VAE."""
 
 import contextlib
 import io
@@ -79,7 +81,8 @@ def test_train_then_resume(trained, capsys):
     for d in (ckpt, ckpt + "_ema", ckpt + "_train"):
         assert checkpoint.latest_step(d) == 9, d  # the resumed epoch continued the count
     meta = {"arch": "transformer", "prior_dim": 32, "prior_layers": 2, "prior_heads": 2,
-            "z_dim": Z_DIM, "n_classes": 10, "spatial_cond": False, "cond_dim": 0}
+            "z_dim": Z_DIM, "n_classes": 10, "spatial_cond": False, "cond_dim": 0,
+            "n_experts": 0}
     assert checkpoint.read_extra(ckpt) == {"epoch": 3, **meta}
     assert checkpoint.read_extra(ckpt + "_ema") == {"epoch": 3, "averaged": True, **meta}
     state = torch.load(os.path.join(ckpt, "step_9", "state.pt"), weights_only=True)
@@ -194,7 +197,7 @@ def test_sample_endpoint_over_http(trained):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--arch", "transformer", "--moe-experts", "4"], "MoE slice"),
+    (["--arch", "transformer", "--moe-experts", "4", "--bf16"], "routed MoE.*bf16 slice"),
     (["--arch", "transformer", "--bf16"], "bf16 slice"),
     (["--arch", "transformer", "--mesh-pipe", "2"], "parallel slice"),
     (["--arch", "transformer", "--mesh-data", "2"], "parallel slice"),
@@ -208,10 +211,12 @@ def test_flags_of_later_slices_refuse(flags, match):
             prior.main(["sample", "--prior-ckpt", "/nonexistent", *common, *flags])
 
 
-@pytest.mark.parametrize("flags", [["--arch", "pixelcnn"], ["--arch", "transformer", "--hier"]])
+@pytest.mark.parametrize("flags", [["--arch", "pixelcnn"], ["--arch", "transformer", "--hier"],
+                                   ["--arch", "transformer", "--moe-experts", "4"]])
 def test_flags_of_this_slice_pass_the_refusals(flags):
-    """The PixelCNN and the hierarchy run (end to end below and in
-    tests/test_torch_hier_prior.py); no flag of theirs is refused."""
+    """The PixelCNN, the hierarchy and the routed transformer run (end to
+    end below and in tests/test_torch_hier_prior.py); no flag of theirs is
+    refused."""
     common = ["--vqvae-ckpt", "/nonexistent", "--device", "cpu", *flags]
     for argv in (["train", "--datadir", "/nonexistent", *common],
                  ["sample", "--prior-ckpt", "/nonexistent", *common]):
@@ -239,7 +244,7 @@ def test_pixelcnn_trains_and_resumes(pixelcnn):
         assert checkpoint.latest_step(d) == 9, d
     assert checkpoint.read_extra(ckpt) == {
         "epoch": 3, "arch": "pixelcnn", "prior_dim": 16, "prior_layers": 3, "prior_heads": 0,
-        "z_dim": Z_DIM, "n_classes": 10, "spatial_cond": False, "cond_dim": 0}
+        "z_dim": Z_DIM, "n_classes": 10, "spatial_cond": False, "cond_dim": 0, "n_experts": 0}
     full = torch.load(os.path.join(ckpt + "_train", "step_9", "state.pt"), weights_only=True)
     assert int(full["opt_state/count"]) == 9
     assert full["params/layer_0.vert_kernel"].shape == (32, 16, 4, 7)
@@ -294,3 +299,106 @@ def test_long_t_warning():
     # the card's own figures, with the card (no figure measured on another device)
     assert "T=2240" in text and "H100 80GB HBM3 at 700 W" in text and "TPU" not in text
     assert prior.long_t_warning("pixelcnn", (1, 40, 56)) is None
+
+
+# ---------------------------------------------------------------------------
+# The routed transformer (--moe-experts)
+# ---------------------------------------------------------------------------
+
+ROUTED = [*PRIOR[:-2], "--moe-experts", "2", *PRIOR[-2:]]
+
+
+@pytest.fixture(scope="module")
+def routed(trained):
+    """``--moe-experts 2`` on the same VQ-VAE: two epochs, then ``--resume
+    --multi-steps 3`` for a third."""
+    tmp, datadir, vq_ckpt, _, _, _ = trained
+    ckpt = str(tmp / "routed")
+    train = ["train", "--datadir", datadir, "--vqvae-ckpt", vq_ckpt, "--ckpt-dir", ckpt,
+             "--batch-size", "4", "--max-batches-per-epoch", "3", "--lr", "3e-3", *ROUTED]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        prior.main(train + ["--epochs", "2"])
+        prior.main(train + ["--epochs", "3", "--resume", "--multi-steps", "3"])
+    return vq_ckpt, ckpt, out.getvalue()
+
+
+def test_routed_prior_trains_and_resumes(routed):
+    _, ckpt, log = routed
+    for d in (ckpt, ckpt + "_ema", ckpt + "_train"):
+        assert checkpoint.latest_step(d) == 9, d
+    meta = checkpoint.read_extra(ckpt)
+    assert meta["n_experts"] == 2 and meta["arch"] == "transformer" and meta["epoch"] == 3
+    full = torch.load(os.path.join(ckpt + "_train", "step_9", "state.pt"), weights_only=True)
+    assert int(full["opt_state/count"]) == 9
+    assert full["params/block_1.moe.w_in"].shape == (2, 32, 128)
+    assert "params/block_0.mlp_in.weight" not in full
+    assert "resumed train state from step 6, epoch 3" in log
+    epochs = [line for line in log.splitlines() if line.startswith("prior epoch")]
+    assert len(epochs) == 3
+    for line in epochs:
+        assert np.isfinite(float(line.split("nll/code ")[1].split()[0]))
+        assert np.isfinite(float(line.split("load_balance ")[1].split()[0]))
+
+
+def test_routed_prior_samples(routed, tmp_path):
+    from scipy.io import wavfile
+
+    vq_ckpt, ckpt, _ = routed
+    with contextlib.redirect_stdout(io.StringIO()):
+        prior.main(["sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt", ckpt + "_ema",
+                    "--output-dir", str(tmp_path), "--code-shape", "20", "3",
+                    "--num-samples", "2", *ROUTED])
+    for i in range(2):
+        rate, wav = wavfile.read(tmp_path / f"prior_sample_{i:03d}.wav")
+        assert rate == SR and wav.shape == (11 * 256,) and np.abs(wav).max() > 0
+
+
+@pytest.mark.parametrize("direction", ["routed_as_dense", "dense_as_routed"])
+def test_expert_metadata_refuses_both_ways(trained, routed, tmp_path, direction):
+    _, _, vq_ckpt, dense_ckpt, _, _ = trained
+    _, routed_ckpt, _ = routed
+    ckpt, flags, match = ((routed_ckpt, PRIOR, "n_experts=2") if direction == "routed_as_dense"
+                          else (dense_ckpt, ROUTED, "n_experts=0"))
+    with pytest.raises(SystemExit, match=match):
+        prior.main(["sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt", ckpt,
+                    "--output-dir", str(tmp_path), "--code-shape", "2", "2", *flags])
+    serve_flags = ["--prior-moe-experts", "2"] if direction == "dense_as_routed" else []
+    with pytest.raises(SystemExit, match=match):
+        serve.build_service(serve.parse_args([
+            "--device", "cpu", "--dim", str(DIM), "--z-dim", str(Z_DIM), "--frames", "16",
+            "--prior-ckpt", ckpt, "--prior-arch", "transformer", "--prior-dim", "32",
+            "--prior-layers", "2", "--prior-heads", "2", *serve_flags]))
+    # resuming a routed run with dense flags refuses too
+    if direction == "routed_as_dense":
+        _, datadir, _, _, _, _ = trained
+        with pytest.raises(SystemExit, match=match):
+            prior.main(["train", "--datadir", datadir, "--vqvae-ckpt", vq_ckpt, "--ckpt-dir",
+                        ckpt, "--epochs", "4", "--resume", *PRIOR])
+
+
+def test_routed_sample_endpoint_over_http(routed):
+    from scipy.io import wavfile
+
+    vq_ckpt, ckpt, _ = routed
+    service = serve.build_service(serve.parse_args([
+        "--device", "cpu", "--dim", str(DIM), "--z-dim", str(Z_DIM), "--frames", "16",
+        "--ckpt-dir", vq_ckpt, "--prior-ckpt", ckpt, "--prior-arch", "transformer",
+        "--prior-dim", "32", "--prior-layers", "2", "--prior-heads", "2",
+        "--prior-moe-experts", "2"]))
+    assert service.prior.n_experts == 2
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/sample"
+    try:
+        bodies = {}
+        for n in (1, 2):
+            status, body = _post(url, {"n": n, "label": 1, "seed": 5})
+            assert status == 200, body[:200]
+            rate, wav = wavfile.read(io.BytesIO(body))
+            assert rate == SR and wav.shape == (n * 15 * 256,) and np.abs(wav).max() > 0
+            bodies[n] = body
+        assert _post(url, {"n": 1, "label": 1, "seed": 5})[1] == bodies[1]  # seeded
+    finally:
+        httpd.shutdown()
+        httpd.server_close()

@@ -240,7 +240,7 @@ def test_hier_train_writes_both_levels(chain):
     meta = checkpoint.read_extra(bottom)
     assert meta == {"epoch": 2, "arch": "pixelcnn", "prior_dim": P_DIM, "prior_layers": P_LAYERS,
                     "prior_heads": 0, "z_dim": Z, "n_classes": 10, "spatial_cond": True,
-                    "cond_dim": DIM}
+                    "cond_dim": DIM, "n_experts": 0}
     state = torch.load(os.path.join(bottom, "step_6", "state.pt"), weights_only=True)
     # 80 x 24 crops: the bottom grid is 20 x 6, conditioned on DIM channels
     assert state["params/layer_0.spatial_cond.weight"].shape == (2 * P_DIM, DIM, 1, 1)
@@ -300,6 +300,39 @@ def test_sample_hier_refuses_mismatched_checkpoints(chain, tmp_path):
     with pytest.raises(SystemExit, match="spatial_cond=True"):
         prior.main(["sample", "--vqvae-ckpt", vq, "--prior-ckpt", bottom, "--hier",
                     "--bottom-ckpt", bottom, "--output-dir", str(tmp_path), *BOTTOM, *COMMON])
+
+
+def test_sample_hier_with_routed_transformer_levels(chain, tmp_path):
+    """``--moe-experts`` reaches both transformer levels: a routed top and a
+    routed, spatially conditioned bottom train, and ``sample --hier`` with
+    the one flag restores both (the bottom takes it, as the JAX
+    ``_bottom_args`` copies it)."""
+    from scipy.io import wavfile
+
+    _, _, vq, _, _, train, _ = chain
+    routed = ["--moe-experts", "2"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        for level in ("top", "bottom"):
+            prior.main(train + ["--hier-level", level, "--epochs", "1", "--ckpt-dir",
+                                str(tmp_path / level), *TOP, *routed])
+    for level, spatial in (("top", False), ("bottom", True)):
+        meta = checkpoint.read_extra(str(tmp_path / level))
+        assert (meta["n_experts"], meta["spatial_cond"]) == (2, spatial)
+    argv = _sample_argv(vq, str(tmp_path / "top"), str(tmp_path / "bottom"), tmp_path / "s",
+                        *routed)
+    i = argv.index("--bottom-arch")
+    argv[i + 1:i + 6] = ["transformer", "--bottom-dim", str(T_DIM), "--bottom-layers",
+                         str(T_LAYERS)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        prior.main(argv)
+    for i in range(2):
+        rate, wav = wavfile.read(tmp_path / "s" / f"hier_sample_{i:03d}.wav")
+        assert rate == SR and wav.shape == (15 * 256,) and np.abs(wav).max() > 0
+    # without the flag, both routed checkpoints refuse
+    i = argv.index("--moe-experts")
+    del argv[i:i + 2]
+    with pytest.raises(SystemExit, match="n_experts=2"):
+        prior.main(argv)
 
 
 def _post(url, payload):

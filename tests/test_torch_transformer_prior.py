@@ -1,6 +1,9 @@
 """The port's TransformerPrior and its training step held against the JAX
 package on the CPU, with the same weights (through the bridge), codes and
-optimizer state: dim 32, 2 heads, 2 layers, 4 x 5 code grids.
+optimizer state: dim 32, 2 heads, 2 layers, 4 x 5 code grids. Cases named
+``moe`` route the MLPs through 2 experts (``models/moe.py``; capacity
+factor 1.25, and 0.5 for the cached decode, where tokens are dropped); the
+routed train step adds 0.01 times the load-balance term to the loss.
 
 Tolerances, with their reasons (float32 matrix products and LayerNorm
 statistics summed in another order, about 1e-7 relative per operation):
@@ -10,6 +13,7 @@ statistics summed in another order, about 1e-7 relative per operation):
   * parameters and the EMA after one step 2e-6 absolute (steps of about
     lr = 1e-3 from warm moments); Adam moments 1e-4 of the vector's largest
     magnitude;
+  * the load-balance term 1e-6 relative;
   * KV-cached logits against the teacher-forced forward 1e-5 absolute;
   * sampled codes equal where the top two Gumbel-perturbed logits differ
     by more than 1e-4 (a near-tie may go either way).
@@ -51,16 +55,24 @@ def _codes(seed, b=B, h=H, w=W):
             rng.integers(0, CLASSES, b).astype(np.int32))
 
 
-class Pair:
-    """The JAX prior and the port's, with the same weights."""
+#: the parametrised cases: dense MLPs, or 2 routed experts
+ARCHS = {"dense": 0, "moe": 2}
 
-    def __init__(self, seed=0):
+
+class Pair:
+    """The JAX prior and the port's, with the same weights; ``n_experts``
+    > 0 routes the MLPs."""
+
+    def __init__(self, seed=0, n_experts=0, capacity_factor=1.25):
         codes, labels = _codes(seed)
         self.jm = jtp.TransformerPrior(input_dim=K, dim=DIM, n_layers=LAYERS, n_heads=HEADS,
-                                       n_classes=CLASSES)
+                                       n_classes=CLASSES, n_experts=n_experts,
+                                       capacity_factor=capacity_factor)
         v = self.jm.init(jax.random.PRNGKey(seed), jnp.asarray(codes), jnp.asarray(labels))
-        self.variables = jax.tree_util.tree_map(np.asarray, v)
-        self.tm = TransformerPrior(K, DIM, LAYERS, HEADS, CLASSES)
+        # params only: the routed init also sows its load-balance terms
+        self.variables = {"params": jax.tree_util.tree_map(np.asarray, v["params"])}
+        self.tm = TransformerPrior(K, DIM, LAYERS, HEADS, CLASSES, n_experts=n_experts,
+                                   capacity_factor=capacity_factor)
         self.tm.load_state_dict(convert.flax_to_state_dict(self.variables))
 
     def jlogits(self, codes, labels):
@@ -72,8 +84,9 @@ def _close(got, want, frac, err_msg=""):
                                err_msg=err_msg)
 
 
-def test_logits_match_the_jax_module():
-    pair = Pair()
+@pytest.mark.parametrize("arch", ARCHS)
+def test_logits_match_the_jax_module(arch):
+    pair = Pair(n_experts=ARCHS[arch])
     codes, labels = _codes(1)
     got = pair.tm(torch.from_numpy(codes), torch.from_numpy(labels))
     assert got.shape == (B, H, W, K) and got.dtype == torch.float32
@@ -105,13 +118,14 @@ def _cfgs():
     return out
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("multi", [1, 2])
-def test_fused_train_steps_match_the_jax_trainer(multi):
+def test_fused_train_steps_match_the_jax_trainer(multi, arch):
     """From warm moments (count 100, m and v drawn so Adam's step is a
     smooth function of the gradient), ``multi`` steps of the JAX train step
     (scanned for 2) against the port's, compared through the flat-vector
-    bridge."""
-    pair = Pair(seed=4)
+    bridge; a routed prior's loss carries its load-balance term."""
+    pair = Pair(seed=4, n_experts=ARCHS[arch])
     jcfg, tcfg = _cfgs()
     rng = np.random.default_rng(5)
     params = pair.variables["params"]
@@ -149,7 +163,8 @@ def test_fused_train_steps_match_the_jax_trainer(multi):
             js, {k: jnp.asarray(x) for k, x in stacked.items()}, jax.random.PRNGKey(0))
         _, tmetrics = trainer.make_multistep_train(pair.tm, tcfg, multi)(
             ts, {k: torch.from_numpy(x) for k, x in stacked.items()})
-    for k in ("loss", "nll_per_code"):
+    assert sorted(tmetrics) == sorted(jm)
+    for k in ("loss", "nll_per_code", "moe_load_balance")[: 3 if ARCHS[arch] else 2]:
         np.testing.assert_allclose(np.asarray(tmetrics[k]), np.asarray(jm[k]), rtol=1e-6,
                                    err_msg=k)
     np.testing.assert_allclose(np.asarray(tmetrics["grad_norm"]), np.asarray(jm["grad_norm"]),
@@ -182,10 +197,28 @@ def test_eval_step_runs_on_the_ema_shadow():
     assert torch.equal(metrics["loss"], losses.prior_nll(want, codes)[0])
 
 
-def test_incremental_logits_match_the_forward_and_jax():
-    pair = Pair(seed=8)
+def dropped_tokens(model: TransformerPrior, codes, labels) -> list[int]:
+    """Per routed block, the tokens the teacher-forced forward drops."""
+    dropped = []
+    hooks = [blk.moe.register_forward_hook(
+        lambda m, args, out: dropped.append(int((~m.dispatch(args[0])[-1]).sum())))
+        for blk in model.blocks]
+    with torch.no_grad():
+        model(codes, labels)
+    for h in hooks:
+        h.remove()
+    return dropped
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_incremental_logits_match_the_forward_and_jax(arch):
+    """The routed case runs at capacity factor 0.5, where the forward drops
+    tokens in every block and the cached decode must drop the same ones."""
+    pair = Pair(seed=8, n_experts=ARCHS[arch], capacity_factor=0.5 if ARCHS[arch] else 1.25)
     codes, labels = _codes(9)
     tc, tl = torch.from_numpy(codes), torch.from_numpy(labels)
+    if ARCHS[arch]:
+        assert min(dropped_tokens(pair.tm, tc, tl)) > 0
     inc = tp.incremental_logits(pair.tm, tc, tl)
     np.testing.assert_allclose(inc.numpy(), pair.tm(tc, tl).detach().numpy(), atol=1e-5)
     jinc = np.asarray(jtp.incremental_logits(pair.jm, pair.variables, jnp.asarray(codes),
@@ -193,8 +226,9 @@ def test_incremental_logits_match_the_forward_and_jax():
     np.testing.assert_allclose(inc.numpy(), jinc, atol=1e-5)
 
 
-def test_generate_with_jax_gumbel_draws_the_jax_codes():
-    pair = Pair(seed=10)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_with_jax_gumbel_draws_the_jax_codes(arch):
+    pair = Pair(seed=10, n_experts=ARCHS[arch])
     labels = np.array([0, 3, 7], np.int32)
     key = jax.random.PRNGKey(11)
     want = np.asarray(jtp.generate(pair.jm, pair.variables, jnp.asarray(labels), key,
@@ -225,8 +259,9 @@ def test_generate_draws_from_a_generator_reproducibly():
     assert fa.launch_counts() == dict.fromkeys(fa.KERNELS, 0)
 
 
-def test_convert_round_trip_is_bit_exact_and_the_flat_orders_agree():
-    pair = Pair(seed=13)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_convert_round_trip_is_bit_exact_and_the_flat_orders_agree(arch):
+    pair = Pair(seed=13, n_experts=ARCHS[arch])
     back = convert.module_to_flax(pair.tm)
     assert set(back) == {"params"}
     for path, leaf in jax.tree_util.tree_leaves_with_path(pair.variables["params"]):
@@ -236,12 +271,20 @@ def test_convert_round_trip_is_bit_exact_and_the_flat_orders_agree():
         np.testing.assert_array_equal(got, leaf, err_msg=jax.tree_util.keystr(path))
     assert back["params"]["bos"].shape == (DIM,)
     assert back["params"]["block_1"]["ln2"]["scale"].shape == (DIM,)
+    if ARCHS[arch]:
+        moe = back["params"]["block_1"]["moe"]
+        assert moe["w_in"].shape == (2, DIM, 4 * DIM) and moe["w_out"].shape == (2, 4 * DIM, DIM)
+        assert moe["router"]["kernel"].shape == (DIM, 2)
+        assert "mlp_in" not in back["params"]["block_1"]
     # a moment or EMA vector in JAX's ravel order maps onto the port's
     # flat buffer and back exactly
     _, tcfg = _cfgs()
     state = train_state.create_train_state(pair.tm, tcfg.train)
+    # every parameter, the 3-D expert weights too, is a 16-byte-aligned view
+    assert all(p.data_ptr() % 16 == 0 for p in pair.tm.parameters())
     params = pair.variables["params"]
-    jflat = np.random.default_rng(0).standard_normal(state.flat.numel).astype(np.float32)
+    n = ravel_pytree(params)[0].size  # the flat buffer pads between views
+    jflat = np.random.default_rng(0).standard_normal(n).astype(np.float32)
     port = convert.flax_flat_to_port(jflat, params, state.flat.names)
     np.testing.assert_array_equal(convert.port_flat_to_flax(port, pair.tm, state.flat), jflat)
     np.testing.assert_array_equal(
@@ -254,8 +297,12 @@ def test_unsupported_configurations_raise():
     codes = torch.zeros(1, 65, 2, dtype=torch.int32)
     with pytest.raises(ValueError, match="exceeds positional tables"):
         pair.tm(codes, torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        TransformerPrior(K, DIM, LAYERS, HEADS, CLASSES, n_experts=4)
+    # switch-MoE feed-forwards run: logits and one load-balance term a block
+    routed = TransformerPrior(K, DIM, LAYERS, HEADS, CLASSES, n_experts=4)
+    logits, aux = routed(torch.zeros(1, 2, 3, dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32), return_moe_aux=True)
+    assert logits.shape == (1, 2, 3, K) and len(aux) == LAYERS
+    assert all(bool(torch.isfinite(a)) for a in aux)
     # spatial conditioning runs (tests/test_torch_hier_prior.py) given its width
     with pytest.raises(ValueError, match="cond_dim"):
         TransformerPrior(K, DIM, LAYERS, HEADS, CLASSES, spatial_cond=True)
