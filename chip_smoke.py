@@ -2,8 +2,8 @@
 """Drives the PyTorch port's serving, training (single-codebook float32 and
 residual-VQ bf16), prior, vocoder, 3x3-convolution A/B, corpus
 preprocessing, mel-inversion, other-autoencoder (HierVQVAE, WaveVQVAE,
-VAE), PixelCNN-prior, hierarchical-chain, vocoder-training and routed
-(switch-MoE) prior paths on one CUDA card and checks them.
+VAE), PixelCNN-prior, hierarchical-chain, vocoder-training, routed
+(switch-MoE) prior and bf16 prior paths on one CUDA card and checks them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
@@ -22,8 +22,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    configurations over three chained steps (and at the default PixelCNN's
    and the routed prior's counts in the first; each row also device-only),
    and the causal-attention
-   forward, dQ and dK/dV kernels at the prior's grids (T = 140, 560 in f32
-   and bf16, 2240, a ragged T = 37, D = 128, and the contract's ends T = 1
+   forward, dQ and dK/dV kernels at the prior's grids (T = 140 and 560 in
+   f32 and bf16, 2240, a ragged T = 37, D = 128, and the contract's ends T = 1
    and bf16 D = 20), each run twice to show the backward is bit-identical
    run to run, with each kernel's launch plan (no spills) and times back to
    back and device-only beside SDPA's, and both 3x3 bf16 convolution
@@ -182,7 +182,24 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
     forward within 1e-4 at capacity factors 1.25 and 0.5 (every layer
     dropping tokens at 0.5); steps/s; ``cli.prior sample --moe-experts 4``
     and /sample at n = 1 and 4 from ``serve --prior-moe-experts 4``;
-15. summary: one JSON line per kernel, then the result line.
+15. the priors in bf16: ``cli.prior train --bf16`` for the dense and the
+    routed transformer (phases 7 and 14's widths) and the PixelCNN (phase
+    12's) for two epochs, then --resume for a third, each run's launch
+    counts (nearest-code: encoded batches, fused Adam: steps, attention
+    layers x steps for the transformers, every one of them on bf16 inputs),
+    the NLL falling, the checkpoint's metadata (the dtype is not in it);
+    one bf16 step card vs CPU from the first epoch's state (loss terms
+    within 2e-2; routing flips only at near-ties or in their cascades); the
+    KV-cached and row-cached bf16 logits against the bf16 forward within
+    2e-2 of the largest logit; steps/s in bf16 and float32 from the same
+    state; the sampler's kernels a code; ``cli.prior sample --bf16`` from
+    each checkpoint and from phase 7's float32 one; ``sample --hier
+    --bf16`` from phase 12's checkpoints; ``chunked_causal_attention`` at
+    BH 16 x T 2240 x D 64 in f32 and bf16, forward and gradients, against
+    the plain pair, the stock path against it, and the peak memory and ms
+    of a forward and backward of the chunked path, the kernels and the
+    stock path;
+16. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -257,10 +274,12 @@ ADAM_P_RTOL = 4 * 2.0**-23
 ADAM_BF16_ULPS = 1
 # causal attention: (name, BH, T, D, bf16). BH = batch 32 x 2 heads of 64
 # for the prior the smoke trains; T = 140 is the CLI's 20 x 7 training
-# grid, 560 the flagship 20 x 28 grid (cli.prior sample's default), 2240
-# the hierarchical bottom grid; then the ends of the kernels' contract: one
-# row (T = 1), and bf16 rows of 40 bytes (D = 20), which TMA cannot stage
-ATTN_SHAPES = [("train_T140", 64, 140, 64, False), ("flagship_T560", 64, 560, 64, False),
+# grid (in bf16 too, the --bf16 prior's step), 560 the flagship 20 x 28
+# grid (cli.prior sample's default), 2240 the hierarchical bottom grid;
+# then the ends of the kernels' contract: one row (T = 1), and bf16 rows of
+# 40 bytes (D = 20), which TMA cannot stage
+ATTN_SHAPES = [("train_T140", 64, 140, 64, False), ("train_T140_bf16", 64, 140, 64, True),
+               ("flagship_T560", 64, 560, 64, False),
                ("flagship_T560_bf16", 64, 560, 64, True), ("hier_T2240", 16, 2240, 64, False),
                ("ragged_T37_D32", 64, 37, 32, False), ("D128_T560", 64, 560, 128, False),
                ("T1", 64, 1, 64, False), ("D20_bf16", 64, 300, 20, True)]
@@ -1683,11 +1702,12 @@ def prior_cfg(cfg):
 
 
 def prior_step_card_vs_cpu(torch, checkpoint, spec, train_dir: str, pcfg, batch: dict,
-                           what: str, step: int | None = None) -> tuple[dict, object]:
+                           what: str, step: int | None = None,
+                           bf16: bool = False) -> tuple[dict, object]:
     """One prior train step on the card and the same step on the CPU from
     the full state in ``train_dir`` (warm moments; its ``step``, else the
-    latest) on the same ``batch``; emits and checks the comparison, returns
-    it and the card's state.
+    latest) on the same ``batch``, in float32 or, with ``bf16``, in bf16;
+    emits and checks the comparison, returns it and the card's state.
 
     TF32 is off: only the order of f32 sums differs (LayerNorm, matrix
     products, convolutions, the kernels' online softmax). The NLL within
@@ -1696,13 +1716,15 @@ def prior_step_card_vs_cpu(torch, checkpoint, spec, train_dir: str, pcfg, batch:
     that (1e-4). A routed prior's routing decisions are compared too
     (``routing_flips``): every flip must be a near-tie or the cascade of
     one, and the limits above hold when none flipped (a flipped token runs
-    another expert)."""
+    another expert). In bf16 the routing rule holds with near-ties on the
+    bf16 scale (BF16_ROUTE_GAP), and the loss terms agree within
+    BF16_LOSS_REL (bf16 roundings of sums in another order)."""
     from neural_sound_generation_tpu_torch.training.train_state import create_train_state
     from neural_sound_generation_tpu_torch.training.trainer import make_train_step
 
     states, metrics, routes = {}, {}, {}
     for device in (DEVICE, "cpu"):
-        model = spec.build().to(device)
+        model = spec.build(dtype=torch.bfloat16 if bf16 else torch.float32).to(device)
         state = create_train_state(model, pcfg.train)
         checkpoint.restore(train_dir, state, step)
         with record_routing(torch, model) as routes[device]:
@@ -1715,9 +1737,11 @@ def prior_step_card_vs_cpu(torch, checkpoint, spec, train_dir: str, pcfg, batch:
     compare = {"metrics_rel_err": rel, "params_max_abs_err": float(diff.max()),
                "params_beyond_1e-6_frac": float((diff > 1e-6).float().mean()),
                "grad_norm": metrics[DEVICE]["grad_norm"], "nll": metrics[DEVICE]["loss"],
-               "from_step": checkpoint.latest_step(train_dir) if step is None else step}
+               "from_step": checkpoint.latest_step(train_dir) if step is None else step,
+               "dtype": "bf16" if bf16 else "f32"}
     if routes["cpu"]:
-        compare["routing"] = routing_flips(torch, routes[DEVICE], routes["cpu"])
+        compare["routing"] = routing_flips(torch, routes[DEVICE], routes["cpu"],
+                                           BF16_ROUTE_GAP if bf16 else MOE_TIE_GAP)
     emit({"phase": f"{what}_card_vs_cpu_step", **compare})
     if routes["cpu"]:
         r = compare["routing"]
@@ -1726,6 +1750,11 @@ def prior_step_card_vs_cpu(torch, checkpoint, spec, train_dir: str, pcfg, batch:
               f"flips that are neither near-ties nor cascades of one ({r})")
         if r["flips"]:
             return compare, states[DEVICE]
+    if bf16:
+        for k, v in rel.items():
+            check(k == "grad_norm" or v <= BF16_LOSS_REL,
+                  f"{what} bf16 card vs CPU: {k} differs by {v:.3g}")
+        return compare, states[DEVICE]
     check(rel["loss"] <= 1e-5, f"{what} card vs CPU: NLL differs by {rel['loss']:.3g}")
     check(rel["grad_norm"] <= 1e-4,
           f"{what} card vs CPU: grad_norm differs by {rel['grad_norm']:.3g}")
@@ -3289,14 +3318,15 @@ def pixelcnn_sampler_checks(torch, prior, codes, labels) -> dict:
 
 
 def sampler_launches(torch, prior, labels) -> dict:
-    """What one fast_generate call over LAUNCH_COUNT_GRID launches per grid
-    position: the ATen operators dispatched (a dispatch mode counts them;
-    each launches at most one kernel) and the CUDA kernels the profiler
-    records (None where it records none)."""
+    """What one sampler call (either family's, ``prior_generate``) over
+    LAUNCH_COUNT_GRID launches per grid position: the ATen operators
+    dispatched (a dispatch mode counts them; each launches at most one
+    kernel) and the CUDA kernels the profiler records (None where it
+    records none)."""
     from torch.profiler import ProfilerActivity, profile
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    from neural_sound_generation_tpu_torch.models import pixelcnn
+    from neural_sound_generation_tpu_torch.inference import prior_generate
 
     class Count(TorchDispatchMode):
         n = 0
@@ -3306,8 +3336,8 @@ def sampler_launches(torch, prior, labels) -> dict:
             return func(*args, **(kwargs or {}))
 
     h, w = LAUNCH_COUNT_GRID
-    run = lambda: pixelcnn.fast_generate(prior, labels, torch.Generator(device=DEVICE),  # noqa: E731
-                                         shape=(h, w), batch_size=1)
+    run = lambda: prior_generate(prior, labels, torch.Generator(device=DEVICE),  # noqa: E731
+                                 shape=(h, w), batch_size=1)
     run()
     with Count():
         run()
@@ -4073,14 +4103,15 @@ def record_routing(torch, model):
             h.remove()
 
 
-def routing_flips(torch, card: list, cpu: list) -> dict:
+def routing_flips(torch, card: list, cpu: list, tie_gap: float = MOE_TIE_GAP) -> dict:
     """The routing decisions of one step on the card against the CPU's,
     layer by layer (``record_routing``'s lists). A flip in a row at or
     after the first position an earlier layer flipped in that row is that
     flip's cascade (causal attention carries the other expert's output
     there); any other flip must be a near-tie, the CPU's top-2
-    probabilities within MOE_TIE_GAP. Decisions are counted, not tokens'
-    outputs; with the share of tokens each layer dropped on the card."""
+    probabilities within ``tie_gap``. Decisions are counted, not tokens'
+    outputs; with the share of tokens each layer dropped on the card and
+    each row's first flipped position (T where none flipped)."""
     decisions = flips = near = cascade = 0
     gaps, dropped, first = [], [], None
     for (_, e_card, k_card), (p_cpu, e_cpu, _) in zip(card, cpu):
@@ -4096,12 +4127,13 @@ def routing_flips(torch, card: list, cpu: list) -> dict:
         decisions += e_cpu.numel()
         flips += int(flip.sum())
         cascade += int(is_cascade.sum())
-        near += int((own & (gap <= MOE_TIE_GAP)).sum())
+        near += int((own & (gap <= tie_gap)).sum())
         gaps += gap[own].tolist()
         first = torch.minimum(first, torch.where(flip, pos, t).min(1, keepdim=True).values)
         dropped.append(float((~k_card).float().mean()))
     return {"decisions": decisions, "flips": flips, "near_ties": near, "cascade": cascade,
-            "flip_gaps": gaps, "dropped_share_by_layer": dropped}
+            "flip_gaps": gaps, "dropped_share_by_layer": dropped,
+            "first_flip": [] if first is None else first[:, 0].tolist()}
 
 
 def moe_prior_phase(torch, cli_prior, serve, checkpoint, counters, root: str, vq_ckpt: str,
@@ -4207,6 +4239,262 @@ def moe_prior_phase(torch, cli_prior, serve, checkpoint, counters, root: str, vq
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the priors in bf16, and chunked attention
+# ---------------------------------------------------------------------------
+
+# phases 7, 12 and 14's widths (the dense and the routed transformer at dim
+# 128, 4 layers of 2 heads, 4 experts at capacity factor 1.25; the PixelCNN
+# at the CLI's 64 x 15), batch 32 of 20 x 7 grids, with --bf16. Cut in
+# steps only: 2 epochs of 8 batches, then an 8-step --resume
+BF16_EPOCHS = 2
+BF16_FAMILIES = {
+    "transformer": ["--arch", "transformer", "--prior-dim", str(PRIOR_DIM),
+                    "--prior-layers", str(PRIOR_LAYERS)],
+    "moe_transformer": ["--arch", "transformer", "--prior-dim", str(PRIOR_DIM),
+                        "--prior-layers", str(PRIOR_LAYERS), "--moe-experts", str(MOE_EXPERTS)],
+    "pixelcnn": [],
+}
+# a bf16 step card vs CPU: the loss terms within 2e-2 relative (bf16
+# roundings of sums in another order, as phases 6 and 13 hold bf16 steps);
+# the cached and row-cached logits against the forward within 2e-2 of the
+# largest logit (the JAX package's own bound, tests/test_models.py:393-395)
+BF16_LOSS_REL, BF16_LOGIT_REL = 2e-2, 2e-2
+# a routing flip between two bf16 computations is a near-tie when the
+# reference's top-2 router probabilities are within 1e-2: the router reads a
+# bf16 activation, and one bf16 ulp (2^-8 relative) in its elements moves
+# the router's logits, and so the gap, by up to some 1e-2 at these widths
+# (the float32 rule, MOE_TIE_GAP, is the order of f32 sums)
+BF16_ROUTE_GAP = 1e-2
+# chunked_causal_attention at the hierarchy's bottom grid (batch 8 x 2 heads)
+CHUNKED_SHAPE = ("hier_T2240", 16, 2240, 64)
+
+
+def bf16_family(torch, cli_prior, checkpoint, counters, fa, root: str, vq_ckpt: str,
+                corpus: str, family: str) -> dict:
+    """One family through ``cli.prior train --bf16`` (and --resume), each
+    run's launch counts (kernel 4's all in bf16), the NLL falling, the
+    metadata (no dtype in it); one bf16 step card vs CPU from the first
+    epoch's state; the cached (transformer) or row-cached (PixelCNN) logits
+    against the bf16 forward; steps/s in bf16 and f32 from the same state;
+    ``cli.prior sample --bf16``; the sampler's kernels a code."""
+    from neural_sound_generation_tpu_torch.config import Config
+    from neural_sound_generation_tpu_torch.models import pixelcnn, transformer_prior
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(root, "bf16_prior", family)
+    widths = [*BF16_FAMILIES[family], "--dim", str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES),
+              "--device", DEVICE, "--bf16"]
+    train = ["train", "--datadir", corpus, "--vqvae-ckpt", vq_ckpt, "--ckpt-dir", ckpt,
+             "--batch-size", str(PRIOR_BATCH),
+             "--max-batches-per-epoch", str(PRIOR_BATCHES_PER_EPOCH), *widths]
+    args = cli_prior.parse_args(train)
+    spec = cli_prior.PriorSpec.from_args(args)
+    transformer = spec.arch == "transformer"
+    runs = {}
+    for tag, argv, epochs in (("train", ["--epochs", str(BF16_EPOCHS)], BF16_EPOCHS),
+                              ("resume", ["--epochs", str(BF16_EPOCHS + 1), "--resume"], 1)):
+        runs[tag] = run = run_cli_prior(cli_prior, counters, train + argv)
+        run["bf16_attention_launches"] = fa.bf16_launch_counts()
+        steps = epochs * PRIOR_BATCHES_PER_EPOCH
+        run["optimizer_steps"] = steps
+        attn = dict.fromkeys(fa.KERNELS, PRIOR_LAYERS * steps if transformer else 0)
+        check_prior_run(run, f"bf16 {family} {tag}", epochs,
+                        {"vq_nearest": steps, "fused_adam": steps, **attn})
+        check(run["bf16_attention_launches"] == attn,
+              f"bf16 {family} {tag}: bf16 attention launches "
+              f"{run['bf16_attention_launches']}, expected {attn}")
+    nll = runs["train"]["epoch_nll"]
+    check(nll[-1] < nll[0], f"bf16 {family}: the NLL did not fall ({nll})")
+    extra = checkpoint.read_extra(ckpt)
+    check(extra == {"epoch": BF16_EPOCHS + 1, **spec.metadata()},
+          f"bf16 {family} checkpoint metadata {extra}")
+
+    codes, _, vqvae, _ = encode_batch(torch, cli_prior, args, corpus, cli_prior.LATENT_STRIDE)
+    del vqvae
+    labels = torch.zeros(codes.shape[0], dtype=torch.int32, device=DEVICE)
+    pcfg = prior_cfg(Config())
+    batch = {"codes": codes, "labels": labels}
+    compare, state = prior_step_card_vs_cpu(torch, checkpoint, spec, ckpt + "_train", pcfg,
+                                            batch, f"bf16_{family}", PRIOR_BATCHES_PER_EPOCH,
+                                            bf16=True)
+    del state
+    step_ms = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        state = create_train_state(spec.build(dtype=dtype).to(DEVICE), pcfg.train)
+        checkpoint.restore(ckpt + "_train", state)
+        step_ms[name] = 1e3 * prior_step_seconds(torch, state, pcfg, batch, PRIORS_TIMED_STEPS)
+        del state
+
+    # the cached logits against the forward (kernel 4's rounding of P is not
+    # the cached step's): a routed model's decisions are compared too, and
+    # its logits held up to each row's first routing flip
+    prior = cli_prior.load_prior(ckpt, spec, DEVICE, torch.bfloat16)
+    with record_routing(torch, prior) as fwd_routes, torch.no_grad():
+        forward = prior(codes[:4], labels[:4])
+    with record_step_routing(torch, prior) as step_routes:
+        cached = (transformer_prior if transformer else pixelcnn).incremental_logits(
+            prior, codes[:4], labels[:4])
+    routing = None
+    held = torch.ones(forward.shape[:3], dtype=torch.bool, device=forward.device)
+    if fwd_routes:
+        routing = routing_flips(torch, step_routes, fwd_routes, BF16_ROUTE_GAP)
+        check(routing["flips"] == routing["near_ties"] + routing["cascade"],
+              f"bf16 {family}: cached vs forward routing flips that are neither near-ties nor "
+              f"cascades of one ({routing})")
+        pos = torch.arange(held[0].numel(), device=held.device).reshape(held.shape[1:])
+        held = pos[None] < torch.tensor(routing["first_flip"], device=held.device)[:, None, None]
+    err = float(((cached - forward).abs() * held[..., None]).max())
+    scale = float(forward.abs().max())
+    check(err <= BF16_LOGIT_REL * scale,
+          f"bf16 {family}: cached logits differ from the forward by {err} (largest {scale})")
+    launches_per_code = sampler_launches(torch, prior, labels[:1])
+    sampled = run_sample_cli(cli_prior, ["sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt",
+                                         ckpt + "_ema", *widths],
+                             os.path.join(root, "bf16_prior", f"{family}_samples"),
+                             "prior_sample", 4 * 28)
+    return {"family": family, "parameters": sum(p.numel() for p in prior.parameters()),
+            "runs": runs, "card_vs_cpu_step": compare,
+            "cached_vs_forward": {"max_abs_err": err, "largest_logit": scale,
+                                  "positions_held": int(held.sum()), "routing": routing},
+            "train_step_ms": step_ms,
+            "train_steps_per_s": {k: 1e3 / v for k, v in step_ms.items()},
+            "bf16_over_f32_steps_per_s": step_ms["f32"] / step_ms["bf16"],
+            "launches_per_code": launches_per_code, "sample_cli": sampled,
+            "seconds": time.perf_counter() - t0}
+
+
+@contextlib.contextmanager
+def record_step_routing(torch, model):
+    """The routing of every routed block's cached ``step`` while the
+    context is open, as ``record_routing``'s list: per block (probs,
+    expert, keep) over (B, T), in the order the positions ran."""
+    from neural_sound_generation_tpu_torch.models.moe import SwitchMoE
+
+    moes = [m for m in model.modules() if isinstance(m, SwitchMoE)]
+    calls = {id(m): [] for m in moes}
+
+    def wrap(moe):
+        step = moe.step
+
+        def recorded(h, counts, cap):
+            probs, expert, _ = moe._route(h)
+            calls[id(moe)].append((probs.cpu(), expert.cpu()))
+            return step(h, counts, cap)
+        return recorded
+
+    for m in moes:
+        m.step = wrap(m)
+    routes = []
+    try:
+        yield routes
+    finally:
+        for m in moes:
+            del m.step
+    for m in moes:
+        probs = torch.stack([p for p, _ in calls[id(m)]], dim=1)
+        expert = torch.stack([e for _, e in calls[id(m)]], dim=1)
+        routes.append((probs, expert, torch.ones_like(expert, dtype=torch.bool)))
+
+
+def chunked_attention_check(torch, fa) -> dict:
+    """``chunked_causal_attention`` at CHUNKED_SHAPE in f32 and bf16, forward
+    and gradients, against kernel 4's plain pair (ATTN_F32_REL,
+    ATTN_BF16_REL, relative to the plain output's largest magnitude floored
+    at 1); the stock path's output against the chunked one; the peak memory
+    a forward and backward allocates above its inputs, and its ms, for the
+    chunked path, the kernels and the stock path."""
+    from neural_sound_generation_tpu_torch.ops import attention
+
+    name, bh, t, d = CHUNKED_SHAPE
+    scale = d**-0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {"shape_name": name, "bh": bh, "t": t, "d": d}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        limit = ATTN_BF16_REL if tag == "bf16" else ATTN_F32_REL
+        q, k, v, do = (torch.randn(1, bh, t, d, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        flat = [x[0].contiguous() for x in (q, k, v, do)]
+        ro, _ = fa.flash_attention_fwd_plain(*flat[:3], scale)
+        rdq, rdk, rdv = fa.flash_attention_bwd_plain(*flat[:3], ro, flat[3], scale)
+
+        def fwd_bwd(fn):
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            o = fn(*leaves)
+            return (o.detach(), *torch.autograd.grad(o, leaves, do))
+
+        paths = {"chunked": lambda a, b, c: attention.chunked_causal_attention(a, b, c, scale),
+                 "kernel": lambda a, b, c: attention.causal_attention(a, b, c, scale),
+                 "stock": lambda a, b, c: attention.stock_causal_attention(a, b, c, scale)}
+        got = fwd_bwd(paths["chunked"])
+
+        def rel(a, b):
+            return float((a.float() - b.float()).abs().max()
+                         / max(float(b.float().abs().max()), 1.0))
+
+        errs = {n: rel(g[0], w) for n, g, w in zip(("o", "dq", "dk", "dv"), got,
+                                                   (ro, rdq, rdk, rdv))}
+        check(max(errs.values()) <= limit,
+              f"chunked attention {tag}: errors {errs} against the plain pair above {limit}")
+        stock = fwd_bwd(paths["stock"])
+        stock_err = rel(stock[0], got[0])
+        check(stock_err <= limit,
+              f"stock attention {tag}: output {stock_err} from the chunked one, above {limit}")
+        peak, ms = {}, {}
+        base = torch.cuda.memory_allocated()
+        for path, fn in paths.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fwd_bwd(fn)
+            torch.cuda.synchronize()
+            peak[path] = torch.cuda.max_memory_allocated() - base
+            ms[path] = time_ms(torch, lambda: fwd_bwd(fn), 5)
+        out[tag] = {"rel_err_vs_plain": errs, "stock_vs_chunked_rel": stock_err,
+                    "peak_bytes_fwd_bwd": peak, "fwd_bwd_ms": ms}
+        del q, k, v, do, flat, ro, rdq, rdk, rdv, got, stock
+    return out
+
+
+def bf16_prior_phase(torch, cli_prior, checkpoint, counters, fa, root: str, vq_ckpt: str,
+                     corpus: str, f32_prior_ckpt: str, hier: dict, card: str) -> dict:
+    """Phase 15: ``cli.prior train|sample --bf16`` for the dense and the
+    routed transformer and the PixelCNN (``bf16_family``); ``sample --bf16``
+    from phase 7's float32 checkpoint (the dtype is not checked on
+    restore); ``sample --hier --bf16`` from phase 12's checkpoints
+    (``hier``: vq, top, bottom); chunked attention at T 2240."""
+    t0 = time.perf_counter()
+    families = {}
+    for family in BF16_FAMILIES:
+        families[family] = bf16_family(torch, cli_prior, checkpoint, counters, fa, root,
+                                       vq_ckpt, corpus, family)
+        emit({"phase": f"bf16_prior_{family}", "card": card, **families[family]})
+        torch.cuda.empty_cache()
+    common = ["--dim", str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES), "--device", DEVICE, "--bf16"]
+    from_f32 = run_sample_cli(cli_prior, [
+        "sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt", f32_prior_ckpt,
+        *BF16_FAMILIES["transformer"], *common],
+        os.path.join(root, "bf16_prior", "from_f32_samples"), "prior_sample", 4 * 28)
+    hier_sampled = run_sample_cli(cli_prior, [
+        "sample", "--hier", "--vqvae-ckpt", hier["vq"], "--prior-ckpt", hier["top"],
+        "--bottom-ckpt", hier["bottom"], *BF16_FAMILIES["transformer"],
+        "--bottom-arch", "pixelcnn", "--bottom-dim", str(PIXELCNN_DIM),
+        "--bottom-layers", str(PIXELCNN_LAYERS), "--code-shape", "10", "10", *common],
+        os.path.join(root, "bf16_prior", "hier_samples"), "hier_sample", 80)
+    chunked = chunked_attention_check(torch, fa)
+    emit({"phase": "chunked_attention", "card": card, **chunked})
+    runs = [r for f in families.values() for r in f["runs"].values()]
+    return {"phase": "bf16_prior", "card": card, "seconds": time.perf_counter() - t0,
+            "launches": {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]},
+            "bf16_attention_launches": {k: sum(r["bf16_attention_launches"][k] for r in runs)
+                                        for k in fa.KERNELS},
+            "train_steps_per_s": {f: r["train_steps_per_s"] for f, r in families.items()},
+            "launches_per_code": {f: r["launches_per_code"] for f, r in families.items()},
+            "sample_from_f32_checkpoint": from_f32, "sample_hier": hier_sampled,
+            "chunked_attention": chunked}
+
+
 ATTN_REPLACES = {
     "flash_fwd": "neural_sound_generation_tpu/ops/pallas/attention.py:165",
     "flash_bwd_dq": "neural_sound_generation_tpu/ops/pallas/attention.py:233",
@@ -4214,10 +4502,12 @@ ATTN_REPLACES = {
 }
 
 
-def attention_summary(rows: dict, name: str, launches_by_path: dict) -> dict:
+def attention_summary(rows: dict, name: str, launches_by_path: dict,
+                      bf16_launches: int) -> dict:
     """One attention kernel's entry of the kernels line, at the shape the
     prior's training path gives it (ATTN_MAIN), with its time at every
-    shape beside. The backward kernels have no library call of their own;
+    shape beside and its launches on bf16 inputs (phase 15's, all of them
+    in bf16). The backward kernels have no library call of their own;
     their entries carry the whole backward's times under ``backward``."""
     main = rows[ATTN_MAIN]
     entry = {
@@ -4226,6 +4516,7 @@ def attention_summary(rows: dict, name: str, launches_by_path: dict) -> dict:
         "replaces": ATTN_REPLACES[name], "status": "ported",
         "shape": {"bh": main["bh"], "t": main["t"], "d": main["d"], "dtype": main["dtype"]},
         "launches": sum(launches_by_path.values()), "launches_by_path": launches_by_path,
+        "bf16_launches": bf16_launches,
         "max_abs_err": main["max_abs_err"][name],
         "ms": main["kernel_ms"][name], "plain_ms": main["plain_ms"][name],
         "bound_ms": main["bound_ms"][name], "bound_by": main["bound_by"][name],
@@ -4575,13 +4866,25 @@ def main() -> int:
         moe = moe_prior_phase(torch, cli_prior, serve, checkpoint, (vq_kernel, fused_adam, fa),
                               root, vq_ckpt, corpus, card)
         emit(moe)
+        torch.cuda.empty_cache()
+
+        # phase 15: the priors in bf16 through cli.prior, with launch counts
+        # from each run (kernel 4's in bf16), and chunked attention
+        hier = {"vq": os.path.join(root, "hier", "models", "hiervqvae",
+                                   f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}"),
+                "top": os.path.join(root, "hier_prior", "top_ema"),
+                "bottom": os.path.join(root, "hier_prior", "bottom_ema")}
+        bf16 = bf16_prior_phase(torch, cli_prior, checkpoint, (vq_kernel, fused_adam, fa), fa,
+                                root, vq_ckpt, corpus,
+                                os.path.join(root, "prior", "models_ema"), hier, card)
+        emit(bf16)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # phase 15: summary and result
+    # phase 16: summary and result
     train_runs = [*training["runs"].values(), rvq["run"]]
     train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
     train_adam = sum(r["launches"]["fused_adam"] for r in train_runs)
@@ -4590,6 +4893,7 @@ def main() -> int:
                       for k in ("vq_nearest", "fused_adam", *fa.KERNELS)}
     priors_launches = priors["launches"]
     moe_launches = moe["launches"]
+    bf16_launches = bf16["launches"]
     main_row, train_row = rows[VQ_MAIN_SHAPE], rows[VQ_TRAIN_SHAPE]
     adam_row = adam_rows[ADAM_CONFIGS[0][0]]
     emit({"kernels": [{
@@ -4600,14 +4904,15 @@ def main() -> int:
         "launches": (serving["vq_launches"] + train_vq + prior_launches["vq_nearest"]
                      + prep["vq_launches"] + others["vq_launches"]
                      + priors_launches["vq_nearest"] + vtrain["vq_launches"]
-                     + moe_launches["vq_nearest"]),
+                     + moe_launches["vq_nearest"] + bf16_launches["vq_nearest"]),
         "launches_by_path": {"serving": serving["vq_launches"], "training": train_vq,
                              "prior": prior_launches["vq_nearest"],
                              "preprocess_units": prep["vq_launches"],
                              "other_autoencoders": others["vq_launches"],
                              "pixelcnn_and_hier_priors": priors_launches["vq_nearest"],
                              "vocoder_units": vtrain["vq_launches"],
-                             "moe_prior": moe_launches["vq_nearest"]},
+                             "moe_prior": moe_launches["vq_nearest"],
+                             "bf16_prior": bf16_launches["vq_nearest"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -4627,12 +4932,13 @@ def main() -> int:
         "status": "ported", "shape": {"n": n_params, "config": adam_row["config"]},
         "launches": (train_adam + prior_launches["fused_adam"] + others["adam_launches"]
                      + priors_launches["fused_adam"] + vtrain["adam_launches"]
-                     + moe_launches["fused_adam"]),
+                     + moe_launches["fused_adam"] + bf16_launches["fused_adam"]),
         "launches_by_path": {"training": train_adam, "prior": prior_launches["fused_adam"],
                              "other_autoencoders": others["adam_launches"],
                              "pixelcnn_and_hier_priors": priors_launches["fused_adam"],
                              "vocoder_training": vtrain["adam_launches"],
-                             "moe_prior": moe_launches["fused_adam"]},
+                             "moe_prior": moe_launches["fused_adam"],
+                             "bf16_prior": bf16_launches["fused_adam"]},
         "max_abs_err": adam_row["max_abs_err"],
         "ms": adam_row["kernel_ms"], "plain_ms": adam_row["plain_ms"],
         "bound_ms": adam_row["bound_ms"], "bound_by": adam_row["bound_by"],
@@ -4643,7 +4949,9 @@ def main() -> int:
                            for tag, r in vtrain["adam_rows"].items()},
     }] + [attention_summary(attn_rows, name, {"prior": prior_launches[name],
                                               "hier_top_prior": priors_launches[name],
-                                              "moe_prior": moe_launches[name]})
+                                              "moe_prior": moe_launches[name],
+                                              "bf16_prior": bf16_launches[name]},
+                            bf16["bf16_attention_launches"][name])
           for name in fa.KERNELS]
       + wavenet_summary(wn_rows, wn_api) + conv_summary(conv_rows, conv_ab)})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -34,12 +34,18 @@ checkpoint that disagrees: the qkv weights have the same shape for any
 head count, so a wrong ``--prior-heads`` would otherwise restore and
 sample wrongly, and a bottom prior is refused where a top is expected.
 
-Flags of later slices raise ``NotImplementedError``: ``--bf16`` (with or
-without ``--moe-experts``), ``--mesh-pipe`` and more than one device.
+``--bf16`` computes either family in bfloat16 (``train``, ``sample`` and
+both levels of ``sample --hier``): the parameters, the optimizer, the loss
+and the checkpoints stay float32, so the compute dtype is not recorded and
+a checkpoint trained with or without ``--bf16`` samples either way, as in
+the JAX CLI. The transformer's attention kernels run in bf16 on the card.
+
+Flags of later slices raise ``NotImplementedError``: ``--mesh-pipe`` and
+more than one device.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.prior train
 --datadir <corpus> --vqvae-ckpt <cli.main checkpoint> [--arch transformer
-[--moe-experts N]] [--hier --hier-level top|bottom] [--device cuda]``
+[--moe-experts N]] [--bf16] [--hier --hier-level top|bottom] [--device cuda]``
 """
 
 from __future__ import annotations
@@ -94,7 +100,9 @@ def parse_args(argv=None):
     tr.add_argument("--prior-layers", type=int, default=15)
     tr.add_argument("--prior-heads", type=int, default=None,
                     help="attention heads; default sizes heads to 64 channels each")
-    tr.add_argument("--bf16", action="store_true", help="bfloat16 compute (a later slice)")
+    tr.add_argument("--bf16", action="store_true",
+                    help="bfloat16 compute (parameters, optimizer and checkpoints stay "
+                         "float32)")
     tr.add_argument("--moe-experts", type=int, default=0,
                     help="transformer arch only: switch-MoE feed-forwards with this many "
                          "experts (0 = dense)")
@@ -134,7 +142,8 @@ def parse_args(argv=None):
     sa.add_argument("--prior-dim", type=int, default=64)
     sa.add_argument("--prior-layers", type=int, default=15)
     sa.add_argument("--prior-heads", type=int, default=None)
-    sa.add_argument("--bf16", action="store_true")
+    sa.add_argument("--bf16", action="store_true",
+                    help="bfloat16 compute of the prior (both levels under --hier)")
     sa.add_argument("--moe-experts", type=int, default=0,
                     help="experts of a routed transformer prior (cli.prior train "
                          "--moe-experts); the --hier bottom level takes it too")
@@ -162,10 +171,6 @@ def parse_args(argv=None):
 
 def refuse_later_slices(args) -> None:
     """Flags whose code paths the port does not have yet."""
-    if args.bf16:
-        what = " (and its routed MoE)" if args.moe_experts > 0 else ""
-        raise NotImplementedError(
-            f"--bf16: the prior's bfloat16 model{what} comes with the bf16 slice")
     if getattr(args, "mesh_pipe", 1) > 1:
         raise NotImplementedError("--mesh-pipe: pipeline parallelism comes with the parallel slice")
     if (getattr(args, "mesh_data", None) or 1) > 1 or getattr(args, "mesh_model", 1) > 1:
@@ -210,34 +215,45 @@ class PriorSpec:
     def metadata(self) -> dict:
         return dataclasses.asdict(self)
 
-    def build(self, seed: int = 0) -> TransformerPrior | GatedPixelCNN:
+    def build(self, seed: int = 0,
+              dtype: torch.dtype = torch.float32) -> TransformerPrior | GatedPixelCNN:
+        """The model, its weights drawn from ``seed``, computing in
+        ``dtype``; the dtype is not part of the spec (float32 parameters
+        either way)."""
         gen = torch.Generator().manual_seed(seed)
         if self.arch == "transformer":
             return TransformerPrior(
                 input_dim=self.z_dim, dim=self.prior_dim, n_layers=self.prior_layers,
                 n_heads=self.prior_heads, n_classes=self.n_classes, n_experts=self.n_experts,
-                spatial_cond=self.spatial_cond, cond_dim=self.cond_dim, generator=gen)
+                spatial_cond=self.spatial_cond, cond_dim=self.cond_dim, dtype=dtype,
+                generator=gen)
         return GatedPixelCNN(
             input_dim=self.z_dim, dim=self.prior_dim, n_layers=self.prior_layers,
             n_classes=self.n_classes, spatial_cond=self.spatial_cond, cond_dim=self.cond_dim,
-            generator=gen)
+            dtype=dtype, generator=gen)
+
+
+def compute_dtype(args) -> torch.dtype:
+    """``--bf16``'s compute dtype."""
+    return torch.bfloat16 if args.bf16 else torch.float32
 
 
 def bottom_args(args):
     """The sample-time bottom prior's flags: ``--bottom-*`` overriding the
-    top's ``--arch``/``--prior-*``; the rest, ``--moe-experts`` among them,
-    carry over (the JAX ``_bottom_args``)."""
+    top's ``--arch``/``--prior-*``; the rest, ``--moe-experts`` and
+    ``--bf16`` among them, carry over (the JAX ``_bottom_args``)."""
     overrides = {"arch": args.bottom_arch, "prior_dim": args.bottom_dim,
                  "prior_layers": args.bottom_layers, "prior_heads": args.bottom_heads}
     return argparse.Namespace(**{
         **vars(args), **{k: v for k, v in overrides.items() if v is not None}})
 
 
-def load_prior(ckpt_dir: str, spec: PriorSpec, device) -> TransformerPrior | GatedPixelCNN:
+def load_prior(ckpt_dir: str, spec: PriorSpec, device,
+               dtype: torch.dtype = torch.float32) -> TransformerPrior | GatedPixelCNN:
     """The prior of a checkpoint (an artifact, its ``_ema`` sibling or a
-    train state), in eval mode on ``device``; refuses one recorded with
-    another spec."""
-    prior = spec.build()
+    train state), computing in ``dtype``, in eval mode on ``device``;
+    refuses one recorded with another spec."""
+    prior = spec.build(dtype=dtype)
     try:
         checkpoint.check_extra(ckpt_dir, **spec.metadata())
         checkpoint.restore_params(ckpt_dir, prior)
@@ -320,7 +336,7 @@ def cmd_train(args) -> None:
     bottom_level = args.hier and args.hier_level == "bottom"
     spec = PriorSpec.from_args(args, cond_dim=args.dim if bottom_level else 0)
     meta = spec.metadata()
-    prior = spec.build(args.seed).to(device)
+    prior = spec.build(args.seed, compute_dtype(args)).to(device)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, initial_learning_rate=args.lr, batch_size=args.batch_size,
         ema_warmup=args.ema_warmup))
@@ -405,13 +421,14 @@ def cmd_sample(args) -> None:
     if args.hier and not args.bottom_ckpt:
         raise SystemExit("--hier sampling requires --bottom-ckpt")
     vqvae = load_vqvae(args, cfg, device)
-    prior = load_prior(args.prior_ckpt, PriorSpec.from_args(args), device)
+    prior = load_prior(args.prior_ckpt, PriorSpec.from_args(args), device, compute_dtype(args))
     labels = torch.full((args.num_samples,), args.label, dtype=torch.int32, device=device)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if args.hier:
         # --code-shape names the top grid; the bottom prior samples twice it
         bottom = load_prior(args.bottom_ckpt,
-                            PriorSpec.from_args(bottom_args(args), cond_dim=args.dim), device)
+                            PriorSpec.from_args(bottom_args(args), cond_dim=args.dim), device,
+                            compute_dtype(args))
         _, _, wavs = sample_hier_audio(vqvae, prior, bottom, labels, (h, w), cfg.audio,
                                        generator)
         stem, what = "hier_sample", "hier samples"

@@ -17,7 +17,12 @@ float32 accumulation rounded once, then adds the rounded bias, so its output
 is in the compute dtype. A norm takes its statistics and normalizes in
 float32 and rounds once to the compute dtype; BatchNorm's running averages
 stay float32. The casts are explicit: ``torch.autocast`` would choose the
-bf16 ops by its own list, which is not flax's.
+bf16 ops by its own list, which is not flax's. ``Linear`` is flax's
+``Dense`` under the same rule: input, weight and bias cast, the product
+rounded once, then the rounded bias added (a bf16 ``F.linear`` with its bias
+folds it into the product and rounds once instead of twice). Elementwise
+bf16 functions round after every operation, as XLA lowers them: ``gelu``
+and ``sigmoid`` spell out flax's formulas op by op in bf16.
 """
 
 from __future__ import annotations
@@ -147,6 +152,50 @@ class Conv2d(nn.Conv2d):
             return super().forward(x)
         y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
         return y + self.bias.to(dt)[:, None, None]
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with flax's compute ``dtype`` (``nn.Dense(dtype=...)``);
+    float32 runs the stock product unchanged."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+#: flax's tanh-approximate gelu constants, sqrt(2 / pi) and the cubic term's
+_GELU_C, _GELU_K = 0.7978845608028654, 0.044715
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``nn.gelu`` (the tanh approximation). In bf16 it runs
+    ``jax.nn.gelu``'s formula op by op, each rounded, with its constants
+    rounded to bf16 first; ``F.gelu`` rounds once and differs from it in a
+    bf16 ulp at about 45% of inputs."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x, approximate="tanh")
+    c, k = (torch.tensor(v, dtype=x.dtype, device=x.device) for v in (_GELU_C, _GELU_K))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: in bf16 1 / (1 + exp(-x)) with every op rounded,
+    as XLA lowers it; ``torch.sigmoid`` rounds once and differs from it in
+    a bf16 ulp at about 30% of inputs."""
+    return 1.0 / (1.0 + torch.exp(-x)) if x.dtype == torch.bfloat16 else torch.sigmoid(x)
+
+
+def gate(z: torch.Tensor, dim: int) -> torch.Tensor:
+    """The gated activation tanh(a) * sigmoid(b) over the two halves of z
+    along ``dim``."""
+    a, b = z.chunk(2, dim=dim)
+    return torch.tanh(a) * sigmoid(b)
 
 
 class Conv1d(nn.Conv1d):

@@ -17,6 +17,15 @@ term and both forms give the same values; the empty slots of the JAX form
 are multiplied by a zero combine and reach neither the output nor a
 gradient.
 
+Compute dtype (``dtype``, bfloat16 under ``cli.prior --bf16``): the
+experts run in it on their float32 weights cast per call, each product
+rounded once and its bias added in the compute dtype (flax's
+``promote_dtype``); the router, the dispatch, the combine and the
+load-balance term stay float32. The router reads the activation as the
+block hands it (rounded to the compute dtype); the gate multiplies the
+expert's output in float32, and the product is rounded once to the input's
+dtype.
+
 The load-balance term is returned by ``forward``, not kept in module
 state. ``step`` is the causal one-position form for the KV-cached sampler:
 it carries each row's per-expert counts of *dispatched* tokens, so with the
@@ -31,11 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from neural_sound_generation_tpu_torch.models.layers import gelu
+
 __all__ = ["SwitchMoE"]
-
-
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")  # flax nn.gelu's default
 
 
 class SwitchMoE(nn.Module):
@@ -47,12 +54,13 @@ class SwitchMoE(nn.Module):
     routing group (capacity is per row)."""
 
     def __init__(self, dim: int, n_experts: int, mlp_ratio: int = 4,
-                 capacity_factor: float = 1.25):
+                 capacity_factor: float = 1.25, dtype: torch.dtype = torch.float32):
         super().__init__()
         if n_experts < 1:
             raise ValueError(f"a switch MoE needs at least one expert, not {n_experts}")
         e, d, f = n_experts, dim, mlp_ratio * dim
         self.dim, self.n_experts, self.capacity_factor = dim, n_experts, capacity_factor
+        self.compute_dtype = dtype
         self.router = nn.Linear(d, e)
         self.w_in = nn.Parameter(torch.empty(e, d, f))
         self.b_in = nn.Parameter(torch.zeros(e, f))
@@ -73,9 +81,11 @@ class SwitchMoE(nn.Module):
         return probs, expert, gate
 
     def _experts(self, xs: torch.Tensor) -> torch.Tensor:
-        """Every expert's MLP on its own rows: (E, N, D) -> (E, N, D)."""
-        hh = _gelu(torch.bmm(xs, self.w_in) + self.b_in[:, None, :])
-        return torch.bmm(hh, self.w_out) + self.b_out[:, None, :]
+        """Every expert's MLP on its own rows, in the compute dtype:
+        (E, N, D) -> (E, N, D)."""
+        dt = self.compute_dtype
+        hh = gelu(torch.bmm(xs.to(dt), self.w_in.to(dt)) + self.b_in.to(dt)[:, None, :])
+        return torch.bmm(hh, self.w_out.to(dt)) + self.b_out.to(dt)[:, None, :]
 
     def dispatch(self, h: torch.Tensor):
         """The routing of a (B, T, D) sequence: (probs (B, T, E), expert
@@ -109,7 +119,7 @@ class SwitchMoE(nn.Module):
         # accumulate every dropped token into one row, one after another
         owner = torch.full((n_slots + 1,), b * t, device=h.device).index_copy(0, slot, tokens)
         y = ys.new_zeros(b * t + 1, d).index_copy(0, owner[:-1], ys)[:-1]
-        return y.view(b, t, d) * gate[..., None].to(y.dtype), aux
+        return (y.view(b, t, d).float() * gate[..., None]).to(h.dtype), aux
 
     def step(self, h: torch.Tensor, counts: torch.Tensor, cap: int) -> torch.Tensor:
         """One causal position for the KV-cached sampler.
@@ -124,4 +134,4 @@ class SwitchMoE(nn.Module):
         ys = self._experts(h[None].expand(self.n_experts, b, h.shape[1]))
         y = ys[expert, torch.arange(b, device=h.device)]
         counts.scatter_add_(1, expert[:, None], room[:, None].to(counts.dtype))
-        return y * (gate * room)[:, None].to(y.dtype)
+        return (y.float() * (gate * room)[:, None]).to(h.dtype)

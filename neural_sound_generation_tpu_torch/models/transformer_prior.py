@@ -25,6 +25,17 @@ level) adds ``cond_proj`` of a per-position conditioning map of
 ``cond_dim`` channels to every position's input, on the teacher-forced path
 and on the decode step.
 
+Compute dtype (``dtype``, flax's per-module ``dtype``; bfloat16 under
+``cli.prior --bf16``): parameters stay float32 and so does the residual
+stream. Each LayerNorm runs in float32 and its output is rounded to the
+compute dtype; the Dense layers (``layers.Linear``) and the attention run
+in it, and each block's attention and MLP outputs are cast back to float32
+before the residual add. The head rounds its logits to the compute dtype
+before they return as float32. The embeddings and ``cond_proj`` stay
+float32, as flax's ``Embed`` and the undtyped ``Dense`` do. The KV caches
+are in the compute dtype; the cached step's attention weights are rounded
+to it and P V accumulates in float32.
+
 ``n_experts > 0`` swaps every block's dense MLP for a switch-routed
 ``SwitchMoE`` (``models/moe.py``, flax name ``block_i.moe``): top-1 routing
 with a per-row capacity of ``ceil(capacity_factor * T / n_experts)`` tokens
@@ -40,9 +51,9 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from neural_sound_generation_tpu_torch.models.layers import Linear, gelu
 from neural_sound_generation_tpu_torch.models.moe import SwitchMoE
 from neural_sound_generation_tpu_torch.ops.attention import causal_attention
 
@@ -54,29 +65,26 @@ LAYER_NORM_EPS = 1e-6
 _TRUNC_STD = 0.87962566103423978
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")  # flax nn.gelu's default
-
-
 class _Block(nn.Module):
     """Pre-LN transformer block: causal self-attention and an MLP, dense
-    (``mlp_in``/``mlp_out``) or switch-routed (``moe``) for n_experts > 0."""
+    (``mlp_in``/``mlp_out``) or switch-routed (``moe``) for n_experts > 0,
+    in the compute ``dtype`` on a float32 residual stream."""
 
     def __init__(self, dim: int, n_heads: int, mlp_ratio: int = 4, n_experts: int = 0,
-                 capacity_factor: float = 1.25):
+                 capacity_factor: float = 1.25, dtype: torch.dtype = torch.float32):
         super().__init__()
         if dim % n_heads:
             raise ValueError(f"dim {dim} is not divisible by {n_heads} heads")
-        self.dim, self.n_heads = dim, n_heads
+        self.dim, self.n_heads, self.compute_dtype = dim, n_heads, dtype
         self.ln1 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
         self.ln2 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
-        self.attn_qkv = nn.Linear(dim, 3 * dim)
-        self.attn_out = nn.Linear(dim, dim)
+        self.attn_qkv = Linear(dim, 3 * dim, dtype=dtype)
+        self.attn_out = Linear(dim, dim, dtype=dtype)
         if n_experts > 0:
-            self.moe = SwitchMoE(dim, n_experts, mlp_ratio, capacity_factor)
+            self.moe = SwitchMoE(dim, n_experts, mlp_ratio, capacity_factor, dtype=dtype)
         else:
-            self.mlp_in = nn.Linear(dim, mlp_ratio * dim)
-            self.mlp_out = nn.Linear(mlp_ratio * dim, dim)
+            self.mlp_in = Linear(dim, mlp_ratio * dim, dtype=dtype)
+            self.mlp_out = Linear(mlp_ratio * dim, dim, dtype=dtype)
         self.routed = n_experts > 0
 
     @property
@@ -84,22 +92,22 @@ class _Block(nn.Module):
         return self.dim // self.n_heads
 
     def _mlp(self, h: torch.Tensor) -> torch.Tensor:
-        return self.mlp_out(_gelu(self.mlp_in(h)))
+        return self.mlp_out(gelu(self.mlp_in(h)))
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
         """x: (B, T, D); causal self-attention over T. Returns (x, the
         routed MLP's load-balance term, or None for a dense block)."""
         b, t, d = x.shape
-        hd = self.head_dim
-        q, k, v = self.attn_qkv(self.ln1(x)).split(d, dim=-1)
+        hd, dt = self.head_dim, self.compute_dtype
+        q, k, v = self.attn_qkv(self.ln1(x).to(dt)).split(d, dim=-1)
         # (B, H, T, hd), the layout causal_attention takes
         q, k, v = (z.reshape(b, t, self.n_heads, hd).transpose(1, 2) for z in (q, k, v))
         o = causal_attention(q, k, v, scale=1.0 / math.sqrt(hd))
-        x = x + self.attn_out(o.transpose(1, 2).reshape(b, t, d))
+        x = x + self.attn_out(o.transpose(1, 2).reshape(b, t, d)).to(x.dtype)
         if self.routed:
-            y, aux = self.moe(self.ln2(x))
-            return x + y, aux
-        return x + self._mlp(self.ln2(x)), None
+            y, aux = self.moe(self.ln2(x).to(dt))
+            return x + y.to(x.dtype), aux
+        return x + self._mlp(self.ln2(x).to(dt)).to(x.dtype), None
 
     def decode_step(self, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                     t: int, moe_counts: torch.Tensor | None = None,
@@ -110,26 +118,28 @@ class _Block(nn.Module):
         ``moe_counts`` (B, E) int32 in place and drops at ``moe_cap``, the
         full sequence's capacity. Returns y (B, D)."""
         b, d = x.shape
-        hd = self.head_dim
-        q, k, v = self.attn_qkv(self.ln1(x)).split(d, dim=-1)
+        hd, dt = self.head_dim, self.compute_dtype
+        q, k, v = self.attn_qkv(self.ln1(x).to(dt)).split(d, dim=-1)
         k_cache[:, t] = k.reshape(b, self.n_heads, hd)
         v_cache[:, t] = v.reshape(b, self.n_heads, hd)
         # the filled prefix only: the JAX step masks positions > t to -inf
-        # over the whole cache, which adds exact zeros to the same sums
+        # over the whole cache, which adds exact zeros to the same sums.
+        # The weights are rounded to the compute dtype, P V sums in float32
         att = torch.einsum("bhd,bkhd->bhk", q.reshape(b, self.n_heads, hd).float(),
                            k_cache[:, : t + 1].float()) * (1.0 / math.sqrt(hd))
-        att = torch.softmax(att, dim=-1).to(x.dtype)
-        o = torch.einsum("bhk,bkhd->bhd", att, v_cache[:, : t + 1]).reshape(b, d)
-        x = x + self.attn_out(o)
+        att = torch.softmax(att, dim=-1).to(dt)
+        o = torch.einsum("bhk,bkhd->bhd", att.float(), v_cache[:, : t + 1].float())
+        x = x + self.attn_out(o.reshape(b, d)).to(x.dtype)
         if self.routed:
-            return x + self.moe.step(self.ln2(x), moe_counts, moe_cap)
-        return x + self._mlp(self.ln2(x))
+            return x + self.moe.step(self.ln2(x).to(dt), moe_counts, moe_cap).to(x.dtype)
+        return x + self._mlp(self.ln2(x).to(dt)).to(x.dtype)
 
 
 class TransformerPrior(nn.Module):
     """Decoder-only Transformer over (H, W) code grids:
     ``(codes (B, H, W) int, label (B,) int) -> logits (B, H, W, input_dim)``
-    float32. Weights are initialized from ``generator``."""
+    float32, computed in ``dtype`` (float32 or bfloat16; the parameters are
+    float32 either way). Weights are initialized from ``generator``."""
 
     def __init__(
         self,
@@ -145,6 +155,7 @@ class TransformerPrior(nn.Module):
         cond_dim: int = 0,
         max_rows: int = 64,
         max_cols: int = 64,
+        dtype: torch.dtype = torch.float32,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
@@ -152,7 +163,7 @@ class TransformerPrior(nn.Module):
             raise ValueError("a spatially conditioned prior needs cond_dim > 0")
         self.input_dim, self.dim, self.n_layers = input_dim, dim, n_layers
         self.n_heads, self.n_classes = n_heads, n_classes
-        self.n_experts = n_experts
+        self.n_experts, self.compute_dtype = n_experts, dtype
         self.spatial_cond, self.cond_dim = spatial_cond, cond_dim
         self.max_rows, self.max_cols = max_rows, max_cols
         self.tok_embed = nn.Embedding(input_dim, dim)
@@ -163,9 +174,9 @@ class TransformerPrior(nn.Module):
         self.cond_proj = nn.Linear(cond_dim, dim) if spatial_cond else None
         for i in range(n_layers):
             self.add_module(f"block_{i}",
-                            _Block(dim, n_heads, mlp_ratio, n_experts, capacity_factor))
+                            _Block(dim, n_heads, mlp_ratio, n_experts, capacity_factor, dtype))
         self.ln_f = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
-        self.head = nn.Linear(dim, input_dim)
+        self.head = Linear(dim, input_dim, dtype=dtype)
         self.reset_parameters(generator)
 
     @property
@@ -226,8 +237,9 @@ class TransformerPrior(nn.Module):
         return x
 
     def head_logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Final LayerNorm + vocab head: (..., D) -> (..., K) float32."""
-        return self.head(self.ln_f(x)).float()
+        """Final LayerNorm + vocab head: (..., D) -> (..., K) float32, rounded
+        to the compute dtype first."""
+        return self.head(self.ln_f(x).to(self.compute_dtype)).float()
 
     def forward(self, codes: torch.Tensor, label: torch.Tensor,
                 cond_map: torch.Tensor | None = None, return_moe_aux: bool = False):
@@ -273,15 +285,15 @@ def init_caches(model: TransformerPrior, batch: int, t: int):
     """Per block a zero (k, v) pair of (batch, t, H, hd) in the compute
     dtype (the qkv projection's), on the model's device; a routed model's
     blocks add zero (batch, E) int32 counts of dispatched tokens."""
-    w = model.head.weight
+    device, dt = model.head.weight.device, model.compute_dtype
     shape = (batch, t, model.n_heads, model.dim // model.n_heads)
 
     def cache():
-        kv = (torch.zeros(shape, dtype=w.dtype, device=w.device),
-              torch.zeros(shape, dtype=w.dtype, device=w.device))
+        kv = (torch.zeros(shape, dtype=dt, device=device),
+              torch.zeros(shape, dtype=dt, device=device))
         if model.n_experts > 0:
             return kv + (torch.zeros(batch, model.n_experts, dtype=torch.int32,
-                                     device=w.device),)
+                                     device=device),)
         return kv
 
     return tuple(cache() for _ in range(model.n_layers))

@@ -43,6 +43,7 @@ from torch import nn
 from neural_sound_generation_tpu_torch.models.layers import (
     Conv1d,
     ConvTranspose1dSame,
+    gate,
     init_weights,
 )
 
@@ -57,16 +58,6 @@ def _dilations(layers: int, stacks: int) -> Sequence[int]:
     [1, 2, 4, 8, 16, 32])."""
     per_stack = layers // stacks
     return [2 ** (i % per_stack) for i in range(layers)]
-
-
-def _gate(z: torch.Tensor) -> torch.Tensor:
-    """tanh(a) * sigmoid(b) over the two halves of z. In bf16 the sigmoid
-    is 1 / (1 + exp(-b)) with every op rounded, as XLA lowers a bf16
-    ``jax.nn.sigmoid``; ``torch.sigmoid`` rounds once and differs from it in
-    a bf16 ulp at about 30% of inputs."""
-    a, b = z.chunk(2, dim=1)
-    sig = 1.0 / (1.0 + torch.exp(-b)) if z.dtype == torch.bfloat16 else torch.sigmoid(b)
-    return torch.tanh(a) * sig
 
 
 class ConditionUpsampler(nn.Module):
@@ -185,7 +176,7 @@ class WaveNet(nn.Module):
                 z = z + self.layer("cond", i)(c_up)
             if g_emb is not None:
                 z = z + self.layer("g", i)(g_emb)
-            gated = _gate(z)
+            gated = gate(z, 1)
             skips = skips + self.layer("skip", i)(gated)
             h = h + self.layer("res", i)(gated)
         out = torch.relu(skips)

@@ -26,7 +26,8 @@ kernels are (``flash_attention_bwd_dq_plain``, ``flash_attention_bwd_dkdv_plain`
 ``flash_causal_attention`` is
 differentiable (``torch.autograd.Function``): CPU tensors run the plain
 pair, CUDA tensors launch the kernels or raise; there is no fallback between
-the two. ``launch_counts()`` counts each kernel's launches.
+the two. ``launch_counts()`` counts each kernel's launches, and
+``bf16_launch_counts()`` those of them made on bfloat16 inputs.
 """
 
 from __future__ import annotations
@@ -48,22 +49,32 @@ _PLAN_KEYS = ("ctas", "threads", "registers", "spill_bytes", "smem_bytes", "ctas
 
 _count_lock = threading.Lock()
 _launches = dict.fromkeys(KERNELS, 0)
+_bf16_launches = dict.fromkeys(KERNELS, 0)
 
 
 def launch_counts() -> dict[str, int]:
+    """Each kernel's launches, whatever the dtype."""
     with _count_lock:
         return dict(_launches)
+
+
+def bf16_launch_counts() -> dict[str, int]:
+    """Each kernel's launches on bfloat16 inputs (counted in
+    ``launch_counts`` too)."""
+    with _count_lock:
+        return dict(_bf16_launches)
 
 
 def reset_launch_count() -> None:
     with _count_lock:
         for name in KERNELS:
-            _launches[name] = 0
+            _launches[name] = _bf16_launches[name] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, bf16: bool) -> None:
     with _count_lock:
         _launches[name] += 1
+        _bf16_launches[name] += bf16
 
 
 def _causal_logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
@@ -186,6 +197,7 @@ def load(rebuild: bool = False) -> ctypes.CDLL:
 
 
 def _cuda_call(name: str, fn, device: torch.device, *args) -> None:
+    """Launch ``fn(*args, stream)``; the last of ``args`` is the bf16 flag."""
     stream = torch.cuda.current_stream(device).cuda_stream
     if device.index == torch.cuda.current_device():
         err = fn(*args, stream)
@@ -195,7 +207,7 @@ def _cuda_call(name: str, fn, device: torch.device, *args) -> None:
     if err != 0:
         msg = _lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
-    _count(name)
+    _count(name, bool(args[-1]))
 
 
 def _require_cuda(q: torch.Tensor) -> None:

@@ -37,8 +37,12 @@ the router's); attention by kernel name. Then the KV-cached sampler
 (``generate``) is traced over the same rows at n = 1 and 4, with the
 routed step's share.
 
+``--bf16`` builds either family in bf16 (``cli.prior --bf16``: float32
+parameters cast per call, the attention kernels on bf16 inputs); the
+records carry the dtype.
+
 Run from the repository root: ``python3 scripts/torch_prior_breakdown.py
-[--arch transformer|pixelcnn] [--moe-experts N]``. Prints one JSON line
+[--arch transformer|pixelcnn] [--moe-experts N] [--bf16]``. Prints one JSON line
 per measurement; fails without a CUDA device.
 """
 
@@ -69,6 +73,7 @@ def main(argv=None) -> int:
     parser.add_argument("--arch", choices=["transformer", "pixelcnn"], default="transformer")
     parser.add_argument("--moe-experts", type=int, default=0,
                         help="route the transformer's MLPs through this many experts")
+    parser.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     args = parser.parse_args(argv)
     arch, experts = args.arch, args.moe_experts if args.arch == "transformer" else 0
     import torch
@@ -101,6 +106,7 @@ def main(argv=None) -> int:
     device = resolve_device("cuda")
     cfg = Config()
     gen = torch.Generator(device=device).manual_seed(0)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
 
     def kernel_ms(fn, iters=50):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -119,9 +125,10 @@ def main(argv=None) -> int:
     def build():
         seed = torch.Generator().manual_seed(0)
         if arch == "pixelcnn":
-            return GatedPixelCNN(CODES, PIXELCNN_DIM, PIXELCNN_LAYERS, CLASSES, generator=seed)
+            return GatedPixelCNN(CODES, PIXELCNN_DIM, PIXELCNN_LAYERS, CLASSES, dtype=dtype,
+                                 generator=seed)
         return TransformerPrior(CODES, DIM, LAYERS, HEADS, CLASSES, n_experts=experts,
-                                generator=seed)
+                                dtype=dtype, generator=seed)
 
     def loss(model, batch):
         if experts:
@@ -187,12 +194,13 @@ def main(argv=None) -> int:
             enqueue.append(1e3 * (time.perf_counter() - t0))
         torch.cuda.synchronize()
 
-        record = {"card": card, "arch": arch, "experts": experts, "grid": [h, w], "batch": BATCH,
+        record = {"card": card, "arch": arch, "experts": experts, "dtype": str(dtype),
+                  "grid": [h, w], "batch": BATCH,
                   "params": state.flat.numel, "device_ms_median": phase_ms,
                   "host_enqueue_ms_median": float(np.median(enqueue))}
         if arch == "transformer":
             bh, t, hd = BATCH * HEADS, h * w, DIM // HEADS
-            q, k, v, do = (torch.randn(bh, t, hd, generator=gen, device=device)
+            q, k, v, do = (torch.randn(bh, t, hd, generator=gen, device=device).to(dtype)
                            for _ in range(4))
             o, lse = fa.launch_fwd(q, k, v, hd**-0.5)
             dq, delta = fa.launch_bwd_dq(q, k, v, o, do, lse, hd**-0.5)
@@ -216,7 +224,7 @@ def main(argv=None) -> int:
         trace = top_kernels(prof, PROFILED_STEPS)
         out = {
             "profile": f"{PROFILED_STEPS} train steps", "arch": arch, "experts": experts,
-            "grid": [h, w], "card": card, "wall_ms": wall_ms,
+            "dtype": str(dtype), "grid": [h, w], "card": card, "wall_ms": wall_ms,
             "device_busy_ms": trace["device_busy_ms"],
             "device_busy_share": trace["device_busy_ms"] / wall_ms,
             "kernel_launches_per_step": trace["kernel_launches"],
@@ -250,7 +258,8 @@ def main(argv=None) -> int:
             step_ms = sum(dev_us(e) for e in prof.events()
                           if e.device_type == DeviceType.CPU and e.name == "moe::step")
             print(json.dumps({
-                "profile": "generate", "experts": experts, "grid": [SAMPLER_ROWS, SAMPLER_COLS],
+                "profile": "generate", "experts": experts, "dtype": str(dtype),
+                "grid": [SAMPLER_ROWS, SAMPLER_COLS],
                 "n": n, "card": card, "wall_ms_per_code": wall_ms / codes,
                 "device_busy_ms_per_code": trace["device_busy_ms"] / codes,
                 "device_busy_share": trace["device_busy_ms"] / wall_ms,
@@ -279,7 +288,8 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
             trace = top_kernels(prof, codes)
             print(json.dumps({
-                "profile": "fast_generate", "grid": [SAMPLER_ROWS, SAMPLER_COLS], "n": n,
+                "profile": "fast_generate", "dtype": str(dtype),
+                "grid": [SAMPLER_ROWS, SAMPLER_COLS], "n": n,
                 "card": card, "wall_ms_per_code": wall_ms / codes,
                 "device_busy_ms_per_code": trace["device_busy_ms"] / codes,
                 "device_busy_share": trace["device_busy_ms"] / wall_ms,

@@ -6,7 +6,9 @@ for two epochs and ``--resume`` for a third, ``cli.prior sample``, and
 checkpoint metadata that disagrees with the flags (the head count, the
 family and the experts above all) and the flags of later slices refuse.
 A routed transformer (``--moe-experts 2``) trains, resumes, samples and is
-served (``serve --prior-moe-experts 2``) on the same VQ-VAE."""
+served (``serve --prior-moe-experts 2``) on the same VQ-VAE. ``--bf16``
+trains and samples each family (the dense and the routed transformer, the
+PixelCNN), and a checkpoint samples whatever its training's dtype."""
 
 import contextlib
 import io
@@ -197,8 +199,6 @@ def test_sample_endpoint_over_http(trained):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--arch", "transformer", "--moe-experts", "4", "--bf16"], "routed MoE.*bf16 slice"),
-    (["--arch", "transformer", "--bf16"], "bf16 slice"),
     (["--arch", "transformer", "--mesh-pipe", "2"], "parallel slice"),
     (["--arch", "transformer", "--mesh-data", "2"], "parallel slice"),
 ])
@@ -212,11 +212,13 @@ def test_flags_of_later_slices_refuse(flags, match):
 
 
 @pytest.mark.parametrize("flags", [["--arch", "pixelcnn"], ["--arch", "transformer", "--hier"],
-                                   ["--arch", "transformer", "--moe-experts", "4"]])
+                                   ["--arch", "transformer", "--moe-experts", "4"],
+                                   ["--arch", "transformer", "--moe-experts", "4", "--bf16"],
+                                   ["--arch", "pixelcnn", "--bf16"]])
 def test_flags_of_this_slice_pass_the_refusals(flags):
-    """The PixelCNN, the hierarchy and the routed transformer run (end to
-    end below and in tests/test_torch_hier_prior.py); no flag of theirs is
-    refused."""
+    """The PixelCNN, the hierarchy, the routed transformer and bf16 run (end
+    to end below and in tests/test_torch_hier_prior.py); no flag of theirs
+    is refused."""
     common = ["--vqvae-ckpt", "/nonexistent", "--device", "cpu", *flags]
     for argv in (["train", "--datadir", "/nonexistent", *common],
                  ["sample", "--prior-ckpt", "/nonexistent", *common]):
@@ -402,3 +404,82 @@ def test_routed_sample_endpoint_over_http(routed):
     finally:
         httpd.shutdown()
         httpd.server_close()
+
+
+# ---------------------------------------------------------------------------
+# --bf16
+# ---------------------------------------------------------------------------
+
+BF16_FAMILIES = {"transformer": PRIOR, "routed": [*PRIOR[:-2], "--moe-experts", "4", *PRIOR[-2:]],
+                 "pixelcnn": PIXELCNN}
+
+
+@pytest.fixture(scope="module")
+def bf16_runs(trained):
+    """``train --bf16`` of each family on the same VQ-VAE, one epoch of 3
+    steps: {family: (checkpoint, log)}."""
+    tmp, datadir, vq_ckpt, _, _, _ = trained
+    runs = {}
+    for family, flags in BF16_FAMILIES.items():
+        ckpt = str(tmp / f"bf16_{family}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            prior.main(["train", "--datadir", datadir, "--vqvae-ckpt", vq_ckpt, "--ckpt-dir",
+                        ckpt, "--batch-size", "4", "--max-batches-per-epoch", "3", "--lr",
+                        "3e-3", "--epochs", "1", "--bf16", *flags])
+        runs[family] = (ckpt, out.getvalue())
+    return vq_ckpt, runs
+
+
+@pytest.mark.parametrize("family", BF16_FAMILIES)
+def test_bf16_trains_float32_checkpoints(bf16_runs, family):
+    """The compute dtype is not recorded: the metadata equals a float32
+    run's, and every saved tensor is float32."""
+    _, runs = bf16_runs
+    ckpt, log = runs[family]
+    assert checkpoint.latest_step(ckpt) == 3
+    flags = BF16_FAMILIES[family]
+    spec = prior.PriorSpec.from_args(prior.parse_args(
+        ["sample", "--vqvae-ckpt", "x", "--prior-ckpt", "x", *flags]))
+    assert checkpoint.read_extra(ckpt) == {"epoch": 1, **spec.metadata()}
+    full = torch.load(os.path.join(ckpt + "_train", "step_3", "state.pt"), weights_only=True)
+    assert all(v.dtype in (torch.float32, torch.int32) for v in full.values())
+    (line,) = [line for line in log.splitlines() if line.startswith("prior epoch")]
+    assert np.isfinite(float(line.split("nll/code ")[1].split()[0]))
+    if family == "routed":
+        assert np.isfinite(float(line.split("load_balance ")[1].split()[0]))
+
+
+@pytest.mark.parametrize("family", BF16_FAMILIES)
+def test_bf16_samples(bf16_runs, family, tmp_path):
+    from scipy.io import wavfile
+
+    vq_ckpt, runs = bf16_runs
+    with contextlib.redirect_stdout(io.StringIO()):
+        prior.main(["sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt", runs[family][0] + "_ema",
+                    "--output-dir", str(tmp_path), "--code-shape", "20", "3",
+                    "--num-samples", "2", "--bf16", *BF16_FAMILIES[family]])
+    for i in range(2):
+        rate, wav = wavfile.read(tmp_path / f"prior_sample_{i:03d}.wav")
+        assert rate == SR and wav.shape == (11 * 256,) and np.abs(wav).max() > 0
+
+
+@pytest.mark.parametrize("direction", ["bf16_trained_f32_sampled", "f32_trained_bf16_sampled"])
+def test_the_dtype_is_not_checked_on_restore(trained, bf16_runs, direction, tmp_path):
+    """As in JAX, whose checkpoints hold float32 parameters whatever the
+    compute dtype: a --bf16 checkpoint samples without --bf16, and a float32
+    one with it."""
+    _, _, vq_ckpt, f32_ckpt, _, _ = trained
+    _, runs = bf16_runs
+    ckpt, extra = ((runs["transformer"][0], []) if direction == "bf16_trained_f32_sampled"
+                   else (f32_ckpt, ["--bf16"]))
+    with contextlib.redirect_stdout(io.StringIO()):
+        prior.main(["sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt", ckpt, "--output-dir",
+                    str(tmp_path), "--code-shape", "20", "3", "--num-samples", "1", *PRIOR,
+                    *extra])
+    assert os.listdir(tmp_path) == ["prior_sample_000.wav"]
+    model = prior.load_prior(ckpt, prior.PriorSpec.from_args(prior.parse_args(
+        ["sample", "--vqvae-ckpt", "x", "--prior-ckpt", "x", *PRIOR])), "cpu",
+        torch.bfloat16 if extra else torch.float32)
+    assert model.compute_dtype == (torch.bfloat16 if extra else torch.float32)
+    assert all(p.dtype == torch.float32 for p in model.parameters())

@@ -335,6 +335,31 @@ def test_sample_hier_with_routed_transformer_levels(chain, tmp_path):
         prior.main(argv)
 
 
+
+def test_sample_hier_bf16(chain, tmp_path, monkeypatch):
+    """``--bf16`` reaches both levels: a bf16-trained PixelCNN bottom and the
+    float32-trained transformer top sample the chain in bf16, the bottom
+    (built through ``bottom_args``, as the JAX ``_bottom_args`` copies the
+    flag) as much as the top."""
+    from scipy.io import wavfile
+
+    _, _, vq, top, _, train, _ = chain
+    with contextlib.redirect_stdout(io.StringIO()):
+        prior.main(train + ["--hier-level", "bottom", "--epochs", "1", "--bf16",
+                            "--ckpt-dir", str(tmp_path / "bottom"), *BOTTOM])
+    built = []
+    load = prior.load_prior
+    monkeypatch.setattr(prior, "load_prior",
+                        lambda *a: built.append(load(*a)) or built[-1])
+    with contextlib.redirect_stdout(io.StringIO()):
+        prior.main(_sample_argv(vq, top + "_ema", str(tmp_path / "bottom"), tmp_path / "s",
+                                "--bf16"))
+    assert [m.compute_dtype for m in built] == [torch.bfloat16, torch.bfloat16]
+    assert [type(m).__name__ for m in built] == ["TransformerPrior", "GatedPixelCNN"]
+    for i in range(2):
+        rate, wav = wavfile.read(tmp_path / "s" / f"hier_sample_{i:03d}.wav")
+        assert rate == SR and wav.shape == (15 * 256,) and np.abs(wav).max() > 0
+
 def _post(url, payload):
     req = urllib.request.Request(url, data=json.dumps(payload).encode())
     try:
