@@ -3,13 +3,15 @@
 residual-VQ bf16), prior, vocoder, 3x3-convolution A/B, corpus
 preprocessing, mel-inversion, other-autoencoder (HierVQVAE, WaveVQVAE,
 VAE), PixelCNN-prior, hierarchical-chain, vocoder-training, routed
-(switch-MoE) prior and bf16 prior paths on one CUDA card and checks them.
+(switch-MoE) prior, bf16 prior and motion paths on one CUDA card and checks
+them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
 1. device: requires CUDA and prints the card's name and power limit;
 2. build: compiles every CUDA kernel of the port from ``csrc/``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, and the motion path's native library with ``g++``
+   into ``build/native/``, all started together;
 3. kernels: holds each kernel against its plain PyTorch version at the
    shapes the serving path and the flagship training step give it, and
    times kernel, plain version, one PyTorch library call and the card's
@@ -199,7 +201,22 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
     the plain pair, the stock path against it, and the peak memory and ms
     of a forward and backward of the chunked path, the kernels and the
     stock path;
-16. summary: one JSON line per kernel, then the result line.
+16. motion: the native runtime (18 features, the synthetic hand at seed 123
+    against ``tests/golden/motion_golden.npz`` and the C++ joint-angle
+    extraction against numpy, each within 1e-12); ``cli.motion capture`` of
+    600 frames, ``analyze``, ``watch`` and ``watch --gestures`` (all four
+    gesture types); phase 5's full-width VQ-VAE (dim 256, 512 codes)
+    restored through ``generate``'s rule (only ``feature_proj`` filled) into
+    a model with 3 feature inputs, ``MotionDrivenGenerator.run_stream`` over
+    the whole capture in 16-frame windows and ``frames_to_mel`` of all 600
+    frames at once on the card (nearest-code launches: one a window, one for
+    the batch) and on the CPU: code flips only at near-ties, one decision a
+    window or frame, mels within 1e-3 where the codes agree; ms a window
+    (p50, p90, device-only) beside the window's 16 frames of motion and its
+    audio; kernel 1 against its plain version at those shapes (80 and
+    48,000 rows of 256 against 512 codes); ``cli.motion generate`` on the
+    card from the checkpoint over every window and at the CLI's defaults;
+17. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -4495,6 +4512,304 @@ def bf16_prior_phase(torch, cli_prior, checkpoint, counters, fa, root: str, vq_c
             "chunked_attention": chunked}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the motion path
+# ---------------------------------------------------------------------------
+
+# cli.motion's defaults: a 600-frame capture of the synthetic hand (replayed
+# at 60 fps), 16-frame windows (one 80 x 16 mel each, a 20 x 4 latent grid),
+# 3 PCA components; the model at phase 5's full width from its checkpoint
+MOTION_FRAMES = 600
+MOTION_WINDOW = 16
+MOTION_COMPONENTS = 3
+MOTION_FPS = 60.0
+MOTION_WARMUP_WINDOWS = 3  # left out of the per-window p50/p90
+MOTION_MEL_ATOL = 1e-3
+MOTION_GOLDEN = os.path.join("tests", "golden", "motion_golden.npz")
+
+
+def run_cli_motion(cli_motion, argv) -> str:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_motion.main(argv)
+    return out.getvalue()
+
+
+def motion_native_checks(motion_capture, repo: str) -> dict:
+    """The port's native library: its feature count, the synthetic hand at
+    seed 123 against the golden frames, and the C++ joint-angle extraction
+    against the numpy formulas."""
+    lib = motion_capture.load_library()
+    check(lib.nsg_num_features() == 18, f"nsg_num_features() = {lib.nsg_num_features()}")
+    c = motion_capture.synthetic_controller(seed=123, n_frames=16)
+    try:
+        frames = c.drain(16)
+    finally:
+        c.close()
+    golden_err = float(np.abs(frames - np.load(os.path.join(repo, MOTION_GOLDEN))["frames"]).max())
+    check(golden_err <= 1e-12, f"synthetic hand vs golden frames: {golden_err}")
+    rng = np.random.default_rng(SEED)
+    direction, normal = (v / np.linalg.norm(v) for v in rng.standard_normal((2, 3)))
+    bones = rng.standard_normal((5, 4, 3))
+    bones /= np.linalg.norm(bones, axis=-1, keepdims=True)
+    got = motion_capture.extract_features_native(
+        np.concatenate([direction, normal, bones.reshape(-1)]))
+    want = [np.arctan2(direction[1], -direction[2]), np.arctan2(normal[0], -normal[1]),
+            np.arctan2(direction[0], -direction[2])]
+    want += [float(bones[f, b - 1] @ bones[f, b]) for f in range(5) for b in range(1, 4)]
+    extract_err = float(np.abs(got - np.asarray(want)).max())
+    check(extract_err <= 1e-12, f"joint-angle extraction vs numpy: {extract_err}")
+    return {"library": str(motion_capture.library_path()), "golden_max_abs_err": golden_err,
+            "extract_max_abs_err": extract_err}
+
+
+def record_decode(model) -> tuple[dict, list]:
+    """Hooks keeping what ``decode_from_features`` projects (B, D) and the
+    codes it hands the decoder (B, D, H', W') on each call."""
+    seen = {"emb": [], "codes": []}
+    hooks = [model.feature_proj.register_forward_hook(
+                 lambda m, i, o: seen["emb"].append(o.detach())),
+             model.decoder.register_forward_pre_hook(
+                 lambda m, i: seen["codes"].append(i[0].detach()))]
+    return seen, hooks
+
+
+def motion_decisions(torch, card: dict, cpu: dict, codebook) -> dict:
+    """Card vs CPU nearest-code decisions of ``decode_from_features``, one a
+    batch item: all H' x W' rows of an item are one vector, so a near-tie
+    flips them together and counts once. A flip must be a near-tie
+    (``near_ties``, the card's projection against the CPU's)."""
+    cb = codebook.detach().double().cpu()
+    emb_card = torch.cat(card["emb"]).double().cpu()
+    emb_cpu = torch.cat(cpu["emb"]).double()
+    idx = []
+    for codes in (torch.cat(card["codes"]).cpu(), torch.cat(cpu["codes"])):
+        rows = codes.flatten(2).transpose(1, 2)  # (B, H' W', D)
+        check(bool((rows == rows[:, :1]).all()), "decode_from_features: rows of an item differ")
+        idx.append(torch.cdist(rows[:, 0].double(), cb).argmin(1))
+    n_items, n_rows = rows.shape[:2]
+    flipped = torch.nonzero(idx[0] != idx[1]).flatten()
+    near = int(near_ties(emb_cpu[flipped], emb_card[flipped], cb[idx[0][flipped]],
+                         cb[idx[1][flipped]]).sum())
+    check(near == flipped.numel(),
+          f"motion: {flipped.numel() - near} of {flipped.numel()} card vs CPU code flips are "
+          f"not near-ties")
+    return {"decisions": n_items, "rows": n_items * n_rows,
+            "flips": int(flipped.numel()), "near_ties": near, "agree": idx[0] == idx[1],
+            "distinct_codes": int(idx[0].unique().numel())}
+
+
+def mel_agreement(card_mels, cpu_mels, agree) -> float:
+    """Largest card vs CPU mel difference over the items whose codes agree."""
+    errs = [float(np.abs(a - b).max()) for a, b, ok in zip(card_mels, cpu_mels, agree) if ok]
+    err = max(errs) if errs else 0.0
+    check(err <= MOTION_MEL_ATOL, f"motion: mels differ by {err} where the codes agree")
+    return err
+
+
+def stream_windows(motion_capture, gen, csv: str) -> tuple[list, list]:
+    """``run_stream`` over the whole recording: (windows, seconds of each,
+    from the controller's drain to the mel on the host)."""
+    ctrl = motion_capture.replay_controller(csv, fps=MOTION_FPS)
+    it = gen.run_stream(ctrl, window=MOTION_WINDOW)
+    windows, seconds = [], []
+    try:
+        while True:
+            t0 = time.perf_counter()
+            try:
+                windows.append(next(it))
+            except StopIteration:
+                break
+            seconds.append(time.perf_counter() - t0)
+    finally:
+        ctrl.close()
+    return windows, seconds
+
+
+def motion_kernel_rows(torch, vq_kernel, emb_window, emb_batch, codebook, hw: int) -> dict:
+    """Kernel 1 against its plain version at the motion path's shapes: one
+    window's 80 rows and the batched call's 48,000, each item's rows one
+    vector (``compare_vq``: mismatched rows only at near-ties, bit-identical
+    over two calls, times back to back and device-only beside
+    cdist+argmin). At 80 rows the search is two 64-row tiles, so its CTAs
+    cannot cover the SMs."""
+    rows = {}
+    for name, emb in (("window", emb_window), ("batched", emb_batch)):
+        x = emb[:, None, :].expand(emb.shape[0], hw, emb.shape[1]).reshape(-1, emb.shape[1])
+        row = compare_vq(torch, vq_kernel, x.contiguous(), codebook.detach().contiguous())
+        row["shape_of"] = f"motion_{name}"
+        emit(row)
+        check(row["mismatches"] == row["near_ties"],
+              f"vq_nearest motion {name}: {row['mismatches'] - row['near_ties']} mismatches "
+              f"that are not near-ties")
+        check(row["run_to_run_identical"], f"vq_nearest motion {name}: two calls differ")
+        rows[name] = row
+    return rows
+
+
+def check_generated(path: str, sr: int, windows: int, hop: int) -> int:
+    with open(path, "rb") as f:
+        wav = read_wav(f.read(), sr)
+    want = hop * (windows * MOTION_WINDOW - 1)
+    check(len(wav) == want, f"{path}: {len(wav)} samples, expected {want}")
+    return len(wav)
+
+
+def motion_phase(torch, cli_motion, motion_capture, vq_kernel, VQVAE, root: str,
+                 vq_ckpt: str, card: str) -> dict:
+    """Phase 16: the native runtime's checks; ``cli.motion capture``,
+    ``analyze``, ``watch`` and ``watch --gestures``; phase 5's full-width
+    VQ-VAE restored through ``generate``'s rule into a feature-conditioned
+    model, streamed over the whole capture and in one batched call on the
+    card (kernel 1's launches counted over both) and on the CPU; kernel 1
+    at those shapes; ``cli.motion generate`` on the card from the checkpoint
+    and at the CLI's defaults."""
+    import logging
+
+    from neural_sound_generation_tpu_torch.config import Config
+    from neural_sound_generation_tpu_torch.motion.inference import MotionDrivenGenerator
+    from neural_sound_generation_tpu_torch.motion.pca import load_pca
+
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    mroot = os.path.join(root, "motion")
+    os.makedirs(mroot, exist_ok=True)
+    native = motion_native_checks(motion_capture, repo)
+    emit({"phase": "motion_native", "card": card, **native})
+
+    csv = os.path.join(mroot, "capture.csv")
+    cli_out = {"capture": run_cli_motion(cli_motion, ["capture", csv, "--frames",
+                                                      str(MOTION_FRAMES)])}
+    check(f"recorded {MOTION_FRAMES} frames" in cli_out["capture"], cli_out["capture"])
+    cli_out["analyze"] = run_cli_motion(cli_motion, ["analyze", csv])
+    check(f"{MOTION_FRAMES} frames x 18 features -> {MOTION_COMPONENTS} components"
+          in cli_out["analyze"], cli_out["analyze"])
+    cli_out["watch"] = run_cli_motion(cli_motion, ["watch", "--frames", "20", "--fps", "500"])
+    check("watched" in cli_out["watch"] and "pitch=" in cli_out["watch"], cli_out["watch"])
+    t_gestures = time.perf_counter()
+    gestures = run_cli_motion(cli_motion, ["watch", "--gestures", "--fps", "1000"])
+    gestures_s = time.perf_counter() - t_gestures
+    for word in ("Circle", "clockwise", "counterclockwise", "Swipe", "key_tap", "screen_tap"):
+        check(word in gestures, f"watch --gestures printed no {word}")
+
+    # the full-width model through generate's restore: only feature_proj filled
+    wav_ckpt = os.path.join(mroot, "generate_ckpt.wav")
+    gen_argv = ["generate", csv, wav_ckpt, "--ckpt-dir", vq_ckpt, "--dim", str(TRAIN_DIM),
+                "--z-dim", str(TRAIN_CODES), "--components", str(MOTION_COMPONENTS),
+                "--window", str(MOTION_WINDOW), "--device", DEVICE]
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logging.getLogger("nsg.checkpoint").addHandler(handler)
+    try:
+        model = cli_motion.build_model(cli_motion.parse_args(gen_argv))
+    finally:
+        logging.getLogger("nsg.checkpoint").removeHandler(handler)
+    filled = [r.getMessage() for r in records]
+    check(len(filled) == 1 and "'params/feature_proj'" in filled[0],
+          f"generate's restore filled {filled}, expected params/feature_proj alone")
+    cpu_model = VQVAE(1, TRAIN_DIM, TRAIN_CODES, cond_features=MOTION_COMPONENTS)
+    cpu_model.load_state_dict(model.state_dict())
+    cfg = Config().audio
+    latent_hw = (cfg.num_mels // 4, MOTION_WINDOW // 4)
+    projector = load_pca(csv, MOTION_COMPONENTS)
+    frames = np.genfromtxt(csv, delimiter=",")
+    n_windows = -(-MOTION_FRAMES // MOTION_WINDOW)
+    gens, seen, hooks, runs = {}, {}, [], {}
+    for side, dev, m in (("card", DEVICE, model), ("cpu", "cpu", cpu_model)):
+        gens[side] = MotionDrivenGenerator(m, projector, cfg, latent_hw, device=dev)
+        seen[side], h = record_decode(m)
+        hooks += h
+
+    # the main path on the card, kernel 1's count set to 0 just before it
+    sync(torch)
+    vq_kernel.reset_launch_count()
+    windows, seconds = stream_windows(motion_capture, gens["card"], csv)
+    t_batch = time.perf_counter()
+    mel_batch = gens["card"].frames_to_mel(frames)
+    sync(torch)
+    batch_s = time.perf_counter() - t_batch
+    launches = vq_kernel.launch_count()
+    check(len(windows) == n_windows, f"run_stream yielded {len(windows)} windows")
+    check(launches == n_windows + 1,
+          f"motion: vq_nearest launched {launches} times, expected {n_windows} windows + 1")
+    check(tuple(mel_batch.shape) == (MOTION_FRAMES, cfg.num_mels, MOTION_WINDOW),
+          f"frames_to_mel: {tuple(mel_batch.shape)}")
+    card_mels = [w[1] for w in windows]
+    check(all(np.isfinite(m).all() for m in card_mels) and bool(torch.isfinite(mel_batch).all()),
+          "motion: non-finite mel")
+
+    cpu_windows, _ = stream_windows(motion_capture, gens["cpu"], csv)
+    cpu_batch = gens["cpu"].frames_to_mel(frames)
+    for h in hooks:
+        h.remove()
+    n = len(windows)
+    stream = motion_decisions(torch, {k: v[:n] for k, v in seen["card"].items()},
+                              {k: v[:n] for k, v in seen["cpu"].items()}, model.codebook)
+    stream["mel_max_abs_err"] = mel_agreement(card_mels, [w[1] for w in cpu_windows],
+                                              stream.pop("agree"))
+    batched = motion_decisions(torch, {k: v[n:] for k, v in seen["card"].items()},
+                               {k: v[n:] for k, v in seen["cpu"].items()}, model.codebook)
+    batched["mel_max_abs_err"] = mel_agreement(mel_batch.cpu().numpy(), cpu_batch.numpy(),
+                                               batched.pop("agree"))
+    latents_err = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(windows, cpu_windows))
+
+    # per window: host-included p50/p90 after a warm-up, and device-only
+    # (the latents already on the card: the host-to-device copy of a
+    # pageable array waits for the stream)
+    timed = np.asarray(seconds[MOTION_WARMUP_WINDOWS:]) * 1e3
+    pooled = torch.from_numpy(np.float32(
+        projector.project(frames[:MOTION_WINDOW]).mean(axis=0, keepdims=True))).to(DEVICE)
+
+    def decode_window():
+        with torch.no_grad():
+            model.decode_from_features(pooled, latent_hw)
+
+    device_ms, host_us = device_time_ms(torch, decode_window, 20)
+    audio_s = MOTION_WINDOW * cfg.effective_hop_size / cfg.sample_rate
+    emb_window = seen["card"]["emb"][0]
+    emb_batch = seen["card"]["emb"][n]
+    kernel_rows = motion_kernel_rows(torch, vq_kernel, emb_window, emb_batch, model.codebook,
+                                     latent_hw[0] * latent_hw[1])
+
+    # cli.motion generate on the card: every window from the checkpoint,
+    # then the CLI's defaults without one
+    vq_kernel.reset_launch_count()
+    gen_out = run_cli_motion(cli_motion, gen_argv + ["--max-windows", str(n_windows)])
+    generate_launches = vq_kernel.launch_count()
+    check(f"generated {n_windows} windows" in gen_out, gen_out)
+    check(generate_launches == n_windows,
+          f"generate launched vq_nearest {generate_launches} times for {n_windows} windows")
+    samples = check_generated(wav_ckpt, cfg.sample_rate, n_windows, cfg.effective_hop_size)
+    wav_default = os.path.join(mroot, "generate_default.wav")
+    default_out = run_cli_motion(cli_motion, ["generate", csv, wav_default, "--device", DEVICE])
+    check("generated 8 windows" in default_out, default_out)
+    default_samples = check_generated(wav_default, cfg.sample_rate, 8, cfg.effective_hop_size)
+    return {
+        "phase": "motion", "card": card, "seconds": time.perf_counter() - t0,
+        "native": native, "watch_gestures_s": gestures_s,
+        "analyze": cli_out["analyze"].strip().splitlines(),
+        "model": {"dim": TRAIN_DIM, "codes": TRAIN_CODES, "cond_features": MOTION_COMPONENTS,
+                  "latent_hw": list(latent_hw), "restored_from": "phase 5 checkpoint",
+                  "filled": filled},
+        "windows": n_windows, "vq_launches": launches, "vq_launches_expected": n_windows + 1,
+        "stream_card_vs_cpu": stream, "batched_card_vs_cpu": batched,
+        "latents_max_abs_err": latents_err,
+        "window_ms_p50": float(np.percentile(timed, 50)),
+        "window_ms_p90": float(np.percentile(timed, 90)),
+        "window_device_ms": device_ms, "window_host_us": host_us,
+        "batched_600_frames_ms": 1e3 * batch_s,
+        "window_motion_s": MOTION_WINDOW / MOTION_FPS, "window_audio_s": audio_s,
+        "window_realtime_factor": audio_s / (1e-3 * float(np.percentile(timed, 50))),
+        "kernel_rows": {name: {k: r[k] for k in (
+            "n", "k", "d", "kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms", "bound_by", "tensor_core_bound_ms",
+            "mismatches", "near_ties", "split", "ctas", "sms")} for name, r in kernel_rows.items()},
+        "generate": {"windows": n_windows, "samples": samples, "vq_launches": generate_launches,
+                     "default_samples": default_samples},
+    }, kernel_rows
+
+
 ATTN_REPLACES = {
     "flash_fwd": "neural_sound_generation_tpu/ops/pallas/attention.py:165",
     "flash_bwd_dq": "neural_sound_generation_tpu/ops/pallas/attention.py:233",
@@ -4654,18 +4969,25 @@ def conv_summary(rows: dict, ab_run: dict) -> list[dict]:
     } for name in main["kernel_ms"]]
 
 
-def build_phase(build, modules) -> list[dict]:
-    """Every kernel's library, one nvcc per source, all started together."""
+def build_phase(build, modules, motion_capture) -> list[dict]:
+    """Every kernel's library, one nvcc per source, and the motion path's
+    native library (g++), all started together."""
     errors: dict = {}
+    motion_s = {}
 
     def load(mod):
         try:
-            mod.load(rebuild=True)
+            t = time.perf_counter()
+            if mod is motion_capture:
+                mod.load_library(rebuild=True)
+                motion_s["seconds"] = time.perf_counter() - t
+            else:
+                mod.load(rebuild=True)
         except (RuntimeError, OSError) as e:  # reported below, the run fails
             errors[mod.__name__] = e
 
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=load, args=(m,)) for m in modules]
+    threads = [threading.Thread(target=load, args=(m,)) for m in (*modules, motion_capture)]
     for t in threads:
         t.start()
     for t in threads:
@@ -4680,6 +5002,11 @@ def build_phase(build, modules) -> list[dict]:
         rows.append({"phase": "build", "kernel": name, "seconds": seconds,
                      "nvcc_seconds": info["seconds"], "library": info["path"],
                      "ptxas": ptxas_lines(build, name)})
+    path = motion_capture.library_path()
+    check(path.parent == motion_capture.BUILD_DIR,
+          f"motion library at {path}, expected under {motion_capture.BUILD_DIR}")
+    rows.append({"phase": "build", "library": "nsgmotion", "seconds": seconds,
+                 "gxx_seconds": motion_s["seconds"], "path": str(path)})
     return rows
 
 
@@ -4692,12 +5019,14 @@ def main() -> int:
     try:
         from neural_sound_generation_tpu_torch.cli import evaluate as cli_evaluate
         from neural_sound_generation_tpu_torch.cli import main as cli_main
+        from neural_sound_generation_tpu_torch.cli import motion as cli_motion
         from neural_sound_generation_tpu_torch.cli import prior as cli_prior
         from neural_sound_generation_tpu_torch.cli import serve
         from neural_sound_generation_tpu_torch.cli import vocoder as cli_vocoder
         from neural_sound_generation_tpu_torch.device import set_full_float32
         from neural_sound_generation_tpu_torch.models import VQVAE, GatedPixelCNN
         from neural_sound_generation_tpu_torch.models import wavenet as wn
+        from neural_sound_generation_tpu_torch.motion import capture as motion_capture
         from neural_sound_generation_tpu_torch.ops import dsp
         from neural_sound_generation_tpu_torch.ops.cuda import (
             build, conv3x3, fused_adam, vq_kernel, wavenet_gen)
@@ -4718,7 +5047,8 @@ def main() -> int:
               "cuda": torch.version.cuda, "card": card})
 
         # phase 2: build
-        for row in build_phase(build, (vq_kernel, fused_adam, fa, wavenet_gen, conv3x3)):
+        for row in build_phase(build, (vq_kernel, fused_adam, fa, wavenet_gen, conv3x3),
+                               motion_capture):
             emit(row)
 
         # phase 3: kernels against their plain versions
@@ -4878,13 +5208,20 @@ def main() -> int:
                                 root, vq_ckpt, corpus,
                                 os.path.join(root, "prior", "models_ema"), hier, card)
         emit(bf16)
+        torch.cuda.empty_cache()
+
+        # phase 16: the motion path through cli.motion and
+        # MotionDrivenGenerator, with kernel 1's launches over the stream
+        motion, motion_rows = motion_phase(torch, cli_motion, motion_capture, vq_kernel, VQVAE,
+                                           root, vq_ckpt, card)
+        emit(motion)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # phase 16: summary and result
+    # phase 17: summary and result
     train_runs = [*training["runs"].values(), rvq["run"]]
     train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
     train_adam = sum(r["launches"]["fused_adam"] for r in train_runs)
@@ -4904,7 +5241,8 @@ def main() -> int:
         "launches": (serving["vq_launches"] + train_vq + prior_launches["vq_nearest"]
                      + prep["vq_launches"] + others["vq_launches"]
                      + priors_launches["vq_nearest"] + vtrain["vq_launches"]
-                     + moe_launches["vq_nearest"] + bf16_launches["vq_nearest"]),
+                     + moe_launches["vq_nearest"] + bf16_launches["vq_nearest"]
+                     + motion["vq_launches"]),
         "launches_by_path": {"serving": serving["vq_launches"], "training": train_vq,
                              "prior": prior_launches["vq_nearest"],
                              "preprocess_units": prep["vq_launches"],
@@ -4912,7 +5250,8 @@ def main() -> int:
                              "pixelcnn_and_hier_priors": priors_launches["vq_nearest"],
                              "vocoder_units": vtrain["vq_launches"],
                              "moe_prior": moe_launches["vq_nearest"],
-                             "bf16_prior": bf16_launches["vq_nearest"]},
+                             "bf16_prior": bf16_launches["vq_nearest"],
+                             "motion": motion["vq_launches"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -4925,6 +5264,12 @@ def main() -> int:
                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                    "library_ms": r["library_ms"], "max_abs_err": r["max_abs_err"]}
             for name, r in others["vq_rows"].items()},
+        "motion_shapes": {
+            name: {"n": r["n"], "ms": r["kernel_ms"], "device_ms": r["kernel_device_ms"],
+                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                   "bound_3xtf32_ms": r["tensor_core_bound_ms"], "library_ms": r["library_ms"],
+                   "ctas": r["ctas"], "max_abs_err": r["max_abs_err"]}
+            for name, r in motion_rows.items()},
     }, {
         "name": "fused_adam", "route": "cuda",
         "source": "neural_sound_generation_tpu_torch/csrc/fused_adam.cu",

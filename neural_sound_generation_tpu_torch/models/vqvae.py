@@ -7,6 +7,12 @@ are (B, H/4, W/4, dim), codes are (B, H/4, W/4). Inside, the convolutions run
 NCHW. Eval mode (``model.eval()``) uses BatchNorm's running statistics, as
 the JAX package's ``train=False`` does.
 
+Conditioning: a speaker embedding (``n_speakers``/``gin_channels``) and a
+projection of continuous features (``cond_features``, the motion path's PCA
+latents) are each added to the quantized latents before decoding;
+``decode_from_features`` seeds the whole latent grid from the projected
+features alone and snaps it to the codebook.
+
 Architecture (for input (B, H, W, C)):
   encoder:  Conv4x4/s2 + norm + ReLU -> Conv4x4/s2 -> ResBlock x2   (H/4, W/4)
   codebook: z_dim codes of width `dim`, init U(-1/z_dim, 1/z_dim); with
@@ -89,7 +95,9 @@ class VQVAE(nn.Module):
 
     ``n_speakers``/``gin_channels`` enable a learned speaker embedding added
     to the quantized latents before decoding (global conditioning, the
-    multi-speaker CMU Arctic configuration). ``num_quantizers`` residual-VQ
+    multi-speaker CMU Arctic configuration); ``cond_features`` > 0 a dense
+    projection of that many continuous features added the same way (the
+    motion path). ``num_quantizers`` residual-VQ
     stages (1: the reference's single codebook) and the compute ``dtype``
     follow the JAX ``VQVAE`` (models/vqvae.py:86-108). Weights are
     initialized from ``generator`` (see ``layers.init_weights``)."""
@@ -105,6 +113,7 @@ class VQVAE(nn.Module):
         generator: torch.Generator | None = None,
         num_quantizers: int = 1,
         dtype: torch.dtype = torch.float32,
+        cond_features: int = 0,
     ):
         super().__init__()
         if num_quantizers < 1:
@@ -112,6 +121,7 @@ class VQVAE(nn.Module):
         self.input_dim, self.dim, self.z_dim = input_dim, dim, z_dim
         self.n_speakers, self.gin_channels = n_speakers, gin_channels
         self.num_quantizers = num_quantizers
+        self.cond_features = cond_features
         cb_shape = (z_dim, dim) if num_quantizers == 1 else (num_quantizers, z_dim, dim)
         self.codebook = nn.Parameter(torch.empty(cb_shape))
         self.encoder = Encoder(input_dim, dim, norm, dtype)
@@ -119,6 +129,8 @@ class VQVAE(nn.Module):
         if self.speakered:
             self.speaker_embed = nn.Embedding(n_speakers, gin_channels)
             self.speaker_proj = nn.Linear(gin_channels, dim)
+        if cond_features > 0:
+            self.feature_proj = nn.Linear(cond_features, dim)
         self.reset_parameters(generator)
 
     @property
@@ -136,13 +148,22 @@ class VQVAE(nn.Module):
                 0.0, self.n_speakers**-0.5, generator=generator
             )
 
-    def _condition(self, z: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
-        """Add the speaker embedding to latents (B, H', W', dim). Speaker ids
-        are ignored when the model is unconditioned (gin <= 0)."""
+    def _condition(self, z: torch.Tensor, g: torch.Tensor | None,
+                   features: torch.Tensor | None = None) -> torch.Tensor:
+        """Add the speaker embedding, then the projected features, to
+        latents (B, H', W', dim). Speaker ids are ignored when the model is
+        unconditioned (gin <= 0)."""
         if g is not None and self.speakered:
             emb = self.speaker_proj(self.speaker_embed(g.long()))  # (B, dim)
             z = z + emb[:, None, None, :]
+        if features is not None:
+            z = z + self._project(features)[:, None, None, :]
         return z
+
+    def _project(self, features: torch.Tensor) -> torch.Tensor:
+        if self.cond_features <= 0:
+            raise ValueError("features given to a VQVAE built without cond_features")
+        return self.feature_proj(features)  # (B, dim)
 
     def _encode_latents(self, x: torch.Tensor) -> torch.Tensor:
         return _nhwc(self.encoder(_nchw(x))).float()
@@ -156,7 +177,8 @@ class VQVAE(nn.Module):
             return indices.reshape(self.num_quantizers, *z_e.shape[:-1])
         return vq(z_e, self.codebook)
 
-    def decode(self, indices: torch.Tensor, g: torch.Tensor | None = None) -> torch.Tensor:
+    def decode(self, indices: torch.Tensor, g: torch.Tensor | None = None,
+               features: torch.Tensor | None = None) -> torch.Tensor:
         """Code indices (B, H', W'), or (Q, B, H', W') under residual VQ ->
         reconstruction (B, 4H', 4W', input_dim)."""
         if self.num_quantizers > 1:
@@ -165,10 +187,26 @@ class VQVAE(nn.Module):
                 z_q = z_q + codebook_lookup(self.codebook[q], indices[q])
         else:
             z_q = codebook_lookup(self.codebook, indices)
-        z_q = self._condition(z_q, g)
+        z_q = self._condition(z_q, g, features)
         return _nhwc(self.decoder(_nchw(z_q)))
 
-    def forward(self, x: torch.Tensor, g: torch.Tensor | None = None):
+    def decode_from_features(self, features: torch.Tensor,
+                             latent_hw: tuple[int, int]) -> torch.Tensor:
+        """Continuous features (B, cond_features) -> frames (B, 4H', 4W',
+        input_dim): the projection fills an (H', W') latent grid, which is
+        snapped to the nearest codebook entries (the nearest-code search of
+        B * H' * W' rows, all of a batch item's rows one vector) and
+        decoded."""
+        emb = self._project(features)
+        z = emb[:, None, None, :].expand(features.shape[0], *latent_hw, self.dim)
+        if self.num_quantizers > 1:
+            codes, _, _ = residual_vq(z, self.codebook)
+        else:
+            codes, _ = vq_st(z, self.codebook)
+        return _nhwc(self.decoder(_nchw(codes)))
+
+    def forward(self, x: torch.Tensor, g: torch.Tensor | None = None,
+                features: torch.Tensor | None = None):
         """Returns (x_tilde, z_e, z_q) like the reference forward
         (models.py:198-216): ``z_e`` is the encoder output (NHWC, float32),
         ``z_q`` the codebook vectors by a differentiable lookup (under
@@ -180,5 +218,5 @@ class VQVAE(nn.Module):
         else:
             codes_st, indices = vq_st(z_e, self.codebook)
             z_q = codebook_lookup(self.codebook, indices).reshape(z_e.shape)
-        x_tilde = _nhwc(self.decoder(_nchw(self._condition(codes_st, g))))
+        x_tilde = _nhwc(self.decoder(_nchw(self._condition(codes_st, g, features))))
         return x_tilde, z_e, z_q

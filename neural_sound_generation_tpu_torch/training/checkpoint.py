@@ -24,7 +24,9 @@ either kind into a module. A JAX checkpoint (Orbax) is not read here;
 ``convert.py`` bridges the two trees in one process.
 
 Restore is strict: a parameter or statistic the template has and the
-checkpoint lacks, or one of another shape, refuses with the names. The
+checkpoint lacks, or one of another shape, refuses with the names;
+``restore_model`` alone may keep the fresh values of submodules its caller
+names (the motion CLI's ``feature_proj``). The
 metadata recorded in ``extra`` (``arch``, ``num_quantizers``,
 ``num_downsample``) is checked by ``check_extra`` at every restore surface.
 """
@@ -287,6 +289,36 @@ def restore_params(ckpt_dir: str, module: torch.nn.Module,
     ``restore``."""
     path = _step_path(ckpt_dir, step)
     _copy_named(dict(module.named_parameters()), _load(path), "params/", path)
+    return read_extra(ckpt_dir, int(os.path.basename(path)[len("step_"):]))
+
+
+def restore_model(ckpt_dir: str, module: torch.nn.Module, fill: tuple[str, ...] = (),
+                  step: Optional[int] = None) -> Optional[dict]:
+    """Load a checkpoint's live parameters (``params/<name>``, not the EMA
+    shadow) and BatchNorm statistics into ``module`` in place; returns the
+    checkpoint's metadata.
+
+    A parameter of a submodule named in ``fill`` that the checkpoint lacks
+    keeps the module's own (fresh-init) value, with a warning: the motion
+    CLI restores a ``cli.main`` checkpoint, which has no ``feature_proj``,
+    into a feature-conditioned model. Any other missing leaf, or one of
+    another shape, raises as ``restore`` does."""
+    path = _step_path(ckpt_dir, step)
+    src = _load(path)
+    params = dict(module.named_parameters())
+    filled: dict[str, list[str]] = {}
+    for name in params:
+        prefix, _, leaf = name.rpartition(".")
+        if prefix in fill and f"params/{name}" not in src:
+            filled.setdefault(prefix, []).append(leaf)
+    for prefix, leaves in filled.items():
+        logging.getLogger("nsg.checkpoint").warning(
+            "checkpoint %s is missing 'params/%s' (%s); using the model's "
+            "(fresh-init) value", path, prefix, ", ".join(leaves))
+    kept = {k: t for k, t in params.items()
+            if f"params/{k}" in src or k.rpartition(".")[0] not in fill}
+    _copy_named(kept, src, "params/", path)
+    _copy_named(_bn_buffers(module), src, "batch_stats/", path)
     return read_extra(ckpt_dir, int(os.path.basename(path)[len("step_"):]))
 
 

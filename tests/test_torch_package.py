@@ -40,7 +40,8 @@ def test_importing_every_module_loads_no_jax():
                  "serving.mux", "ops.cuda.conv3x3", "ops.lws", "data.corpora",
                  "data.corpora.engine", "data.corpora.ljspeech", "data.corpora.cmu_arctic",
                  "data.corpora.jsut", "data.corpora.librivox", "cli.preprocess",
-                 "cli.invert"):
+                 "cli.invert", "motion", "motion.capture", "motion.pca",
+                 "motion.inference", "cli.motion"):
         assert f"neural_sound_generation_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -52,6 +53,30 @@ def test_importing_every_module_loads_no_jax():
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_the_motion_package_loads_nothing_of_the_jax_package():
+    """In a fresh interpreter: importing the motion path and running its
+    native runtime loads no module, and maps no file, from the JAX
+    package's directory."""
+    jax_dir = os.path.join(REPO, "neural_sound_generation_tpu") + os.sep
+    code = (
+        "import sys\n"
+        "import neural_sound_generation_tpu_torch.motion as m\n"
+        "import neural_sound_generation_tpu_torch.motion.inference\n"
+        "import neural_sound_generation_tpu_torch.cli.motion\n"
+        "c = m.synthetic_controller(seed=0, n_frames=2)\n"
+        "c.drain(2)\n"
+        "c.close()\n"
+        "files = [getattr(mod, '__file__', None) or '' for mod in list(sys.modules.values())]\n"
+        "files += [l.split()[-1] for l in open('/proc/self/maps') if '/' in l]\n"
+        f"print(sorted({{f for f in files if f.startswith({jax_dir!r})}}))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
