@@ -216,7 +216,25 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
     audio; kernel 1 against its plain version at those shapes (80 and
     48,000 rows of 256 against 512 codes); ``cli.motion generate`` on the
     card from the checkpoint over every window and at the CLI's defaults;
-17. summary: one JSON line per kernel, then the result line.
+17. data parallel: the training CLIs under ``torchrun``, once on one rank
+    (no process group: the one-rank program) and once on two ranks that
+    share this card over gloo (``chip_smoke.py --dp-rank spec.json`` is one
+    rank): the flagship through ``cli.main`` at phase 5's width for
+    two epochs (phase 5's first run), then one --resume step on two ranks;
+    ``cli.evaluate --mesh-data`` on the one-rank checkpoint; one RVQ/bf16
+    step with phase 6's flags; the routed prior (phase 14's widths) and the
+    mulaw-quantize vocoder (phase 13's preset and width) for DP_JOB_STEPS
+    steps. Each rank's launch counts (kernel 1 at 8,960 / W rows a search,
+    kernel 3 once a step, kernel 4 per layer), the first steps two ranks
+    against one (the loss within 1e-5, the all-reduced flat gradient
+    within 1e-4 of the norm or 2e-3 with a code flip, every flip a
+    near-tie, the parameters after Adam's first step as phase 5 holds the
+    card against the CPU; the RVQ step's EMA statistics and restarts equal
+    but for what its code flips move), the loss falling, the ranks'
+    states bit-equal, the evaluation's metrics and gathered
+    reconstruction, the all-reduce time of the flagship's gradient at
+    W = 1 (NCCL, a group of one) and W = 2 (gloo), and steps/s at both;
+18. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -4810,6 +4828,484 @@ def motion_phase(torch, cli_motion, motion_capture, vq_kernel, VQVAE, root: str,
     }, kernel_rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: data parallelism over ranks (the mesh's data axis, torchrun)
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_EPOCHS = 2  # the flagship's epochs a run, BATCHES_PER_EPOCH steps and an eval batch each
+DP_JOB_STEPS = 2  # the routed prior's and the vocoder's steps a run
+DP_ALLREDUCE_ITERS = 10
+DP_TIMEOUT_S = 480
+# the flagship's first step, W ranks against one: the all-reduced flat
+# gradient within 1e-4 of the one-rank gradient's norm (2e-3 when a code
+# flipped: the row's codebook gradient lands on another code); the loss
+# within 1e-5; after Adam's first step (the CLI's lr DP_LR) 99.9% of the
+# weights within 1e-5 and all within 1e-2, the biases within 2 lr (a
+# convolution bias ahead of a BatchNorm has a true gradient of 0, which
+# Adam turns into a step of up to lr either way)
+DP_LR = 1e-3
+DP_GRAD_REL, DP_GRAD_REL_FLIPS, DP_LOSS_REL = 1e-4, 2e-3, 1e-5
+DP_EVAL_PPL_REL, DP_RECON_MEAN_ABS = 1e-3, 1e-3
+
+
+def dp_jobs(root: str, corpus: str, vq_ckpt: str, world: int) -> list[dict]:
+    """What one torchrun launch of ``world`` ranks runs, in order, through
+    the CLIs' entry points: the flagship through ``cli.main`` (and, on more
+    than one rank, one --resume step), ``cli.evaluate`` on the one-rank
+    flagship checkpoint, one RVQ/bf16 step (phase 6's flags), the routed
+    prior (phase 14's widths) and the mulaw-quantize vocoder (phase 13's
+    speaker preset, its default width)."""
+    out = os.path.join(root, "dp", f"w{world}")
+    flagship = ["--model", "vqvae", "--dataset", "ljspeech", "--datadir", corpus,
+                "--dim", str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES),
+                "--batch-size", str(TRAIN_BATCH), "--log-interval", "1",
+                "--codebook-init", "data", "--device", DEVICE,
+                "--ckpt-dir", os.path.join(out, "flagship", "models"),
+                "--sampledir", os.path.join(out, "flagship", "results"),
+                "--mesh-data", str(world)]
+    one_rank_ckpt = os.path.join(root, "dp", "w1", "flagship", "models", "vqvae",
+                                 f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")
+    cmu = os.path.join(root, "preprocess", "cmu_arctic_on_card")
+    preset = os.path.join(root, "dp", "cmu_arctic_8bit_speakers.json")
+    jobs = [
+        {"name": "flagship", "cli": "main", "record_first_vq": True,
+         "argv": flagship + ["--epochs", str(DP_EPOCHS),
+                             "--max-batches-per-epoch", str(BATCHES_PER_EPOCH)]},
+        {"name": "evaluate", "cli": "evaluate",
+         "argv": ["--datadir", corpus, "--ckpt-dir", one_rank_ckpt, "--dim", str(TRAIN_DIM),
+                  "--z-dim", str(TRAIN_CODES), "--batch-size", str(TRAIN_BATCH),
+                  "--max-batches", "1", "--device", DEVICE, "--mesh-data", str(world),
+                  "--dump-npy", os.path.join(out, "evaluate.npy")]},
+        {"name": "rvq", "cli": "main", "record_indices": True,
+         "argv": rvq_argv(os.path.join(out, "rvq"), corpus) + [
+             "--bf16", "--epochs", "1", "--max-batches-per-epoch", "1",
+             "--mesh-data", str(world)]},
+        {"name": "moe_prior", "cli": "prior",
+         "argv": ["train", "--datadir", corpus, "--vqvae-ckpt", vq_ckpt,
+                  "--ckpt-dir", os.path.join(out, "moe_prior"), "--batch-size", str(PRIOR_BATCH),
+                  "--epochs", "1", "--max-batches-per-epoch", str(DP_JOB_STEPS),
+                  "--arch", "transformer", "--prior-dim", str(PRIOR_DIM),
+                  "--prior-layers", str(PRIOR_LAYERS), "--moe-experts", str(MOE_EXPERTS),
+                  "--dim", str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES), "--device", DEVICE,
+                  "--mesh-data", str(world)]},
+        {"name": "vocoder", "cli": "vocoder", "preset": preset,
+         "argv": ["train", "--datadir", cmu, "--ckpt-dir", os.path.join(out, "vocoder"),
+                  "--preset", preset, "--batch-size", str(VT_BATCH), "--epochs", "1",
+                  "--max-batches-per-epoch", str(DP_JOB_STEPS), "--device", DEVICE,
+                  *vocoder_width_flags(), "--mesh-data", str(world)]},
+    ]
+    if world > 1:
+        jobs.insert(1, {"name": "flagship_resume", "cli": "main",
+                        "argv": flagship + ["--epochs", str(DP_EPOCHS + 1),
+                                            "--max-batches-per-epoch", "1", "--resume"]})
+    return jobs
+
+
+def state_digest(torch, state) -> str:
+    """sha256 over every tensor of a train state: the parameters, moments,
+    EMA shadow, EMA-codebook statistics and the model's buffers."""
+    import hashlib
+
+    h = hashlib.sha256()
+    tensors = [state.flat.flat, state.opt_state.m, state.opt_state.v, state.step]
+    tensors += [t for t in (state.ema_params,) if t is not None]
+    tensors += list((state.codebook_ema or {}).values()) + list(state.model.buffers())
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_dp_job(torch, mods, kernels, job: dict) -> dict:
+    """One CLI run on this rank with every launch count set to 0 just
+    before it and read just after; the Trainer the CLI builds is wrapped to
+    time and record each step (metrics, and after the first the all-reduced
+    flat gradient and the parameters), and the nearest-code wrapper to
+    record each search's rows (and, where the job asks, its indices or its
+    first call's inputs)."""
+    from neural_sound_generation_tpu_torch.ops.cuda import vq_kernel
+    from neural_sound_generation_tpu_torch.training import trainer as trainer_mod
+
+    cli = mods[job["cli"]]
+    rec = {"metrics": [], "step_t": [], "vq_rows": [], "vq_indices": []}
+    trainers = []
+
+    class Recorded(trainer_mod.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            trainers.append(self)
+            inner = self._train_step
+
+            def step(state, batch, generator=None):
+                state, metrics = inner(state, batch, generator)
+                sync(torch)
+                rec["step_t"].append(time.perf_counter())
+                rec["metrics"].append({k: float(v) for k, v in metrics.items()})
+                if len(rec["metrics"]) == 1:
+                    rec["first_grad"] = state.flat.grad.cpu().clone()
+                    rec["first_params"] = state.flat.flat.cpu().clone()
+                return state, metrics
+
+            self._train_step = step
+
+    nearest = vq_kernel.nearest_codebook_indices
+
+    def recorded_nearest(x, cb):
+        idx = nearest(x, cb)
+        rec["vq_rows"].append(int(x.shape[0]))
+        if job.get("record_indices"):
+            rec["vq_indices"].append(idx.cpu())
+        if job.get("record_first_vq") and rec["metrics"] == [] and "first_vq" not in rec:
+            rec["first_vq"] = {"x": x.cpu(), "cb": cb.cpu(), "idx": idx.cpu()}
+        return idx
+
+    saved_trainer = cli.Trainer
+    cli.Trainer, vq_kernel.nearest_codebook_indices = Recorded, recorded_nearest
+    for k in kernels:
+        k.reset_launch_count()
+    t0 = time.perf_counter()
+    try:
+        result = cli.main(job["argv"])
+    finally:
+        cli.Trainer, vq_kernel.nearest_codebook_indices = saved_trainer, nearest
+    rec["seconds"] = time.perf_counter() - t0
+    rec["launches"] = read_launches(*kernels)
+    if job["cli"] == "evaluate":
+        rec["means"] = result
+    if trainers:
+        state = trainers[-1].state
+        rec["digest"] = state_digest(torch, state)
+        if state.codebook_ema is not None:
+            rec["codebook"] = state.model.codebook.detach().cpu().clone()
+            rec["codebook_ema"] = {k: v.cpu().clone() for k, v in state.codebook_ema.items()}
+    return rec
+
+
+def time_all_reduce(torch, n: int, iters: int) -> float:
+    """ms of one all-reduce of n float32 on the card over the current
+    group (host clock around each call, synchronised), the median."""
+    import torch.distributed as dist
+
+    t = torch.ones(n, device=DEVICE)
+    times = []
+    for i in range(iters + 2):
+        sync(torch)
+        t0 = time.perf_counter()
+        dist.all_reduce(t)
+        sync(torch)
+        if i >= 2:
+            times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def dp_rank_main(spec_path: str) -> int:
+    """One rank of a phase-17 launch (``chip_smoke.py --dp-rank spec.json``
+    under torchrun): joins the group with the port's backend rule, runs the
+    spec's jobs in order, times the all-reduce of the flagship's gradient
+    and writes one record per job."""
+    import torch
+    import torch.distributed as dist
+
+    from neural_sound_generation_tpu_torch.cli import evaluate as cli_evaluate
+    from neural_sound_generation_tpu_torch.cli import main as cli_main
+    from neural_sound_generation_tpu_torch.cli import prior as cli_prior
+    from neural_sound_generation_tpu_torch.cli import vocoder as cli_vocoder
+    from neural_sound_generation_tpu_torch.device import set_full_float32
+    from neural_sound_generation_tpu_torch.ops.cuda import flash_attention as fa
+    from neural_sound_generation_tpu_torch.ops.cuda import fused_adam, vq_kernel
+    from neural_sound_generation_tpu_torch.parallel import distributed
+
+    global DEVICE
+    with open(spec_path, encoding="utf-8") as f:
+        spec = json.load(f)
+    DEVICE = spec["device"]
+    if DEVICE == "cuda" and not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    set_full_float32()
+    distributed.initialize(device=DEVICE)
+    rank, world = distributed.rank(), distributed.world_size()
+    mods = {"main": cli_main, "evaluate": cli_evaluate, "prior": cli_prior,
+            "vocoder": cli_vocoder}
+    for job in spec["jobs"]:
+        rec = run_dp_job(torch, mods, (vq_kernel, fused_adam, fa), job)
+        torch.save(rec, os.path.join(spec["out"], f"{job['name']}_rank{rank}.pt"))
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    timing = {"backend": dist.get_backend() if dist.is_initialized() else None}
+    if not dist.is_initialized():
+        # one rank has no group; time NCCL's all-reduce in a group of one
+        timing["backend"] = "nccl" if DEVICE == "cuda" else "gloo"
+        dist.init_process_group(timing["backend"], world_size=1, rank=0,
+                                init_method="file://" + os.path.join(spec["out"], "group_of_one"))
+    timing["all_reduce_ms"] = time_all_reduce(torch, spec["grad_elems"], DP_ALLREDUCE_ITERS)
+    timing["world"] = world
+    with open(os.path.join(spec["out"], f"timing_rank{rank}.json"), "w", encoding="utf-8") as f:
+        json.dump(timing, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def launch_dp(torch, root: str, jobs: list, world: int, grad_elems: int) -> dict:
+    """One torchrun launch of ``world`` ranks on this card; every rank's
+    records. A rank's failure fails the phase."""
+    out = os.path.join(root, "dp", f"w{world}")
+    os.makedirs(out, exist_ok=True)
+    spec = os.path.join(out, "spec.json")
+    with open(spec, "w", encoding="utf-8") as f:
+        json.dump({"jobs": jobs, "out": out, "grad_elems": grad_elems, "device": DEVICE}, f)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    # one thread a rank at any W, as torchrun sets it for more than one
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         str(world), os.path.abspath(__file__), "--dp-rank", spec],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"torchrun with {world} ranks exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    ranks = [{job["name"]: torch.load(os.path.join(out, f"{job['name']}_rank{r}.pt"),
+                                      weights_only=False) for job in jobs}
+             for r in range(world)]
+    timing = [json.load(open(os.path.join(out, f"timing_rank{r}.json"), encoding="utf-8"))
+              for r in range(world)]
+    return {"ranks": ranks, "timing": timing, "seconds": seconds, "stdout": proc.stdout}
+
+
+def dp_step_rate(rec: dict) -> float:
+    """Steps/s from the intervals between synchronised step ends, after
+    the first two steps (kernel loads and the allocator's warm-up)."""
+    gaps = np.diff(rec["step_t"])[1:]
+    return float(1.0 / np.median(gaps))
+
+
+def dp_rank_mean(ranks: list, job: str, step: int, key: str) -> float:
+    """A step's metric over the global batch: the mean of the ranks'
+    (equal rows a rank; a masked mean's share is already scaled)."""
+    return float(np.mean([r[job]["metrics"][step][key] for r in ranks]))
+
+
+def dp_grad_rel(one: dict, many: dict) -> float:
+    g1, g2 = one["first_grad"], many["first_grad"]
+    return float((g2 - g1).norm() / g1.norm())
+
+
+def check_dp_launches(ranks: list, job: str, want: dict, rows: int | None = None) -> list:
+    """Every rank's launch counts against ``want``; every training search
+    at ``rows`` rows where given. Returns the per-rank counts."""
+    counts = []
+    for r, rank in enumerate(ranks):
+        got = rank[job]["launches"]
+        for k, n in want.items():
+            check(got[k] == n, f"data parallel {job} rank {r}: {k} launched {got[k]} times, "
+                  f"expected {n}")
+        if rows is not None:
+            check(set(rank[job]["vq_rows"]) == {rows},
+                  f"data parallel {job} rank {r}: searches at {set(rank[job]['vq_rows'])} rows, "
+                  f"expected {rows}")
+        counts.append(got)
+    return counts
+
+
+def check_ranks_equal(ranks: list, job: str) -> None:
+    digests = [r[job]["digest"] for r in ranks]
+    check(len(set(digests)) == 1, f"data parallel {job}: the ranks' states differ ({digests})")
+
+
+def flagship_flips(torch, one: dict, many: list) -> dict:
+    """The first step's code flips, W ranks (their rows in rank order)
+    against one rank; each must be a near-tie."""
+    a = one["first_vq"]
+    x2 = torch.cat([r["first_vq"]["x"] for r in many])
+    i2 = torch.cat([r["first_vq"]["idx"] for r in many])
+    cb_err = float((a["cb"] - many[0]["first_vq"]["cb"]).abs().max())
+    check(cb_err <= 1e-5, f"data parallel flagship: the runs' data-init codebooks {cb_err} apart")
+    flipped = (a["idx"] != i2).nonzero()[:, 0]
+    cb = a["cb"].double()
+    ties = near_ties(a["x"][flipped].double(), x2[flipped].double(),
+                     cb[i2[flipped].long()], cb[a["idx"][flipped].long()])
+    return {"rows": int(a["idx"].numel()), "flips": int(flipped.numel()),
+            "near_ties": int(ties.sum()),
+            "x_max_abs_err": float((x2 - a["x"]).abs().max()), "codebook_max_abs_err": cb_err}
+
+
+def rvq_ema_compare(torch, one: dict, many: list) -> dict:
+    """The RVQ step's EMA statistics, W ranks against one. Searches 4-7 of
+    the run are the step's EMA branch (after 3 data-init searches and the
+    step's 4 forward ones); a flip there moves one count from a code to
+    another, so the clusters (0.99 old + 0.01 count, exact for equal
+    counts) may differ by at most 2 x 0.01 x flips in all, and a restart
+    (count 0) may change for at most 2 x flips codes."""
+    ema_calls = slice(3 + RVQ_Q, 3 + 2 * RVQ_Q)
+    i1 = one["vq_indices"][ema_calls]
+    i2 = [torch.cat(parts) for parts in zip(*(r["vq_indices"][ema_calls] for r in many))]
+    stage_flips = [int((a != b).sum()) for a, b in zip(i1, i2)]
+    flips = sum(stage_flips)
+    c1, c2 = one["codebook_ema"]["cluster"], many[0]["codebook_ema"]["cluster"]
+    e1, e2 = one["codebook_ema"]["embed_sum"], many[0]["codebook_ema"]["embed_sum"]
+    restarted = [(c == 1.0) & (e == cb).all(-1) for c, e, cb in (
+        (c1, e1, one["codebook"]), (c2, e2, many[0]["codebook"]))]
+    both = restarted[0] & restarted[1]
+    kept = ~restarted[0] & ~restarted[1]
+    scale = float(e1.abs().max())
+    return {"flips": flips, "flips_by_stage": stage_flips, "rows": int(sum(a.numel() for a in i1)),
+            "cluster_abs_diff_sum": float((c1 - c2)[kept].abs().sum()),
+            "restarted": [int(r.sum()) for r in restarted],
+            "restart_set_diff": int((restarted[0] ^ restarted[1]).sum()),
+            "embed_sum_kept_max_rel": float((e1 - e2)[kept].abs().max()) / scale,
+            "restarted_rows_max_rel": float(
+                (one["codebook"] - many[0]["codebook"])[both].abs().max()) / scale
+            if bool(both.any()) else 0.0}
+
+
+def data_parallel_phase(torch, root: str, corpus: str, vq_ckpt: str, card: str) -> dict:
+    """Phase 17: the training CLIs under torchrun at W = 1 (no group: the
+    one-rank program) and W = 2 (gloo: the two ranks share this card), and
+    the checks that W ranks compute the one-rank steps."""
+    from neural_sound_generation_tpu_torch.models import VQVAE
+    from neural_sound_generation_tpu_torch.training.train_state import FlatParams
+
+    t0 = time.perf_counter()
+    shutil.rmtree(os.path.join(root, "dp"), ignore_errors=True)
+    os.makedirs(os.path.join(root, "dp"))
+    with open(os.path.join(root, "dp", "cmu_arctic_8bit_speakers.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({**CMU_PRESET, "exponential_moving_average": False,
+                   "gin_channels": VT_SPEAKER_GIN, "initial_learning_rate": VT_LR}, f)
+    n_params = sum(p.numel() for p in VQVAE(1, TRAIN_DIM, TRAIN_CODES).parameters())
+    runs = {w: launch_dp(torch, root, dp_jobs(root, corpus, vq_ckpt, w), w, n_params)
+            for w in (1, DP_WORLD)}
+    one, many = runs[1]["ranks"][0], runs[DP_WORLD]["ranks"]
+    rows = TRAIN_BATCH * (80 // 4) * (28 // 4)
+    steps = DP_EPOCHS * BATCHES_PER_EPOCH
+
+    # the flagship: launches per rank, the first step W against 1, the ranks bit-equal
+    flag = {"launches": {
+        w: check_dp_launches(runs[w]["ranks"], "flagship",
+                             {"fused_adam": steps, "vq_nearest": steps + 2 * DP_EPOCHS}, rows // w)
+        for w in runs}}
+    check_ranks_equal(many, "flagship")
+    flips = flagship_flips(torch, one["flagship"], [r["flagship"] for r in many])
+    check(flips["near_ties"] == flips["flips"],
+          f"data parallel flagship: {flips['flips'] - flips['near_ties']} code flips that are "
+          "not near-ties")
+    loss1 = one["flagship"]["metrics"][0]["loss"]
+    loss2 = dp_rank_mean(many, "flagship", 0, "loss")
+    grad_rel = dp_grad_rel(one["flagship"], many[0]["flagship"])
+    diff = FlatParams(VQVAE(1, TRAIN_DIM, TRAIN_CODES)).named(
+        (many[0]["flagship"]["first_params"] - one["flagship"]["first_params"]).abs())
+    bias = torch.cat([t.reshape(-1) for k, t in diff.items() if k.endswith(".bias")])
+    rest = torch.cat([t.reshape(-1) for k, t in diff.items() if not k.endswith(".bias")])
+    far = float((rest > 1e-5).float().mean())
+    flag.update(first_step={"loss_w1": loss1, "loss_w2": loss2,
+                            "loss_rel": abs(loss2 - loss1) / abs(loss1), "grad_rel": grad_rel,
+                            "weights_beyond_1e-5_frac": far, "weights_max_abs_err": float(rest.max()),
+                            "biases_max_abs_err": float(bias.max()),
+                            **flips})
+    check(abs(loss2 - loss1) <= DP_LOSS_REL * abs(loss1),
+          f"data parallel flagship: first loss {loss2} on {DP_WORLD} ranks, {loss1} on one")
+    check(grad_rel <= (DP_GRAD_REL_FLIPS if flips["flips"] else DP_GRAD_REL),
+          f"data parallel flagship: all-reduced gradient {grad_rel:.3g} of the norm away "
+          f"({flips['flips']} flips)")
+    check(far <= 1e-3 and float(rest.max()) <= 1e-2 and float(bias.max()) <= 2.01 * DP_LR,
+          f"data parallel flagship: {far:.3%} of the weights beyond 1e-5, max "
+          f"{float(rest.max())}; biases {float(bias.max())} apart")
+    losses = [dp_rank_mean(many, "flagship", i, "loss") for i in range(steps)]
+    check(losses[-1] < losses[0], f"data parallel flagship: the loss did not fall ({losses})")
+    flag["losses_w1"] = [m["loss"] for m in one["flagship"]["metrics"]]
+    flag["losses_w2"] = losses
+    flag["steps_per_s"] = {w: dp_step_rate(runs[w]["ranks"][0]["flagship"]) for w in runs}
+    # the resumed step
+    check_dp_launches(many, "flagship_resume", {"fused_adam": 1, "vq_nearest": 1 + 2},
+                      rows // DP_WORLD)
+    check_ranks_equal(many, "flagship_resume")
+    resumed = os.path.join(root, "dp", f"w{DP_WORLD}", "flagship", "models", "vqvae",
+                           f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")
+    want = {f"step_{BATCHES_PER_EPOCH * e}" for e in range(1, DP_EPOCHS + 1)} | {
+        f"step_{steps + 1}"}
+    check(set(os.listdir(resumed)) == want,
+          f"data parallel --resume: checkpoints {sorted(os.listdir(resumed))}, expected {want}")
+
+    # cli.evaluate --mesh-data 2 on the one-rank checkpoint
+    m1, m2 = one["evaluate"]["means"], many[0]["evaluate"]["means"]
+    check(m1.keys() == m2.keys() and all(
+        abs(m2[k] - m1[k]) <= (DP_EVAL_PPL_REL if k == "perplexity" else DP_LOSS_REL) * abs(m1[k])
+        for k in m1), f"data parallel evaluate: {m2} on {DP_WORLD} ranks, {m1} on one")
+    r1, r2 = (np.load(os.path.join(root, "dp", f"w{w}", "evaluate.npy")) for w in runs)
+    recon_err = float(np.abs(r1 - r2).mean()) if r1.shape == r2.shape else float("inf")
+    check(r1.shape == r2.shape and recon_err <= DP_RECON_MEAN_ABS,
+          f"data parallel evaluate: reconstruction {r2.shape} vs {r1.shape}, mean |diff| "
+          f"{recon_err}")
+    check_dp_launches([r for w in runs for r in runs[w]["ranks"]], "evaluate", {"vq_nearest": 2})
+
+    # RVQ in bf16 with EMA codebooks, restarts and data init: one step
+    for w in runs:
+        check_dp_launches(runs[w]["ranks"], "rvq",
+                          {"fused_adam": 1, "vq_nearest": 3 + 2 * RVQ_Q + 2 * RVQ_Q})
+        for r in runs[w]["ranks"]:
+            check(r["rvq"]["vq_rows"][:3] == [rows] * 3 and
+                  set(r["rvq"]["vq_rows"][3:]) == {rows // w},
+                  f"data parallel rvq: searches at {r['rvq']['vq_rows']} rows")
+    check_ranks_equal(many, "rvq")
+    rvq = rvq_ema_compare(torch, one["rvq"], [r["rvq"] for r in many])
+    check(rvq["cluster_abs_diff_sum"] <= 2 * 0.01 * rvq["flips"] + 1e-4
+          and rvq["restart_set_diff"] <= 2 * rvq["flips"],
+          f"data parallel rvq: EMA statistics differ beyond the step's flips {rvq}")
+
+    # the routed prior and the mulaw-quantize vocoder
+    jobs = {}
+    for job, want in (("moe_prior", {"vq_nearest": DP_JOB_STEPS, "fused_adam": DP_JOB_STEPS,
+                                     **{k: PRIOR_LAYERS * DP_JOB_STEPS for k in (
+                                         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")}}),
+                      ("vocoder", {"fused_adam": DP_JOB_STEPS, "vq_nearest": 0})):
+        for w in runs:
+            check_dp_launches(runs[w]["ranks"], job, want)
+        check_ranks_equal(many, job)
+        key = "loss"
+        l1, l2 = one[job]["metrics"][0][key], dp_rank_mean(many, job, 0, key)
+        rec = {"loss_w1": l1, "loss_w2": l2, "loss_rel": abs(l2 - l1) / abs(l1),
+               "grad_rel": dp_grad_rel(one[job], many[0][job])}
+        if job == "moe_prior":
+            a1 = one[job]["metrics"][0]["moe_load_balance"]
+            a2 = many[0][job]["metrics"][0]["moe_load_balance"]
+            rec.update(load_balance_w1=a1, load_balance_w2=a2, load_balance_rel=abs(a2 - a1) / a1)
+            check(rec["load_balance_rel"] <= DP_LOSS_REL,
+                  f"data parallel moe prior: load balance {a2} vs {a1}")
+        check(rec["loss_rel"] <= DP_LOSS_REL and rec["grad_rel"] <= DP_GRAD_REL,
+              f"data parallel {job}: first step {rec}")
+        jobs[job] = rec
+
+    timing = {w: runs[w]["timing"][0] for w in runs}
+    return {
+        "phase": "data_parallel", "card": card, "world": DP_WORLD,
+        "backend": {w: timing[w]["backend"] for w in runs},
+        "note": "two ranks on one card share it: steps/s at W 2 measures the collectives' "
+                "cost, not scaling",
+        "flagship": flag, "rvq_first_step": rvq, "jobs": jobs,
+        "all_reduce_ms": {f"w{w}_{timing[w]['backend']}": timing[w]["all_reduce_ms"]
+                          for w in runs},
+        "grad_elems": n_params,
+        "launches": {f"w{w}": [{job: r[job]["launches"] for job in r} for r in runs[w]["ranks"]]
+                     for w in runs},
+        "launch_seconds": {f"w{w}": runs[w]["seconds"] for w in runs},
+        "seconds": time.perf_counter() - t0,
+    }
+
+
+def dp_launch_totals(dp: dict) -> dict:
+    """Phase 17's launches of each kernel, summed over its runs and ranks."""
+    totals: dict = {}
+    for ranks in dp["launches"].values():
+        for rank in ranks:
+            for counts in rank.values():
+                for k, n in counts.items():
+                    totals[k] = totals.get(k, 0) + n
+    return totals
+
+
 ATTN_REPLACES = {
     "flash_fwd": "neural_sound_generation_tpu/ops/pallas/attention.py:165",
     "flash_bwd_dq": "neural_sound_generation_tpu/ops/pallas/attention.py:233",
@@ -5215,13 +5711,20 @@ def main() -> int:
         motion, motion_rows = motion_phase(torch, cli_motion, motion_capture, vq_kernel, VQVAE,
                                            root, vq_ckpt, card)
         emit(motion)
+        torch.cuda.empty_cache()
+
+        # phase 17: the training CLIs under torchrun on one rank and on two
+        # sharing this card, with each rank's launch counts
+        dp = data_parallel_phase(torch, root, corpus, vq_ckpt, card)
+        emit(dp)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # phase 17: summary and result
+    # phase 18: summary and result
+    dp_launches = dp_launch_totals(dp)
     train_runs = [*training["runs"].values(), rvq["run"]]
     train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
     train_adam = sum(r["launches"]["fused_adam"] for r in train_runs)
@@ -5242,7 +5745,7 @@ def main() -> int:
                      + prep["vq_launches"] + others["vq_launches"]
                      + priors_launches["vq_nearest"] + vtrain["vq_launches"]
                      + moe_launches["vq_nearest"] + bf16_launches["vq_nearest"]
-                     + motion["vq_launches"]),
+                     + motion["vq_launches"] + dp_launches["vq_nearest"]),
         "launches_by_path": {"serving": serving["vq_launches"], "training": train_vq,
                              "prior": prior_launches["vq_nearest"],
                              "preprocess_units": prep["vq_launches"],
@@ -5251,7 +5754,8 @@ def main() -> int:
                              "vocoder_units": vtrain["vq_launches"],
                              "moe_prior": moe_launches["vq_nearest"],
                              "bf16_prior": bf16_launches["vq_nearest"],
-                             "motion": motion["vq_launches"]},
+                             "motion": motion["vq_launches"],
+                             "data_parallel": dp_launches["vq_nearest"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -5277,13 +5781,15 @@ def main() -> int:
         "status": "ported", "shape": {"n": n_params, "config": adam_row["config"]},
         "launches": (train_adam + prior_launches["fused_adam"] + others["adam_launches"]
                      + priors_launches["fused_adam"] + vtrain["adam_launches"]
-                     + moe_launches["fused_adam"] + bf16_launches["fused_adam"]),
+                     + moe_launches["fused_adam"] + bf16_launches["fused_adam"]
+                     + dp_launches["fused_adam"]),
         "launches_by_path": {"training": train_adam, "prior": prior_launches["fused_adam"],
                              "other_autoencoders": others["adam_launches"],
                              "pixelcnn_and_hier_priors": priors_launches["fused_adam"],
                              "vocoder_training": vtrain["adam_launches"],
                              "moe_prior": moe_launches["fused_adam"],
-                             "bf16_prior": bf16_launches["fused_adam"]},
+                             "bf16_prior": bf16_launches["fused_adam"],
+                             "data_parallel": dp_launches["fused_adam"]},
         "max_abs_err": adam_row["max_abs_err"],
         "ms": adam_row["kernel_ms"], "plain_ms": adam_row["plain_ms"],
         "bound_ms": adam_row["bound_ms"], "bound_by": adam_row["bound_by"],
@@ -5295,7 +5801,8 @@ def main() -> int:
     }] + [attention_summary(attn_rows, name, {"prior": prior_launches[name],
                                               "hier_top_prior": priors_launches[name],
                                               "moe_prior": moe_launches[name],
-                                              "bf16_prior": bf16_launches[name]},
+                                              "bf16_prior": bf16_launches[name],
+                                              "data_parallel": dp_launches[name]},
                             bf16["bf16_attention_launches"][name])
           for name in fa.KERNELS]
       + wavenet_summary(wn_rows, wn_api) + conv_summary(conv_rows, conv_ab)})
@@ -5306,4 +5813,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -10,6 +10,10 @@ EMA shadow is evaluated when the checkpoint carries one, unless
 ``num_quantizers``, ``num_downsample``) must match the flags;
 ``--num-quantizers`` builds the residual-VQ model and ``--bf16`` evaluates
 in bfloat16 compute (checkpoints are float32 and restore unchanged).
+Under ``torchrun`` with ``--mesh-data N`` the sweep runs over N ranks, each
+on its rows of every test batch (``cli.main``'s policy): the summary is the
+global batches' and is printed by rank 0, which also writes ``--dump-npy``
+from the gathered reconstruction.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.evaluate --datadir
 <corpus> --ckpt-dir <dir> [--device cuda]``
@@ -35,6 +39,8 @@ from neural_sound_generation_tpu_torch.cli.main import (
     refuse_later_slices,
 )
 from neural_sound_generation_tpu_torch.device import resolve_device
+from neural_sound_generation_tpu_torch.ops.cuda import vq_kernel
+from neural_sound_generation_tpu_torch.parallel import mesh_from_args, process_group, shard_batch
 from neural_sound_generation_tpu_torch.training import checkpoint
 from neural_sound_generation_tpu_torch.training.train_state import create_train_state
 from neural_sound_generation_tpu_torch.training.trainer import Trainer
@@ -77,7 +83,17 @@ def main(argv=None):
     args.lr_rate, args.beta, args.seed, args.epochs, args.log_interval = 1e-3, 1.0, 0, 1, 10
     args.speaker_id = None
     refuse_later_slices(args)
+    with process_group(args.device):
+        return evaluate(args)
+
+
+def evaluate(args) -> dict:
+    """The sweep of ``main`` inside its process group: the means."""
     device = resolve_device(args.device)
+    mesh = mesh_from_args(args.mesh_data, args.mesh_model, args.batch_size)
+    primary = mesh is None or mesh.is_primary
+    if mesh is not None:
+        mesh.build_first(device, vq_kernel)
     cfg = build_config(args)
     try:
         checkpoint.check_extra(args.ckpt_dir, **checkpoint_metadata(cfg))
@@ -102,13 +118,18 @@ def main(argv=None):
     if args.no_ema:
         # without the shadow, eval_params() resolves to the live parameters
         state.ema_params = None
-    print(f"loaded checkpoint step={int(state.step)} extra={extra}")
+    if mesh is not None:
+        mesh.replicate(state)
+    if primary:
+        print(f"loaded checkpoint step={int(state.step)} extra={extra}")
 
-    trainer = Trainer(model, cfg, state, log_fn=print)
+    trainer = Trainer(model, cfg, state, log_fn=print, mesh=mesh)
     batches = test_batches
     if args.max_batches:
         batches = itertools.islice(batches, args.max_batches)
-    means, recon = trainer.eval_epoch(batches)
+    means, recon = trainer.eval_epoch(shard_batch(b, mesh) for b in batches)
+    if not primary:
+        return means
     print(json.dumps({k: round(v, 6) for k, v in means.items()}))
     if args.dump_npy and recon is not None:
         np.save(args.dump_npy, recon.detach().cpu().numpy())

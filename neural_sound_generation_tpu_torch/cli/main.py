@@ -24,11 +24,20 @@ families in bfloat16 (parameters, VQ, loss and optimizer stay float32, and
 the checkpoint is float32). ``--codebook-init data`` seeds the codebook(s)
 from train-mode encoder outputs of a train batch; the hierarchy seeds its
 top codebook, then its bottom one from a second pass under the seeded top.
-``--mesh-*`` beyond one device refuses with the parallel slice named.
 ``--device`` defaults to the CUDA card.
 
+Data parallelism: under ``torchrun`` (one process per card) the run lays
+the mesh's ``data`` axis over the ranks (``--mesh-data N`` must name their
+number; without it any world of more than one rank takes them all). Every
+rank runs the same seeded loader over the global ``--batch-size`` and
+keeps its rows, so a W-rank run computes the one-rank run's steps; rank 0
+writes the checkpoints, metrics and samples. ``--mesh-model`` refuses: the
+model axis is a later slice.
+
 Run: ``python -m neural_sound_generation_tpu_torch.cli.main --model vqvae
---dataset ljspeech --datadir <corpus> --dim 256 [--device cuda]``
+--dataset ljspeech --datadir <corpus> --dim 256 [--device cuda]``, or over
+eight cards ``torchrun --standalone --nproc_per_node 8 -m
+neural_sound_generation_tpu_torch.cli.main --mesh-data 8 ...``
 """
 
 from __future__ import annotations
@@ -53,7 +62,15 @@ from neural_sound_generation_tpu_torch.data.images import (
 from neural_sound_generation_tpu_torch.models import VAE, VQVAE, HierVQVAE, WaveVQVAE
 from neural_sound_generation_tpu_torch.models.layers import batch_stats_discarded
 from neural_sound_generation_tpu_torch.ops import dsp
+from neural_sound_generation_tpu_torch.ops.cuda import fused_adam, vq_kernel
 from neural_sound_generation_tpu_torch.ops.vq import data_codebook_init
+from neural_sound_generation_tpu_torch.parallel import (
+    MODEL_AXIS,
+    mesh_from_args,
+    primary_print,
+    process_group,
+    shard_batch,
+)
 from neural_sound_generation_tpu_torch.training import checkpoint
 from neural_sound_generation_tpu_torch.training.train_state import create_train_state
 from neural_sound_generation_tpu_torch.training.trainer import Trainer
@@ -116,12 +133,12 @@ def parse_args(argv=None):
 
 
 def refuse_later_slices(args) -> None:
-    """Flags whose code paths the port does not have yet, and a stage count
-    below one."""
+    """Flags whose code paths the port does not have yet (the mesh's model
+    axis), and a stage count below one."""
     if getattr(args, "num_quantizers", 1) < 1:
         raise SystemExit(f"--num-quantizers {args.num_quantizers}: must be at least 1")
-    if (args.mesh_data or 1) > 1 or args.mesh_model > 1:
-        raise SystemExit("--mesh-*: more than one device comes with the parallel slice")
+    if args.mesh_model > 1:
+        raise SystemExit(f"--mesh-model {args.mesh_model}: {MODEL_AXIS}")
 
 
 def build_config(args) -> Config:
@@ -325,7 +342,17 @@ def epoch_generator(seed: int, epoch: int, device: torch.device) -> torch.Genera
 def main(argv=None):
     args = parse_args(argv)
     refuse_later_slices(args)
+    with process_group(args.device):
+        train(args)
+
+
+def train(args) -> None:
+    """The training run of ``main`` inside its process group."""
     device = resolve_device(args.device)
+    mesh = mesh_from_args(args.mesh_data, args.mesh_model, args.batch_size)
+    say = primary_print(mesh)
+    if mesh is not None:
+        mesh.build_first(device, vq_kernel, fused_adam)
     cfg = build_config(args)
 
     audio_mode = args.dataset in AUDIO_DATASETS
@@ -341,7 +368,10 @@ def main(argv=None):
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
     ).to(device)
     if args.codebook_init == "data":
-        # a TRAIN batch: a test-seeded codebook would leak held-out data
+        # a TRAIN batch: a test-seeded codebook would leak held-out data.
+        # The whole global batch on every rank, no collective: every rank
+        # seeds what the one-rank run seeds (the JAX CLI seeds from the
+        # unsharded batch too)
         warm = next(iter(train_loader)) if audio_mode else next(train_iter(0))
         apply_data_codebook_init(
             model, torch.from_numpy(warm["x"]).to(device), epoch_generator(args.seed, 0, device)
@@ -358,13 +388,15 @@ def main(argv=None):
         except ValueError as e:
             raise SystemExit(str(e)) from e
         start_epoch = int((extra or {}).get("epoch", 0)) + 1
-        print(f"Resumed from step {int(state.step)}, epoch {start_epoch}")
+        say(f"Resumed from step {int(state.step)}, epoch {start_epoch}")
+    if mesh is not None:
+        mesh.replicate(state)
 
     metrics_path = os.path.join(args.sampledir, args.dataset, "metrics.jsonl")
     os.makedirs(os.path.dirname(metrics_path), exist_ok=True)
     trainer = Trainer(model, cfg, state, metrics_path=metrics_path,
-                      multi_steps=args.multi_steps)
-    print(model)
+                      multi_steps=args.multi_steps, mesh=mesh)
+    say(model)
 
     last_epoch = start_epoch - 1
 
@@ -375,9 +407,10 @@ def main(argv=None):
                         extra={"epoch": epoch, **meta}, block=block)
 
     def limit(it):
-        if args.max_batches_per_epoch is None:
-            return it
-        return itertools.islice(it, args.max_batches_per_epoch)
+        # this rank's rows of each global batch
+        if args.max_batches_per_epoch is not None:
+            it = itertools.islice(it, args.max_batches_per_epoch)
+        return (shard_batch(b, mesh) for b in it)
 
     def interval_ckpt(epoch):
         # the stored epoch is the last COMPLETED one: --resume replays the
@@ -399,13 +432,13 @@ def main(argv=None):
             trainer.train_epoch(limit(batches), epoch_generator(args.seed, epoch, device),
                                 epoch=epoch, checkpoint_cb=interval_ckpt(epoch))
             _, recon = trainer.eval_epoch(limit(test_batches))
-            if recon is not None:
-                print("Evaluating samples")
+            if recon is not None and (mesh is None or mesh.is_primary):
+                say("Evaluating samples")
                 dump_reconstruction(args, cfg, recon, epoch)
             last_epoch = epoch
             save(epoch)
     except KeyboardInterrupt:
-        print("Interrupted!")
+        say("Interrupted!")
     finally:
         save(last_epoch, block=True)
 

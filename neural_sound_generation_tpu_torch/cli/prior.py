@@ -40,8 +40,11 @@ and the checkpoints stay float32, so the compute dtype is not recorded and
 a checkpoint trained with or without ``--bf16`` samples either way, as in
 the JAX CLI. The transformer's attention kernels run in bf16 on the card.
 
-Flags of later slices raise ``NotImplementedError``: ``--mesh-pipe`` and
-more than one device.
+``train`` runs data-parallel under ``torchrun`` (``--mesh-data N``, the
+policy of ``cli.main``): every rank reads the same seeded batches, encodes
+its rows of each and trains on them, and rank 0 writes the checkpoints.
+``--mesh-model`` and ``--mesh-pipe`` raise ``NotImplementedError``: the
+model and pipe axes are later slices.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.prior train
 --datadir <corpus> --vqvae-ckpt <cli.main checkpoint> [--arch transformer
@@ -73,6 +76,15 @@ from neural_sound_generation_tpu_torch.models import (
     TransformerPrior,
 )
 from neural_sound_generation_tpu_torch.ops import dsp
+from neural_sound_generation_tpu_torch.ops.cuda import flash_attention, fused_adam, vq_kernel
+from neural_sound_generation_tpu_torch.parallel import (
+    MODEL_AXIS,
+    PIPE_AXIS,
+    mesh_from_args,
+    primary_print,
+    process_group,
+    shard_batch,
+)
 from neural_sound_generation_tpu_torch.training import checkpoint
 from neural_sound_generation_tpu_torch.training.train_state import create_train_state
 from neural_sound_generation_tpu_torch.training.trainer import Trainer
@@ -170,11 +182,12 @@ def parse_args(argv=None):
 
 
 def refuse_later_slices(args) -> None:
-    """Flags whose code paths the port does not have yet."""
+    """Flags whose code paths the port does not have yet: the mesh's pipe
+    and model axes."""
     if getattr(args, "mesh_pipe", 1) > 1:
-        raise NotImplementedError("--mesh-pipe: pipeline parallelism comes with the parallel slice")
-    if (getattr(args, "mesh_data", None) or 1) > 1 or getattr(args, "mesh_model", 1) > 1:
-        raise NotImplementedError("--mesh-*: more than one device comes with the parallel slice")
+        raise NotImplementedError(f"--mesh-pipe {args.mesh_pipe}: {PIPE_AXIS}")
+    if getattr(args, "mesh_model", 1) > 1:
+        raise NotImplementedError(f"--mesh-model {args.mesh_model}: {MODEL_AXIS}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -327,7 +340,17 @@ def make_encoder(args, vqvae):
 
 def cmd_train(args) -> None:
     refuse_later_slices(args)
+    with process_group(args.device):
+        _train(args)
+
+
+def _train(args) -> None:
     device = resolve_device(args.device)
+    mesh = mesh_from_args(args.mesh_data, args.mesh_model, args.batch_size)
+    say = primary_print(mesh)
+    if mesh is not None:
+        kernels = (flash_attention,) if args.arch == "transformer" else ()
+        mesh.build_first(device, vq_kernel, fused_adam, *kernels)
     cfg = _prior_cfg(args)
     loaders = get_audio_data_loaders(args.datadir, None, args.batch_size, cfg,
                                      latent_stride=2 * LATENT_STRIDE if args.hier else LATENT_STRIDE)
@@ -351,7 +374,7 @@ def cmd_train(args) -> None:
                 checkpoint.check_extra(train_dir, **meta)
                 state, extra = checkpoint.restore(train_dir, state)
                 start_epoch = int((extra or {}).get("epoch", 0)) + 1
-                print(f"resumed train state from step {int(state.step)}, epoch {start_epoch}")
+                say(f"resumed train state from step {int(state.step)}, epoch {start_epoch}")
             elif checkpoint.latest_step(args.ckpt_dir) is not None:
                 # an artifact alone: params and the EMA sibling resume, the
                 # step lands in the state, Adam's moments restart
@@ -361,24 +384,29 @@ def cmd_train(args) -> None:
                 state.step.fill_(at)
                 checkpoint.restore_ema_sibling(args.ckpt_dir, state)
                 start_epoch = int((extra or {}).get("epoch", 0)) + 1
-                print(f"resumed params from step {at}, epoch {start_epoch} (no *_train "
-                      f"sibling: Adam moments restart)")
+                say(f"resumed params from step {at}, epoch {start_epoch} (no *_train "
+                    f"sibling: Adam moments restart)")
         except ValueError as e:
             raise SystemExit(str(e)) from e
+    if mesh is not None:
+        mesh.replicate(state)
 
-    trainer = Trainer(prior, cfg, state, log_fn=None, multi_steps=args.multi_steps)
+    trainer = Trainer(prior, cfg, state, log_fn=None, multi_steps=args.multi_steps, mesh=mesh)
     warned = []
 
     def epoch_batches():
         for i, batch in enumerate(loaders["train"]):
             if args.max_batches_per_epoch and i >= args.max_batches_per_epoch:
                 break
+            # this rank's rows, encoded here: the codes of a row do not
+            # depend on the others (the VQ-VAE runs in eval mode)
+            batch = shard_batch(batch, mesh)
             codes, cond = encode(torch.from_numpy(batch["x"]).to(device))
             if not warned:
                 warned.append(True)
                 warning = long_t_warning(args.arch, codes.shape)
                 if warning:
-                    print(warning)
+                    say(warning)
             labels = np.asarray(batch.get("g", np.zeros(codes.shape[0])), np.int32)
             out = {"codes": codes, "labels": torch.from_numpy(labels).to(device)}
             if bottom_level:
@@ -404,13 +432,13 @@ def cmd_train(args) -> None:
         nll = means.get("loss", float("nan"))
         routed = (f" load_balance {means['moe_load_balance']:.4f}"
                   if "moe_load_balance" in means else "")
-        print(f"prior epoch {epoch}: nll/code {nll:.4f} (ppl {np.exp(nll):.1f} of "
-              f"{args.z_dim}){routed}")
+        say(f"prior epoch {epoch}: nll/code {nll:.4f} (ppl {np.exp(nll):.1f} of "
+            f"{args.z_dim}){routed}")
         save_ckpt(trainer.state, int(trainer.state.step), completed_epoch=epoch)
     checkpoint.wait_for_pending()
-    print(f"prior saved to {args.ckpt_dir}")
+    say(f"prior saved to {args.ckpt_dir}")
     if trainer.state.ema_params is not None:
-        print(f"averaged-model (EMA) artifact saved to {args.ckpt_dir.rstrip('/')}_ema")
+        say(f"averaged-model (EMA) artifact saved to {args.ckpt_dir.rstrip('/')}_ema")
 
 
 def cmd_sample(args) -> None:

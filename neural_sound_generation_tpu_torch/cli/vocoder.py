@@ -2,7 +2,7 @@
 synthesize audio from a mel or, through units, from a waveform.
 
 Counterpart of ``neural_sound_generation_tpu/cli/vocoder.py``, with its
-flags and defaults, on one device.
+flags and defaults.
 
 ``train`` fits the WaveNet by teacher forcing (the MoL loss for scalar
 input, the masked cross entropy for mulaw-quantize; speakers when the
@@ -27,9 +27,13 @@ WaveNet. ``synthesize`` runs the scan sampler (``models/wavenet``; bf16
 products by default) and undoes mu-law companding for ``mulaw`` and
 ``mulaw-quantize`` inputs.
 
-``--mesh-data``, ``--mesh-model``, ``--mesh-pipe`` and ``--pp-microbatches``
-raise ``NotImplementedError``: more than one device comes with the parallel
-slice of the port.
+``train`` runs data-parallel under ``torchrun`` (``--mesh-data N``, the
+policy of ``cli.main``): every rank reads the same seeded batches and
+trains on its rows of each (encoding them to units itself under
+``--condition units``); the masked losses divide by the global batch's
+valid positions, and rank 0 writes the checkpoints. ``--mesh-model``,
+``--mesh-pipe`` and ``--pp-microbatches`` raise ``NotImplementedError``:
+the model and pipe axes are later slices of the port.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.vocoder train
 --datadir <corpus> [--condition units --units-vqvae-ckpt <ckpt>] [--bf16]
@@ -53,6 +57,15 @@ from neural_sound_generation_tpu_torch.device import resolve_device
 from neural_sound_generation_tpu_torch.models import WaveVQVAE
 from neural_sound_generation_tpu_torch.models.wavenet import WaveNet, make_generate_fn
 from neural_sound_generation_tpu_torch.ops import dsp
+from neural_sound_generation_tpu_torch.ops.cuda import fused_adam, vq_kernel
+from neural_sound_generation_tpu_torch.parallel import (
+    MODEL_AXIS,
+    PIPE_AXIS,
+    mesh_from_args,
+    primary_print,
+    process_group,
+    shard_batch,
+)
 from neural_sound_generation_tpu_torch.training import checkpoint
 from neural_sound_generation_tpu_torch.training.train_state import create_train_state
 from neural_sound_generation_tpu_torch.training.trainer import Trainer
@@ -78,13 +91,13 @@ def parse_args(argv=None):
                          "full state, else the artifact's parameters and EMA (Adam's "
                          "moments restart)")
     tr.add_argument("--mesh-data", type=int, default=None,
-                    help="data-parallel devices (the parallel slice)")
+                    help="data-parallel ranks (torchrun --nproc_per_node N)")
     tr.add_argument("--mesh-model", type=int, default=1,
-                    help="tensor-parallel shards (the parallel slice)")
+                    help="tensor-parallel shards (the model-axis slice)")
     tr.add_argument("--mesh-pipe", type=int, default=1,
-                    help="pipeline-parallel stages (the parallel slice)")
+                    help="pipeline-parallel stages (the pipe-axis slice)")
     tr.add_argument("--pp-microbatches", type=int, default=None,
-                    help="pipeline microbatches (the parallel slice)")
+                    help="pipeline microbatches (the pipe-axis slice)")
     tr.add_argument("--multi-steps", type=int, default=1,
                     help="optimization steps per super-batch")
     tr.add_argument("--bf16", action="store_true",
@@ -139,12 +152,11 @@ def _units_args(p) -> None:
 
 
 def refuse_parallel(args) -> None:
-    """The flags of more than one device, which this port does not have yet."""
-    if ((args.mesh_data or 1) > 1 or args.mesh_model > 1 or args.mesh_pipe > 1
-            or args.pp_microbatches is not None):
-        raise NotImplementedError(
-            "--mesh-data/--mesh-model/--mesh-pipe/--pp-microbatches: data, tensor and "
-            "pipeline parallelism come with the parallel slice of the port")
+    """The mesh axes this port does not have yet: pipe and model."""
+    if args.mesh_pipe > 1 or args.pp_microbatches is not None:
+        raise NotImplementedError(f"--mesh-pipe/--pp-microbatches: {PIPE_AXIS}")
+    if args.mesh_model > 1:
+        raise NotImplementedError(f"--mesh-model {args.mesh_model}: {MODEL_AXIS}")
 
 
 def _units_scales(num_downsample: int) -> tuple[int, ...]:
@@ -299,7 +311,7 @@ def _load_cfg(args) -> Config:
     return cfg
 
 
-def _resume(args, state, train_dir: str) -> int:
+def _resume(args, state, train_dir: str, say=print) -> int:
     """``--resume``: the first epoch to run. The recorded chain is checked
     first; the ``_train`` sibling restores the whole state, an artifact
     alone its parameters, the EMA sibling and the step."""
@@ -311,7 +323,7 @@ def _resume(args, state, train_dir: str) -> int:
         if checkpoint.latest_step(train_dir) is not None:
             state, extra = checkpoint.restore(train_dir, state)
             start_epoch = int((extra or {}).get("epoch", 0)) + 1
-            print(f"resumed train state from step {int(state.step)}, epoch {start_epoch}")
+            say(f"resumed train state from step {int(state.step)}, epoch {start_epoch}")
             return start_epoch
         at = checkpoint.latest_step(args.ckpt_dir)
         if at is None:
@@ -322,16 +334,26 @@ def _resume(args, state, train_dir: str) -> int:
     except ValueError as e:
         raise SystemExit(str(e)) from e
     start_epoch = int((extra or {}).get("epoch", 0)) + 1
-    print(f"resumed params from step {at}, epoch {start_epoch} (no *_train sibling: Adam "
-          f"moments restart)")
+    say(f"resumed params from step {at}, epoch {start_epoch} (no *_train sibling: Adam "
+        f"moments restart)")
     return start_epoch
 
 
 def cmd_train(args) -> None:
+    refuse_parallel(args)
+    with process_group(args.device):
+        _train(args)
+
+
+def _train(args) -> None:
     from neural_sound_generation_tpu_torch.cli.main import epoch_generator
 
-    refuse_parallel(args)
     device = resolve_device(args.device)
+    mesh = mesh_from_args(args.mesh_data, args.mesh_model, args.batch_size)
+    say = primary_print(mesh)
+    if mesh is not None:
+        mesh.build_first(device, fused_adam, *(
+            (vq_kernel,) if args.condition == "units" else ()))
     cfg = _load_cfg(args)
     loaders = get_audio_data_loaders(args.datadir, None, args.batch_size, cfg, batch_mode="raw")
     model = build_model(cfg, args, generator=torch.Generator().manual_seed(args.seed)).to(device)
@@ -344,6 +366,7 @@ def cmd_train(args) -> None:
         for i, batch in enumerate(loaders["train"]):
             if args.max_batches_per_epoch and i >= args.max_batches_per_epoch:
                 break
+            batch = shard_batch(batch, mesh)
             if units_fn is not None:
                 # the units of the target waveform itself, encoded on the
                 # device; the mel block is never read
@@ -364,8 +387,10 @@ def cmd_train(args) -> None:
         cfg.train, batch_size=args.batch_size, ema_warmup=args.ema_warmup))
     state = create_train_state(model, cfg.train)
     train_dir = args.ckpt_dir.rstrip("/") + "_train"
-    start_epoch = _resume(args, state, train_dir) if args.resume else 1
-    trainer = Trainer(model, cfg, state, log_fn=None, multi_steps=args.multi_steps)
+    start_epoch = _resume(args, state, train_dir, say) if args.resume else 1
+    if mesh is not None:
+        mesh.replicate(state)
+    trainer = Trainer(model, cfg, state, log_fn=None, multi_steps=args.multi_steps, mesh=mesh)
     meta = _condition_meta(args)
 
     def save_ckpt(state, step, completed_epoch):
@@ -383,11 +408,11 @@ def cmd_train(args) -> None:
         means = trainer.train_epoch(
             epoch_batches(), epoch_generator(args.seed, epoch, device), epoch=epoch,
             checkpoint_cb=lambda s, st, e=epoch: save_ckpt(s, st, completed_epoch=e - 1))
-        print(f"wavenet epoch {epoch}: loss {means.get('loss', float('nan')):.4f}")
+        say(f"wavenet epoch {epoch}: loss {means.get('loss', float('nan')):.4f}")
         save_ckpt(trainer.state, int(trainer.state.step), completed_epoch=epoch)
     checkpoint.wait_for_pending()
     if trainer.state.ema_params is not None:
-        print(f"averaged-model (EMA) artifact saved to {args.ckpt_dir.rstrip('/')}_ema")
+        say(f"averaged-model (EMA) artifact saved to {args.ckpt_dir.rstrip('/')}_ema")
 
 
 def _units_condition(args, cfg: Config, device):

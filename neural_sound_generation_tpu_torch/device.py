@@ -3,7 +3,10 @@
 Every entry point takes a ``device`` argument. ``None`` means the CUDA card:
 with no card present that raises, and nothing carries on quietly on the
 CPU. The CPU runs only when a caller names it (``device="cpu"``), as the
-tests do.
+tests do. Under a data-parallel process group (``parallel.distributed``)
+``None`` and a bare ``"cuda"`` mean this rank's card,
+``cuda:{LOCAL_RANK % device_count}``, which is made the current device
+before any tensor, kernel build or generator exists on it.
 
 Precision: PyTorch runs float32 matrix products in full float32 by default,
 but cuDNN runs float32 convolutions in TF32 (about three decimal digits).
@@ -20,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from neural_sound_generation_tpu_torch.parallel import distributed
+
 
 def set_full_float32() -> None:
     """Full-precision float32 for matrix products and cuDNN convolutions."""
@@ -28,15 +33,17 @@ def set_full_float32() -> None:
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """The device an entry point runs on: ``None`` -> CUDA, or raise."""
+    """The device an entry point runs on: ``None`` -> CUDA (this rank's
+    card under a process group), or raise."""
     set_full_float32()
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; pass device='cpu' to run on the CPU"
-            )
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
+        if device is None:
+            raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.index is None and distributed.world_size() > 1:
+        dev = torch.device("cuda", distributed.local_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
     return dev

@@ -34,6 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from neural_sound_generation_tpu_torch.parallel.mesh import current_mesh
+
 # flax's nn.BatchNorm: epsilon 1e-5, running average kept as
 # 0.99 * old + 0.01 * batch (PyTorch's momentum is the weight of the batch).
 BATCH_NORM_EPS = 1e-5
@@ -65,7 +67,14 @@ class BatchNorm(nn.BatchNorm2d):
     variance is the two-pass one, not flax's float32 E[x^2] - E[x]^2: that
     formula cancels as (|mean| / std)^2 grows, and the two-pass one stays
     within 1e-5 of the exact statistics where flax drifts 5e-2 away at
-    |mean| / std = 100 (tests/test_torch_norm_stats.py)."""
+    |mean| / std = 100 (tests/test_torch_norm_stats.py).
+
+    Inside a data-parallel step (``parallel.mesh.current_mesh()``) the
+    statistics are the global batch's, as the JAX package's are under
+    GSPMD: the same two-pass rule over every rank's rows, each sum taken
+    over the ranks by a differentiable all-reduce (mean = sum x / N, then
+    var = sum (x - mean)^2 / N, N the global count), so every rank
+    normalizes, and updates its running averages, with the same values."""
 
     def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__(dim, eps=BATCH_NORM_EPS, momentum=BATCH_NORM_MOMENTUM)
@@ -75,6 +84,9 @@ class BatchNorm(nn.BatchNorm2d):
         x32 = x.to(torch.float32)
         if not self.training:
             return super().forward(x32).to(self.compute_dtype)
+        mesh = current_mesh()
+        if mesh is not None:
+            return self._global_forward(x32, mesh).to(self.compute_dtype)
         with torch.no_grad():
             # every axis but the channels': (B, H, W), or (B, T) in 1-D
             dims = (0, *range(2, x32.dim()))
@@ -84,6 +96,20 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.copy_(keep * self.running_var + self.momentum * var)
         y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return y.to(self.compute_dtype)
+
+    def _global_forward(self, x32: torch.Tensor, mesh) -> torch.Tensor:
+        dims = (0, *range(2, x32.dim()))
+        shape = (1, -1) + (1,) * (x32.dim() - 2)
+        n = mesh.n_data * (x32.numel() // x32.shape[1])  # equal rows on every rank
+        mean = mesh.sum(x32.sum(dim=dims)) / n
+        xc = x32 - mean.view(shape)
+        var = mesh.sum((xc * xc).sum(dim=dims)) / n
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+            self.running_var.copy_(keep * self.running_var + self.momentum * var)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return xc * scale.view(shape) + self.bias.view(shape)
 
 
 class BatchNorm1d(BatchNorm):

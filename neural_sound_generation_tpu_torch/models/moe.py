@@ -27,7 +27,10 @@ expert's output in float32, and the product is rounded once to the input's
 dtype.
 
 The load-balance term is returned by ``forward``, not kept in module
-state. ``step`` is the causal one-position form for the KV-cached sampler:
+state. Inside a data-parallel step (``parallel.mesh.current_mesh()``) its
+two means are the global batch's, taken over the ranks before their
+product (the product is not linear in the rows); capacity is per row, so
+routing and drops need no collective. ``step`` is the causal one-position form for the KV-cached sampler:
 it carries each row's per-expert counts of *dispatched* tokens, so with the
 full sequence's capacity it drops exactly what ``forward`` drops.
 """
@@ -41,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from neural_sound_generation_tpu_torch.models.layers import gelu
+from neural_sound_generation_tpu_torch.parallel.mesh import current_mesh
 
 __all__ = ["SwitchMoE"]
 
@@ -104,7 +108,12 @@ class SwitchMoE(nn.Module):
         # Switch aux: E * sum_e(fraction dispatched_e * mean prob_e); the
         # dispatched one-hot carries no gradient, the mean probabilities do
         frac = (F.one_hot(expert, e) * keep[..., None]).float().mean(dim=(0, 1))
-        aux = e * torch.sum(frac * probs.mean(dim=(0, 1)))
+        mean_prob = probs.mean(dim=(0, 1))
+        mesh = current_mesh()
+        if mesh is not None:
+            frac = mesh.mean_(frac)
+            mean_prob = mesh.sum(mean_prob) / mesh.n_data
+        aux = e * torch.sum(frac * mean_prob)
 
         n_slots = e * b * cap
         rows = torch.arange(b, device=h.device)[:, None]

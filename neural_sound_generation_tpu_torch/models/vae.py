@@ -17,7 +17,10 @@ channels and averaged over batch and space.
 Noise: train mode draws eps ~ N(0, 1) through ``sample_noise`` from the
 ``generator`` it is given (the JAX modules' ``make_rng("sample")``); eval
 mode uses eps = 0, as the JAX package's ``train=False`` does. Tests replace
-``sample_noise`` on an instance to inject the JAX package's draws.
+``sample_noise`` on an instance to inject the JAX package's draws. Inside a
+data-parallel step (``parallel.mesh.current_mesh()``) the noise is drawn at
+the global batch's shape, from the generator every rank holds in the same
+state, and each rank keeps its own rows: W ranks draw what one rank draws.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from neural_sound_generation_tpu_torch.models.layers import (
     conv_up,
     init_weights,
 )
+from neural_sound_generation_tpu_torch.parallel.mesh import current_mesh
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -48,6 +52,17 @@ def sample_noise(shape, generator: torch.Generator | None, device) -> torch.Tens
     if generator is None:
         raise ValueError("a train-mode VAE forward draws its noise from a torch.Generator")
     return torch.randn(shape, generator=generator, device=device)
+
+
+def _train_noise(model: nn.Module, like: torch.Tensor, generator) -> torch.Tensor:
+    """``model.sample_noise`` for the rows of ``like``: the global batch's
+    draw, this rank's rows of it, on a data mesh."""
+    mesh = current_mesh()
+    if mesh is None:
+        return model.sample_noise(like.shape, generator, like.device)
+    n = like.shape[0]
+    eps = model.sample_noise((mesh.n_data * n, *like.shape[1:]), generator, like.device)
+    return eps[mesh.rows(mesh.n_data * n)]
 
 
 class VAE(nn.Module):
@@ -85,7 +100,7 @@ class VAE(nn.Module):
         # channels, averaged over batch and space (models.py:108-110)
         kl = torch.mean(torch.sum(0.5 * (torch.exp(logvar) + mu**2 - 1.0 - logvar), dim=1))
         if self.training:
-            eps = self.sample_noise(mu.shape, generator, mu.device)
+            eps = _train_noise(self, mu, generator)
         else:
             eps = torch.zeros_like(mu)
         z = mu + torch.exp(0.5 * logvar) * eps
@@ -127,7 +142,7 @@ class DefaultVAE(nn.Module):
         h1 = torch.relu(self.Dense_0(x))
         mu, logvar = self.Dense_1(h1), self.Dense_2(h1)
         if self.training:
-            eps = self.sample_noise(mu.shape, generator, mu.device)
+            eps = _train_noise(self, mu, generator)
         else:
             eps = torch.zeros_like(mu)
         z = mu + torch.exp(0.5 * logvar) * eps

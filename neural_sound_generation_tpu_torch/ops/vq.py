@@ -31,6 +31,12 @@ Residual VQ (SoundStream-style, a (Q, K, D) stack of codebooks):
 The nearest-code search goes to the CUDA kernel for tensors on a CUDA
 device and to its plain version on the CPU; ``set_vq_backend`` can pin
 either one.
+
+Inside a data-parallel step (``parallel.mesh.current_mesh()``) the EMA
+update sums its per-code counts and input sums over the ranks before the
+decay, and a dead-code restart draws its candidates from every rank's rows
+in rank order (the global batch's order) with a generator every rank holds
+in the same state, so every rank makes the one-rank run's update.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from neural_sound_generation_tpu_torch.ops.cuda import vq_kernel
+from neural_sound_generation_tpu_torch.parallel.mesh import current_mesh
 
 _BACKENDS = ("auto", "torch", "kernel")
 _VQ_BACKEND = "auto"
@@ -169,6 +176,9 @@ def codebook_ema_update(
     both = torch.zeros(
         num_codes, 1 + inputs_flat.shape[1], dtype=torch.float32, device=inputs_flat.device
     ).index_add_(0, indices_flat.long(), torch.cat([ones, inputs_flat], dim=1).to(torch.float32))
+    mesh = current_mesh()
+    if mesh is not None:
+        mesh.all_reduce_(both)
     counts, sums = both[:, 0], both[:, 1:]
     new_cluster = decay * cluster_size_ema + (1 - decay) * counts
     new_embed_sum = decay * embed_sum_ema + (1 - decay) * sums
@@ -250,6 +260,9 @@ def restart_dead_codes(
     """Reinitialize unused codes from random rows of the batch's encoder
     outputs (the codebook-collapse mitigation): one row per code drawn
     uniformly with replacement from ``generator``, then ``restart_rows``."""
+    mesh = current_mesh()
+    if mesh is not None:
+        batch_flat = mesh.gather_rows(batch_flat.detach())
     idx = torch.randint(
         0, batch_flat.shape[0], (codebook.shape[0],),
         generator=generator, device=batch_flat.device,

@@ -29,6 +29,11 @@ checkpoint lacks, or one of another shape, refuses with the names;
 names (the motion CLI's ``feature_proj``). The
 metadata recorded in ``extra`` (``arch``, ``num_quantizers``,
 ``num_downsample``) is checked by ``check_extra`` at every restore surface.
+
+Under a data-parallel process group every rank holds the same state, and
+only rank 0 writes (``save``, ``save_params``, ``save_ema_sibling``; the
+others return the path without touching it). Every rank restores, and the
+entry point then replicates rank 0's state (``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from typing import Optional
 
 import torch
 
+from neural_sound_generation_tpu_torch.parallel import distributed
 from neural_sound_generation_tpu_torch.training.train_state import TrainState
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -155,6 +161,8 @@ def save(ckpt_dir: str, state: TrainState, step: int, extra: Optional[dict] = No
 
 def _save_tensors(ckpt_dir, tensors, step, extra, block) -> str:
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
+    if not distributed.is_primary():
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     snapshot = _host_snapshot(tensors)
     extra = dict(extra) if extra else None

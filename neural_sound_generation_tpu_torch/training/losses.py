@@ -8,11 +8,20 @@ Counterpart of ``neural_sound_generation_tpu/training/losses.py``
 reference's mean reductions (src/train.py:129-134) and its stop-gradients,
 as ``.detach()`` where the JAX package has ``jax.lax.stop_gradient``; the
 ELBOs keep its sums (src/loss.py:11-29).
+
+Inside a data-parallel step (``parallel.mesh.current_mesh()``) the
+quantities that are not plain means over equal row counts are taken over
+the global batch: a masked mean divides this rank's masked sum by the
+global mask count / W (so the ranks' average is the global masked mean,
+and so is the averaged gradient), and the perplexity counts the codes of
+every rank.
 """
 
 from __future__ import annotations
 
 import torch
+
+from neural_sound_generation_tpu_torch.parallel.mesh import current_mesh
 
 
 def elbo_bce(recon_x: torch.Tensor, x: torch.Tensor, mu: torch.Tensor,
@@ -73,6 +82,17 @@ def hier_vqvae_loss(
     return total, metrics
 
 
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """sum(values * mask) / max(sum(mask), 1) over the global batch: on a
+    data mesh each rank's share, whose average over the ranks is it."""
+    count = torch.sum(mask)
+    mesh = current_mesh()
+    if mesh is None:
+        return torch.sum(values * mask) / torch.clamp(count, min=1.0)
+    count = mesh.all_reduce_(count.detach().clone())
+    return torch.sum(values * mask) / (torch.clamp(count, min=1.0) / mesh.n_data)
+
+
 def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """(B,) lengths -> (B, max_len) float32 mask (util.py:231-243)."""
     pos = torch.arange(max_len, device=lengths.device)[None, :]
@@ -88,8 +108,7 @@ def masked_cross_entropy(
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     if lengths is None:
         return torch.mean(nll)
-    mask = sequence_mask(lengths, targets.shape[1])
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return _masked_mean(nll, sequence_mask(lengths, targets.shape[1]))
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -136,13 +155,16 @@ def discretized_mix_logistic_loss(
     nll = -torch.logsumexp(log_probs, dim=-1)
     if lengths is None:
         return torch.mean(nll)
-    mask = sequence_mask(lengths, y.shape[1])
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return _masked_mean(nll, sequence_mask(lengths, y.shape[1]))
 
 
 def codebook_perplexity(indices: torch.Tensor, num_codes: int) -> torch.Tensor:
-    """exp(entropy) of the code usage distribution."""
+    """exp(entropy) of the code usage distribution (every rank's codes on
+    a data mesh)."""
     counts = torch.bincount(indices.reshape(-1).long(), minlength=num_codes).to(torch.float32)
+    mesh = current_mesh()
+    if mesh is not None:
+        mesh.all_reduce_(counts)
     probs = counts / torch.clamp(counts.sum(), min=1.0)
     entropy = -torch.sum(torch.where(probs > 0, probs * torch.log(probs), 0.0))
     return torch.exp(entropy)

@@ -20,7 +20,8 @@ on a scale 4 bytes off one, which a (1,) bias ahead of it in the buffer
 leaves it (``scripts/torch_flat_alignment_check.py``).
 
 The per-leaf optax path (``fused=False``) exists in the JAX package for
-tensor parallelism only and comes with the parallel slice.
+tensor parallelism only and comes with the model-axis slice (data
+parallelism all-reduces the flat gradient buffer and keeps this path).
 """
 
 from __future__ import annotations
@@ -289,8 +290,8 @@ def create_train_state(
         fused = cfg.fused_optimizer
     if not fused:
         raise NotImplementedError(
-            "the per-leaf optimizer (fused=False) serves tensor parallelism "
-            "and comes with the parallel slice of the port"
+            "the per-leaf optimizer (fused=False) serves tensor parallelism: "
+            "the model axis comes with a later parallel slice of the port"
         )
     flat = FlatParams(model)
     device = flat.flat.device

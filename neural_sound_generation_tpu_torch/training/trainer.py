@@ -30,6 +30,19 @@ and ``"g"`` for speakers) shifts its targets into the teacher-forced inputs
 and takes the mixture-of-logistics NLL for scalar input or the masked cross
 entropy for mulaw-quantize; its convolutions are cuDNN's, and it runs the
 fused-Adam kernel once.
+
+Data parallelism (``mesh``, a ``parallel.mesh.DataMesh``): each rank is
+handed its rows of the global batch (``parallel.mesh.shard_batch``) and
+runs the step with the mesh current, so that what the step computes over
+the batch (BatchNorm's statistics, masked means, the switch load-balance
+term, the EMA codebook's statistics and restart candidates, the code
+histogram) is the global batch's. Between the backward and the fused
+update the flat gradient buffer is all-reduced once (SUM, then / W, the
+JAX order: all-reduce, clip, Adam), so every rank's kernel-3 launch
+applies the one-rank step's gradient and the ranks stay bit-equal. Under
+``make_multistep_train`` that happens once per inner step. The Trainer
+averages its logged metrics over the ranks, gathers the last eval
+reconstruction in rank order, and logs and writes metrics on rank 0 only.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ from neural_sound_generation_tpu_torch.models import (
     WaveNet,
     WaveVQVAE,
 )
+from neural_sound_generation_tpu_torch.parallel import mesh as data_mesh
 from neural_sound_generation_tpu_torch.ops.vq import (
     codebook_ema_update,
     residual_codebook_ema_update,
@@ -178,9 +192,11 @@ def uses_ema_codebook(model, cfg: Config) -> bool:
     return bool(cfg.model.ema_codebook) and isinstance(model, (VQVAE, WaveVQVAE))
 
 
-def make_train_step(model, cfg: Config) -> Callable:
+def make_train_step(model, cfg: Config, mesh=None) -> Callable:
     """One optimization step: ``train_step(state, batch, generator) ->
-    (state, metrics)``, updating ``state`` in place.
+    (state, metrics)``, updating ``state`` in place. With ``mesh`` the
+    batch is this rank's rows and the step is the data-parallel one (see
+    the module docstring); the metrics stay this rank's.
 
     Under ``cfg.model.ema_codebook`` the VQ-VAE's codebook learns by EMA
     cluster statistics: its gradient is zeroed before the update, the
@@ -192,12 +208,20 @@ def make_train_step(model, cfg: Config) -> Callable:
     ema_codebook = uses_ema_codebook(model, cfg)
 
     def train_step(state: TrainState, batch: Batch, generator: torch.Generator | None = None):
+        with data_mesh.active(mesh):
+            return _step(state, batch, generator)
+
+    def _step(state: TrainState, batch: Batch, generator):
         model.train()
         state.flat.zero_grad()
         total, metrics, z_e = loss_fn(batch, generator)
         total.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         with torch.no_grad():
+            if mesh is not None:
+                # one collective over the flat buffer (the parameters' .grad
+                # are views into it): the global batch's gradient
+                mesh.mean_(state.flat.grad)
             cb_old = None
             if ema_codebook:
                 state.flat.view("codebook", state.flat.grad).zero_()
@@ -251,13 +275,14 @@ def _ema_codebook_step(state: TrainState, cfg: Config, cb_old, z_e, generator) -
     state.codebook_ema = {"cluster": cluster, "embed_sum": esum}
 
 
-def make_multistep_train(model, cfg: Config, n_inner: int) -> Callable:
+def make_multistep_train(model, cfg: Config, n_inner: int, mesh=None) -> Callable:
     """``n_inner`` optimization steps over a stacked super-batch (every
     tensor gains a leading (n_inner,) axis): ``multi(state, batches,
     generator) -> (state, stacked metrics)``. The parameters, moments and
     EMA stay in their flat buffers from step to step (the JAX package's
-    flat carry), so nothing is raveled per step."""
-    step = make_train_step(model, cfg)
+    flat carry), so nothing is raveled per step. With ``mesh`` each inner
+    step is the data-parallel one, one gradient all-reduce each."""
+    step = make_train_step(model, cfg, mesh)
 
     def multi(state: TrainState, batches: Batch, generator: torch.Generator | None = None):
         per_step = []
@@ -284,12 +309,14 @@ def stack_batches(batches):
     return out
 
 
-def make_eval_step(model, cfg: Config) -> Callable:
+def make_eval_step(model, cfg: Config, mesh=None) -> Callable:
     """Eval forward with running statistics: ``eval_step(state, batch) ->
     (reconstruction or prior logits, metrics)``, on the EMA shadow when the
     state has one (``TrainState.eval_params``). The JAX eval step's metrics
     per family: the VQ families add the code perplexity (``perplexity_top``
-    too for the hierarchy), the VAE's noise is 0."""
+    too for the hierarchy), the VAE's noise is 0. With ``mesh`` the batch
+    is this rank's rows; masked means and perplexities are the global
+    batch's, the other metrics this rank's."""
     if not isinstance(model, FAMILIES):
         raise TypeError(f"unsupported model: {type(model).__name__}")
     beta = cfg.model.beta
@@ -297,7 +324,7 @@ def make_eval_step(model, cfg: Config) -> Callable:
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
         model.eval()
-        with state.flat.swapped(state.eval_params()):
+        with state.flat.swapped(state.eval_params()), data_mesh.active(mesh):
             return _eval_forward(batch)
 
     def _eval_forward(batch: Batch):
@@ -340,7 +367,11 @@ class Trainer:
     """Epoch driver: train epochs, eval epochs, metric aggregation.
 
     Metric sums stay on the device and are pulled once per epoch; only the
-    ``log_interval`` print and the checkpoint callback read the host."""
+    ``log_interval`` print and the checkpoint callback read the host. With
+    ``mesh`` the batches it is given are this rank's rows
+    (``parallel.mesh.shard_batch``), every pull averages over the ranks
+    (one collective, the same on every rank), and only rank 0 logs and
+    writes ``metrics_path``."""
 
     def __init__(
         self,
@@ -350,19 +381,23 @@ class Trainer:
         log_fn: Optional[Callable[[str], None]] = print,
         metrics_path: Optional[str] = None,
         multi_steps: int = 1,
+        mesh=None,
     ):
         self.model = model
         self.cfg = cfg
         self.state = state
+        self.mesh = mesh
         self.device = state.flat.flat.device
-        self.log_fn = log_fn or (lambda s: None)
-        self.metrics_path = metrics_path
+        primary = mesh is None or mesh.is_primary
+        self.log_fn = (log_fn if primary else None) or (lambda s: None)
+        self.metrics_path = metrics_path if primary else None
         self.multi_steps = max(1, multi_steps)
-        self._train_step = make_train_step(model, cfg)
+        self._train_step = make_train_step(model, cfg, mesh)
         self._multi_step = (
-            make_multistep_train(model, cfg, self.multi_steps) if self.multi_steps > 1 else None
+            make_multistep_train(model, cfg, self.multi_steps, mesh)
+            if self.multi_steps > 1 else None
         )
-        self._eval_step = make_eval_step(model, cfg)
+        self._eval_step = make_eval_step(model, cfg, mesh)
 
     def _write_metrics(self, record: Dict) -> None:
         if not self.metrics_path:
@@ -374,13 +409,16 @@ class Trainer:
         """Host numpy batches -> device tensors, two batches ahead."""
         return device_prefetch(batches, size=2, device=self.device)
 
-    @staticmethod
-    def _pull(sums: Optional[Dict[str, torch.Tensor]], count: int) -> Dict[str, float]:
+    def _pull(self, sums: Optional[Dict[str, torch.Tensor]], count: int) -> Dict[str, float]:
+        """Host means of summed metrics; on a mesh averaged over the ranks
+        (every rank's batches hold the same number of rows)."""
         if not sums:
             return {}
         keys = sorted(sums)
-        values = torch.stack([sums[k].to(torch.float32) for k in keys]).cpu().tolist()
-        return {k: v / max(count, 1) for k, v in zip(keys, values)}
+        values = torch.stack([sums[k].to(torch.float32) for k in keys])
+        if self.mesh is not None:
+            self.mesh.mean_(values)
+        return {k: v / max(count, 1) for k, v in zip(keys, values.cpu().tolist())}
 
     def train_epoch(self, batches, generator: torch.Generator | None = None,
                     epoch: int = 0, checkpoint_cb=None):
@@ -451,6 +489,8 @@ class Trainer:
             else:
                 sums = {k: sums.get(k, 0.0) + v for k, v in metrics.items()}
         means = self._pull(sums, count)
+        if self.mesh is not None and last_recon is not None:
+            last_recon = self.mesh.gather_rows(last_recon.contiguous())
         self.log_fn(f"====> Test set loss: {means.get('loss', 0.0):.4f}")
         self._write_metrics({"phase": "test", "batches": count, **means})
         return means, last_recon

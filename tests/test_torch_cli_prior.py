@@ -200,13 +200,13 @@ def test_sample_endpoint_over_http(trained):
 
 @pytest.mark.parametrize("flags,match", [
     (["--arch", "transformer", "--mesh-pipe", "2"], "parallel slice"),
-    (["--arch", "transformer", "--mesh-data", "2"], "parallel slice"),
+    (["--arch", "transformer", "--mesh-model", "2"], "parallel slice"),
 ])
 def test_flags_of_later_slices_refuse(flags, match):
     common = ["--vqvae-ckpt", "/nonexistent", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match=match):
         prior.main(["train", "--datadir", "/nonexistent", *common, *flags])
-    if "--mesh-pipe" not in flags and "--mesh-data" not in flags:
+    if "--mesh-pipe" not in flags and "--mesh-model" not in flags:
         with pytest.raises(NotImplementedError, match=match):
             prior.main(["sample", "--prior-ckpt", "/nonexistent", *common, *flags])
 

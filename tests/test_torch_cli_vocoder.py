@@ -111,12 +111,12 @@ def test_synthesize_refusals(artifact, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["train", "--datadir", "x", "--mesh-data", "2"],
+    ["train", "--datadir", "x", "--mesh-model", "2"],
     ["train", "--datadir", "x", "--bf16", "--mesh-pipe", "2", "--multi-steps", "4"],
     ["train", "--datadir", "x", "--mesh-model", "2", "--pp-microbatches", "2"],
 ])
 def test_next_slice_raises(argv):
-    """More than one device is the parallel slice's."""
+    """The mesh's model and pipe axes come with later parallel slices."""
     with pytest.raises(NotImplementedError, match="parallel slice"):
         vocoder.main(argv)
 

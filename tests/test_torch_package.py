@@ -41,7 +41,8 @@ def test_importing_every_module_loads_no_jax():
                  "data.corpora.engine", "data.corpora.ljspeech", "data.corpora.cmu_arctic",
                  "data.corpora.jsut", "data.corpora.librivox", "cli.preprocess",
                  "cli.invert", "motion", "motion.capture", "motion.pca",
-                 "motion.inference", "cli.motion"):
+                 "motion.inference", "cli.motion", "parallel", "parallel.distributed",
+                 "parallel.mesh"):
         assert f"neural_sound_generation_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
