@@ -3,8 +3,8 @@
 residual-VQ bf16), prior, vocoder, 3x3-convolution A/B, corpus
 preprocessing, mel-inversion, other-autoencoder (HierVQVAE, WaveVQVAE,
 VAE), PixelCNN-prior, hierarchical-chain, vocoder-training, routed
-(switch-MoE) prior, bf16 prior and motion paths on one CUDA card and checks
-them.
+(switch-MoE) prior, bf16 prior, motion, data-parallel and tensor-parallel
+paths on one CUDA card and checks them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
@@ -123,7 +123,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
     --codebook-init data`` on phase 5's corpus (80 x 24 crops), its
     checkpoint's metadata, ``cli.evaluate``, one f32 step card vs CPU
     (every top flip, and every bottom flip no top flip explains, a
-    near-tie), and ``cli.serve --model hiervqvae`` (80-frame windows)
+    near-tie; without a flip grad_norm within max(1e-5, HIER_SPREAD_C s),
+    s the CPU's own change of it at one thread), and ``cli.serve --model
+    hiervqvae`` (80-frame windows)
     answering /encode, /decode and /reconstruct of 1 s and 8 s chirps with
     aligned grids, finite audio and card-vs-CPU codes equal but at
     near-ties and their cascades; ``cli.main --model wavevqvae`` raw with
@@ -234,7 +236,22 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
     states bit-equal, the evaluation's metrics and gathered
     reconstruction, the all-reduce time of the flagship's gradient at
     W = 1 (NCCL, a group of one) and W = 2 (gloo), and steps/s at both;
-18. summary: one JSON line per kernel, then the result line.
+18. tensor parallel: the nearest-code kernel at the flagship step's search
+    over 2 and 4 codebook shards, whose merged (score, index) pairs must
+    equal one whole-codebook launch bit for bit (scores within the
+    kernel header's bound of float64); then ``cli.main --model vqvae
+    --mesh-model 2`` under ``torchrun`` (``chip_smoke.py --tp-rank
+    spec.json`` is one rank) at W 2 (data 1 x model 2) and W 4 (2 x 2),
+    the ranks sharing this card over gloo, with phase 17's flagship flags,
+    against phase 17's W 1 run; at W 2 also a --resume step from phase
+    17's W 1 checkpoint, ``cli.evaluate --mesh-model 2`` on it and one
+    RVQ/bf16 step. Each rank's launches (kernel 1 once a search at K 256,
+    kernel 3 once a step at the rank's n), the first step against W 1 (as
+    phase 17), the loss falling, the data groups' states and the model
+    groups' replicated leaves bit-equal, the evaluation's metrics; ms a
+    step of the first step's collectives replayed, steps/s, the bytes of
+    a rank's parameters, moments and EMA, kernel 3 at the rank's n;
+19. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -2826,6 +2843,35 @@ def quantization_error_part(torch, z, codebook, cpu_codes, card_codes, rows) -> 
     return (err(card_codes) - err(cpu_codes)) / z.numel()
 
 
+# the no-flip grad_norm limit of the hier card-vs-CPU step follows the
+# state's own conditioning: max(1e-5, HIER_SPREAD_C * s), s the relative
+# change of the CPU's grad_norm when the same step runs on
+# HIER_SPREAD_THREADS threads (another order of every float32 sum). C is
+# 2.6 times the largest card-gap / s ratio that
+# scripts/torch_hier_grad_probe.py --rule read on an H100 over seeds 1-28
+# (7.6, seed 6, among the 19 states without a flip; PERF.md has the seeds)
+HIER_SPREAD_THREADS = 1
+HIER_SPREAD_C = 20.0
+
+
+def cpu_step_grad_norm(torch, cli_main, checkpoint, cfg, ckpt: str, batch, threads: int) -> float:
+    """The grad_norm of one f32 train step on the CPU at ``threads``
+    threads from a checkpoint and batch."""
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+    from neural_sound_generation_tpu_torch.training.trainer import make_train_step
+
+    saved = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        model = cli_main.make_model(cfg)
+        state = create_train_state(model, cfg.train)
+        checkpoint.restore(ckpt, state)
+        _, m = make_train_step(model, cfg)(state, {"x": torch.from_numpy(batch["x"])})
+        return float(m["grad_norm"])
+    finally:
+        torch.set_num_threads(saved)
+
+
 def hier_card_vs_cpu(torch, cli_main, checkpoint, cfg, ckpt: str, batch) -> tuple[dict, dict]:
     """One f32 HierVQVAE train step on the card and on the CPU from the same
     checkpoint and batch (gradient codebooks). Each level's codes (train
@@ -2892,8 +2938,18 @@ def hier_card_vs_cpu(torch, cli_main, checkpoint, cfg, ckpt: str, batch) -> tupl
           f"hier card vs CPU train step: loss terms differ {rel}, {rest} beyond the flips")
     if not top["flips"]:
         flips = bot["flips"]
-        check(rel["grad_norm"] <= (2e-3 if flips else 1e-5),
-              f"hier card vs CPU train step: grad_norm differs by {rel['grad_norm']:.3g}")
+        limit = 2e-3 if flips else 1e-5
+        if not flips and rel["grad_norm"] > limit:
+            # beyond the floor: the limit follows this state's order spread
+            spread = abs(cpu_step_grad_norm(torch, cli_main, checkpoint, cfg, ckpt, batch,
+                                            HIER_SPREAD_THREADS)
+                         - cpu_m["grad_norm"]) / cpu_m["grad_norm"]
+            limit = max(limit, HIER_SPREAD_C * spread)
+            record["grad_norm_spread"] = spread
+        record["grad_norm_limit"] = limit
+        check(rel["grad_norm"] <= limit,
+              f"hier card vs CPU train step: grad_norm differs by {rel['grad_norm']:.3g} "
+              f"(limit {limit:.3g})")
         check(record["params_beyond_1e-5_frac"] <= 1e-3 and float(diff.max()) <= 1e-2,
               f"hier card vs CPU train step: parameters differ {record}")
     z = {"hier_top": (card_levels[0], books[DEVICE][0]),
@@ -5295,6 +5351,519 @@ def data_parallel_phase(torch, root: str, corpus: str, vq_ckpt: str, card: str) 
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: tensor parallelism (the mesh's model axis, torchrun)
+# ---------------------------------------------------------------------------
+
+TP_MODEL = 2
+TP_WORLDS = (2, 4)  # (data 1 x model 2), (data 2 x model 2)
+TP_SHARDS = (2, 4)  # the direct kernel check's codebook shards
+TP_TIMEOUT_S = 480
+TP_COLLECTIVE_ITERS = 5
+# the header's bound on a winning score (csrc/vq_nearest.cu: "some 1e-4
+# absolute at |x| = |e| = 16"), scaled by |x| |e| / 256 for other norms
+VQ_SCORE_ABS_AT_256 = 1e-4
+
+
+def sharded_search_check(torch, vq_kernel, vq_ops, gen) -> dict:
+    """Kernel 1 at the flagship step's search (N 8,960, K 512, D 256): the
+    codebook split into M row shards, one launch a shard with the scores,
+    the shards merged (``ops.vq.merge_shards``) against one whole-codebook
+    launch: the indices and the winning scores bit-equal. The kernel's
+    winning scores against float64 within the header's bound, and the
+    plain version's for comparison."""
+    n, k = VQ_TRAIN_SHAPE
+    x = torch.randn(n, VQ_D, generator=gen, device="cuda")
+    cb = torch.randn(k, VQ_D, generator=gen, device="cuda")
+    idx, score = vq_kernel.nearest_codebook_indices(x, cb, return_scores=True)
+    p_idx, p_score = vq_kernel.nearest_codebook_indices_plain(x, cb, return_scores=True)
+    torch.cuda.synchronize()
+    x64, e64 = x.double(), cb[idx.long()].double()
+    exact = (e64 * e64).sum(1) - 2.0 * (x64 * e64).sum(1)
+    p_e64 = cb[p_idx.long()].double()
+    p_exact = (p_e64 * p_e64).sum(1) - 2.0 * (x64 * p_e64).sum(1)
+    bound = VQ_SCORE_ABS_AT_256 * float((x.norm(dim=1) * cb.norm(dim=1).max()).max()) / 256.0
+    row = {"phase": "kernel", "name": "vq_nearest_sharded", "n": n, "k": k, "d": VQ_D,
+           "score_max_abs_err_vs_float64": float((score.double() - exact).abs().max()),
+           "plain_score_max_abs_err_vs_float64": float((p_score.double() - p_exact).abs().max()),
+           "score_bound": bound,
+           "kernel_vs_plain_index_mismatches": int((idx != p_idx).sum())}
+    check(row["score_max_abs_err_vs_float64"] <= bound,
+          f"vq_nearest scores {row['score_max_abs_err_vs_float64']} from float64, bound {bound}")
+    for m in TP_SHARDS:
+        kl = k // m
+        parts = [vq_kernel.nearest_codebook_indices(x, cb[r * kl:(r + 1) * kl].contiguous(),
+                                                    return_scores=True) for r in range(m)]
+        merged = vq_ops.merge_shards(torch.stack([s for _, s in parts]),
+                                     torch.stack([i.long() + r * kl
+                                                  for r, (i, _) in enumerate(parts)]))
+        best = torch.stack([s for _, s in parts]).min(dim=0).values
+        row[f"m{m}"] = {"k_shard": kl, "index_mismatches": int((merged != idx).sum()),
+                        "score_mismatches": int((best != score).sum()),
+                        "plan": vq_kernel.launch_plan(x, cb[:kl].contiguous())}
+        check(torch.equal(merged, idx) and torch.equal(best, score),
+              f"vq_nearest over {m} shards: {row[f'm{m}']} against one whole-codebook launch")
+    iters = 50
+    shard = cb[:k // TP_MODEL].contiguous()
+    bound_ms, bound_by = vq_bound_ms(n, k // TP_MODEL, VQ_D)
+    row["shard_k256"] = {
+        "ms": time_ms(torch, lambda: vq_kernel.nearest_codebook_indices(
+            x, shard, return_scores=True), iters),
+        "device_ms": device_time_ms(torch, lambda: vq_kernel.nearest_codebook_indices(
+            x, shard, return_scores=True), iters)[0],
+        "plain_ms": time_ms(torch, lambda: vq_kernel.nearest_codebook_indices_plain(
+            x, shard, return_scores=True), iters),
+        "library_ms": time_ms(torch, lambda: torch.cdist(x, shard).min(dim=1), iters),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_3xtf32_ms": vq_tensor_core_bound_ms(n, k // TP_MODEL, VQ_D)}
+    return row
+
+
+def tp_jobs(root: str, corpus: str, world: int) -> list[dict]:
+    """What one torchrun launch of ``world`` ranks runs with --mesh-model
+    TP_MODEL: the flagship through ``cli.main`` with phase 17's flagship
+    flags; at W 2 also one --resume step from phase 17's W 1 checkpoint
+    (copied first), ``cli.evaluate`` on that checkpoint and one RVQ/bf16
+    step (phase 6's flags)."""
+    out = os.path.join(root, "tp", f"w{world}")
+    mesh = ["--mesh-model", str(TP_MODEL), "--mesh-data", str(world // TP_MODEL)]
+
+    def flagship(tag: str, *extra) -> list:
+        return ["--model", "vqvae", "--dataset", "ljspeech", "--datadir", corpus,
+                "--dim", str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES),
+                "--batch-size", str(TRAIN_BATCH), "--log-interval", "1",
+                "--codebook-init", "data", "--device", DEVICE,
+                "--ckpt-dir", os.path.join(out, tag, "models"),
+                "--sampledir", os.path.join(out, tag, "results"), *mesh, *extra]
+
+    jobs = [{"name": "flagship", "cli": "main", "record_first_vq": True,
+             "argv": flagship("flagship", "--epochs", str(DP_EPOCHS),
+                              "--max-batches-per-epoch", str(BATCHES_PER_EPOCH))}]
+    if world != TP_WORLDS[0]:
+        return jobs
+    one_rank = os.path.join(root, "dp", "w1", "flagship", "models")
+    ckpt = os.path.join(one_rank, "vqvae", f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")
+    return jobs + [
+        {"name": "resume", "cli": "main", "copy": [one_rank, os.path.join(out, "resume",
+                                                                         "models")],
+         "argv": flagship("resume", "--epochs", str(DP_EPOCHS + 1),
+                          "--max-batches-per-epoch", "1", "--resume")},
+        {"name": "evaluate", "cli": "evaluate",
+         "argv": ["--datadir", corpus, "--ckpt-dir", ckpt, "--dim", str(TRAIN_DIM),
+                  "--z-dim", str(TRAIN_CODES), "--batch-size", str(TRAIN_BATCH),
+                  "--max-batches", "1", "--device", DEVICE, *mesh,
+                  "--dump-npy", os.path.join(out, "evaluate.npy")]},
+        {"name": "rvq", "cli": "main", "argv": rvq_argv(os.path.join(out, "rvq"), corpus) + [
+            "--bf16", "--epochs", "1", "--max-batches-per-epoch", "1", *mesh]},
+    ]
+
+
+def tp_digests(torch, state) -> dict:
+    """sha256 over this rank's whole local state, and over its replicated
+    part alone (the flat buffers past ``split_at``)."""
+    import hashlib
+
+    def digest(tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        return h.hexdigest()
+
+    cut = state.flat.split_at
+    vectors = [state.flat.flat, *state.opt_state.moments()]
+    if state.ema_params is not None:
+        vectors.append(state.ema_params)
+    return {"local": state_digest(torch, state),
+            "replicated": digest([v[cut:] for v in vectors])}
+
+
+def run_tp_job(torch, mods, kernels, job: dict) -> dict:
+    """One CLI run on this rank with every launch count set to 0 just
+    before it and read just after (phase 17's ``run_dp_job`` with the
+    model axis): each step's metrics and end time; the first step's
+    gradient and parameters gathered over the model group, by name; each
+    search's rows and codebook shard; the first search's rows and global
+    indices; kernel 3's n; the collectives of the first step."""
+    from neural_sound_generation_tpu_torch.ops import vq as vq_ops
+    from neural_sound_generation_tpu_torch.ops.cuda import vq_kernel
+    from neural_sound_generation_tpu_torch.parallel import mesh as mesh_mod
+    from neural_sound_generation_tpu_torch.training import train_state as ts_mod
+    from neural_sound_generation_tpu_torch.training import trainer as trainer_mod
+
+    cli = mods[job["cli"]]
+    rec = {"metrics": [], "step_t": [], "searches": [], "adam_n": [], "collectives": []}
+    trainers = []
+    recording = {"on": False}
+
+    class Recorded(trainer_mod.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            trainers.append(self)
+            inner = self._train_step
+
+            def step(state, batch, generator=None):
+                recording["on"] = not rec["metrics"]
+                state, metrics = inner(state, batch, generator)
+                recording["on"] = False
+                sync(torch)
+                rec["step_t"].append(time.perf_counter())
+                rec["metrics"].append({k: float(v) for k, v in metrics.items()})
+                if len(rec["metrics"]) == 1:
+                    flat = state.flat
+                    named = {f"params/{k}": g for k, g in flat.named(flat.grad).items()}
+                    params = {f"params/{k}": p for k, p in flat.named(flat.flat).items()}
+                    if state.shards is not None:
+                        named = state.shards.gather_tensors(named)
+                        params = state.shards.gather_tensors(params)
+                    rec["first_grad"] = {k[7:]: g.cpu().clone() for k, g in named.items()}
+                    rec["first_params"] = {k[7:]: p.cpu().clone() for k, p in params.items()}
+                return state, metrics
+
+            self._train_step = step
+
+    nearest, merged_nearest = vq_kernel.nearest_codebook_indices, vq_ops._nearest_indices
+    adam = ts_mod.fused_adam_update
+    saved = {name: getattr(mesh_mod.Mesh, name)
+             for name in ("model_concat", "model_all_reduce", "model_all_reduce_", "all_reduce_")}
+
+    def recorded_nearest(x, cb, **kw):
+        rec["searches"].append((int(x.shape[0]), int(cb.shape[0])))
+        return nearest(x, cb, **kw)
+
+    def recorded_merged(x, cb):
+        idx = merged_nearest(x, cb)
+        if job.get("record_first_vq") and "first_vq" not in rec and not rec["metrics"]:
+            rec["first_vq"] = {"x": x.detach().cpu(), "cb": cb.detach().cpu(),
+                               "idx": idx.cpu()}
+        return idx
+
+    def recorded_adam(g, *a, **k):
+        rec["adam_n"].append(int(g.numel()))
+        return adam(g, *a, **k)
+
+    def collective(name):
+        def call(self, t, *a, **kw):
+            if recording["on"]:
+                rec["collectives"].append((name, tuple(t.shape), str(t.dtype),
+                                           kw.get("dim", a[0] if a else None)))
+            return saved[name](self, t, *a, **kw)
+        return call
+
+    saved_trainer = cli.Trainer
+    cli.Trainer = Recorded
+    vq_kernel.nearest_codebook_indices, vq_ops._nearest_indices = recorded_nearest, recorded_merged
+    ts_mod.fused_adam_update = recorded_adam
+    for name in saved:
+        setattr(mesh_mod.Mesh, name, collective(name))
+    for k in kernels:
+        k.reset_launch_count()
+    t0 = time.perf_counter()
+    try:
+        result = cli.main(job["argv"])
+    finally:
+        cli.Trainer = saved_trainer
+        vq_kernel.nearest_codebook_indices, vq_ops._nearest_indices = nearest, merged_nearest
+        ts_mod.fused_adam_update = adam
+        for name, fn in saved.items():
+            setattr(mesh_mod.Mesh, name, fn)
+    rec["seconds"] = time.perf_counter() - t0
+    rec["launches"] = read_launches(*kernels)
+    if job["cli"] == "evaluate":
+        rec["means"] = result
+    if trainers:
+        state = trainers[-1].state
+        rec["digests"] = tp_digests(torch, state)
+        rec["state_bytes"] = sum(t.numel() * t.element_size() for t in (
+            state.flat.flat, *state.opt_state.moments(),
+            *([] if state.ema_params is None else [state.ema_params])))
+        rec["local_n"] = state.flat.numel
+        rec["split_at"] = state.flat.split_at
+    return rec
+
+
+def time_tp_collectives(torch, mesh, ops: list) -> dict:
+    """ms of a step's collectives, replayed on tensors of the recorded
+    shapes: each op timed alone (synchronised, the median of
+    TP_COLLECTIVE_ITERS), summed by kind."""
+    out: dict = {}
+    for name, shape, dtype, arg in ops:
+        t = torch.ones(shape, device=DEVICE, dtype=getattr(torch, dtype.split(".")[-1]))
+        fn = getattr(mesh, name)
+        times = []
+        for i in range(TP_COLLECTIVE_ITERS + 1):
+            sync(torch)
+            t0 = time.perf_counter()
+            fn(t, dim=arg) if arg is not None else fn(t)
+            sync(torch)
+            if i:
+                times.append(1e3 * (time.perf_counter() - t0))
+        out[name] = out.get(name, 0.0) + float(np.median(times))
+    return out
+
+
+def tp_rank_main(spec_path: str) -> int:
+    """One rank of a phase-18 launch (``chip_smoke.py --tp-rank spec.json``
+    under torchrun): joins the group with the port's backend rule, runs the
+    spec's jobs in order, replays the flagship's first-step collectives on
+    the job's mesh and writes one record per job."""
+    import torch
+    import torch.distributed as dist
+
+    from neural_sound_generation_tpu_torch.cli import evaluate as cli_evaluate
+    from neural_sound_generation_tpu_torch.cli import main as cli_main
+    from neural_sound_generation_tpu_torch.device import set_full_float32
+    from neural_sound_generation_tpu_torch.ops.cuda import flash_attention as fa
+    from neural_sound_generation_tpu_torch.ops.cuda import fused_adam, vq_kernel
+    from neural_sound_generation_tpu_torch.parallel import distributed, make_mesh
+
+    global DEVICE
+    with open(spec_path, encoding="utf-8") as f:
+        spec = json.load(f)
+    DEVICE = spec["device"]
+    if DEVICE == "cuda" and not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    set_full_float32()
+    distributed.initialize(device=DEVICE)
+    rank, world = distributed.rank(), distributed.world_size()
+    mods = {"main": cli_main, "evaluate": cli_evaluate}
+    records = {}
+    for job in spec["jobs"]:
+        if rank == 0 and job.get("copy"):
+            src, dst = job["copy"]
+            shutil.rmtree(dst, ignore_errors=True)
+            shutil.copytree(src, dst)
+        distributed.barrier()
+        rec = run_tp_job(torch, mods, (vq_kernel, fused_adam, fa), job)
+        records[job["name"]] = rec
+        torch.save(rec, os.path.join(spec["out"], f"{job['name']}_rank{rank}.pt"))
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    # the collectives' ms a step: the flagship's first step replayed
+    mesh = make_mesh(n_data=world // TP_MODEL, n_model=TP_MODEL)
+    flag = records["flagship"]
+    timing = {"backend": dist.get_backend(), "world": world,
+              "collectives_ms": time_tp_collectives(torch, mesh, flag["collectives"]),
+              "collective_calls": len(flag["collectives"])}
+    with open(os.path.join(spec["out"], f"timing_rank{rank}.json"), "w", encoding="utf-8") as f:
+        json.dump(timing, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def launch_tp(torch, root: str, jobs: list, world: int) -> dict:
+    """One torchrun launch of ``world`` ranks on this card; every rank's
+    records. A rank's failure fails the phase."""
+    out = os.path.join(root, "tp", f"w{world}")
+    os.makedirs(out, exist_ok=True)
+    spec = os.path.join(out, "spec.json")
+    with open(spec, "w", encoding="utf-8") as f:
+        json.dump({"jobs": jobs, "out": out, "device": DEVICE}, f)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         str(world), os.path.abspath(__file__), "--tp-rank", spec],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=TP_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"torchrun with {world} ranks (--mesh-model {TP_MODEL}) exited "
+          f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    ranks = [{job["name"]: torch.load(os.path.join(out, f"{job['name']}_rank{r}.pt"),
+                                      weights_only=False) for job in jobs}
+             for r in range(world)]
+    timing = [json.load(open(os.path.join(out, f"timing_rank{r}.json"), encoding="utf-8"))
+              for r in range(world)]
+    return {"ranks": ranks, "timing": timing, "seconds": seconds}
+
+
+def check_tp_groups(ranks: list, job: str) -> None:
+    """Every rank's local state bit-equal across its data group (ranks r
+    and r + TP_MODEL), its replicated part across its model group."""
+    for r, rank in enumerate(ranks):
+        for s, other in enumerate(ranks):
+            a, b = rank[job]["digests"], other[job]["digests"]
+            if r % TP_MODEL == s % TP_MODEL:
+                check(a["local"] == b["local"],
+                      f"tensor parallel {job}: ranks {r} and {s} (one data group) differ")
+            if r // TP_MODEL == s // TP_MODEL:
+                check(a["replicated"] == b["replicated"],
+                      f"tensor parallel {job}: ranks {r} and {s} (one model group) differ "
+                      "in their replicated leaves")
+
+
+def check_tp_launches(ranks: list, job: str, want: dict, searches=None) -> list:
+    counts = []
+    for r, rank in enumerate(ranks):
+        got = rank[job]["launches"]
+        for k, n in want.items():
+            check(got[k] == n, f"tensor parallel {job} rank {r}: {k} launched {got[k]} times, "
+                  f"expected {n}")
+        if searches is not None:
+            check(searches(rank[job]["searches"]),
+                  f"tensor parallel {job} rank {r}: searches (rows, codes) "
+                  f"{sorted(set(rank[job]['searches']))}")
+        check(set(rank[job]["adam_n"]) <= {rank[job].get("local_n")},
+              f"tensor parallel {job} rank {r}: kernel 3 at n {set(rank[job]['adam_n'])}, "
+              f"the local buffer has {rank[job].get('local_n')}")
+        counts.append(got)
+    return counts
+
+
+def tp_first_step(torch, one: dict, ranks: list) -> dict:
+    """The flagship's first step on the model axis against W 1 (phase 17's
+    one-rank run): the loss, the gathered gradient relative to its norm,
+    the code flips (each a near-tie) of the first search."""
+    from neural_sound_generation_tpu_torch.models import VQVAE
+    from neural_sound_generation_tpu_torch.training.train_state import FlatParams
+
+    names = FlatParams(VQVAE(1, TRAIN_DIM, TRAIN_CODES))
+    g1 = names.named(one["first_grad"])
+    g2 = ranks[0]["flagship"]["first_grad"]  # gathered: the same on every rank
+    keys = sorted(g1)
+    v1 = torch.cat([g1[k].reshape(-1) for k in keys])
+    v2 = torch.cat([g2[k].reshape(-1) for k in keys])
+    lead = [r["flagship"] for r in ranks[::TP_MODEL]]  # model rank 0 of each data rank
+    a = one["first_vq"]
+    x2 = torch.cat([r["first_vq"]["x"] for r in lead])
+    i2 = torch.cat([r["first_vq"]["idx"] for r in lead])
+    kl = TRAIN_CODES // TP_MODEL
+    cb_err = max(float((a["cb"][m * kl:(m + 1) * kl] - ranks[m]["flagship"]["first_vq"]["cb"])
+                       .abs().max()) for m in range(TP_MODEL))
+    flipped = (a["idx"] != i2).nonzero()[:, 0]
+    cb = a["cb"].double()
+    ties = near_ties(a["x"][flipped].double(), x2[flipped].double(),
+                     cb[i2[flipped].long()], cb[a["idx"][flipped].long()])
+    loss1 = one["metrics"][0]["loss"]
+    loss2 = float(np.mean([r["metrics"][0]["loss"] for r in lead]))
+    p1 = names.named(one["first_params"])
+    p2 = ranks[0]["flagship"]["first_params"]
+    diff = {k: (p2[k] - p1[k]).abs() for k in keys}
+    bias = torch.cat([t.reshape(-1) for k, t in diff.items() if k.endswith(".bias")])
+    rest = torch.cat([t.reshape(-1) for k, t in diff.items() if not k.endswith(".bias")])
+    return {"loss_w1": loss1, "loss": loss2, "loss_rel": abs(loss2 - loss1) / abs(loss1),
+            "grad_rel": float((v2 - v1).norm() / v1.norm()),
+            "rows": int(a["idx"].numel()), "flips": int(flipped.numel()),
+            "near_ties": int(ties.sum()), "codebook_max_abs_err": cb_err,
+            "x_max_abs_err": float((x2 - a["x"]).abs().max()),
+            "weights_beyond_1e-5_frac": float((rest > 1e-5).float().mean()),
+            "weights_max_abs_err": float(rest.max()), "biases_max_abs_err": float(bias.max())}
+
+
+def tensor_parallel_phase(torch, root: str, corpus: str, card: str, dp: dict, vq_kernel,
+                          fused_adam, gen) -> tuple[dict, dict]:
+    """Phase 18: ``cli.main --mesh-model 2`` under torchrun at W 2 (data 1
+    x model 2) and W 4 (data 2 x model 2), the ranks sharing this card over
+    gloo, against phase 17's W 1 run; at W 2 a --resume step from phase
+    17's W 1 checkpoint, ``cli.evaluate --mesh-model 2`` and one RVQ/bf16
+    step; kernel 1 sharded against one launch, kernel 3 at the local n.
+    Returns (the record, the kernel rows)."""
+    from neural_sound_generation_tpu_torch.config import Config
+    from neural_sound_generation_tpu_torch.models import VQVAE
+    from neural_sound_generation_tpu_torch.ops import vq as vq_ops
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+
+    t0 = time.perf_counter()
+    shutil.rmtree(os.path.join(root, "tp"), ignore_errors=True)
+    kernel_row = sharded_search_check(torch, vq_kernel, vq_ops, gen)
+    emit(kernel_row)
+    runs = {w: launch_tp(torch, root, tp_jobs(root, corpus, w), w) for w in TP_WORLDS}
+    one = {job: torch.load(os.path.join(root, "dp", "w1", f"{job}_rank0.pt"),
+                           weights_only=False) for job in ("flagship", "evaluate", "rvq")}
+    rows = TRAIN_BATCH * (80 // 4) * (28 // 4)
+    steps = DP_EPOCHS * BATCHES_PER_EPOCH
+    kl = TRAIN_CODES // TP_MODEL
+    out = {"phase": "tensor_parallel", "card": card, "model": TP_MODEL,
+           "note": "the ranks share one card over gloo: steps/s measures equality's and the "
+                   "collectives' cost, not scaling"}
+    flag = {}
+    for w, run in runs.items():
+        n_data = w // TP_MODEL
+        ranks = run["ranks"]
+        check_tp_launches(ranks, "flagship", {"fused_adam": steps,
+                                              "vq_nearest": steps + 2 * DP_EPOCHS},
+                          lambda s, n_data=n_data: set(s) == {(rows // n_data, kl)})
+        check_tp_groups(ranks, "flagship")
+        first = tp_first_step(torch, one["flagship"], ranks)
+        check(first["near_ties"] == first["flips"],
+              f"tensor parallel W {w}: {first['flips'] - first['near_ties']} code flips that "
+              "are not near-ties")
+        check(first["codebook_max_abs_err"] <= 1e-5,
+              f"tensor parallel W {w}: data-init codebook shards {first['codebook_max_abs_err']}"
+              " from the W 1 codebook")
+        check(first["loss_rel"] <= DP_LOSS_REL,
+              f"tensor parallel W {w}: first loss {first['loss']} against {first['loss_w1']}")
+        check(first["grad_rel"] <= (DP_GRAD_REL_FLIPS if first["flips"] else DP_GRAD_REL),
+              f"tensor parallel W {w}: the gathered gradient {first['grad_rel']:.3g} of its norm "
+              f"away ({first['flips']} flips)")
+        check(first["weights_beyond_1e-5_frac"] <= 1e-3 and first["weights_max_abs_err"] <= 1e-2
+              and first["biases_max_abs_err"] <= 2.01 * DP_LR,
+              f"tensor parallel W {w}: parameters after the first step {first}")
+        losses = [float(np.mean([r["flagship"]["metrics"][i]["loss"]
+                                 for r in ranks[::TP_MODEL]])) for i in range(steps)]
+        check(losses[-1] < losses[0], f"tensor parallel W {w}: the loss did not fall {losses}")
+        flag[f"w{w}"] = {
+            "first_step": first, "losses": losses,
+            "steps_per_s": dp_step_rate(ranks[0]["flagship"]),
+            "local_n": [r["flagship"]["local_n"] for r in ranks],
+            "split_at": ranks[0]["flagship"]["split_at"],
+            "state_bytes_a_rank": [r["flagship"]["state_bytes"] for r in ranks],
+            "collectives_ms_a_step": run["timing"][0]["collectives_ms"],
+            "collective_calls_a_step": run["timing"][0]["collective_calls"],
+            "backend": run["timing"][0]["backend"], "launch_seconds": run["seconds"],
+            "launches": [r["flagship"]["launches"] for r in ranks]}
+    whole = create_train_state(VQVAE(1, TRAIN_DIM, TRAIN_CODES).to(DEVICE), Config().train)
+    flag["w1_state_bytes"] = sum(t.numel() * t.element_size() for t in (
+        whole.flat.flat, whole.opt_state.m, whole.opt_state.v,
+        *([] if whole.ema_params is None else [whole.ema_params])))
+    flag["w1_steps_per_s"] = dp_step_rate(one["flagship"])
+    del whole
+    out["flagship"] = flag
+
+    w2 = runs[TP_WORLDS[0]]["ranks"]
+    # the --resume step from phase 17's W 1 checkpoint
+    check_tp_launches(w2, "resume", {"fused_adam": 1, "vq_nearest": 1 + 2})
+    check_tp_groups(w2, "resume")
+    resumed = os.path.join(root, "tp", f"w{TP_WORLDS[0]}", "resume", "models", "vqvae",
+                           f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")
+    want = {f"step_{BATCHES_PER_EPOCH * e}" for e in range(1, DP_EPOCHS + 1)} | {
+        f"step_{steps + 1}"}
+    check(set(os.listdir(resumed)) == want,
+          f"tensor parallel --resume: checkpoints {sorted(os.listdir(resumed))}, expected {want}")
+    out["resume"] = {"loss": w2[0]["resume"]["metrics"][0]["loss"], "checkpoints": sorted(want)}
+    # cli.evaluate --mesh-model 2 on the W 1 checkpoint
+    m1, m2 = one["evaluate"]["means"], w2[0]["evaluate"]["means"]
+    check(m1.keys() == m2.keys() and all(
+        abs(m2[k] - m1[k]) <= (DP_EVAL_PPL_REL if k == "perplexity" else DP_LOSS_REL) * abs(m1[k])
+        for k in m1), f"tensor parallel evaluate: {m2} against W 1's {m1}")
+    check_tp_launches(w2, "evaluate", {"vq_nearest": 2},
+                      lambda s: set(s) == {(rows, kl)})
+    out["evaluate"] = {"w1": m1, "w2": m2}
+    # one RVQ/bf16 step: Q - 1 data-init searches of the whole codebook
+    # before sharding, then Q in the forward, Q in the EMA branch, 2Q in eval
+    init = RVQ_Q - 1
+    check_tp_launches(w2, "rvq", {"fused_adam": 1, "vq_nearest": init + 2 * RVQ_Q + 2 * RVQ_Q},
+                      lambda s: s[:init] == [(rows, TRAIN_CODES)] * init
+                      and set(s[init:]) == {(rows, kl)})
+    check_tp_groups(w2, "rvq")
+    l1, l2 = one["rvq"]["metrics"][0]["loss"], w2[0]["rvq"]["metrics"][0]["loss"]
+    check(abs(l2 - l1) <= 2e-2 * abs(l1), f"tensor parallel rvq bf16: loss {l2} against {l1}")
+    out["rvq"] = {"loss_w1": l1, "loss": l2, "loss_rel": abs(l2 - l1) / abs(l1)}
+
+    # kernel 3 at the local n of W 2's ranks
+    local_n = flag[f"w{TP_WORLDS[0]}"]["local_n"][0]
+    adam_row = compare_fused_adam(torch, fused_adam, local_n, ADAM_CONFIGS[0], gen)
+    adam_row["shape_of"] = "tensor_parallel_rank"
+    emit(adam_row)
+    out["launches"] = {f"w{w}": [{job: r[job]["launches"] for job in r} for r in runs[w]["ranks"]]
+                       for w in runs}
+    out["seconds"] = time.perf_counter() - t0
+    return out, {"vq_sharded": kernel_row, "adam_local": adam_row}
+
+
 def dp_launch_totals(dp: dict) -> dict:
     """Phase 17's launches of each kernel, summed over its runs and ranks."""
     totals: dict = {}
@@ -5717,14 +6286,24 @@ def main() -> int:
         # sharing this card, with each rank's launch counts
         dp = data_parallel_phase(torch, root, corpus, vq_ckpt, card)
         emit(dp)
+        torch.cuda.empty_cache()
+
+        # phase 18: cli.main and cli.evaluate with --mesh-model 2 under
+        # torchrun (ranks sharing this card), with each rank's launch
+        # counts; kernel 1 over codebook shards, kernel 3 at a rank's n
+        tp, tp_rows = tensor_parallel_phase(torch, root, corpus, card, dp, vq_kernel,
+                                            fused_adam, gen)
+        emit(tp)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # phase 18: summary and result
+    # summary and result
     dp_launches = dp_launch_totals(dp)
+    tp_launches = dp_launch_totals(tp)
+    sharded, adam_local = tp_rows["vq_sharded"], tp_rows["adam_local"]
     train_runs = [*training["runs"].values(), rvq["run"]]
     train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
     train_adam = sum(r["launches"]["fused_adam"] for r in train_runs)
@@ -5745,7 +6324,8 @@ def main() -> int:
                      + prep["vq_launches"] + others["vq_launches"]
                      + priors_launches["vq_nearest"] + vtrain["vq_launches"]
                      + moe_launches["vq_nearest"] + bf16_launches["vq_nearest"]
-                     + motion["vq_launches"] + dp_launches["vq_nearest"]),
+                     + motion["vq_launches"] + dp_launches["vq_nearest"]
+                     + tp_launches["vq_nearest"]),
         "launches_by_path": {"serving": serving["vq_launches"], "training": train_vq,
                              "prior": prior_launches["vq_nearest"],
                              "preprocess_units": prep["vq_launches"],
@@ -5755,7 +6335,8 @@ def main() -> int:
                              "moe_prior": moe_launches["vq_nearest"],
                              "bf16_prior": bf16_launches["vq_nearest"],
                              "motion": motion["vq_launches"],
-                             "data_parallel": dp_launches["vq_nearest"]},
+                             "data_parallel": dp_launches["vq_nearest"],
+                             "tensor_parallel": tp_launches["vq_nearest"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -5774,6 +6355,15 @@ def main() -> int:
                    "bound_3xtf32_ms": r["tensor_core_bound_ms"], "library_ms": r["library_ms"],
                    "ctas": r["ctas"], "max_abs_err": r["max_abs_err"]}
             for name, r in motion_rows.items()},
+        "sharded_shape": {"n": sharded["n"], "k": TRAIN_CODES // TP_MODEL,
+                          **{k: sharded["shard_k256"][k] for k in (
+                              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                              "bound_3xtf32_ms", "library_ms")},
+                          "index_mismatches_vs_whole": {
+                              f"m{m}": sharded[f"m{m}"]["index_mismatches"] for m in TP_SHARDS},
+                          "score_mismatches_vs_whole": {
+                              f"m{m}": sharded[f"m{m}"]["score_mismatches"] for m in TP_SHARDS},
+                          "score_max_abs_err_vs_float64": sharded["score_max_abs_err_vs_float64"]},
     }, {
         "name": "fused_adam", "route": "cuda",
         "source": "neural_sound_generation_tpu_torch/csrc/fused_adam.cu",
@@ -5782,27 +6372,30 @@ def main() -> int:
         "launches": (train_adam + prior_launches["fused_adam"] + others["adam_launches"]
                      + priors_launches["fused_adam"] + vtrain["adam_launches"]
                      + moe_launches["fused_adam"] + bf16_launches["fused_adam"]
-                     + dp_launches["fused_adam"]),
+                     + dp_launches["fused_adam"] + tp_launches["fused_adam"]),
         "launches_by_path": {"training": train_adam, "prior": prior_launches["fused_adam"],
                              "other_autoencoders": others["adam_launches"],
                              "pixelcnn_and_hier_priors": priors_launches["fused_adam"],
                              "vocoder_training": vtrain["adam_launches"],
                              "moe_prior": moe_launches["fused_adam"],
                              "bf16_prior": bf16_launches["fused_adam"],
-                             "data_parallel": dp_launches["fused_adam"]},
+                             "data_parallel": dp_launches["fused_adam"],
+                             "tensor_parallel": tp_launches["fused_adam"]},
         "max_abs_err": adam_row["max_abs_err"],
         "ms": adam_row["kernel_ms"], "plain_ms": adam_row["plain_ms"],
         "bound_ms": adam_row["bound_ms"], "bound_by": adam_row["bound_by"],
         "library_ms": adam_row["library_ms"],
         "pixelcnn_shape": {k: adam_pixelcnn[k] for k in ADAM_ROW_KEYS},
         "moe_prior_shape": {k: adam_moe[k] for k in ADAM_ROW_KEYS},
+        "tensor_parallel_rank_shape": {k: adam_local[k] for k in ADAM_ROW_KEYS},
         "vocoder_shapes": {tag: {k: r[k] for k in ("config",) + ADAM_ROW_KEYS}
                            for tag, r in vtrain["adam_rows"].items()},
     }] + [attention_summary(attn_rows, name, {"prior": prior_launches[name],
                                               "hier_top_prior": priors_launches[name],
                                               "moe_prior": moe_launches[name],
                                               "bf16_prior": bf16_launches[name],
-                                              "data_parallel": dp_launches[name]},
+                                              "data_parallel": dp_launches[name],
+                                              "tensor_parallel": tp_launches.get(name, 0)},
                             bf16["bf16_attention_launches"][name])
           for name in fa.KERNELS]
       + wavenet_summary(wn_rows, wn_api) + conv_summary(conv_rows, conv_ab)})
@@ -5815,4 +6408,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -13,7 +13,10 @@ in bfloat16 compute (checkpoints are float32 and restore unchanged).
 Under ``torchrun`` with ``--mesh-data N`` the sweep runs over N ranks, each
 on its rows of every test batch (``cli.main``'s policy): the summary is the
 global batches' and is printed by rank 0, which also writes ``--dump-npy``
-from the gathered reconstruction.
+from the gathered reconstruction. ``--mesh-model M`` (``--model vqvae``)
+evaluates over a (W / M, M) mesh with the codebook's rows and the
+convolutions' output channels sharded, as ``cli.main`` trains: the restore
+keeps each rank's slices of the whole checkpoint, whatever M trained it.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.evaluate --datadir
 <corpus> --ckpt-dir <dir> [--device cuda]``
@@ -42,6 +45,7 @@ from neural_sound_generation_tpu_torch.device import resolve_device
 from neural_sound_generation_tpu_torch.ops.cuda import vq_kernel
 from neural_sound_generation_tpu_torch.parallel import mesh_from_args, process_group, shard_batch
 from neural_sound_generation_tpu_torch.training import checkpoint
+from neural_sound_generation_tpu_torch.training.sharding import shard_train_state
 from neural_sound_generation_tpu_torch.training.train_state import create_train_state
 from neural_sound_generation_tpu_torch.training.trainer import Trainer
 
@@ -89,8 +93,8 @@ def main(argv=None):
 
 def evaluate(args) -> dict:
     """The sweep of ``main`` inside its process group: the means."""
-    device = resolve_device(args.device)
     mesh = mesh_from_args(args.mesh_data, args.mesh_model, args.batch_size)
+    device = resolve_device(args.device)
     primary = mesh is None or mesh.is_primary
     if mesh is not None:
         mesh.build_first(device, vq_kernel)
@@ -111,6 +115,8 @@ def evaluate(args) -> dict:
                        generator=torch.Generator().manual_seed(0),
                        dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
     state = create_train_state(model, cfg.train)
+    if mesh is not None and mesh.tensor_parallel:
+        state = shard_train_state(state, mesh)
     try:
         state, extra = checkpoint.restore(args.ckpt_dir, state)
     except ValueError as e:

@@ -31,13 +31,24 @@ the mesh's ``data`` axis over the ranks (``--mesh-data N`` must name their
 number; without it any world of more than one rank takes them all). Every
 rank runs the same seeded loader over the global ``--batch-size`` and
 keeps its rows, so a W-rank run computes the one-rank run's steps; rank 0
-writes the checkpoints, metrics and samples. ``--mesh-model`` refuses: the
-model axis is a later slice.
+writes the checkpoints, metrics and samples.
+
+Tensor parallelism (``--model vqvae`` only): ``--mesh-model M`` lays a
+(W / M, M) mesh over the W ranks (``--mesh-data D`` must then make D x M =
+W). Every rank builds the whole model from the seed (and the data-seeded
+codebook), keeps its slices of the codebook's rows and of the convolutions'
+output channels (``training.sharding``) and trains them with kernel 1 on
+its codebook shard and kernel 3 on its own flat buffer; the steps are the
+one-rank steps. Checkpoints hold the whole tree, so ``--resume`` works at
+any M. The other families refuse ``--mesh-model`` (``MODEL_AXIS_FAMILIES``).
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.main --model vqvae
 --dataset ljspeech --datadir <corpus> --dim 256 [--device cuda]``, or over
 eight cards ``torchrun --standalone --nproc_per_node 8 -m
-neural_sound_generation_tpu_torch.cli.main --mesh-data 8 ...``
+neural_sound_generation_tpu_torch.cli.main --mesh-data 8 ...``, or 4 x 2
+``torchrun --standalone --nproc_per_node 8 -m
+neural_sound_generation_tpu_torch.cli.main --model vqvae --mesh-data 4
+--mesh-model 2 ...`` (``--device cpu`` runs the ranks on the CPU over gloo).
 """
 
 from __future__ import annotations
@@ -65,13 +76,14 @@ from neural_sound_generation_tpu_torch.ops import dsp
 from neural_sound_generation_tpu_torch.ops.cuda import fused_adam, vq_kernel
 from neural_sound_generation_tpu_torch.ops.vq import data_codebook_init
 from neural_sound_generation_tpu_torch.parallel import (
-    MODEL_AXIS,
+    MODEL_AXIS_FAMILIES,
     mesh_from_args,
     primary_print,
     process_group,
     shard_batch,
 )
 from neural_sound_generation_tpu_torch.training import checkpoint
+from neural_sound_generation_tpu_torch.training.sharding import shard_train_state
 from neural_sound_generation_tpu_torch.training.train_state import create_train_state
 from neural_sound_generation_tpu_torch.training.trainer import Trainer
 
@@ -134,11 +146,13 @@ def parse_args(argv=None):
 
 def refuse_later_slices(args) -> None:
     """Flags whose code paths the port does not have yet (the mesh's model
-    axis), and a stage count below one."""
+    axis of the families but the flat VQ-VAE), and a stage count below
+    one."""
     if getattr(args, "num_quantizers", 1) < 1:
         raise SystemExit(f"--num-quantizers {args.num_quantizers}: must be at least 1")
-    if args.mesh_model > 1:
-        raise SystemExit(f"--mesh-model {args.mesh_model}: {MODEL_AXIS}")
+    if args.mesh_model > 1 and args.model != "vqvae":
+        raise SystemExit(f"--mesh-model {args.mesh_model} --model {args.model}: "
+                         f"{MODEL_AXIS_FAMILIES}; --model vqvae has it")
 
 
 def build_config(args) -> Config:
@@ -348,8 +362,8 @@ def main(argv=None):
 
 def train(args) -> None:
     """The training run of ``main`` inside its process group."""
-    device = resolve_device(args.device)
     mesh = mesh_from_args(args.mesh_data, args.mesh_model, args.batch_size)
+    device = resolve_device(args.device)
     say = primary_print(mesh)
     if mesh is not None:
         mesh.build_first(device, vq_kernel, fused_adam)
@@ -377,6 +391,9 @@ def train(args) -> None:
             model, torch.from_numpy(warm["x"]).to(device), epoch_generator(args.seed, 0, device)
         )
     state = create_train_state(model, cfg.train, ema_codebook=cfg.model.ema_codebook)
+    if mesh is not None and mesh.tensor_parallel:
+        # this rank's slices of the whole state every rank built alike
+        state = shard_train_state(state, mesh)
 
     ckpt_dir = checkpoint_dir(args)
     meta = checkpoint_metadata(cfg)

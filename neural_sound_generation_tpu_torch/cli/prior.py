@@ -78,7 +78,8 @@ from neural_sound_generation_tpu_torch.models import (
 from neural_sound_generation_tpu_torch.ops import dsp
 from neural_sound_generation_tpu_torch.ops.cuda import flash_attention, fused_adam, vq_kernel
 from neural_sound_generation_tpu_torch.parallel import (
-    MODEL_AXIS,
+    MODEL_AXIS_FAMILIES,
+    MODEL_AXIS_PRIORS,
     PIPE_AXIS,
     mesh_from_args,
     primary_print,
@@ -187,7 +188,9 @@ def refuse_later_slices(args) -> None:
     if getattr(args, "mesh_pipe", 1) > 1:
         raise NotImplementedError(f"--mesh-pipe {args.mesh_pipe}: {PIPE_AXIS}")
     if getattr(args, "mesh_model", 1) > 1:
-        raise NotImplementedError(f"--mesh-model {args.mesh_model}: {MODEL_AXIS}")
+        later = MODEL_AXIS_FAMILIES if getattr(args, "arch", None) == "pixelcnn" else (
+            MODEL_AXIS_PRIORS)
+        raise NotImplementedError(f"--mesh-model {args.mesh_model}: {later}")
 
 
 @dataclasses.dataclass(frozen=True)

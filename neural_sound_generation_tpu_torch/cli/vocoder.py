@@ -59,7 +59,7 @@ from neural_sound_generation_tpu_torch.models.wavenet import WaveNet, make_gener
 from neural_sound_generation_tpu_torch.ops import dsp
 from neural_sound_generation_tpu_torch.ops.cuda import fused_adam, vq_kernel
 from neural_sound_generation_tpu_torch.parallel import (
-    MODEL_AXIS,
+    MODEL_AXIS_FAMILIES,
     PIPE_AXIS,
     mesh_from_args,
     primary_print,
@@ -156,7 +156,7 @@ def refuse_parallel(args) -> None:
     if args.mesh_pipe > 1 or args.pp_microbatches is not None:
         raise NotImplementedError(f"--mesh-pipe/--pp-microbatches: {PIPE_AXIS}")
     if args.mesh_model > 1:
-        raise NotImplementedError(f"--mesh-model {args.mesh_model}: {MODEL_AXIS}")
+        raise NotImplementedError(f"--mesh-model {args.mesh_model}: {MODEL_AXIS_FAMILIES}")
 
 
 def _units_scales(num_downsample: int) -> tuple[int, ...]:

@@ -43,6 +43,11 @@ EMA-codebook statistics (``TrainState.codebook_ema`` on both sides):
 layouts; ``codebook_ema_to_port`` and ``codebook_ema_to_flax`` carry them
 over and check that the two agree.
 
+Tensor parallelism. ``local_state_dict`` slices a whole ``state_dict`` (a
+converted JAX tree) into one model-axis rank's share by the port's table
+(``training.sharding.tensor_parallel_layout``), so that every rank of a
+test holds the same weights as the one-rank model.
+
 Flat vectors. The JAX package keeps the fused optimizer's moments and the
 parameter EMA as one vector in ``ravel_pytree`` order (the params tree
 flattened with sorted keys); the port keeps them in its flat buffer's
@@ -279,3 +284,26 @@ def port_flat_to_flax(vector: torch.Tensor, model: torch.nn.Module, flat_params)
     ``ravel_pytree``-order vector of the same values, float32."""
     params = module_to_flax(model, flat_params.named(vector.detach()))["params"]
     return ravel_flax(params)
+
+
+def local_state_dict(
+    state_dict: Mapping[str, torch.Tensor], model: torch.nn.Module, n_model: int,
+    model_rank: int,
+) -> dict[str, torch.Tensor]:
+    """Rank ``model_rank``'s share of a whole ``state_dict`` for ``model``
+    under a model axis of ``n_model``: each split parameter and BatchNorm
+    statistic sliced along its axis by the port's tensor-parallel table,
+    every other entry whole."""
+    from neural_sound_generation_tpu_torch.training.sharding import tensor_parallel_layout
+
+    layout = tensor_parallel_layout(model, n_model)
+    axes = {**layout.params, **layout.buffers}
+    out = {}
+    for key, t in state_dict.items():
+        axis = axes.get(key)
+        if axis is None:
+            out[key] = t
+        else:
+            size = t.shape[axis] // n_model
+            out[key] = t.narrow(axis, model_rank * size, size).contiguous()
+    return out

@@ -1,11 +1,17 @@
 // Nearest-code search for Hopper (sm_90a):
 //
 //     out[n] = argmin_k ( |cb[k]|^2 - 2 * x[n] . cb[k] )      ties -> smallest k
+//     scores[n] = the winning score, |cb[out[n]]|^2 - 2 * x[n] . cb[out[n]]
 //
-// x is (N, D) f32, cb is (K, D) f32, out is (N,) int32. |x[n]|^2 is constant
-// per row and is dropped; |cb[k]|^2 is summed in f32 from the staged tiles.
-// Any N >= 1, K >= 1 and D >= 1; an all-NaN row gives 0. No (N, K) score
-// matrix reaches device memory, and one call is one launch.
+// x is (N, D) f32, cb is (K, D) f32, out is (N,) int32, scores (optional,
+// may be null) is (N,) f32. |x[n]|^2 is constant per row and is dropped;
+// |cb[k]|^2 is summed in f32 from the staged tiles. Any N >= 1, K >= 1 and
+// D >= 1; an all-NaN row gives 0 (and a NaN score). No (N, K) score matrix
+// reaches device memory, and one call is one launch. A codebook sharded by
+// rows over ranks (the mesh's model axis) is searched shard by shard: each
+// shard's (score, index) pairs merge lexicographically into the whole
+// codebook's answer, bit for bit, since a code's score does not depend on
+// where it sits (below).
 //
 // Replaces neural_sound_generation_tpu/ops/pallas/vq_kernel.py::_vq_kernel
 // (one pass over a VMEM-resident codebook) and ::_vq_kernel_tiled (codebook
@@ -270,7 +276,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 vq_nearest_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ CUtensorMap cmap,
                   const float* __restrict__ x, const float* __restrict__ cb,
-                  int* __restrict__ out,
+                  int* __restrict__ out, float* __restrict__ scores,
                   int n, int k, int d, int codes_per_cta) {
   extern __shared__ unsigned char smem_raw[];
   // the same offset in every CTA of the cluster, as the merge needs
@@ -435,7 +441,10 @@ vq_nearest_kernel(const __grid_constant__ CUtensorMap xmap,
         idx = pi;
       }
     }
-    if (row0 + tid < n) out[row0 + tid] = idx < k ? idx : 0;  // all-NaN row -> 0
+    if (row0 + tid < n) {
+      out[row0 + tid] = idx < k ? idx : 0;  // all-NaN row -> 0
+      if (scores) scores[row0 + tid] = idx < k ? v : __int_as_float(0x7fc00000);
+    }
   }
   cluster.sync();  // peers' shared memory stays alive until CTA 0 has read it
 }
@@ -567,8 +576,9 @@ int vq_nearest_plan(const float* x, const float* cb, int n, int k, int d, int* s
 
 // Launches on `stream` and returns 0 on success, a cudaError_t, or one of
 // the negative codes above. The caller guarantees n >= 1, k >= 1, 1 <= d <=
-// 1024, contiguous f32 inputs and an int32 output on the current device.
-int vq_nearest_f32(const float* x, const float* cb, int* out,
+// 1024, contiguous f32 inputs, an int32 output and, unless it is null, an
+// f32 scores output on the current device.
+int vq_nearest_f32(const float* x, const float* cb, int* out, float* scores,
                    int n, int k, int d, void* stream) {
   const DeviceSetup& st = setup();
   if (st.err) return st.err;
@@ -594,10 +604,10 @@ int vq_nearest_f32(const float* x, const float* cb, int* out,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err =
-      tma ? cudaLaunchKernelEx(&cfg, vq_nearest_kernel<true>, xmap, cmap, x, cb, out, n,
-                               k, d, per_cta)
-          : cudaLaunchKernelEx(&cfg, vq_nearest_kernel<false>, xmap, cmap, x, cb, out, n,
-                               k, d, per_cta);
+      tma ? cudaLaunchKernelEx(&cfg, vq_nearest_kernel<true>, xmap, cmap, x, cb, out, scores,
+                               n, k, d, per_cta)
+          : cudaLaunchKernelEx(&cfg, vq_nearest_kernel<false>, xmap, cmap, x, cb, out, scores,
+                               n, k, d, per_cta);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

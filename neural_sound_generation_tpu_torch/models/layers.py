@@ -23,6 +23,14 @@ rounded once, then the rounded bias added (a bf16 ``F.linear`` with its bias
 folds it into the product and rounds once instead of twice). Elementwise
 bf16 functions round after every operation, as XLA lowers them: ``gelu``
 and ``sigmoid`` spell out flax's formulas op by op in bf16.
+
+Tensor parallelism (the mesh's model axis, ``training.sharding``): a
+column-split ``Conv2d`` or ``ConvTranspose2d`` (``model_split``) holds its
+rank's slice of the output channels, with their biases, and computes it
+from the whole input, taken through ``Mesh.copy_to_model`` so that the
+input's gradient is summed over the model group; the norm after it holds
+the same channels. The model gathers the whole channels after the layer
+(and its norm and ReLU) with ``gather_split``. The casts stay as above.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neural_sound_generation_tpu_torch.parallel.mesh import current_mesh
+from neural_sound_generation_tpu_torch.parallel.mesh import current_mesh, model_axis
 
 # flax's nn.BatchNorm: epsilon 1e-5, running average kept as
 # 0.99 * old + 0.01 * batch (PyTorch's momentum is the weight of the batch).
@@ -72,9 +80,11 @@ class BatchNorm(nn.BatchNorm2d):
     Inside a data-parallel step (``parallel.mesh.current_mesh()``) the
     statistics are the global batch's, as the JAX package's are under
     GSPMD: the same two-pass rule over every rank's rows, each sum taken
-    over the ranks by a differentiable all-reduce (mean = sum x / N, then
-    var = sum (x - mean)^2 / N, N the global count), so every rank
-    normalizes, and updates its running averages, with the same values."""
+    over the data group by a differentiable all-reduce (mean = sum x / N,
+    then var = sum (x - mean)^2 / N, N the global count), so every rank
+    normalizes, and updates its running averages, with the same values.
+    Under the model axis it holds the channels of the column-split layer
+    before it, whose statistics need no other rank's."""
 
     def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__(dim, eps=BATCH_NORM_EPS, momentum=BATCH_NORM_MOMENTUM)
@@ -85,7 +95,7 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x32).to(self.compute_dtype)
         mesh = current_mesh()
-        if mesh is not None:
+        if mesh is not None and mesh.n_data > 1:
             return self._global_forward(x32, mesh).to(self.compute_dtype)
         with torch.no_grad():
             # every axis but the channels': (B, H, W), or (B, T) in 1-D
@@ -164,15 +174,39 @@ def make_norm(norm: str, dim: int, dtype: torch.dtype = torch.float32) -> nn.Mod
     raise ValueError(f"unknown norm: {norm!r}")
 
 
+def _model_input(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A column-split layer's whole input, its gradient summed over the
+    model group (``Mesh.copy_to_model``); ``x`` itself for a whole layer."""
+    if not layer.model_split:
+        return x
+    mesh = model_axis()
+    if mesh is None:
+        raise RuntimeError("a column-split layer runs inside a step on a mesh with a model axis")
+    return mesh.copy_to_model(x)
+
+
+def gather_split(h: torch.Tensor, layer: nn.Module) -> torch.Tensor:
+    """The whole channels (dim 1) of a column-split ``layer``'s output
+    slice ``h``, gathered over the model group; ``h`` itself after a whole
+    layer."""
+    if not getattr(layer, "model_split", False):
+        return h
+    return model_axis().gather_channels(h)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with flax's compute ``dtype`` (see the module
     docstring); float32 runs the stock convolution unchanged."""
+
+    #: set by ``training.sharding``: this rank holds a slice of the outputs
+    model_split = False
 
     def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _model_input(self, x)
         dt = self.compute_dtype
         if dt == torch.float32:
             return super().forward(x)
@@ -242,11 +276,14 @@ class Conv1d(nn.Conv1d):
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` with flax's compute ``dtype``, as ``Conv2d``."""
 
+    model_split = False
+
     def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _model_input(self, x)
         dt = self.compute_dtype
         if dt == torch.float32:
             return super().forward(x)
@@ -316,9 +353,9 @@ class ResBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = torch.relu(x)
         h = getattr(self, self._norms[0])(self.Conv_0(h))
-        h = torch.relu(h)
+        h = gather_split(torch.relu(h), self.Conv_0)
         h = getattr(self, self._norms[1])(self.Conv_1(h))
-        return x + h
+        return x + gather_split(h, self.Conv_1)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator | None = None) -> None:

@@ -21,6 +21,13 @@ Architecture (for input (B, H, W, C)):
   decoder:  ResBlock x2 -> ReLU -> ConvT4x4/s2 + norm + ReLU -> ConvT4x4/s2
             -> Tanh
 
+Under the mesh's model axis (``training.sharding``) every convolution but
+a last one whose outputs do not split holds a slice of its output channels
+and the codebook a slice of its rows; the forward gathers the channels
+after each split layer (six gathers in the encoder, five in the decoder),
+the skip sums stay whole, and ``ConvTranspose_1``, ``speaker_embed`` and
+``feature_proj`` are computed whole on every rank.
+
 ``dtype`` is the convolution stacks' compute dtype (bfloat16 under
 ``--bf16``, see ``layers``): parameters stay float32, the encoder's output
 is taken to float32 before the VQ, the losses stay float32, the speaker
@@ -36,6 +43,7 @@ from neural_sound_generation_tpu_torch.models.layers import (
     ResBlock,
     conv_down,
     conv_up,
+    gather_split,
     init_weights,
     make_norm,
     norm_name,
@@ -58,7 +66,7 @@ class Encoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = torch.relu(getattr(self, self._norm)(self.Conv_0(x)))
-        h = self.Conv_1(h)
+        h = gather_split(self.Conv_1(gather_split(h, self.Conv_0)), self.Conv_1)
         return self.ResBlock_1(self.ResBlock_0(h))
 
 
@@ -78,8 +86,8 @@ class Decoder(nn.Module):
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         h = self.ResBlock_1(self.ResBlock_0(z))
         h = self.ConvTranspose_0(torch.relu(h))
-        h = torch.relu(getattr(self, self._norm)(h))
-        return torch.tanh(self.ConvTranspose_1(h).float())
+        h = gather_split(torch.relu(getattr(self, self._norm)(h)), self.ConvTranspose_0)
+        return torch.tanh(gather_split(self.ConvTranspose_1(h), self.ConvTranspose_1).float())
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,13 @@ near-ties. The arithmetic rate bounds it. ``launch_plan`` reports the
 cluster size and CTA count of a launch. The result is deterministic run
 to run.
 
+With ``return_scores`` the kernel also writes each row's winning score
+(|e_k|^2 - 2 x.e_k, float32): a codebook sharded by rows over the mesh's
+model axis is searched shard by shard, and the shards' (score, index)
+pairs merge lexicographically (``ops.vq``) into the whole codebook's
+answer. A code's score does not depend on where its tile or cluster CTA
+sits, so a shard's scores are bit-identical to the whole codebook's.
+
 ``nearest_codebook_indices`` runs the plain version for tensors on the CPU
 and the kernel for tensors on a CUDA device; there is no fallback between
 the two. ``launch_count()`` counts kernel launches, so a run can show that
@@ -53,12 +60,16 @@ def reset_launch_count() -> None:
 
 
 def nearest_codebook_indices_plain(
-    inputs_flat: torch.Tensor, codebook: torch.Tensor
-) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: (N,) int32 indices."""
+    inputs_flat: torch.Tensor, codebook: torch.Tensor, return_scores: bool = False
+):
+    """The kernel's function in plain PyTorch: (N,) int32 indices, and with
+    ``return_scores`` the (N,) float32 winning scores beside them."""
     cbsq = torch.sum(codebook * codebook, dim=1)
     scores = cbsq[None, :] - 2.0 * (inputs_flat @ codebook.T)
-    return torch.argmin(scores, dim=1).to(torch.int32)
+    idx = torch.argmin(scores, dim=1)
+    if not return_scores:
+        return idx.to(torch.int32)
+    return idx.to(torch.int32), scores.gather(1, idx[:, None])[:, 0]
 
 
 def _check(inputs_flat: torch.Tensor, codebook: torch.Tensor) -> None:
@@ -94,7 +105,7 @@ def load(rebuild: bool = False) -> ctypes.CDLL:
     if _lib is None:
         lib = build.load_library("vq_nearest", [SOURCE], rebuild)
         lib.vq_nearest_f32.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         )
         lib.vq_nearest_f32.restype = ctypes.c_int
         lib.vq_nearest_plan.argtypes = (
@@ -132,9 +143,11 @@ def launch_plan(inputs_flat: torch.Tensor, codebook: torch.Tensor) -> dict:
 
 
 def nearest_codebook_indices(
-    inputs_flat: torch.Tensor, codebook: torch.Tensor
-) -> torch.Tensor:
-    """(N, D) x (K, D) -> (N,) int32 nearest-code indices.
+    inputs_flat: torch.Tensor, codebook: torch.Tensor, return_scores: bool = False
+):
+    """(N, D) x (K, D) -> (N,) int32 nearest-code indices, and with
+    ``return_scores`` the (N,) float32 winning scores (one launch either
+    way).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise."""
@@ -142,21 +155,23 @@ def nearest_codebook_indices(
     _check(inputs_flat, codebook)
     device = inputs_flat.device
     if device.type == "cpu":
-        return nearest_codebook_indices_plain(inputs_flat, codebook)
+        return nearest_codebook_indices_plain(inputs_flat, codebook, return_scores)
     if device.type != "cuda":
         raise ValueError(f"no nearest-code search for device {device}")
     lib = load()
     n, d = inputs_flat.shape
     k = codebook.shape[0]
     out = torch.empty(n, dtype=torch.int32, device=device)
+    scores = torch.empty(n, dtype=torch.float32, device=device) if return_scores else None
     if n == 0:
-        return out
+        return (out, scores) if return_scores else out
     with torch.cuda.device(device):
         err = lib.vq_nearest_f32(
-            inputs_flat.data_ptr(), codebook.data_ptr(), out.data_ptr(), n, k, d,
+            inputs_flat.data_ptr(), codebook.data_ptr(), out.data_ptr(),
+            None if scores is None else scores.data_ptr(), n, k, d,
             torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on(lib, err, "kernel launch")
     with _count_lock:
         _launches += 1
-    return out
+    return (out, scores) if return_scores else out

@@ -1,10 +1,10 @@
-"""Data parallelism over the ranks of a ``torch.distributed`` process group.
+"""Data and tensor parallelism over the ranks of a ``torch.distributed`` process group.
 
 Counterpart of ``neural_sound_generation_tpu/parallel/`` for the mesh's
-``data`` axis: ``distributed`` joins the processes (one device each) and
-``mesh`` lays the data axis over them. The model and pipe axes
-(``sequence``, ``pipeline``, the tensor-parallel rules) come with later
-slices of the port.
+``data`` and ``model`` axes: ``distributed`` joins the processes (one
+device each) and ``mesh`` lays the two axes over them (the tensor-parallel
+table, ``model_param_shardings``, is in ``training.sharding``). The pipe
+axis (``sequence``, ``pipeline``) comes with a later slice of the port.
 """
 
 from neural_sound_generation_tpu_torch.parallel.distributed import (  # noqa: F401
@@ -16,9 +16,10 @@ from neural_sound_generation_tpu_torch.parallel.distributed import (  # noqa: F4
     topology,
 )
 from neural_sound_generation_tpu_torch.parallel.mesh import (  # noqa: F401
-    MODEL_AXIS,
+    MODEL_AXIS_FAMILIES,
+    MODEL_AXIS_PRIORS,
     PIPE_AXIS,
-    DataMesh,
+    Mesh,
     current_mesh,
     make_mesh,
     mesh_from_args,

@@ -5,8 +5,9 @@ JAX package connects the hosts of a pod slice with
 ``jax.distributed.initialize()`` and lets one mesh span every chip. Here
 each process drives one device: ``torchrun`` (or the caller) starts one
 process per card, ``initialize`` joins them into the default
-``torch.distributed`` process group, and ``parallel.mesh`` lays the
-``data`` axis over the ranks. A single process stays a plain one-device
+``torch.distributed`` process group, ``subgroups`` splits it into the
+data and model groups of a two-axis mesh, and ``parallel.mesh`` lays the
+``data`` and ``model`` axes over the ranks. A single process stays a plain one-device
 program, as in JAX: nothing is initialized.
 
 The backend is a rule, logged when the group starts, never a fallback
@@ -116,6 +117,40 @@ def topology() -> HostTopology:
         local_device_count=1,
         global_device_count=world,
     )
+
+
+#: a group of one rank: its collectives are the identity and are not made
+SOLO = object()
+
+# (the default group, n_data, n_model) -> (data groups, model groups), so
+# that a second mesh of the same shape creates no groups
+_SUBGROUPS: dict = {}
+
+
+def subgroups(n_data: int, n_model: int):
+    """This rank's (data group, model group) of a row-major (n_data,
+    n_model) mesh over the world: rank r's model group is the n_model
+    consecutive ranks of row r // n_model, its data group the ranks with
+    the same r % n_model. Every rank creates every subgroup, in the same
+    order (``dist.new_group`` is collective); a group of the whole world
+    is the default group (None), one of a single rank ``SOLO``."""
+    key = (dist.group.WORLD, n_data, n_model) if dist.is_initialized() else None
+    if key is not None and key in _SUBGROUPS:
+        made = _SUBGROUPS[key]
+    else:
+        world = n_data * n_model
+
+        def make(ranks):
+            if len(ranks) == 1:
+                return SOLO
+            return None if len(ranks) == world else dist.new_group(ranks)
+
+        made = ([make(list(range(j, world, n_model))) for j in range(n_model)],
+                [make(list(range(i * n_model, (i + 1) * n_model))) for i in range(n_data)])
+        if key is not None:
+            _SUBGROUPS[key] = made
+    r = rank()
+    return made[0][r % n_model], made[1][r // n_model]
 
 
 def is_primary() -> bool:

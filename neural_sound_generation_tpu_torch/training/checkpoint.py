@@ -33,7 +33,19 @@ metadata recorded in ``extra`` (``arch``, ``num_quantizers``,
 Under a data-parallel process group every rank holds the same state, and
 only rank 0 writes (``save``, ``save_params``, ``save_ema_sibling``; the
 others return the path without touching it). Every rank restores, and the
-entry point then replicates rank 0's state (``parallel.mesh``).
+entry point then replicates rank 0's state (``parallel.mesh``). Under the
+mesh's model axis (``training.sharding``) a state holds slices: ``save``
+and ``save_ema_sibling`` gather the whole tree over the model group on
+every rank, and rank 0 writes it in the one format; ``restore`` and
+``restore_ema_sibling`` read the whole tree and keep this rank's slices.
+So a checkpoint from an M-way run resumes at any M, and ``serve`` and
+``evaluate`` without a mesh read it unchanged.
+
+The optimizer's moments are named by parameter under either optimizer
+(the flat fused one or the per-leaf one, ``TrainConfig.fused_optimizer``),
+so a checkpoint written under one restores into the other with its
+moments, the count and the EMA intact (the JAX ``_adapt_fused_layout``);
+a restore casts the moments to the state's dtype.
 """
 
 from __future__ import annotations
@@ -111,7 +123,7 @@ def state_tensors(state: TrainState) -> dict[str, torch.Tensor]:
         out[f"batch_stats/{name}"] = t
     out["opt_state/count"] = state.opt_state.count
     for key in ("m", "v"):
-        for name, t in flat.named(getattr(state.opt_state, key)).items():
+        for name, t in state.opt_state.named_moments(flat, key).items():
             out[f"opt_state/{key}/{name}"] = t
     if state.ema_params is not None:
         for name, t in flat.named(state.ema_params).items():
@@ -156,7 +168,10 @@ def save(ckpt_dir: str, state: TrainState, step: int, extra: Optional[dict] = No
     may change the buffers) and writes on a background thread, so the
     train loop pays only the device-to-host copy. The step directory
     appears whole (written aside, then renamed)."""
-    return _save_tensors(ckpt_dir, state_tensors(state), step, extra, block)
+    tensors = state_tensors(state)
+    if state.shards is not None:
+        tensors = state.shards.gather_tensors(tensors)
+    return _save_tensors(ckpt_dir, tensors, step, extra, block)
 
 
 def _save_tensors(ckpt_dir, tensors, step, extra, block) -> str:
@@ -251,12 +266,21 @@ def restore(ckpt_dir: str, state: TrainState, step: Optional[int] = None):
     ``state.ema_params`` None; one without EMA-codebook statistics keeps
     the state's."""
     path = _step_path(ckpt_dir, step)
-    src = _load(path)
+    load_state_tensors(state, _load(path), path)
+    return state, read_extra(ckpt_dir, int(os.path.basename(path)[len("step_"):]))
+
+
+def load_state_tensors(state: TrainState, src: dict, path: str = "<tensors>") -> None:
+    """Copy a whole named tree (``state_tensors``' names) into ``state``
+    in place, this rank's slices under the model axis: the body of
+    ``restore``."""
+    if state.shards is not None:
+        src = state.shards.slice_tensors(src)
     flat = state.flat
     _copy_named(flat.named(flat.flat), src, "params/", path)
     _copy_named(_bn_buffers(state.model), src, "batch_stats/", path)
     for key in ("m", "v"):
-        _copy_named(flat.named(getattr(state.opt_state, key)), src, f"opt_state/{key}/", path)
+        _copy_named(state.opt_state.named_moments(flat, key), src, f"opt_state/{key}/", path)
     with torch.no_grad():
         state.opt_state.count.copy_(src["opt_state/count"])
         state.step.copy_(src["step"])
@@ -276,7 +300,6 @@ def restore(ckpt_dir: str, state: TrainState, step: Optional[int] = None):
                 "checkpoint %s has no EMA-codebook statistics; keeping the "
                 "state's (cluster 1, embed_sum = codebook)", path
             )
-    return state, read_extra(ckpt_dir, int(os.path.basename(path)[len("step_"):]))
 
 
 def save_params(ckpt_dir: str, module: torch.nn.Module, step: int,
@@ -338,6 +361,8 @@ def save_ema_sibling(ckpt_dir: str, state: TrainState, step: int,
     if state.ema_params is None:
         return None
     tensors = {f"params/{k}": t for k, t in state.flat.named(state.eval_params()).items()}
+    if state.shards is not None:
+        tensors = state.shards.gather_tensors(tensors)
     meta = dict(extra or {})
     meta["averaged"] = True
     return _save_tensors(ckpt_dir.rstrip("/") + "_ema", tensors, step, meta, block=True)
@@ -353,5 +378,8 @@ def restore_ema_sibling(ckpt_dir: str, state: TrainState, step: Optional[int] = 
     if latest_step(ema_dir) is None:
         return state
     path = _step_path(ema_dir, step)
-    _copy_named(state.flat.named(state.ema_params), _load(path), "params/", path)
+    src = _load(path)
+    if state.shards is not None:
+        src = state.shards.slice_tensors(src)
+    _copy_named(state.flat.named(state.ema_params), src, "params/", path)
     return state

@@ -11,10 +11,12 @@ ELBOs keep its sums (src/loss.py:11-29).
 
 Inside a data-parallel step (``parallel.mesh.current_mesh()``) the
 quantities that are not plain means over equal row counts are taken over
-the global batch: a masked mean divides this rank's masked sum by the
-global mask count / W (so the ranks' average is the global masked mean,
-and so is the averaged gradient), and the perplexity counts the codes of
-every rank.
+the global batch, reduced over the data group: a masked mean divides this
+rank's masked sum by the global mask count / D (so the data ranks' average
+is the global masked mean, and so is the averaged gradient), and the
+perplexity counts the codes of every data rank. Under the model axis the
+VQ terms and the histogram come from the merged global indices and whole
+tensors, computed alike on every rank of a model group.
 """
 
 from __future__ import annotations
@@ -84,7 +86,7 @@ def hier_vqvae_loss(
 
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """sum(values * mask) / max(sum(mask), 1) over the global batch: on a
-    data mesh each rank's share, whose average over the ranks is it."""
+    data mesh each rank's share, whose average over the data group is it."""
     count = torch.sum(mask)
     mesh = current_mesh()
     if mesh is None:
@@ -159,8 +161,8 @@ def discretized_mix_logistic_loss(
 
 
 def codebook_perplexity(indices: torch.Tensor, num_codes: int) -> torch.Tensor:
-    """exp(entropy) of the code usage distribution (every rank's codes on
-    a data mesh)."""
+    """exp(entropy) of the code usage distribution (every data rank's codes
+    on a mesh)."""
     counts = torch.bincount(indices.reshape(-1).long(), minlength=num_codes).to(torch.float32)
     mesh = current_mesh()
     if mesh is not None:

@@ -19,9 +19,26 @@ its permuted one-channel NHWC input) faults (CUDNN_STATUS_EXECUTION_FAILED)
 on a scale 4 bytes off one, which a (1,) bias ahead of it in the buffer
 leaves it (``scripts/torch_flat_alignment_check.py``).
 
-The per-leaf optax path (``fused=False``) exists in the JAX package for
-tensor parallelism only and comes with the model-axis slice (data
-parallelism all-reduces the flat gradient buffer and keeps this path).
+The per-leaf optimizer (``fused=False``, ``TrainConfig.fused_optimizer``
+off; the JAX ``make_optimizer`` chain and ``create_train_state(fused=
+False)``): clip by the global norm -> weight decay -> Adam, leaf by leaf,
+in plain PyTorch ops (JAX runs that chain as XLA, with no Pallas kernel);
+its moments are one float32 tensor per parameter (``LeafOptState``). The
+parameters keep their flat buffer and the EMA its flat shadow, so a
+checkpoint names the same tensors under either optimizer and restores into
+the other (``training.checkpoint``).
+
+Tensor parallelism (the mesh's model axis, ``training.sharding``) keeps the
+fused optimizer. The JAX package needs the per-leaf one there only because
+GSPMD would all-gather a flat vector laid over sharded leaves
+(``FusedOptState``'s docstring there); here each rank owns a flat buffer
+of its own leaves (the sharded slices first, then the replicated leaves,
+``FlatParams(first=...)``), so kernel 3 runs once a step on that local
+buffer with the same clip -> weight decay -> Adam chain. The clip's global
+norm is the one-rank norm: the sharded segment's sum of squares summed
+over the model group, plus the replicated segment's counted once
+(``TrainState.grad_sq_norm``). The JAX Trainer's refusal of a fused state
+under tensor parallelism has no counterpart.
 """
 
 from __future__ import annotations
@@ -111,16 +128,23 @@ class FlatParams:
     zero in every flat vector, so the optimizer leaves them zero.
     Build it after the module is on its device: ``module.to()`` would
     replace the views with copies. ``load_state_dict`` copies in place and
-    keeps them."""
+    keeps them. The parameters named in ``first`` (a rank's sharded
+    leaves under the model axis) come first, in module order; ``split_at``
+    is where the rest begin."""
 
-    def __init__(self, module: nn.Module):
+    def __init__(self, module: nn.Module, first=()):
         named = list(module.named_parameters())
         if not named:
             raise ValueError("module has no parameters")
+        first = set(first)
+        named = ([(n, p) for n, p in named if n in first]
+                 + [(n, p) for n, p in named if n not in first])
         device = named[0][1].device
         self.names = [name for name, _ in named]
         self.shapes = [tuple(p.shape) for _, p in named]
         self.offsets, n = flat_offsets(self.shapes)
+        n_first = sum(1 for name in self.names if name in first)
+        self.split_at = self.offsets[n_first] if n_first < len(self.names) else n
         self.flat = torch.zeros(n, dtype=torch.float32, device=device)
         self.grad = torch.zeros(n, dtype=torch.float32, device=device)
         self._params = [p for _, p in named]
@@ -187,14 +211,40 @@ class FusedOptState:
     clip: float = -1.0
     wd: float = 0.0
 
+    def moments(self) -> list[torch.Tensor]:
+        return [self.m, self.v]
 
-def fused_opt_init(flat: FlatParams, cfg: TrainConfig, use_schedule: bool) -> FusedOptState:
-    moment_dtype = torch.bfloat16 if cfg.bf16_moments else torch.float32
-    device = flat.flat.device
-    return FusedOptState(
-        count=torch.zeros((), dtype=torch.int32, device=device),
-        m=torch.zeros(flat.numel, dtype=moment_dtype, device=device),
-        v=torch.zeros(flat.numel, dtype=moment_dtype, device=device),
+    def named_moments(self, flat: FlatParams, key: str) -> dict[str, torch.Tensor]:
+        """``m`` or ``v`` by parameter name (views of the flat vector)."""
+        return flat.named(getattr(self, key))
+
+
+@dataclasses.dataclass
+class LeafOptState:
+    """The per-leaf optimizer's state: the step count (a 0-d int32 tensor
+    on the device) and Adam's moments as one float32 tensor per parameter,
+    by name (optax's ``ScaleByAdamState`` mu and nu). The remaining fields
+    are hyperparameters."""
+
+    count: torch.Tensor
+    m: dict
+    v: dict
+    lr: float | Schedule = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    clip: float = -1.0
+    wd: float = 0.0
+
+    def moments(self) -> list[torch.Tensor]:
+        return [*self.m.values(), *self.v.values()]
+
+    def named_moments(self, flat: FlatParams, key: str) -> dict[str, torch.Tensor]:
+        return getattr(self, key)
+
+
+def _hyper(cfg: TrainConfig, use_schedule: bool) -> dict:
+    return dict(
         lr=make_lr_schedule(cfg) if use_schedule else float(cfg.initial_learning_rate),
         b1=float(cfg.adam_beta1),
         b2=float(cfg.adam_beta2),
@@ -204,12 +254,77 @@ def fused_opt_init(flat: FlatParams, cfg: TrainConfig, use_schedule: bool) -> Fu
     )
 
 
+def leaf_opt_init(flat: FlatParams, cfg: TrainConfig, use_schedule: bool) -> LeafOptState:
+    """Zero float32 moments for every parameter (optax's adam ignores
+    ``bf16_moments``, as the JAX per-leaf chain does)."""
+    views = flat.named(flat.flat)
+    return LeafOptState(
+        count=torch.zeros((), dtype=torch.int32, device=flat.flat.device),
+        m={k: torch.zeros_like(t) for k, t in views.items()},
+        v={k: torch.zeros_like(t) for k, t in views.items()},
+        **_hyper(cfg, use_schedule),
+    )
+
+
+def leaf_update(
+    s: LeafOptState, flat: FlatParams, ema: torch.Tensor | None, ema_decay: float,
+    ema_warmup: bool, step: torch.Tensor, gnorm: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One per-leaf Adam(+EMA) update: optax's ``clip_by_global_norm`` ->
+    ``add_decayed_weights`` -> ``adam`` (the JAX ``make_optimizer`` chain)
+    on each parameter and its moments, in place, then the EMA. Returns the
+    global norm of the raw gradient (``gnorm`` when the caller took it).
+    The lr is read at the pre-increment count, the bias corrections use
+    count + 1, as optax does."""
+    grads = flat.named(flat.grad)
+    params = flat.named(flat.flat)
+    if gnorm is None:
+        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+    lr = s.lr(s.count) if callable(s.lr) else torch.full(
+        (), s.lr, dtype=torch.float32, device=flat.flat.device)
+    cf = (s.count + 1).to(torch.float32)
+    bc1 = 1.0 - torch.pow(s.b1, cf)
+    bc2 = 1.0 - torch.pow(s.b2, cf)
+    for name, g in grads.items():
+        p = params[name]
+        if s.clip > 0:
+            # optax: where(g_norm < max_norm, g, g / g_norm * max_norm)
+            g = torch.where(gnorm < s.clip, g, g / gnorm * s.clip)
+        if s.wd > 0:
+            g = g + s.wd * p
+        m, v = s.m[name], s.v[name]
+        m.copy_((1.0 - s.b1) * g + s.b1 * m)
+        v.copy_((1.0 - s.b2) * (g * g) + s.b2 * v)
+        update = (m / bc1) / (torch.sqrt(v / bc2) + s.eps)
+        p.add_(-lr * update)
+    if ema is not None:
+        d = resolve_ema_decay(ema_decay, ema_warmup, step)
+        ema.copy_(d * ema + (1.0 - d) * flat.flat)
+    s.count.add_(1)
+    return gnorm
+
+
+def fused_opt_init(flat: FlatParams, cfg: TrainConfig, use_schedule: bool) -> FusedOptState:
+    moment_dtype = torch.bfloat16 if cfg.bf16_moments else torch.float32
+    device = flat.flat.device
+    return FusedOptState(
+        count=torch.zeros((), dtype=torch.int32, device=device),
+        m=torch.zeros(flat.numel, dtype=moment_dtype, device=device),
+        v=torch.zeros(flat.numel, dtype=moment_dtype, device=device),
+        **_hyper(cfg, use_schedule),
+    )
+
+
 def fused_flat_update(
     s: FusedOptState, flat_p: torch.Tensor, flat_g: torch.Tensor,
     ema: torch.Tensor | None, ema_decay: float, ema_warmup: bool, step: torch.Tensor,
+    gnorm: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One fused Adam(+EMA) update on flat float32 vectors: the single
-    source of the optimizer math (the JAX ``fused_flat_update``).
+    source of the optimizer math (the JAX ``fused_flat_update``). ``gnorm``
+    is the raw gradient's global norm where the caller took it (across the
+    model group under tensor parallelism); by default the norm of
+    ``flat_g``.
 
     In place on ``flat_p``, ``s.m``, ``s.v`` and ``ema``; ``s.count`` is
     incremented. Returns the global norm of the raw gradient (before clip
@@ -219,9 +334,10 @@ def fused_flat_update(
     ``step``. The per-step scalars stay on the device: nothing here waits
     on the host."""
     flat_g = flat_g.to(torch.float32)
-    # a cascaded sum: PyTorch's CPU vector_norm accumulates a long float32
-    # vector in one running sum (2e-4 relative error at 4.9M elements)
-    gnorm = torch.sqrt(torch.sum(flat_g * flat_g))
+    if gnorm is None:
+        # a cascaded sum: PyTorch's CPU vector_norm accumulates a long float32
+        # vector in one running sum (2e-4 relative error at 4.9M elements)
+        gnorm = torch.sqrt(torch.sum(flat_g * flat_g))
     if s.clip > 0:
         gscale = torch.clamp(
             torch.full_like(gnorm, s.clip) / torch.clamp(gnorm, min=1e-12), max=1.0
@@ -251,14 +367,16 @@ def fused_flat_update(
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters views of ``flat.flat``, its BatchNorm
-    running statistics as buffers), the fused optimizer state, the flat
-    EMA shadow and the EMA-codebook statistics. ``step`` is a 0-d int32
-    tensor on the device. Updated in place by the train step."""
+    running statistics as buffers), the optimizer state (fused or per
+    leaf), the flat EMA shadow and the EMA-codebook statistics. ``step`` is
+    a 0-d int32 tensor on the device. Updated in place by the train step.
+    Under the model axis ``shards`` (a ``training.sharding.ModelShards``)
+    says which of this rank's tensors are slices of which whole ones."""
 
     model: nn.Module
     flat: FlatParams
     step: torch.Tensor
-    opt_state: FusedOptState
+    opt_state: FusedOptState | LeafOptState
     ema_params: torch.Tensor | None
     ema_decay: float = 0.0
     ema_warmup: bool = False
@@ -266,11 +384,34 @@ class TrainState:
     # {"cluster": (K,), "embed_sum": (K, D)}, or (Q, K) and (Q, K, D) for
     # residual VQ
     codebook_ema: dict | None = None
+    shards: object | None = None
 
     def eval_params(self) -> torch.Tensor:
         """The flat EMA shadow when enabled, else the live parameters (the
         reference's intended averaged-model evaluation, hparams.py:116-118)."""
         return self.flat.flat if self.ema_params is None else self.ema_params
+
+    def grad_norm(self) -> torch.Tensor | None:
+        """The global norm of the raw gradient under the model axis: the
+        sharded segment's squares summed over the model group plus the
+        replicated segment's; None (the optimizer's own norm) otherwise."""
+        if self.shards is None:
+            return None
+        g, cut = self.flat.grad, self.flat.split_at
+        sharded = self.shards.mesh.model_all_reduce(torch.sum(g[:cut] * g[:cut]))
+        return torch.sqrt(sharded + torch.sum(g[cut:] * g[cut:]))
+
+    def apply_gradients(self) -> torch.Tensor:
+        """One optimizer update from ``flat.grad``, in place: kernel 3 on
+        the flat buffers, or the per-leaf chain. Returns the raw gradient's
+        global norm."""
+        gnorm = self.grad_norm()
+        if isinstance(self.opt_state, LeafOptState):
+            return leaf_update(self.opt_state, self.flat, self.ema_params, self.ema_decay,
+                               self.ema_warmup, self.step, gnorm)
+        return fused_flat_update(self.opt_state, self.flat.flat, self.flat.grad,
+                                 self.ema_params, self.ema_decay, self.ema_warmup, self.step,
+                                 gnorm)
 
 
 def create_train_state(
@@ -280,7 +421,9 @@ def create_train_state(
     ema_codebook: bool = False,
     fused: bool | None = None,
 ) -> TrainState:
-    """Flatten ``model``'s parameters (on its device) and build the state.
+    """Flatten ``model``'s parameters (on its device) and build the state:
+    the fused optimizer, or with ``fused`` False (None: follow
+    ``cfg.fused_optimizer``) the per-leaf one.
 
     Under ``ema_codebook`` the codebook statistics start as cluster sizes
     of 1 and ``embed_sum`` equal to the codebook, so embed_sum / cluster is
@@ -288,11 +431,6 @@ def create_train_state(
     clusters."""
     if fused is None:
         fused = cfg.fused_optimizer
-    if not fused:
-        raise NotImplementedError(
-            "the per-leaf optimizer (fused=False) serves tensor parallelism: "
-            "the model axis comes with a later parallel slice of the port"
-        )
     flat = FlatParams(model)
     device = flat.flat.device
     ema = flat.flat.clone() if cfg.exponential_moving_average else None
@@ -307,7 +445,7 @@ def create_train_state(
         model=model,
         flat=flat,
         step=torch.zeros((), dtype=torch.int32, device=device),
-        opt_state=fused_opt_init(flat, cfg, use_schedule),
+        opt_state=(fused_opt_init if fused else leaf_opt_init)(flat, cfg, use_schedule),
         ema_params=ema,
         ema_decay=cfg.ema_decay,
         ema_warmup=cfg.ema_warmup,

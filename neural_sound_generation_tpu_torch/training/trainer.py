@@ -31,18 +31,31 @@ and takes the mixture-of-logistics NLL for scalar input or the masked cross
 entropy for mulaw-quantize; its convolutions are cuDNN's, and it runs the
 fused-Adam kernel once.
 
-Data parallelism (``mesh``, a ``parallel.mesh.DataMesh``): each rank is
+Data parallelism (``mesh``, a ``parallel.mesh.Mesh``): each rank is
 handed its rows of the global batch (``parallel.mesh.shard_batch``) and
 runs the step with the mesh current, so that what the step computes over
 the batch (BatchNorm's statistics, masked means, the switch load-balance
 term, the EMA codebook's statistics and restart candidates, the code
 histogram) is the global batch's. Between the backward and the fused
-update the flat gradient buffer is all-reduced once (SUM, then / W, the
-JAX order: all-reduce, clip, Adam), so every rank's kernel-3 launch
-applies the one-rank step's gradient and the ranks stay bit-equal. Under
-``make_multistep_train`` that happens once per inner step. The Trainer
-averages its logged metrics over the ranks, gathers the last eval
-reconstruction in rank order, and logs and writes metrics on rank 0 only.
+update the flat gradient buffer is all-reduced once over the data group
+(SUM, then / D, the JAX order: all-reduce, clip, Adam), so every rank's
+kernel-3 launch applies the one-rank step's gradient and the ranks of a
+data group stay bit-equal. Under ``make_multistep_train`` that happens
+once per inner step. The Trainer averages its logged metrics over the
+data group, gathers the last eval reconstruction in rank order, and logs
+and writes metrics on rank 0 only.
+
+Tensor parallelism (a mesh with a model axis and a state placed by
+``training.sharding.shard_train_state``): the step runs the same code.
+Each rank's flat buffer holds its slices of the sharded leaves and the
+whole replicated ones; the forward gathers the split channels and merges
+the sharded search over the model group (``models``, ``ops.vq``), the
+loss is computed whole on every rank of a model group, so a replicated
+leaf's gradient is already whole there and only the data-group mean
+follows (then model rank 0's is broadcast over the model group: cuDNN's
+weight gradients on the card are not bit-deterministic); the clip's global norm adds the model group's sharded squares
+(``TrainState.grad_norm``) and kernel 3 runs once a step on the local
+buffer. The eval step runs the same forward.
 """
 
 from __future__ import annotations
@@ -81,10 +94,7 @@ from neural_sound_generation_tpu_torch.training.losses import (
     prior_nll,
     vqvae_loss,
 )
-from neural_sound_generation_tpu_torch.training.train_state import (
-    TrainState,
-    fused_flat_update,
-)
+from neural_sound_generation_tpu_torch.training.train_state import TrainState
 
 Batch = Dict[str, torch.Tensor]
 PRIORS = (TransformerPrior, GatedPixelCNN)
@@ -222,14 +232,15 @@ def make_train_step(model, cfg: Config, mesh=None) -> Callable:
                 # one collective over the flat buffer (the parameters' .grad
                 # are views into it): the global batch's gradient
                 mesh.mean_(state.flat.grad)
+                if state.shards is not None:
+                    # the replicated leaves' gradient, computed alike on every
+                    # model rank but not bit-equal on the card: rank 0's
+                    mesh.model_broadcast_(state.flat.grad[state.flat.split_at:])
             cb_old = None
             if ema_codebook:
                 state.flat.view("codebook", state.flat.grad).zero_()
                 cb_old = model.codebook.detach().clone()
-            metrics["grad_norm"] = fused_flat_update(
-                state.opt_state, state.flat.flat, state.flat.grad, state.ema_params,
-                state.ema_decay, state.ema_warmup, state.step,
-            )
+            metrics["grad_norm"] = state.apply_gradients()
             state.step.add_(1)
             if ema_codebook:
                 _ema_codebook_step(state, cfg, cb_old, z_e.detach(), generator)

@@ -26,8 +26,16 @@ and for every BatchNorm the least batch variance over its channels and the
 largest |mean| / std (the CPU's forward of the step). With ``--out`` the
 lines also go to that file.
 
+``--rule`` sets the constant of ``chip_smoke.hier_card_vs_cpu``'s no-flip
+``grad_norm`` limit, max(1e-5, c * s): it runs the card, the CPU on one
+thread and the CPU alone, without the float64 references, and each line
+gives the card's gap (its ``grad_norm`` from the CPU's, relative), the
+state's own order spread s (the one-thread CPU's, relative) and their
+ratio. Phase 11 of ``chip_smoke.py`` trains with ``--seed 1``.
+
 Run from the repository root: ``python3 scripts/torch_hier_grad_probe.py
-[--seeds 1 2 3 4 5 6] [--top 5] [--out FILE]``; fails without a CUDA device.
+[--seeds 1 2 3 4 5 6] [--top 5] [--rule] [--out FILE]``; fails without a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ VARIANTS = {
     "cpu_card_conv0": ("cpu", None, None, True),
     "cpu": ("cpu", None, None, False),
 }
+RULE_VARIANTS = ("card", "cpu_one_thread", "cpu")
 FIRST_CONV = "enc_bottom.Conv_0"
 UNIT_ROUNDOFF = 2.0**-24
 
@@ -141,14 +150,16 @@ def reference(torch, flat, g, exact: dict):
     return ref
 
 
-def trial(torch, cs, cli_main, checkpoint, cfg, ckpt: str, batch, top_n: int) -> dict:
+def trial(torch, cs, cli_main, checkpoint, cfg, ckpt: str, batch, top_n: int,
+          variants=tuple(VARIANTS), with_reference: bool = True) -> dict:
     from neural_sound_generation_tpu_torch.models.layers import batch_stats_discarded
     from neural_sound_generation_tpu_torch.training.train_state import create_train_state
     from neural_sound_generation_tpu_torch.training.trainer import make_train_step
 
     grads, metrics, levels, bn, refs = {}, {}, {}, {}, {}
     first = {}
-    for tag, (where, flags, threads, inject) in VARIANTS.items():
+    for tag in variants:
+        where, flags, threads, inject = VARIANTS[tag]
         device = cs.DEVICE if where == "card" else "cpu"
         model = cli_main.make_model(cfg).to(device)
         conv0 = model.get_submodule(FIRST_CONV)
@@ -170,7 +181,8 @@ def trial(torch, cs, cli_main, checkpoint, cfg, ckpt: str, batch, top_n: int) ->
                      model.codebook_bottom.detach().cpu().clone())
         record, hooks = batch_norm_stats(torch, model) if tag == "cpu" else ({}, [])
         exact = {}
-        with variant(torch, flags, threads), exact_conv_grads(torch, model, exact):
+        with variant(torch, flags, threads), (exact_conv_grads(torch, model, exact)
+                                              if with_reference else contextlib.nullcontext()):
             _, m = make_train_step(model, cfg)(state, {"x": x})
         for h in hooks:
             h.remove()
@@ -182,6 +194,9 @@ def trial(torch, cs, cli_main, checkpoint, cfg, ckpt: str, batch, top_n: int) ->
         refs[tag] = reference(torch, flat, grads[tag], exact)
     zt, it, zb, ib = levels["cpu"]
     g_cpu = grads["cpu"]
+    if not with_reference:
+        row = {"grad_norm": metrics["cpu"]["grad_norm"]}
+        return _compare(torch, cs, row, variants, levels, books, grads, metrics, flat, top_n)
     ref_cpu = float(refs["cpu"].norm())
     w, b = conv0.weight.detach().double().abs(), conv0.bias.detach().double().abs()
     bound = UNIT_ROUNDOFF * (torch.nn.functional.conv2d(
@@ -197,7 +212,15 @@ def trial(torch, cs, cli_main, checkpoint, cfg, ckpt: str, batch, top_n: int) ->
                "grad_vs_own_reference": float((grads[tag] - refs[tag]).norm()) / ref_cpu,
                "reference_grad_vs_cpu_reference": float((refs[tag] - refs["cpu"]).norm())
                / ref_cpu} for tag in VARIANTS}}
-    for tag in list(VARIANTS)[:-1]:
+    return _compare(torch, cs, row, variants, levels, books, grads, metrics, flat, top_n)
+
+
+def _compare(torch, cs, row, variants, levels, books, grads, metrics, flat, top_n) -> dict:
+    """Each variant against the default CPU: flips, grad_norm, the whole
+    gradient, the loss terms and the tensors that moved most."""
+    zt, it, zb, ib = levels["cpu"]
+    g_cpu = grads["cpu"]
+    for tag in list(variants)[:-1]:
         zt_a, it_a, zb_a, ib_a = levels[tag]
         top = cs.level_flips(torch, zt, zt_a, books[0], it, it_a)
         bot = cs.level_flips(torch, zb, zb_a, books[1], ib, ib_a,
@@ -228,6 +251,9 @@ def main() -> int:
     p.add_argument("--seeds", type=int, nargs="+", default=[1, 2, 3, 4, 5, 6])
     p.add_argument("--top", type=int, default=5)
     p.add_argument("--out", help="a file to write the JSON lines to as well")
+    p.add_argument("--rule", action="store_true",
+                   help="the card, the one-thread CPU and the CPU only, no references: "
+                        "each seed's gap, spread and their ratio")
     args = p.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -263,13 +289,27 @@ def main() -> int:
             batch = next(iter(cli_main.audio_loaders(parsed, cfg)[0]))
             ckpt = os.path.join(out, "models", "hiervqvae",
                                 f"checkpoint_ljspeech_{cs.TRAIN_DIM}_{cs.TRAIN_CODES}")
-            row = trial(torch, cs, cli_main, checkpoint, cfg, ckpt, batch, args.top)
-            line = json.dumps({"seed": seed, **row})
-            print(json.dumps({"seed": seed, **{tag: {k: row[tag][k] for k in (
-                "grad_norm_rel", "top_flips", "bottom_flips")}
-                for tag in list(VARIANTS)[:-1]}, **{f"{tag}_ref": {k: "%.3g" % v for k, v in r.items()}
-                                                    for tag, r in row["against_reference"].items()}})
-                  if args.out else line, flush=True)
+            if args.rule:
+                row = trial(torch, cs, cli_main, checkpoint, cfg, ckpt, batch, args.top,
+                            RULE_VARIANTS, with_reference=False)
+                gap = row["card"]["grad_norm_rel"]
+                spread = row["cpu_one_thread"]["grad_norm_rel"]
+                row["rule"] = {"gap": gap, "spread": spread,
+                               "ratio": gap / spread if spread > 0 else float("inf"),
+                               "top_flips": row["card"]["top_flips"],
+                               "bottom_flips": row["card"]["bottom_flips"]}
+                line = json.dumps({"seed": seed, **row})
+                print(json.dumps({"seed": seed, **row["rule"]}) if args.out else line,
+                      flush=True)
+            else:
+                row = trial(torch, cs, cli_main, checkpoint, cfg, ckpt, batch, args.top)
+                line = json.dumps({"seed": seed, **row})
+                print(json.dumps({"seed": seed, **{tag: {k: row[tag][k] for k in (
+                    "grad_norm_rel", "top_flips", "bottom_flips")}
+                    for tag in list(VARIANTS)[:-1]}, **{
+                        f"{tag}_ref": {k: "%.3g" % v for k, v in r.items()}
+                        for tag, r in row["against_reference"].items()}})
+                      if args.out else line, flush=True)
             if args.out:
                 with open(args.out, "a") as f:
                     f.write(line + "\n")

@@ -256,8 +256,9 @@ def test_a_single_process_is_not_a_group():
 
 @pytest.mark.parametrize("run,exc,match", [
     (lambda: main.main(["--mesh-model", "2", "--device", "cpu"]), SystemExit,
-     r"--mesh-model 2: the model axis \(tensor and expert parallelism, the per-leaf "
-     r"optimizer\) comes with a later parallel slice"),
+     r"--mesh-model 2 --model vae: the model axis of WaveNet, the GatedPixelCNN, HierVQVAE, "
+     r"WaveVQVAE and the VAE comes with a later parallel slice of the port \(ROADMAP Queue 1, "
+     r"item 4b-iii\)"),
     (lambda: main.main(["--mesh-data", "2", "--device", "cpu"]), SystemExit,
      r"--mesh-data 2 asks for 2 data-parallel ranks, but this run has 1: launch one process "
      r"per rank, torchrun --nproc_per_node 2"),
@@ -276,13 +277,15 @@ def test_a_single_process_is_not_a_group():
      NotImplementedError, r"--mesh-model 2: the model axis"),
     (lambda: vocoder.main(["train", "--datadir", "x", "--mesh-data", "2", "--device", "cpu"]),
      SystemExit, r"2 data-parallel ranks"),
-    (lambda: train_state.create_train_state(VQVAE(1, 8, 16), worker.config().train,
-                                            fused=False),
-     NotImplementedError, r"the model axis comes with a later parallel slice"),
+    (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch",
+                         "transformer", "--mesh-model", "2"]),
+     NotImplementedError, r"the model axis of the transformer prior .* \(ROADMAP Queue 1, "
+                          r"item 4b-ii\)"),
 ])
 def test_refusals_name_their_slice(run, exc, match):
-    """What the data axis does not cover refuses, naming the slice it
-    waits for; a --mesh-data the world does not have names both numbers."""
+    """What the mesh does not cover refuses, naming the slice it waits
+    for; a --mesh-data or --mesh-model the world does not have names the
+    numbers."""
     with pytest.raises(exc, match=match):
         run()
 

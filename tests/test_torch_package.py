@@ -42,7 +42,7 @@ def test_importing_every_module_loads_no_jax():
                  "data.corpora.jsut", "data.corpora.librivox", "cli.preprocess",
                  "cli.invert", "motion", "motion.capture", "motion.pca",
                  "motion.inference", "cli.motion", "parallel", "parallel.distributed",
-                 "parallel.mesh"):
+                 "parallel.mesh", "training.sharding"):
         assert f"neural_sound_generation_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -57,6 +57,16 @@ def test_importing_every_module_loads_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("worker", ["torch_dp_worker.py", "torch_tp_worker.py"])
+def test_the_rank_workers_import_no_jax(worker):
+    """The rank processes of the parallel tests run the port alone: no
+    import of JAX or of the JAX package anywhere in their source."""
+    tree = ast.parse(open(os.path.join(REPO, "tests", worker), encoding="utf-8").read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert names and not [n for n in names if _forbidden(n)]
 
 
 def test_the_motion_package_loads_nothing_of_the_jax_package():

@@ -305,8 +305,13 @@ def test_create_train_state_matches_jax_init():
     bf16 = train_state.create_train_state(
         VQVAE(1, DIM, Z_DIM), dataclasses.replace(tcfg.train, bf16_moments=True))
     assert bf16.opt_state.v.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        train_state.create_train_state(VQVAE(1, DIM, Z_DIM), tcfg.train, fused=False)
+    # fused=False: the per-leaf optimizer, float32 zero moments a parameter
+    # (optax's adam ignores bf16_moments)
+    leaf = train_state.create_train_state(
+        VQVAE(1, DIM, Z_DIM), dataclasses.replace(tcfg.train, bf16_moments=True), fused=False)
+    assert isinstance(leaf.opt_state, train_state.LeafOptState)
+    assert list(leaf.opt_state.m) == leaf.flat.names
+    assert all(t.dtype == torch.float32 and not t.any() for t in leaf.opt_state.moments())
     # the same model in both frameworks has the same number of parameters
     jv = JaxVQVAE(input_dim=1, dim=DIM, z_dim=Z_DIM).init(
         jax.random.PRNGKey(0), jnp.zeros((1, 80, FRAMES, 1)), train=False)
