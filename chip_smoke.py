@@ -4,7 +4,8 @@ residual-VQ bf16), prior, vocoder, 3x3-convolution A/B, corpus
 preprocessing, mel-inversion, other-autoencoder (HierVQVAE, WaveVQVAE,
 VAE), PixelCNN-prior, hierarchical-chain, vocoder-training, routed
 (switch-MoE) prior, bf16 prior, motion, data-parallel and tensor-parallel
-paths on one CUDA card and checks them.
+(the flat VQ-VAE and the transformer prior) paths on one CUDA card and
+checks them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
@@ -251,7 +252,20 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
     groups' replicated leaves bit-equal, the evaluation's metrics; ms a
     step of the first step's collectives replayed, steps/s, the bytes of
     a rank's parameters, moments and EMA, kernel 3 at the rank's n;
-19. summary: one JSON line per kernel, then the result line.
+19. tensor-parallel prior: ``cli.prior train --arch transformer
+    --mesh-model 2`` under ``torchrun`` at W 2 (data 1 x model 2) and W 4
+    (2 x 2), the ranks sharing this card over gloo, each job against a W 1
+    launch of the same flags at phase 7's widths: the dense prior, the
+    routed prior (4 experts), at W 2 one --bf16 step and one --resume step
+    from W 1's checkpoint. Each rank's launches (kernel 4 three a layer a
+    step, every one at the rank's BH; kernel 3 once a step at the rank's
+    n; kernel 1 once an encoded batch), the first step against W 1 (loss,
+    gathered gradient, routing flips), the loss falling, the groups
+    bit-equal; ``cli.prior sample`` from the M 2 checkpoint on this
+    process; kernel 4 at a rank's BH 32 x 140 x 64 in f32 and bf16 and
+    kernel 3 at the dense and routed ranks' n against their plain
+    versions; steps/s, collectives and bytes a rank as phase 18;
+20. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -5099,7 +5113,7 @@ def dp_rank_main(spec_path: str) -> int:
     with open(os.path.join(spec["out"], f"timing_rank{rank}.json"), "w", encoding="utf-8") as f:
         json.dump(timing, f)
     dist.barrier()
-    dist.destroy_process_group()
+    distributed.shutdown()
     return 0
 
 
@@ -5491,15 +5505,29 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
     from neural_sound_generation_tpu_torch.training import train_state as ts_mod
     from neural_sound_generation_tpu_torch.training import trainer as trainer_mod
 
+    from neural_sound_generation_tpu_torch.models.moe import SwitchMoE
+    from neural_sound_generation_tpu_torch.ops.cuda import flash_attention as fa_mod
+
     cli = mods[job["cli"]]
-    rec = {"metrics": [], "step_t": [], "searches": [], "adam_n": [], "collectives": []}
+    rec = {"metrics": [], "step_t": [], "searches": [], "adam_n": [], "collectives": [],
+           "attention": [], "routing": []}
     trainers = []
     recording = {"on": False}
+
+    def route(moe, args, out):
+        if recording["on"]:
+            with torch.no_grad():
+                probs, expert, _, _, keep = moe.dispatch(args[0])
+            rec["routing"].append((probs.cpu(), expert.cpu(), keep.cpu()))
 
     class Recorded(trainer_mod.Trainer):
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
             trainers.append(self)
+            if job.get("record_routing"):
+                for m in a[0].modules():
+                    if isinstance(m, SwitchMoE):
+                        m.register_forward_hook(route)
             inner = self._train_step
 
             def step(state, batch, generator=None):
@@ -5542,6 +5570,15 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
         rec["adam_n"].append(int(g.numel()))
         return adam(g, *a, **k)
 
+    attention = {name: getattr(fa_mod, name)
+                 for name in ("launch_fwd", "launch_bwd_dq", "launch_bwd_dkdv")}
+
+    def recorded_attention(name):
+        def call(q, *a, **k):
+            rec["attention"].append((name, tuple(q.shape), str(q.dtype)))
+            return attention[name](q, *a, **k)
+        return call
+
     def collective(name):
         def call(self, t, *a, **kw):
             if recording["on"]:
@@ -5556,6 +5593,8 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
     ts_mod.fused_adam_update = recorded_adam
     for name in saved:
         setattr(mesh_mod.Mesh, name, collective(name))
+    for name in attention:
+        setattr(fa_mod, name, recorded_attention(name))
     for k in kernels:
         k.reset_launch_count()
     t0 = time.perf_counter()
@@ -5567,6 +5606,8 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
         ts_mod.fused_adam_update = adam
         for name, fn in saved.items():
             setattr(mesh_mod.Mesh, name, fn)
+        for name, fn in attention.items():
+            setattr(fa_mod, name, fn)
     rec["seconds"] = time.perf_counter() - t0
     rec["launches"] = read_launches(*kernels)
     if job["cli"] == "evaluate":
@@ -5603,15 +5644,17 @@ def time_tp_collectives(torch, mesh, ops: list) -> dict:
 
 
 def tp_rank_main(spec_path: str) -> int:
-    """One rank of a phase-18 launch (``chip_smoke.py --tp-rank spec.json``
-    under torchrun): joins the group with the port's backend rule, runs the
-    spec's jobs in order, replays the flagship's first-step collectives on
-    the job's mesh and writes one record per job."""
+    """One rank of a phase-18 or phase-19 launch (``chip_smoke.py --tp-rank
+    spec.json`` under torchrun): joins the group with the port's backend
+    rule, runs the spec's jobs in order, replays the first-step collectives
+    of the spec's ``timing_job`` on the job's mesh (none on one rank) and
+    writes one record per job."""
     import torch
     import torch.distributed as dist
 
     from neural_sound_generation_tpu_torch.cli import evaluate as cli_evaluate
     from neural_sound_generation_tpu_torch.cli import main as cli_main
+    from neural_sound_generation_tpu_torch.cli import prior as cli_prior
     from neural_sound_generation_tpu_torch.device import set_full_float32
     from neural_sound_generation_tpu_torch.ops.cuda import flash_attention as fa
     from neural_sound_generation_tpu_torch.ops.cuda import fused_adam, vq_kernel
@@ -5627,7 +5670,7 @@ def tp_rank_main(spec_path: str) -> int:
     set_full_float32()
     distributed.initialize(device=DEVICE)
     rank, world = distributed.rank(), distributed.world_size()
-    mods = {"main": cli_main, "evaluate": cli_evaluate}
+    mods = {"main": cli_main, "evaluate": cli_evaluate, "prior": cli_prior}
     records = {}
     for job in spec["jobs"]:
         if rank == 0 and job.get("copy"):
@@ -5640,27 +5683,30 @@ def tp_rank_main(spec_path: str) -> int:
         torch.save(rec, os.path.join(spec["out"], f"{job['name']}_rank{rank}.pt"))
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
-    # the collectives' ms a step: the flagship's first step replayed
-    mesh = make_mesh(n_data=world // TP_MODEL, n_model=TP_MODEL)
-    flag = records["flagship"]
-    timing = {"backend": dist.get_backend(), "world": world,
-              "collectives_ms": time_tp_collectives(torch, mesh, flag["collectives"]),
-              "collective_calls": len(flag["collectives"])}
+    timing = {"backend": None, "world": world}
+    if world > 1:
+        # the collectives' ms a step: the timing job's first step replayed
+        mesh = make_mesh(n_data=world // TP_MODEL, n_model=TP_MODEL)
+        first = records[spec.get("timing_job", "flagship")]
+        timing.update(backend=dist.get_backend(),
+                      collectives_ms=time_tp_collectives(torch, mesh, first["collectives"]),
+                      collective_calls=len(first["collectives"]))
     with open(os.path.join(spec["out"], f"timing_rank{rank}.json"), "w", encoding="utf-8") as f:
         json.dump(timing, f)
-    dist.barrier()
-    dist.destroy_process_group()
+    distributed.barrier()
+    distributed.shutdown()
     return 0
 
 
-def launch_tp(torch, root: str, jobs: list, world: int) -> dict:
-    """One torchrun launch of ``world`` ranks on this card; every rank's
-    records. A rank's failure fails the phase."""
-    out = os.path.join(root, "tp", f"w{world}")
+def launch_tp(torch, root: str, jobs: list, world: int, tag: str = "tp",
+              timing_job: str = "flagship") -> dict:
+    """One torchrun launch of ``world`` ranks on this card, its files under
+    ``root/tag``; every rank's records. A rank's failure fails the phase."""
+    out = os.path.join(root, tag, f"w{world}")
     os.makedirs(out, exist_ok=True)
     spec = os.path.join(out, "spec.json")
     with open(spec, "w", encoding="utf-8") as f:
-        json.dump({"jobs": jobs, "out": out, "device": DEVICE}, f)
+        json.dump({"jobs": jobs, "out": out, "device": DEVICE, "timing_job": timing_job}, f)
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1")
@@ -5670,7 +5716,7 @@ def launch_tp(torch, root: str, jobs: list, world: int) -> dict:
          str(world), os.path.abspath(__file__), "--tp-rank", spec],
         cwd=repo, env=env, capture_output=True, text=True, timeout=TP_TIMEOUT_S)
     seconds = time.perf_counter() - t0
-    check(proc.returncode == 0, f"torchrun with {world} ranks (--mesh-model {TP_MODEL}) exited "
+    check(proc.returncode == 0, f"{tag}: torchrun with {world} ranks exited "
           f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     ranks = [{job["name"]: torch.load(os.path.join(out, f"{job['name']}_rank{r}.pt"),
                                       weights_only=False) for job in jobs}
@@ -5862,6 +5908,201 @@ def tensor_parallel_phase(torch, root: str, corpus: str, card: str, dp: dict, vq
                        for w in runs}
     out["seconds"] = time.perf_counter() - t0
     return out, {"vq_sharded": kernel_row, "adam_local": adam_row}
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the transformer prior on the model axis
+# ---------------------------------------------------------------------------
+
+P19_WORLDS = (1, 2, 4)  # one rank, (data 1 x model 2), (data 2 x model 2)
+P19_STEPS = 4  # the dense runs' steps (steps/s reads the last two intervals)
+# kernel 4 at a model rank's share of phase 7's step: batch 32 of 20 x 7
+# grids, one of the two heads (BH 32), f32 and bf16
+P19_ATTN_SHAPES = [("tp_prior_T140", 32, 140, 64, False),
+                   ("tp_prior_T140_bf16", 32, 140, 64, True)]
+P19_SAMPLE_GRID = (20, 7)
+
+
+def p19_jobs(root: str, corpus: str, vq_ckpt: str, world: int) -> list[dict]:
+    """What one torchrun launch of ``world`` ranks runs through ``cli.prior
+    train --arch transformer`` at phase 7's widths on phase 5's VQ-VAE,
+    with --mesh-model TP_MODEL above one rank: the dense prior for
+    P19_STEPS steps and the routed prior (phase 14's 4 experts) for
+    DP_JOB_STEPS; at W 1 and W 2 one --bf16 dense step; at W 2 one
+    --resume step from W 1's dense checkpoint (copied first)."""
+    out = os.path.join(root, "tp_prior", f"w{world}")
+    mesh = [] if world == 1 else ["--mesh-model", str(TP_MODEL),
+                                  "--mesh-data", str(world // TP_MODEL)]
+
+    def train(tag: str, steps: int, *extra, epochs: int = 1) -> list:
+        return ["train", "--datadir", corpus, "--vqvae-ckpt", vq_ckpt,
+                "--ckpt-dir", os.path.join(out, tag, "prior"), "--batch-size", str(PRIOR_BATCH),
+                "--epochs", str(epochs), "--max-batches-per-epoch", str(steps),
+                "--arch", "transformer", "--prior-dim", str(PRIOR_DIM),
+                "--prior-layers", str(PRIOR_LAYERS), "--dim", str(TRAIN_DIM),
+                "--z-dim", str(TRAIN_CODES), "--device", DEVICE, *mesh, *extra]
+
+    jobs = [{"name": "dense", "cli": "prior", "argv": train("dense", P19_STEPS)},
+            {"name": "routed", "cli": "prior", "record_routing": True,
+             "argv": train("routed", DP_JOB_STEPS, "--moe-experts", str(MOE_EXPERTS))}]
+    if world == P19_WORLDS[-1]:
+        return jobs
+    jobs.append({"name": "bf16", "cli": "prior", "argv": train("bf16", 1, "--bf16")})
+    if world == TP_MODEL:
+        jobs.append({"name": "resume", "cli": "prior",
+                     "copy": [os.path.join(root, "tp_prior", "w1", "dense"),
+                              os.path.join(out, "resume")],
+                     "argv": train("resume", 1, "--resume", epochs=2)})
+    return jobs
+
+
+def p19_first_step(torch, one: dict, ranks: list) -> dict:
+    """A job's first step on the model axis against W 1's: the loss (the
+    data ranks' mean), the gathered gradient relative to W 1's norm, and
+    for a routed prior the routing decisions of every block against W 1's
+    (``routing_flips``, W 1's probabilities deciding the near-ties)."""
+    lead = ranks[::TP_MODEL]  # model rank 0 of each data rank, in row order
+    g1, g2 = one["first_grad"], ranks[0]["first_grad"]
+    keys = sorted(g1)
+    v1 = torch.cat([g1[k].reshape(-1) for k in keys])
+    v2 = torch.cat([g2[k].reshape(-1) for k in keys])
+    loss1 = one["metrics"][0]["loss"]
+    loss2 = float(np.mean([r["metrics"][0]["loss"] for r in lead]))
+    p1, p2 = one["first_params"], ranks[0]["first_params"]
+    out = {"loss_w1": loss1, "loss": loss2, "loss_rel": abs(loss2 - loss1) / abs(loss1),
+           "grad_rel": float((v2 - v1).norm() / v1.norm()),
+           "params_max_abs_err": max(float((p2[k] - p1[k]).abs().max()) for k in keys)}
+    if one["routing"]:
+        layers = range(len(one["routing"]))
+        tp = [(None, torch.cat([r["routing"][i][1] for r in lead]),
+               torch.cat([r["routing"][i][2] for r in lead])) for i in layers]
+        out["routing"] = routing_flips(torch, tp, one["routing"])
+    return out
+
+
+def p19_bh(world: int) -> int:
+    """Kernel 4's BH on a rank: its rows of the batch times its heads."""
+    n_data, n_model = (1, 1) if world == 1 else (world // TP_MODEL, TP_MODEL)
+    return PRIOR_BATCH // n_data * (PRIOR_HEADS // n_model)
+
+
+def prior_tensor_parallel_phase(torch, cli_prior, root: str, corpus: str, vq_ckpt: str,
+                                card: str, fa, fused_adam, gen) -> tuple[dict, dict]:
+    """Phase 19: ``cli.prior train --arch transformer --mesh-model 2`` under
+    torchrun at W 2 (data 1 x model 2) and W 4 (data 2 x model 2), the
+    ranks sharing this card over gloo, each job against a W 1 launch of the
+    same flags: the dense prior, the routed prior (expert parallelism), one
+    --bf16 step and, at W 2, a --resume step from W 1's checkpoint; then
+    ``cli.prior sample`` from W 2's checkpoint on this process, kernel 4 at
+    a rank's BH 32 and kernel 3 at the dense and routed ranks' n. Returns
+    (the record, the kernel rows)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(os.path.join(root, "tp_prior"), ignore_errors=True)
+    runs = {w: launch_tp(torch, root, p19_jobs(root, corpus, vq_ckpt, w), w, "tp_prior", "dense")
+            for w in P19_WORLDS}
+    one = runs[1]["ranks"][0]
+    layers = PRIOR_LAYERS
+    out = {"phase": "tensor_parallel_prior", "card": card, "model": TP_MODEL,
+           "widths": {"prior_dim": PRIOR_DIM, "prior_layers": layers, "prior_heads": PRIOR_HEADS,
+                      "batch": PRIOR_BATCH, "codes": TRAIN_CODES, "experts": MOE_EXPERTS},
+           "note": "the ranks share one card over gloo: steps/s measures equality's and the "
+                   "collectives' cost, not scaling"}
+    jobs = {}
+    for w, run in runs.items():
+        ranks = run["ranks"]
+        bh = p19_bh(w)
+        for job in ranks[0]:
+            steps = len(one[job]["metrics"]) if job != "resume" else 1
+            want = {"vq_nearest": steps, "fused_adam": steps,
+                    **{k: layers * steps for k in fa.KERNELS}}
+            check_tp_launches(ranks, job, want)
+            for r, rank in enumerate(ranks):
+                shapes = {q[0] for _, q, _ in rank[job]["attention"]}
+                check(len(rank[job]["attention"]) == 3 * layers * steps and shapes == {bh},
+                      f"tensor parallel prior {job} W {w} rank {r}: kernel 4 at BH {shapes}, "
+                      f"{len(rank[job]['attention'])} launches, expected BH {bh}")
+            if w > 1:
+                check_tp_groups(ranks, job)
+            rec = {"losses": [float(np.mean([r[job]["metrics"][i]["loss"]
+                                             for r in ranks[::TP_MODEL if w > 1 else 1]]))
+                              for i in range(steps)],
+                   "launches": [r[job]["launches"] for r in ranks],
+                   "local_n": [r[job]["local_n"] for r in ranks],
+                   "state_bytes_a_rank": [r[job]["state_bytes"] for r in ranks],
+                   "attention_bh": bh}
+            if w > 1 and job != "resume":
+                first = p19_first_step(torch, one[job], [r[job] for r in ranks])
+                bf16 = job == "bf16"
+                limit = BF16_LOSS_REL if bf16 else DP_LOSS_REL
+                check(first["loss_rel"] <= limit,
+                      f"tensor parallel prior {job} W {w}: first loss {first['loss']} against "
+                      f"W 1's {first['loss_w1']}")
+                routing = first.get("routing")
+                if routing is not None:
+                    check(routing["flips"] == routing["near_ties"] + routing["cascade"],
+                          f"tensor parallel prior {job} W {w}: routing flips that are neither "
+                          f"near-ties nor cascades of one ({routing})")
+                if not bf16 and not (routing and routing["flips"]):
+                    check(first["grad_rel"] <= DP_GRAD_REL,
+                          f"tensor parallel prior {job} W {w}: the gathered gradient "
+                          f"{first['grad_rel']:.3g} of its norm away")
+                rec["first_step"] = first
+            if job == "dense":
+                check(rec["losses"][-1] < rec["losses"][0],
+                      f"tensor parallel prior W {w}: the loss did not fall {rec['losses']}")
+                rec["steps_per_s"] = dp_step_rate(ranks[0][job])
+                rec["collectives_ms_a_step"] = run["timing"][0].get("collectives_ms")
+                rec["collective_calls_a_step"] = run["timing"][0].get("collective_calls")
+                rec["backend"] = run["timing"][0]["backend"]
+            jobs[f"{job}_w{w}"] = rec
+        jobs[f"launch_seconds_w{w}"] = run["seconds"]
+    out["jobs"] = jobs
+
+    # the --resume step at M 2 from W 1's dense checkpoint
+    resumed = os.path.join(root, "tp_prior", f"w{TP_MODEL}", "resume", "prior")
+    for sub in ("", "_ema", "_train"):
+        check(checkpoint_steps(resumed + sub) == [P19_STEPS, P19_STEPS + 1],
+              f"tensor parallel prior --resume: {resumed + sub} holds "
+              f"{checkpoint_steps(resumed + sub)}")
+    # the M 2 checkpoint samples on one rank (this process)
+    ckpt = os.path.join(root, "tp_prior", f"w{TP_MODEL}", "dense", "prior")
+    h, w_ = P19_SAMPLE_GRID
+    out["sample_cli"] = run_sample_cli(cli_prior, [
+        "sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt", ckpt + "_ema", "--arch", "transformer",
+        "--prior-dim", str(PRIOR_DIM), "--prior-layers", str(layers), "--dim", str(TRAIN_DIM),
+        "--z-dim", str(TRAIN_CODES), "--code-shape", str(h), str(w_), "--device", DEVICE],
+        os.path.join(root, "tp_prior", "samples"), "prior_sample", 4 * w_)
+
+    # kernel 4 at a model rank's BH, kernel 3 at the dense and routed ranks' n
+    attn_rows = {}
+    for shape in P19_ATTN_SHAPES:
+        row = compare_attention(torch, fa, shape, gen)
+        emit(row)
+        limit = ATTN_BF16_REL if shape[4] else ATTN_F32_REL
+        check(max(row["rel_err"].values()) <= limit and row["run_to_run_identical"],
+              f"flash attention {shape[0]}: errors {row['rel_err']} above {limit}")
+        for kernel, plan in row["plan"].items():
+            check(plan["spill_bytes"] == 0,
+                  f"{kernel} {shape[0]}: {plan['spill_bytes']} bytes spilled per thread")
+        attn_rows[shape[0]] = row
+    adam_rows = {}
+    for job in ("dense", "routed"):
+        n = jobs[f"{job}_w{TP_MODEL}"]["local_n"][0]
+        row = compare_fused_adam(torch, fused_adam, n, ADAM_CONFIGS[0], gen)
+        row["shape_of"] = f"tensor_parallel_{job}_prior_rank"
+        emit(row)
+        adam_rows[job] = row
+    out["launches"] = {f"w{w}": [{job: r[job]["launches"] for job in r}
+                                 for r in runs[w]["ranks"]] for w in P19_WORLDS}
+    out["seconds"] = time.perf_counter() - t0
+    return out, {"attention": attn_rows, "adam": adam_rows}
+
+
+def checkpoint_steps(ckpt_dir: str) -> list:
+    """The step numbers a checkpoint directory holds, in order."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(n[len("step_"):]) for n in os.listdir(ckpt_dir) if n.startswith("step_"))
 
 
 def dp_launch_totals(dp: dict) -> dict:
@@ -6294,6 +6535,15 @@ def main() -> int:
         tp, tp_rows = tensor_parallel_phase(torch, root, corpus, card, dp, vq_kernel,
                                             fused_adam, gen)
         emit(tp)
+        torch.cuda.empty_cache()
+
+        # phase 19: cli.prior train --arch transformer with --mesh-model 2
+        # under torchrun (ranks sharing this card), dense, routed, bf16 and
+        # --resume, with each rank's launch counts; kernel 4 at a rank's
+        # heads, kernel 3 at a rank's n
+        tpp, tpp_rows = prior_tensor_parallel_phase(torch, cli_prior, root, corpus, vq_ckpt,
+                                                    card, fa, fused_adam, gen)
+        emit(tpp)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
@@ -6303,6 +6553,7 @@ def main() -> int:
     # summary and result
     dp_launches = dp_launch_totals(dp)
     tp_launches = dp_launch_totals(tp)
+    tpp_launches = dp_launch_totals(tpp)
     sharded, adam_local = tp_rows["vq_sharded"], tp_rows["adam_local"]
     train_runs = [*training["runs"].values(), rvq["run"]]
     train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
@@ -6325,7 +6576,7 @@ def main() -> int:
                      + priors_launches["vq_nearest"] + vtrain["vq_launches"]
                      + moe_launches["vq_nearest"] + bf16_launches["vq_nearest"]
                      + motion["vq_launches"] + dp_launches["vq_nearest"]
-                     + tp_launches["vq_nearest"]),
+                     + tp_launches["vq_nearest"] + tpp_launches["vq_nearest"]),
         "launches_by_path": {"serving": serving["vq_launches"], "training": train_vq,
                              "prior": prior_launches["vq_nearest"],
                              "preprocess_units": prep["vq_launches"],
@@ -6336,7 +6587,8 @@ def main() -> int:
                              "bf16_prior": bf16_launches["vq_nearest"],
                              "motion": motion["vq_launches"],
                              "data_parallel": dp_launches["vq_nearest"],
-                             "tensor_parallel": tp_launches["vq_nearest"]},
+                             "tensor_parallel": tp_launches["vq_nearest"],
+                             "tensor_parallel_prior": tpp_launches["vq_nearest"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -6372,7 +6624,8 @@ def main() -> int:
         "launches": (train_adam + prior_launches["fused_adam"] + others["adam_launches"]
                      + priors_launches["fused_adam"] + vtrain["adam_launches"]
                      + moe_launches["fused_adam"] + bf16_launches["fused_adam"]
-                     + dp_launches["fused_adam"] + tp_launches["fused_adam"]),
+                     + dp_launches["fused_adam"] + tp_launches["fused_adam"]
+                     + tpp_launches["fused_adam"]),
         "launches_by_path": {"training": train_adam, "prior": prior_launches["fused_adam"],
                              "other_autoencoders": others["adam_launches"],
                              "pixelcnn_and_hier_priors": priors_launches["fused_adam"],
@@ -6380,7 +6633,8 @@ def main() -> int:
                              "moe_prior": moe_launches["fused_adam"],
                              "bf16_prior": bf16_launches["fused_adam"],
                              "data_parallel": dp_launches["fused_adam"],
-                             "tensor_parallel": tp_launches["fused_adam"]},
+                             "tensor_parallel": tp_launches["fused_adam"],
+                             "tensor_parallel_prior": tpp_launches["fused_adam"]},
         "max_abs_err": adam_row["max_abs_err"],
         "ms": adam_row["kernel_ms"], "plain_ms": adam_row["plain_ms"],
         "bound_ms": adam_row["bound_ms"], "bound_by": adam_row["bound_by"],
@@ -6388,14 +6642,18 @@ def main() -> int:
         "pixelcnn_shape": {k: adam_pixelcnn[k] for k in ADAM_ROW_KEYS},
         "moe_prior_shape": {k: adam_moe[k] for k in ADAM_ROW_KEYS},
         "tensor_parallel_rank_shape": {k: adam_local[k] for k in ADAM_ROW_KEYS},
+        **{f"tensor_parallel_{job}_prior_rank_shape": {k: r[k] for k in ADAM_ROW_KEYS}
+           for job, r in tpp_rows["adam"].items()},
         "vocoder_shapes": {tag: {k: r[k] for k in ("config",) + ADAM_ROW_KEYS}
                            for tag, r in vtrain["adam_rows"].items()},
-    }] + [attention_summary(attn_rows, name, {"prior": prior_launches[name],
-                                              "hier_top_prior": priors_launches[name],
-                                              "moe_prior": moe_launches[name],
-                                              "bf16_prior": bf16_launches[name],
-                                              "data_parallel": dp_launches[name],
-                                              "tensor_parallel": tp_launches.get(name, 0)},
+    }] + [attention_summary({**attn_rows, **tpp_rows["attention"]}, name,
+                            {"prior": prior_launches[name],
+                             "hier_top_prior": priors_launches[name],
+                             "moe_prior": moe_launches[name],
+                             "bf16_prior": bf16_launches[name],
+                             "data_parallel": dp_launches[name],
+                             "tensor_parallel": tp_launches.get(name, 0),
+                             "tensor_parallel_prior": tpp_launches[name]},
                             bf16["bf16_attention_launches"][name])
           for name in fa.KERNELS]
       + wavenet_summary(wn_rows, wn_api) + conv_summary(conv_rows, conv_ab)})

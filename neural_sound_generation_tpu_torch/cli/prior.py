@@ -43,8 +43,14 @@ the JAX CLI. The transformer's attention kernels run in bf16 on the card.
 ``train`` runs data-parallel under ``torchrun`` (``--mesh-data N``, the
 policy of ``cli.main``): every rank reads the same seeded batches, encodes
 its rows of each and trains on them, and rank 0 writes the checkpoints.
-``--mesh-model`` and ``--mesh-pipe`` raise ``NotImplementedError``: the
-model and pipe axes are later slices.
+``--mesh-model M`` trains the transformer prior (dense or routed, either
+dtype, either ``--hier`` level) over a (W / M, M) mesh: the ranks of a
+model group hold the same rows and a slice each of the layers (Megatron's
+layout, the experts split over the ranks; ``training.sharding``), placed
+after any ``--resume`` restore; the checkpoints stay whole, gathered for
+rank 0, so ``sample``, ``serve --prior-ckpt`` and ``--resume`` at any M read
+them. ``--arch pixelcnn --mesh-model`` and ``--mesh-pipe`` raise
+``NotImplementedError``: later slices.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.prior train
 --datadir <corpus> --vqvae-ckpt <cli.main checkpoint> [--arch transformer
@@ -79,7 +85,6 @@ from neural_sound_generation_tpu_torch.ops import dsp
 from neural_sound_generation_tpu_torch.ops.cuda import flash_attention, fused_adam, vq_kernel
 from neural_sound_generation_tpu_torch.parallel import (
     MODEL_AXIS_FAMILIES,
-    MODEL_AXIS_PRIORS,
     PIPE_AXIS,
     mesh_from_args,
     primary_print,
@@ -87,6 +92,7 @@ from neural_sound_generation_tpu_torch.parallel import (
     shard_batch,
 )
 from neural_sound_generation_tpu_torch.training import checkpoint
+from neural_sound_generation_tpu_torch.training.sharding import shard_train_state
 from neural_sound_generation_tpu_torch.training.train_state import create_train_state
 from neural_sound_generation_tpu_torch.training.trainer import Trainer
 
@@ -184,13 +190,11 @@ def parse_args(argv=None):
 
 def refuse_later_slices(args) -> None:
     """Flags whose code paths the port does not have yet: the mesh's pipe
-    and model axes."""
+    axis, and its model axis for the PixelCNN."""
     if getattr(args, "mesh_pipe", 1) > 1:
         raise NotImplementedError(f"--mesh-pipe {args.mesh_pipe}: {PIPE_AXIS}")
-    if getattr(args, "mesh_model", 1) > 1:
-        later = MODEL_AXIS_FAMILIES if getattr(args, "arch", None) == "pixelcnn" else (
-            MODEL_AXIS_PRIORS)
-        raise NotImplementedError(f"--mesh-model {args.mesh_model}: {later}")
+    if getattr(args, "mesh_model", 1) > 1 and getattr(args, "arch", None) != "transformer":
+        raise NotImplementedError(f"--mesh-model {args.mesh_model}: {MODEL_AXIS_FAMILIES}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -391,6 +395,9 @@ def _train(args) -> None:
                     f"sibling: Adam moments restart)")
         except ValueError as e:
             raise SystemExit(str(e)) from e
+    if mesh is not None and mesh.tensor_parallel:
+        # this rank's slices of the whole (restored) state every rank holds
+        state = shard_train_state(state, mesh)
     if mesh is not None:
         mesh.replicate(state)
 
@@ -420,7 +427,7 @@ def _train(args) -> None:
         # completed_epoch is the last FINISHED epoch: an interval save inside
         # epoch N stores N-1, so --resume replays epoch N with its data order
         extra = {"epoch": completed_epoch, **meta}
-        checkpoint.save_params(args.ckpt_dir, state.model, step, extra)
+        checkpoint.save_params(args.ckpt_dir, state.model, step, extra, shards=state.shards)
         checkpoint.save_ema_sibling(args.ckpt_dir, state, step, extra)
         checkpoint.save(train_dir, state, step, extra, block=False)
 

@@ -292,18 +292,19 @@ def local_state_dict(
 ) -> dict[str, torch.Tensor]:
     """Rank ``model_rank``'s share of a whole ``state_dict`` for ``model``
     under a model axis of ``n_model``: each split parameter and BatchNorm
-    statistic sliced along its axis by the port's tensor-parallel table,
-    every other entry whole."""
-    from neural_sound_generation_tpu_torch.training.sharding import tensor_parallel_layout
+    statistic sliced along its axis by the port's tensor-parallel table
+    (the transformer prior's qkv projection head by head: its q, k and v
+    blocks each sliced alike), every other entry whole."""
+    from neural_sound_generation_tpu_torch.training.sharding import (
+        _slice,
+        tensor_parallel_layout,
+    )
 
     layout = tensor_parallel_layout(model, n_model)
     axes = {**layout.params, **layout.buffers}
     out = {}
     for key, t in state_dict.items():
         axis = axes.get(key)
-        if axis is None:
-            out[key] = t
-        else:
-            size = t.shape[axis] // n_model
-            out[key] = t.narrow(axis, model_rank * size, size).contiguous()
+        out[key] = t if axis is None else _slice(t, axis, model_rank, n_model,
+                                                 layout.groups.get(key, 1))
     return out

@@ -30,7 +30,12 @@ rank's slice of the output channels, with their biases, and computes it
 from the whole input, taken through ``Mesh.copy_to_model`` so that the
 input's gradient is summed over the model group; the norm after it holds
 the same channels. The model gathers the whole channels after the layer
-(and its norm and ReLU) with ``gather_split``. The casts stay as above.
+(and its norm and ReLU) with ``gather_split``. A ``Linear`` is split the
+same way by output features (``model_split`` "columns") or by input
+features ("rows": it holds its rank's slice of the inputs and the whole
+bias, sums the model group's partial products with
+``Mesh.reduce_from_model`` and adds the bias once, after the sum, where
+the one-rank layer adds it to its one product). The casts stay as above.
 """
 
 from __future__ import annotations
@@ -174,15 +179,20 @@ def make_norm(norm: str, dim: int, dtype: torch.dtype = torch.float32) -> nn.Mod
     raise ValueError(f"unknown norm: {norm!r}")
 
 
+def split_mesh():
+    """The mesh a split layer runs on: the current one with a model axis."""
+    mesh = model_axis()
+    if mesh is None:
+        raise RuntimeError("a split layer runs inside a step on a mesh with a model axis")
+    return mesh
+
+
 def _model_input(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """A column-split layer's whole input, its gradient summed over the
     model group (``Mesh.copy_to_model``); ``x`` itself for a whole layer."""
     if not layer.model_split:
         return x
-    mesh = model_axis()
-    if mesh is None:
-        raise RuntimeError("a column-split layer runs inside a step on a mesh with a model axis")
-    return mesh.copy_to_model(x)
+    return split_mesh().copy_to_model(x)
 
 
 def gather_split(h: torch.Tensor, layer: nn.Module) -> torch.Tensor:
@@ -216,7 +226,12 @@ class Conv2d(nn.Conv2d):
 
 class Linear(nn.Linear):
     """``nn.Linear`` with flax's compute ``dtype`` (``nn.Dense(dtype=...)``);
-    float32 runs the stock product unchanged."""
+    float32 runs the stock product unchanged. Under the model axis (see
+    the module docstring) a "columns" split computes its output slice from
+    the whole input, a "rows" split the whole output from its input slice."""
+
+    #: set by ``training.sharding``: None, "columns" or "rows"
+    model_split = None
 
     def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
@@ -224,6 +239,11 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.model_split == "rows":
+            partial = F.linear(x.to(dt), self.weight.to(dt))
+            return split_mesh().reduce_from_model(partial) + self.bias.to(dt)
+        if self.model_split == "columns":
+            x = _model_input(self, x)
         if dt == torch.float32:
             return super().forward(x)
         return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)

@@ -30,7 +30,16 @@ The load-balance term is returned by ``forward``, not kept in module
 state. Inside a data-parallel step (``parallel.mesh.current_mesh()``) its
 two means are the global batch's, taken over the ranks before their
 product (the product is not linear in the rows); capacity is per row, so
-routing and drops need no collective. ``step`` is the causal one-position form for the KV-cached sampler:
+routing and drops need no collective. Under the model axis (expert
+parallelism, ``expert_split``) a rank holds E / M experts, rank r those
+from r E / M. Every rank of a model group routes the same tokens with the
+replicated router, so queues, drops and the load-balance term are alike on
+every rank; a rank fills only its experts' slots, from the input taken
+through ``Mesh.copy_to_model``, and the model group's sum of the ungated
+outputs (``Mesh.reduce_from_model``; each kept token has one owner) is
+multiplied by the gate on every rank. The gate multiplies after the sum:
+before it, a rank's router gradient would miss the other ranks' experts.
+``step`` is the causal one-position form for the KV-cached sampler:
 it carries each row's per-expert counts of *dispatched* tokens, so with the
 full sequence's capacity it drops exactly what ``forward`` drops.
 """
@@ -43,7 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neural_sound_generation_tpu_torch.models.layers import gelu
+from neural_sound_generation_tpu_torch.models.layers import gelu, split_mesh
 from neural_sound_generation_tpu_torch.parallel.mesh import current_mesh
 
 __all__ = ["SwitchMoE"]
@@ -56,6 +65,9 @@ class SwitchMoE(nn.Module):
     ``w_in`` (E, D, F), ``b_in`` (E, F), ``w_out`` (E, F, D), ``b_out``
     (E, D), F = mlp_ratio * D, in flax's layouts. Each batch row is a
     routing group (capacity is per row)."""
+
+    #: set by ``training.sharding``: this rank holds a slice of the experts
+    expert_split = False
 
     def __init__(self, dim: int, n_experts: int, mlp_ratio: int = 4,
                  capacity_factor: float = 1.25, dtype: torch.dtype = torch.float32):
@@ -115,19 +127,29 @@ class SwitchMoE(nn.Module):
             mean_prob = mesh.sum(mean_prob) / mesh.n_data
         aux = e * torch.sum(frac * mean_prob)
 
+        mesh, lo, x = None, 0, h
+        if self.expert_split:
+            # this rank's experts [lo, lo + e); the others' tokens are dropped here
+            mesh, e = split_mesh(), self.w_in.shape[0]
+            lo = mesh.model_rank * e
+            keep = keep & (expert >= lo) & (expert < lo + e)
+            x = mesh.copy_to_model(h)
         n_slots = e * b * cap
         rows = torch.arange(b, device=h.device)[:, None]
         tokens = torch.arange(b * t, device=h.device)
         # each kept token's slot in the (E, B, C) block; the dropped ones go
         # to one spare row past the block, which is cut off again
-        slot = torch.where(keep, (expert * b + rows) * cap + pos, n_slots).reshape(-1)
-        xs = h.new_zeros(n_slots + 1, d).index_copy(0, slot, h.reshape(b * t, d))
+        slot = torch.where(keep, ((expert - lo) * b + rows) * cap + pos, n_slots).reshape(-1)
+        xs = h.new_zeros(n_slots + 1, d).index_copy(0, slot, x.reshape(b * t, d))
         ys = self._experts(xs[:-1].view(e, b * cap, d)).reshape(n_slots, d)
         # and back: each slot's token, a spare token for the empty slots.
         # Copies both ways: their gradients gather, where a gather's would
         # accumulate every dropped token into one row, one after another
         owner = torch.full((n_slots + 1,), b * t, device=h.device).index_copy(0, slot, tokens)
         y = ys.new_zeros(b * t + 1, d).index_copy(0, owner[:-1], ys)[:-1]
+        if mesh is not None:
+            # every kept token's output from its owner, ungated, on every rank
+            y = mesh.reduce_from_model(y)
         return (y.view(b, t, d).float() * gate[..., None]).to(h.dtype), aux
 
     def step(self, h: torch.Tensor, counts: torch.Tensor, cap: int) -> torch.Tensor:

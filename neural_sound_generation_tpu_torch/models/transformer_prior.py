@@ -44,6 +44,22 @@ load-balance term, which the trainer adds to the NLL. The decode step then
 carries per-block (B, E) counts of dispatched tokens beside the KV cache
 and takes the capacity of the full sequence (``moe_cap``), so the sampler
 drops exactly the tokens the teacher-forced forward drops.
+
+Tensor parallelism (the mesh's model axis; ``training.sharding`` places
+the state, Megatron's layout): each block's ``attn_qkv`` holds the q, k
+and v columns of its rank's heads and ``mlp_in`` a slice of the hidden
+features (column splits, which take the whole input through
+``Mesh.copy_to_model``); kernel 4 runs on the rank's heads; ``attn_out``
+and ``mlp_out`` hold the matching input slices (row splits, whose partial
+products ``Mesh.reduce_from_model`` sums before the bias). Where the heads
+do not divide over the ranks the attention stays whole on every rank. The
+embeddings, ``cond_proj`` and ``head`` hold a slice of their feature axis:
+``embed_sequence`` adds the rank's slices (the replicated ``bos``'s too)
+and gathers the sum once, the head's vocabulary slices are gathered before
+the loss. The residual stream and the LayerNorms are whole on every rank.
+A routed block splits its experts (``models/moe.py``). The KV-cached decode
+and ``generate`` run the whole model on one rank: sampling restores a whole
+checkpoint.
 """
 
 from __future__ import annotations
@@ -53,7 +69,7 @@ import math
 import torch
 from torch import nn
 
-from neural_sound_generation_tpu_torch.models.layers import Linear, gelu
+from neural_sound_generation_tpu_torch.models.layers import Linear, gelu, split_mesh
 from neural_sound_generation_tpu_torch.models.moe import SwitchMoE
 from neural_sound_generation_tpu_torch.ops.attention import causal_attention
 
@@ -97,11 +113,13 @@ class _Block(nn.Module):
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
         """x: (B, T, D); causal self-attention over T. Returns (x, the
         routed MLP's load-balance term, or None for a dense block)."""
-        b, t, d = x.shape
+        b, t, _ = x.shape
         hd, dt = self.head_dim, self.compute_dtype
+        # this rank's heads' width: all of D unless the model axis split them
+        d = self.attn_qkv.weight.shape[0] // 3
         q, k, v = self.attn_qkv(self.ln1(x).to(dt)).split(d, dim=-1)
         # (B, H, T, hd), the layout causal_attention takes
-        q, k, v = (z.reshape(b, t, self.n_heads, hd).transpose(1, 2) for z in (q, k, v))
+        q, k, v = (z.reshape(b, t, d // hd, hd).transpose(1, 2) for z in (q, k, v))
         o = causal_attention(q, k, v, scale=1.0 / math.sqrt(hd))
         x = x + self.attn_out(o.transpose(1, 2).reshape(b, t, d)).to(x.dtype)
         if self.routed:
@@ -140,6 +158,10 @@ class TransformerPrior(nn.Module):
     ``(codes (B, H, W) int, label (B,) int) -> logits (B, H, W, input_dim)``
     float32, computed in ``dtype`` (float32 or bfloat16; the parameters are
     float32 either way). Weights are initialized from ``generator``."""
+
+    #: set by ``training.sharding``: the embeddings and ``cond_proj`` hold a
+    #: slice of the feature axis
+    embed_split = False
 
     def __init__(
         self,
@@ -214,7 +236,7 @@ class TransformerPrior(nn.Module):
                 f"({self.max_rows}, {self.max_cols}); raise max_rows/max_cols")
         rows = self.row_embed.weight[:h]
         cols = self.col_embed.weight[:w]
-        return (rows[:, None, :] + cols[None, :, :]).reshape(h * w, self.dim)
+        return (rows[:, None, :] + cols[None, :, :]).reshape(h * w, -1)
 
     def _cond(self, cond: torch.Tensor | None) -> torch.Tensor:
         """``cond_proj`` of the conditioning at one or every position."""
@@ -228,18 +250,32 @@ class TransformerPrior(nn.Module):
         conditioning, ``cond_map`` (B, H, W, Cc)): (B, H, W) -> (B, T, D)."""
         b, h, w = codes.shape
         tok = self.tok_embed(codes.reshape(b, h * w).long())
-        bos = self.bos.expand(b, 1, self.dim).to(tok.dtype)
+        bos = self._bos().expand(b, 1, tok.shape[-1]).to(tok.dtype)
         x = torch.cat([bos, tok[:, :-1]], dim=1)
         x = x + self._pos_table(h, w)[None]
         x = x + self.class_embed(label.long())[:, None, :]
         if self.spatial_cond:
             x = x + self._cond(None if cond_map is None else cond_map.reshape(b, h * w, -1))
-        return x
+        # the rank's feature slices of the sum -> the whole residual stream
+        return split_mesh().gather_channels(x, dim=-1) if self.embed_split else x
+
+    def _bos(self) -> torch.Tensor:
+        """``bos``, or under a feature split this rank's slice of it, taken
+        through ``copy_to_model``: the replicated leaf's gradient is then
+        the model group's sum of the slices' (zero elsewhere), the whole one."""
+        if not self.embed_split:
+            return self.bos
+        mesh, c = split_mesh(), self.tok_embed.weight.shape[1]
+        return mesh.copy_to_model(self.bos).narrow(0, mesh.model_rank * c, c)
 
     def head_logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final LayerNorm + vocab head: (..., D) -> (..., K) float32, rounded
-        to the compute dtype first."""
-        return self.head(self.ln_f(x).to(self.compute_dtype)).float()
+        to the compute dtype first (under a vocabulary split, the model
+        group's slices gathered)."""
+        y = self.head(self.ln_f(x).to(self.compute_dtype))
+        if self.head.model_split:
+            y = split_mesh().gather_channels(y, dim=-1)
+        return y.float()
 
     def forward(self, codes: torch.Tensor, label: torch.Tensor,
                 cond_map: torch.Tensor | None = None, return_moe_aux: bool = False):

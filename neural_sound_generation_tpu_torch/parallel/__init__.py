@@ -17,7 +17,6 @@ from neural_sound_generation_tpu_torch.parallel.distributed import (  # noqa: F4
 )
 from neural_sound_generation_tpu_torch.parallel.mesh import (  # noqa: F401
     MODEL_AXIS_FAMILIES,
-    MODEL_AXIS_PRIORS,
     PIPE_AXIS,
     Mesh,
     current_mesh,

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import os
 from typing import Optional
 
@@ -123,7 +124,8 @@ def topology() -> HostTopology:
 SOLO = object()
 
 # (the default group, n_data, n_model) -> (data groups, model groups), so
-# that a second mesh of the same shape creates no groups
+# that a second mesh of the same shape creates no groups; ``shutdown``
+# empties it
 _SUBGROUPS: dict = {}
 
 
@@ -174,18 +176,40 @@ def barrier() -> None:
         dist.barrier()
 
 
+def shutdown() -> None:
+    """Leave the process group and let go of every group object, so that
+    gloo's worker threads are joined here, while the interpreter is whole.
+
+    A gloo group runs each collective on a worker thread of its own, which
+    drops its reference to the collective's tensors a moment after the
+    caller's wait returns. A group still referenced when the interpreter
+    finalizes (by ``_SUBGROUPS``, whose keys hold the default group, or by
+    a mesh in a reference cycle) keeps those threads alive; one that then
+    frees a tensor owned by Python takes the GIL, is ended by
+    ``pthread_exit`` and unwinds through a ``noexcept`` destructor: the
+    process aborts (``terminate called without an active exception``).
+    Dropping the cache and collecting cycles before ``destroy_process_group``
+    destroys the groups, whose destructors join their threads."""
+    _SUBGROUPS.clear()
+    gc.collect()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 @contextlib.contextmanager
-def process_group(device: str | torch.device | None = None, log=print):
+def process_group(device: str | torch.device | None = None, log=print,
+                  coordinator_address: Optional[str] = None):
     """``initialize`` for the body of an entry point: yields the topology.
     When the body returns, every rank waits at a barrier, so that what
     rank 0 wrote is whole before any rank goes on to read it; a group
-    this call started is then left. A group that already existed (a
-    caller's) stays."""
+    this call started is then left (``shutdown``). A group that already
+    existed (a caller's) stays. ``coordinator_address`` is
+    ``initialize``'s (torchrun's environment when None)."""
     owned = not dist.is_initialized()
-    topo = initialize(device=device, log=log)
+    topo = initialize(coordinator_address, device=device, log=log)
     try:
         yield topo
         barrier()
     finally:
         if owned and dist.is_initialized():
-            dist.destroy_process_group()
+            shutdown()

@@ -39,7 +39,10 @@ which group:
     gradient over the **model group** backward: each rank's gradient
     covers only its output channels) and its output slice through
     ``gather_channels`` (the whole channels forward, this rank's slice of
-    the gradient backward); the nearest-code search merges the ranks'
+    the gradient backward); a row-split layer's partial product goes
+    through ``reduce_from_model`` (an all-reduce over the **model group**
+    forward, the identity backward: the whole output's gradient is already
+    on every rank); the nearest-code search merges the ranks'
     (score, index) pairs and the lookup all-reduces the owners' rows over
     the **model group** (``ops.vq``); the gradient's global norm sums the
     sharded segment's squares over the **model group**;
@@ -68,9 +71,9 @@ float32) and ``broadcast_`` sends bytes.
 The tensor-parallel table is JAX's ``_TP_RULES`` on its flax path names
 (``model_param_shardings``, with ``flax_leaf`` mapping a port parameter to
 its flax path and axes); ``training.sharding`` lays a state out by it. The
-``model`` axis covers the flat mel VQ-VAE; the other families and the
-``pipe`` axis refuse with ``MODEL_AXIS_PRIORS``, ``MODEL_AXIS_FAMILIES``
-and ``PIPE_AXIS``.
+``model`` axis covers the flat mel VQ-VAE and the transformer prior (dense
+or routed); the other families and the ``pipe`` axis refuse with
+``MODEL_AXIS_FAMILIES`` and ``PIPE_AXIS``.
 """
 
 from __future__ import annotations
@@ -88,9 +91,6 @@ from torch import nn
 from neural_sound_generation_tpu_torch.parallel import distributed
 from neural_sound_generation_tpu_torch.parallel.distributed import SOLO
 
-MODEL_AXIS_PRIORS = (
-    "the model axis of the transformer prior (the Megatron layout, expert parallelism) "
-    "comes with a later parallel slice of the port (ROADMAP Queue 1, item 4b-ii)")
 MODEL_AXIS_FAMILIES = (
     "the model axis of WaveNet, the GatedPixelCNN, HierVQVAE, WaveVQVAE and the VAE "
     "comes with a later parallel slice of the port (ROADMAP Queue 1, item 4b-iii)")
@@ -137,21 +137,38 @@ class _CopyToModel(torch.autograd.Function):
         return ctx.mesh.model_all_reduce(grad), None
 
 
-class _GatherChannels(torch.autograd.Function):
-    """Megatron's g for a column split: every rank's channel slice along
-    dim 1, in rank order, forward; this rank's slice of the gradient
-    backward (the gradient of a whole tensor is the same on every rank of
-    the model group)."""
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g for a row split: the sum of the model group's partial
+    products forward; the identity backward (the upstream gradient of the
+    whole sum is the same on every rank, and each rank's partial takes it
+    whole). ``_SumOverGroup``'s backward would sum it again, M times too
+    much."""
 
     @staticmethod
     def forward(ctx, x, mesh):
-        ctx.mesh, ctx.c = mesh, x.shape[1]
-        return mesh.model_concat(x, dim=1)
+        return mesh.model_all_reduce(x)
 
     @staticmethod
     def backward(ctx, grad):
-        r, c = ctx.mesh.model_rank, ctx.c
-        return grad[:, r * c:(r + 1) * c], None
+        return grad, None
+
+
+class _GatherChannels(torch.autograd.Function):
+    """Megatron's g for a column split: every rank's slice along ``dim``
+    (1, a convolution's channels; -1, a linear layer's features), in rank
+    order, forward; this rank's slice of the gradient backward (the
+    gradient of a whole tensor is the same on every rank of the model
+    group)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.c = mesh, dim, x.shape[dim]
+        return mesh.model_concat(x, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        c = ctx.c
+        return grad.narrow(ctx.dim, ctx.mesh.model_rank * c, c), None, None
 
 
 class Mesh:
@@ -289,10 +306,17 @@ class Mesh:
         gradient summed over the model group backward."""
         return _CopyToModel.apply(x, self)
 
-    def gather_channels(self, x: torch.Tensor) -> torch.Tensor:
+    def gather_channels(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """A column-split layer's output slice (B, C / M, ...) -> the whole
-        (B, C, ...), differentiable (the backward keeps this rank's slice)."""
-        return _GatherChannels.apply(x, self)
+        (B, C, ...) (``dim`` 1; -1 for a linear layer's (..., C / M)),
+        differentiable (the backward keeps this rank's slice)."""
+        return _GatherChannels.apply(x, self, dim)
+
+    def reduce_from_model(self, x: torch.Tensor) -> torch.Tensor:
+        """A row-split layer's partial product -> the whole one, summed over
+        the model group (bfloat16 in float32, rounded once), differentiable
+        (the backward passes the gradient through)."""
+        return _ReduceFromModel.apply(x, self)
 
     def build_first(self, device: torch.device, *kernel_modules) -> None:
         """On a CUDA ``device``, build each kernel's library on rank 0

@@ -303,12 +303,15 @@ def load_state_tensors(state: TrainState, src: dict, path: str = "<tensors>") ->
 
 
 def save_params(ckpt_dir: str, module: torch.nn.Module, step: int,
-                extra: Optional[dict] = None) -> str:
+                extra: Optional[dict] = None, shards=None) -> str:
     """Save a module's parameters alone as ``ckpt_dir/step_{step}``
     (``params/<name>``), blocking: the artifact that sampling and serving
     restore with ``restore_params`` (a trained prior's ``state.model``, a
-    vocoder)."""
+    vocoder). A module sharded over the model axis passes its state's
+    ``shards``: the whole parameters are gathered (a collective)."""
     tensors = {f"params/{k}": t for k, t in module.named_parameters()}
+    if shards is not None:
+        tensors = shards.gather_tensors(tensors)
     return _save_tensors(ckpt_dir, tensors, step, extra, block=True)
 
 

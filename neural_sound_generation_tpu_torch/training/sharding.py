@@ -45,8 +45,28 @@ the model group and takes no model-group sum. The step then averages the
 flat gradient over the data group, and the clip's global norm sums the
 split segment's squares over the model group.
 
-The layout covers the flat mel ``VQVAE`` (one codebook or residual VQ);
-the other families wait for later slices (``parallel.mesh.
+The layout covers the flat mel ``VQVAE`` (one codebook or residual VQ)
+and the ``TransformerPrior``, dense or routed (Megatron's layout and
+expert parallelism). Where the prior's layout departs from ``_TP_RULES``:
+
+  * heads, not contiguous columns. JAX's ``attn_qkv`` kernel is (D, 3 D),
+    columns ``[q | k | v]``, each head-major, and ``_TP_RULES`` split it by
+    contiguous output columns, which are not a set of heads; GSPMD
+    reshards around that, the port cannot. Rank r holds the q, k and v
+    columns (and biases) of heads [r H / M, (r + 1) H / M): the leaf is
+    split in three blocks, each block alike (``Layout.groups``), so the
+    whole tree, and the checkpoint, keep JAX's column order.
+  * heads that do not divide. Where H % M != 0 the attention's leaves stay
+    whole on every rank (the counterpart of JAX's "shard only where it
+    divides"); the MLP, the experts, the embeddings and the head still
+    split.
+  * biases. A column-split layer's bias (``attn_qkv``, ``mlp_in``, ``head``,
+    ``cond_proj``) is split with its kernel, as the convolutions' are
+    above; a row-split layer's (``attn_out``, ``mlp_out``) stays whole and
+    is added once, after the model group's sum. ``bos`` stays whole and
+    each rank adds its slice of it to the embeddings' slices.
+
+The other families wait for later slices (``parallel.mesh.
 MODEL_AXIS_FAMILIES``).
 """
 
@@ -59,6 +79,7 @@ import torch
 from torch import nn
 
 from neural_sound_generation_tpu_torch.models.layers import BatchNorm, GroupNorm
+from neural_sound_generation_tpu_torch.models.transformer_prior import TransformerPrior
 from neural_sound_generation_tpu_torch.models.vqvae import VQVAE
 from neural_sound_generation_tpu_torch.parallel.mesh import (
     MODEL_AXIS_FAMILIES,
@@ -91,19 +112,69 @@ def _norm_after(model: nn.Module, conv_name: str) -> Optional[str]:
 @dataclasses.dataclass
 class Layout:
     """The port's tensor-parallel table for one model and M: the split
-    axis of each sharded parameter and buffer, and the column-split
-    convolutions and norms."""
+    axis of each sharded parameter and buffer, the column-split
+    convolutions and norms; for the transformer prior the leaves split
+    block by block (``groups``: the qkv projection's three), the split
+    linear layers ({prefix: "columns" or "rows"}), the routed blocks whose
+    experts split, and whether the embeddings split."""
 
     params: dict
     buffers: dict
     convs: list
     norms: list
+    groups: dict = dataclasses.field(default_factory=dict)
+    linears: dict = dataclasses.field(default_factory=dict)
+    experts: list = dataclasses.field(default_factory=list)
+    embed: bool = False
+
+
+def _prior_layout(model: TransformerPrior, n_model: int) -> Layout:
+    """The transformer prior's table: ``model_param_shardings`` unit by
+    unit (a block's attention, its MLP or experts, the embeddings, the
+    head), each split whole or kept whole, with the departures of the
+    module docstring."""
+    table = model_param_shardings(model, n_model)
+    layout = Layout({}, {}, [], [])
+
+    def split(prefix: str, kind: str) -> None:
+        layout.params[f"{prefix}.weight"] = table[f"{prefix}.weight"]
+        layout.linears[prefix] = kind
+        if kind == "columns":
+            layout.params[f"{prefix}.bias"] = 0
+
+    for i, blk in enumerate(model.blocks):
+        p = f"block_{i}"
+        if blk.n_heads % n_model == 0:
+            split(f"{p}.attn_qkv", "columns")
+            layout.groups[f"{p}.attn_qkv.weight"] = layout.groups[f"{p}.attn_qkv.bias"] = 3
+            split(f"{p}.attn_out", "rows")
+        if blk.routed:
+            experts = [f"{p}.moe.{leaf}" for leaf in ("w_in", "b_in", "w_out", "b_out")]
+            if all(name in table for name in experts):
+                layout.params.update({name: 0 for name in experts})
+                layout.experts.append(f"{p}.moe")
+        elif f"{p}.mlp_in.weight" in table:
+            split(f"{p}.mlp_in", "columns")
+            split(f"{p}.mlp_out", "rows")
+    embeds = ["tok_embed", "class_embed", "row_embed", "col_embed"]
+    embeds += ["cond_proj"] if model.spatial_cond else []
+    if all(f"{e}.weight" in table for e in embeds):
+        layout.params.update({f"{e}.weight": table[f"{e}.weight"] for e in embeds})
+        if model.spatial_cond:
+            layout.params["cond_proj.bias"] = 0
+        layout.embed = True
+    if "head.weight" in table:
+        split("head", "columns")
+    return layout
 
 
 def tensor_parallel_layout(model: nn.Module, n_model: int) -> Layout:
-    """``model_param_shardings`` plus the port's departure: a column-split
+    """``model_param_shardings`` plus the port's departures: a column-split
     convolution's bias and the norm after it (scale, offset, BatchNorm's
-    running statistics) split with its kernel."""
+    running statistics) split with its kernel; the transformer prior's
+    heads, biases and embeddings as the module docstring says."""
+    if isinstance(model, TransformerPrior):
+        return _prior_layout(model, n_model)
     if not isinstance(model, VQVAE):
         raise NotImplementedError(f"{type(model).__name__}: {MODEL_AXIS_FAMILIES}")
     params = model_param_shardings(model, n_model)
@@ -134,9 +205,12 @@ def tensor_parallel_layout(model: nn.Module, n_model: int) -> Layout:
     return Layout(params, buffers, convs, norms)
 
 
-def _slice(t: torch.Tensor, axis: int, rank: int, n: int) -> torch.Tensor:
-    size = t.shape[axis] // n
-    return t.narrow(axis, rank * size, size).contiguous()
+def _slice(t: torch.Tensor, axis: int, rank: int, n: int, groups: int = 1) -> torch.Tensor:
+    """Rank ``rank``'s slice of ``t`` along ``axis`` of n; with ``groups``
+    the axis is that many equal blocks, each sliced alike."""
+    blocks = t.unflatten(axis, (groups, -1))
+    size = blocks.shape[axis + 1] // n
+    return blocks.narrow(axis + 1, rank * size, size).flatten(axis, axis + 1).contiguous()
 
 
 @dataclasses.dataclass
@@ -147,24 +221,26 @@ class ModelShards:
     mesh: object
     layout: Layout
 
-    def axis(self, key: str) -> Optional[int]:
-        """The split axis of a checkpoint tensor, None if it is whole."""
+    def split(self, key: str) -> tuple[Optional[int], int]:
+        """The split axis of a checkpoint tensor (None if it is whole) and
+        its number of blocks."""
         kind, _, name = key.partition("/")
         if kind == "codebook_ema":
-            return self.layout.params.get("codebook")
+            return self.layout.params.get("codebook"), 1
         if kind == "batch_stats":
-            return self.layout.buffers.get(name)
+            return self.layout.buffers.get(name), 1
         if kind == "opt_state":
             name = name.partition("/")[2]
-        return self.layout.params.get(name)
+        return self.layout.params.get(name), self.layout.groups.get(name, 1)
 
     def slice_tensors(self, whole: dict) -> dict:
         """This rank's slices of a whole named tree (a checkpoint's)."""
         mesh = self.mesh
         out = {}
         for k, t in whole.items():
-            axis = self.axis(k)
-            out[k] = t if axis is None else _slice(t, axis, mesh.model_rank, mesh.n_model)
+            axis, groups = self.split(k)
+            out[k] = t if axis is None else _slice(t, axis, mesh.model_rank, mesh.n_model,
+                                                   groups)
         return out
 
     def gather_tensors(self, local: dict) -> dict:
@@ -172,19 +248,26 @@ class ModelShards:
         collective: every rank of the group calls it)."""
         out = {}
         for k, t in local.items():
-            axis = self.axis(k)
-            out[k] = t if axis is None else self.mesh.model_concat(t.detach(), axis)
+            axis, groups = self.split(k)
+            if axis is None:
+                out[k] = t
+                continue
+            blocks = t.detach().unflatten(axis, (groups, -1))
+            out[k] = self.mesh.model_concat(blocks, axis + 1).flatten(axis, axis + 1)
         return out
 
 
 def _shard_module(model: nn.Module, layout: Layout, rank: int, n: int) -> None:
     """Replace the split parameters and buffers by this rank's slices and
-    mark the column-split convolutions, in place."""
+    mark the split convolutions, linear layers, experts and embeddings,
+    in place."""
     with torch.no_grad():
         for name, axis in layout.params.items():
             prefix, _, leaf = name.rpartition(".")
             module = model.get_submodule(prefix) if prefix else model
-            setattr(module, leaf, nn.Parameter(_slice(getattr(module, leaf), axis, rank, n)))
+            whole = getattr(module, leaf)
+            setattr(module, leaf, nn.Parameter(_slice(whole, axis, rank, n,
+                                                      layout.groups.get(name, 1))))
         for name, axis in layout.buffers.items():
             prefix, _, leaf = name.rpartition(".")
             module = model.get_submodule(prefix)
@@ -200,6 +283,17 @@ def _shard_module(model: nn.Module, layout: Layout, rank: int, n: int) -> None:
             norm.num_channels //= n
         else:
             norm.num_features //= n
+    for prefix, kind in layout.linears.items():
+        linear = model.get_submodule(prefix)
+        linear.model_split = kind
+        if kind == "columns":
+            linear.out_features //= n
+        else:
+            linear.in_features //= n
+    for prefix in layout.experts:
+        model.get_submodule(prefix).expert_split = True
+    if layout.embed:
+        model.embed_split = True
 
 
 def shard_train_state(state: TrainState, mesh) -> TrainState:

@@ -48,7 +48,8 @@ and writes metrics on rank 0 only.
 Tensor parallelism (a mesh with a model axis and a state placed by
 ``training.sharding.shard_train_state``): the step runs the same code.
 Each rank's flat buffer holds its slices of the sharded leaves and the
-whole replicated ones; the forward gathers the split channels and merges
+whole replicated ones; the forward gathers the split channels, sums the
+row-split layers' partial products (the transformer prior's) and merges
 the sharded search over the model group (``models``, ``ops.vq``), the
 loss is computed whole on every rank of a model group, so a replicated
 leaf's gradient is already whole there and only the data-group mean

@@ -278,9 +278,9 @@ def test_a_single_process_is_not_a_group():
     (lambda: vocoder.main(["train", "--datadir", "x", "--mesh-data", "2", "--device", "cpu"]),
      SystemExit, r"2 data-parallel ranks"),
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch",
-                         "transformer", "--mesh-model", "2"]),
-     NotImplementedError, r"the model axis of the transformer prior .* \(ROADMAP Queue 1, "
-                          r"item 4b-ii\)"),
+                         "transformer", "--mesh-pipe", "2"]),
+     NotImplementedError, r"--mesh-pipe 2: the pipe axis \(pipeline and sequence "
+                          r"parallelism\) comes with a later parallel slice"),
 ])
 def test_refusals_name_their_slice(run, exc, match):
     """What the mesh does not cover refuses, naming the slice it waits

@@ -404,8 +404,8 @@ def test_flagship_step_equals_the_jax_tensor_parallel_step(tp, world):
      SystemExit, r"--mesh-model 2: the model axis \(tensor parallel\) of 2 ranks needs a "
                  r"world of n_data x 2 ranks, but this run has 1"),
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch",
-                         "transformer", "--mesh-model", "2"]), NotImplementedError,
-     r"item 4b-ii"),
+                         "transformer", "--mesh-model", "2", "--mesh-pipe", "2"]),
+     NotImplementedError, r"--mesh-pipe 2: the pipe axis"),
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch", "pixelcnn",
                          "--mesh-model", "2"]), NotImplementedError, r"item 4b-iii"),
     (lambda: vocoder.main(["train", "--datadir", "x", "--mesh-model", "2"]),

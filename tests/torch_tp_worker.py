@@ -238,7 +238,7 @@ def main(argv) -> None:
     out = {name: case(inp, mesh) for name, case in CASES.items()}
     torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     distributed.barrier()
-    torch.distributed.destroy_process_group()
+    distributed.shutdown()
 
 
 if __name__ == "__main__":
