@@ -4,8 +4,8 @@ residual-VQ bf16), prior, vocoder, 3x3-convolution A/B, corpus
 preprocessing, mel-inversion, other-autoencoder (HierVQVAE, WaveVQVAE,
 VAE), PixelCNN-prior, hierarchical-chain, vocoder-training, routed
 (switch-MoE) prior, bf16 prior, motion, data-parallel and tensor-parallel
-(the flat VQ-VAE and the transformer prior) paths on one CUDA card and
-checks them.
+(the flat VQ-VAE, the transformer prior and the other autoencoders) paths
+on one CUDA card and checks them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
@@ -265,7 +265,25 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
     process; kernel 4 at a rank's BH 32 x 140 x 64 in f32 and bf16 and
     kernel 3 at the dense and routed ranks' n against their plain
     versions; steps/s, collectives and bytes a rank as phase 18;
-20. summary: one JSON line per kernel, then the result line.
+20. tensor-parallel autoencoders: ``cli.main --mesh-model 2`` under
+    ``torchrun`` for the HierVQVAE, the raw WaveVQVAE (EMA codebook,
+    restarts, data init), the mulaw-quantize WaveVQVAE with 2 residual
+    stages and the VAE (MNIST) at phase 11's full widths, P20_STEPS steps
+    and an eval batch each, at W 1 and W 2 (data 1 x model 2), and the
+    raw wave model at W 4 (2 x 2), the ranks sharing this card over gloo;
+    at W 2 ``cli.evaluate --mesh-model 2`` and a --resume step from W 1's
+    hier and wave checkpoints. Each rank's launches (W 1's counts; every
+    search after the data init at the rank's rows and K 256; kernel 3
+    once a step at the rank's n), the first step against W 1 (loss,
+    gathered gradient within phase 17's limits or, where above them, twice
+    the gap of W 1's own first step recomputed on the CPU, each search's
+    code flips, each a near-tie unless an earlier search of the step
+    flipped), the groups bit-equal, a rank's
+    flat buffer at the table's share of W 1's (the VAE's whole), the
+    evaluation's metrics; kernel 1 at the hier top, hier bottom and wave
+    shard shapes and kernel 3 at each family's rank n against their plain
+    versions; the raw wave step's collectives replayed and steps/s;
+21. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -5450,7 +5468,7 @@ def tp_jobs(root: str, corpus: str, world: int) -> list[dict]:
                 "--ckpt-dir", os.path.join(out, tag, "models"),
                 "--sampledir", os.path.join(out, tag, "results"), *mesh, *extra]
 
-    jobs = [{"name": "flagship", "cli": "main", "record_first_vq": True,
+    jobs = [{"name": "flagship", "cli": "main", "record_first_vqs": True,
              "argv": flagship("flagship", "--epochs", str(DP_EPOCHS),
                               "--max-batches-per-epoch", str(BATCHES_PER_EPOCH))}]
     if world != TP_WORLDS[0]:
@@ -5497,8 +5515,10 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
     before it and read just after (phase 17's ``run_dp_job`` with the
     model axis): each step's metrics and end time; the first step's
     gradient and parameters gathered over the model group, by name; each
-    search's rows and codebook shard; the first search's rows and global
-    indices; kernel 3's n; the collectives of the first step."""
+    search's rows and codebook shard; each search of the first step (its
+    rows, codebook shard and global indices); with ``record_first_state``
+    the model's state and the batch the first step starts from; kernel 3's
+    n; the collectives of the first step."""
     from neural_sound_generation_tpu_torch.ops import vq as vq_ops
     from neural_sound_generation_tpu_torch.ops.cuda import vq_kernel
     from neural_sound_generation_tpu_torch.parallel import mesh as mesh_mod
@@ -5532,6 +5552,10 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
 
             def step(state, batch, generator=None):
                 recording["on"] = not rec["metrics"]
+                if job.get("record_first_state") and not rec["metrics"]:
+                    rec["first_state"] = {k: v.detach().cpu().clone()
+                                          for k, v in state.model.state_dict().items()}
+                    rec["first_batch"] = {k: v.cpu() for k, v in batch.items()}
                 state, metrics = inner(state, batch, generator)
                 recording["on"] = False
                 sync(torch)
@@ -5561,9 +5585,9 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
 
     def recorded_merged(x, cb):
         idx = merged_nearest(x, cb)
-        if job.get("record_first_vq") and "first_vq" not in rec and not rec["metrics"]:
-            rec["first_vq"] = {"x": x.detach().cpu(), "cb": cb.detach().cpu(),
-                               "idx": idx.cpu()}
+        if job.get("record_first_vqs") and recording["on"]:
+            rec.setdefault("first_vqs", []).append(
+                {"x": x.detach().cpu(), "cb": cb.detach().cpu(), "idx": idx.cpu()})
         return idx
 
     def recorded_adam(g, *a, **k):
@@ -5623,16 +5647,16 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
     return rec
 
 
-def time_tp_collectives(torch, mesh, ops: list) -> dict:
+def time_tp_collectives(torch, mesh, ops: list, iters: int = TP_COLLECTIVE_ITERS) -> dict:
     """ms of a step's collectives, replayed on tensors of the recorded
-    shapes: each op timed alone (synchronised, the median of
-    TP_COLLECTIVE_ITERS), summed by kind."""
+    shapes: each op timed alone (synchronised, the median of ``iters``
+    after one more), summed by kind."""
     out: dict = {}
     for name, shape, dtype, arg in ops:
         t = torch.ones(shape, device=DEVICE, dtype=getattr(torch, dtype.split(".")[-1]))
         fn = getattr(mesh, name)
         times = []
-        for i in range(TP_COLLECTIVE_ITERS + 1):
+        for i in range(iters + 1):
             sync(torch)
             t0 = time.perf_counter()
             fn(t, dim=arg) if arg is not None else fn(t)
@@ -5644,7 +5668,7 @@ def time_tp_collectives(torch, mesh, ops: list) -> dict:
 
 
 def tp_rank_main(spec_path: str) -> int:
-    """One rank of a phase-18 or phase-19 launch (``chip_smoke.py --tp-rank
+    """One rank of a phase-18, 19 or 20 launch (``chip_smoke.py --tp-rank
     spec.json`` under torchrun): joins the group with the port's backend
     rule, runs the spec's jobs in order, replays the first-step collectives
     of the spec's ``timing_job`` on the job's mesh (none on one rank) and
@@ -5689,7 +5713,9 @@ def tp_rank_main(spec_path: str) -> int:
         mesh = make_mesh(n_data=world // TP_MODEL, n_model=TP_MODEL)
         first = records[spec.get("timing_job", "flagship")]
         timing.update(backend=dist.get_backend(),
-                      collectives_ms=time_tp_collectives(torch, mesh, first["collectives"]),
+                      collectives_ms=time_tp_collectives(
+                          torch, mesh, first["collectives"],
+                          spec.get("collective_iters", TP_COLLECTIVE_ITERS)),
                       collective_calls=len(first["collectives"]))
     with open(os.path.join(spec["out"], f"timing_rank{rank}.json"), "w", encoding="utf-8") as f:
         json.dump(timing, f)
@@ -5699,14 +5725,15 @@ def tp_rank_main(spec_path: str) -> int:
 
 
 def launch_tp(torch, root: str, jobs: list, world: int, tag: str = "tp",
-              timing_job: str = "flagship") -> dict:
+              timing_job: str = "flagship", collective_iters: int = TP_COLLECTIVE_ITERS) -> dict:
     """One torchrun launch of ``world`` ranks on this card, its files under
     ``root/tag``; every rank's records. A rank's failure fails the phase."""
     out = os.path.join(root, tag, f"w{world}")
     os.makedirs(out, exist_ok=True)
     spec = os.path.join(out, "spec.json")
     with open(spec, "w", encoding="utf-8") as f:
-        json.dump({"jobs": jobs, "out": out, "device": DEVICE, "timing_job": timing_job}, f)
+        json.dump({"jobs": jobs, "out": out, "device": DEVICE, "timing_job": timing_job,
+                   "collective_iters": collective_iters}, f)
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1")
@@ -5774,10 +5801,10 @@ def tp_first_step(torch, one: dict, ranks: list) -> dict:
     v2 = torch.cat([g2[k].reshape(-1) for k in keys])
     lead = [r["flagship"] for r in ranks[::TP_MODEL]]  # model rank 0 of each data rank
     a = one["first_vq"]
-    x2 = torch.cat([r["first_vq"]["x"] for r in lead])
-    i2 = torch.cat([r["first_vq"]["idx"] for r in lead])
+    x2 = torch.cat([r["first_vqs"][0]["x"] for r in lead])
+    i2 = torch.cat([r["first_vqs"][0]["idx"] for r in lead])
     kl = TRAIN_CODES // TP_MODEL
-    cb_err = max(float((a["cb"][m * kl:(m + 1) * kl] - ranks[m]["flagship"]["first_vq"]["cb"])
+    cb_err = max(float((a["cb"][m * kl:(m + 1) * kl] - ranks[m]["flagship"]["first_vqs"][0]["cb"])
                        .abs().max()) for m in range(TP_MODEL))
     flipped = (a["idx"] != i2).nonzero()[:, 0]
     cb = a["cb"].double()
@@ -6096,6 +6123,334 @@ def prior_tensor_parallel_phase(torch, cli_prior, root: str, corpus: str, vq_ckp
                                  for r in runs[w]["ranks"]] for w in P19_WORLDS}
     out["seconds"] = time.perf_counter() - t0
     return out, {"attention": attn_rows, "adam": adam_rows}
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the other autoencoders on the model axis
+# ---------------------------------------------------------------------------
+
+P20_WORLDS = (1, 2, 4)  # one rank, (data 1 x model 2), (data 2 x model 2)
+P20_STEPS = 2  # a training job's steps, one eval batch after them
+P20_FAMILIES = ("hier", "wave_raw", "wave_mulaw", "vae")
+P20_W4_FAMILIES = ("wave_raw",)  # the jobs of the (2 x 2) launch
+# each job's whole-codebook searches of its data init, before it shards
+P20_INIT_SEARCHES = {"hier": 4, "wave_raw": 0, "wave_mulaw": 1, "vae": 0}
+P20_COLLECTIVE_ITERS = 1  # the wave step moves some 2 GB through gloo
+P20_SHARE_TOL = 1e-3  # a rank's flat buffer against the table's share (alignment padding)
+# the first step's gathered gradient against W 1's: phase 17's limits, or
+# where a gap is above them, P20_CPU_GAP_C times the gap of W 1's own step
+# on the CPU (``p20_cpu_grad``): the encoders' backward chains through
+# BatchNorm amplify the order of sums into 1e-4-2e-3 of the norm between
+# two correct one-rank runs at these widths (PERF.md section 6;
+# scripts/torch_tp_autoencoder_grad_probe.py measures them)
+P20_CPU_GAP_C = 2.0
+
+
+def p20_models(torch):
+    """Each family at phase 11's full widths, seeded (the table's shares)."""
+    from neural_sound_generation_tpu_torch.models import VAE, HierVQVAE, WaveVQVAE
+
+    return {"hier": HierVQVAE(1, TRAIN_DIM, TRAIN_CODES),
+            "wave_raw": WaveVQVAE(TRAIN_DIM, TRAIN_CODES, WAVE_DOWNSAMPLE),
+            "wave_mulaw": WaveVQVAE(TRAIN_DIM, TRAIN_CODES, WAVE_DOWNSAMPLE,
+                                    input_type="mulaw-quantize", quantize_channels=256,
+                                    num_quantizers=2),
+            "vae": VAE(1, TRAIN_DIM, VAE_Z)}
+
+
+def p20_jobs(root: str, data: dict, world: int) -> list[dict]:
+    """What one torchrun launch of ``world`` ranks runs through ``cli.main``
+    and ``cli.evaluate`` at phase 11's full widths and flags, with
+    --mesh-model TP_MODEL above one rank: each family for P20_STEPS steps
+    and an eval batch (at W 4 the raw wave model only); at W 1 and W 2
+    ``cli.evaluate`` on W 1's hier and wave checkpoints; at W 2 one
+    --resume step from each of them (copied first)."""
+    out = os.path.join(root, "tp_ae", f"w{world}")
+    mesh = [] if world == 1 else ["--mesh-model", str(TP_MODEL),
+                                  "--mesh-data", str(world // TP_MODEL)]
+    # phase 11's flags; the data init of the codebooks apart (a resume has none)
+    flags = {
+        "hier": ("hiervqvae", data["corpus"], "ljspeech", None, []),
+        "wave_raw": ("wavevqvae", data["corpus"], "ljspeech", None, [
+            "--num-downsample", str(WAVE_DOWNSAMPLE), "--ema-codebook",
+            "--restart-dead-threshold", "1.0"]),
+        "wave_mulaw": ("wavevqvae", data["mulaw"], "ljspeech", None, [
+            "--preset", data["preset"], "--num-quantizers", "2",
+            "--num-downsample", str(WAVE_DOWNSAMPLE)]),
+        "vae": ("vae", data["mnist"], "MNIST", VAE_Z, []),
+    }
+    data_init = ["--codebook-init", "data"]
+
+    def train(job: str, tag: str, *extra) -> list:
+        model, datadir, dataset, z_dim, family = flags[job]
+        return (other_argv(model, os.path.join(out, tag), datadir, dataset, z_dim) + family
+                + ["--epochs", "1", "--max-batches-per-epoch", str(P20_STEPS), *mesh, *extra])
+
+    families = P20_W4_FAMILIES if world == P20_WORLDS[-1] else P20_FAMILIES
+    jobs = [{"name": job, "cli": "main", "record_first_vqs": True,
+             "record_first_state": world == 1,
+             "argv": train(job, job, *(data_init if job != "vae" else []))}
+            for job in families]
+    if world == P20_WORLDS[-1]:
+        return jobs
+    one = os.path.join(root, "tp_ae", "w1")
+    for job, model in (("hier", "hiervqvae"), ("wave_raw", "wavevqvae")):
+        ckpt = os.path.join(one, job, "models", model,
+                            f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")
+        extra = ["--num-downsample", str(WAVE_DOWNSAMPLE)] if job == "wave_raw" else []
+        jobs.append({"name": f"evaluate_{job}", "cli": "evaluate", "argv": [
+            "--model", model, "--datadir", data["corpus"], "--ckpt-dir", ckpt,
+            "--dim", str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES),
+            "--batch-size", str(TRAIN_BATCH), "--max-batches", "1", "--device", DEVICE,
+            *extra, *mesh]})
+        if world == TP_MODEL:
+            jobs.append({"name": f"resume_{job}", "cli": "main",
+                         "copy": [os.path.join(one, job, "models"),
+                                  os.path.join(out, f"resume_{job}", "models")],
+                         "argv": train(job, f"resume_{job}", "--epochs", "2",
+                                       "--max-batches-per-epoch", "1", "--resume")})
+    return jobs
+
+
+def p20_first_step(torch, one: dict, ranks: list) -> dict:
+    """A job's first step on the model axis against W 1's: the loss (the
+    data ranks' mean), the gathered gradient relative to W 1's norm, and
+    each search of the step (top then bottom, or stage by stage) against
+    W 1's: its flips, and how many are near-ties on W 1's whole codebook.
+    A search after one that flipped is that flip's cascade (its inputs
+    moved), so only its count is kept."""
+    lead = ranks[::TP_MODEL]  # model rank 0 of each data rank, in row order
+    g1, g2 = one["first_grad"], ranks[0]["first_grad"]
+    keys = sorted(g1)
+    v1 = torch.cat([g1[k].reshape(-1) for k in keys])
+    v2 = torch.cat([g2[k].reshape(-1) for k in keys])
+    loss1 = one["metrics"][0]["loss"]
+    loss2 = float(np.mean([r["metrics"][0]["loss"] for r in lead]))
+    searches, cascade = [], False
+    for i, a in enumerate(one.get("first_vqs", [])):
+        x2 = torch.cat([r["first_vqs"][i]["x"] for r in lead])
+        i2 = torch.cat([r["first_vqs"][i]["idx"] for r in lead])
+        flipped = (a["idx"] != i2).nonzero()[:, 0]
+        cb = a["cb"].double()
+        ties = near_ties(a["x"][flipped].double(), x2[flipped].double(),
+                         cb[i2[flipped].long()], cb[a["idx"][flipped].long()])
+        kl = a["cb"].shape[0] // TP_MODEL
+        shard = ranks[0]["first_vqs"][i]["cb"]
+        searches.append({"rows": int(a["idx"].numel()), "k_shard": int(shard.shape[0]),
+                         "flips": int(flipped.numel()), "near_ties": int(ties.sum()),
+                         "cascade": cascade,
+                         "shard_max_abs_err": float((a["cb"][:kl] - shard).abs().max())})
+        cascade = cascade or bool(flipped.numel())
+    return {"loss_w1": loss1, "loss": loss2, "loss_rel": abs(loss2 - loss1) / abs(loss1),
+            "grad_rel": float((v2 - v1).norm() / v1.norm()), "searches": searches,
+            "flips": sum(s["flips"] for s in searches)}
+
+
+def p20_cpu_grad(torch, one: dict, argv: list) -> dict:
+    """W 1's first step again on the CPU (float32, this process's threads)
+    from W 1's recorded state and batch, with W 1's codes at every search
+    (so no near-tie can flip): the gradient by name after the step (an EMA
+    codebook's zeroed). The gap between two devices' one-rank gradients is
+    the float32 order-of-sums noise of this state, which the model axis's
+    split sums meet too."""
+    from neural_sound_generation_tpu_torch.cli import main as cli_main
+    from neural_sound_generation_tpu_torch.ops import vq as vq_ops
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+    from neural_sound_generation_tpu_torch.training.trainer import (
+        make_train_step,
+        uses_ema_codebook,
+    )
+
+    args = cli_main.parse_args(argv)
+    cfg = cli_main.build_config(args)
+    model = cli_main.make_model(cfg, norm=args.norm)
+    model.load_state_dict(one["first_state"])
+    state = create_train_state(model, cfg.train, ema_codebook=uses_ema_codebook(model, cfg))
+    codes = [r["idx"] for r in one.get("first_vqs", [])]
+    nearest = vq_ops._nearest_indices
+    vq_ops._nearest_indices = lambda x, cb: codes.pop(0)
+    try:
+        make_train_step(model, cfg)(state, one["first_batch"], torch.Generator().manual_seed(SEED))
+    finally:
+        vq_ops._nearest_indices = nearest
+    check(not codes, f"the CPU step made {len(one.get('first_vqs', [])) - len(codes)} searches, "
+          f"W 1's first step {len(one.get('first_vqs', []))}")
+    return {k: g.clone() for k, g in state.flat.named(state.flat.grad).items()}
+
+
+def p20_shares(torch, models: dict) -> dict:
+    """A model rank's share of each family's parameters under the port's
+    table at M TP_MODEL: the split leaves over M, the others whole."""
+    from neural_sound_generation_tpu_torch.training.sharding import tensor_parallel_layout
+
+    out = {}
+    for job, model in models.items():
+        split = tensor_parallel_layout(model, TP_MODEL).params
+        whole = sum(p.numel() for p in model.parameters())
+        out[job] = sum(p.numel() // (TP_MODEL if n in split else 1)
+                       for n, p in model.named_parameters()) / whole
+    return out
+
+
+def autoencoder_tensor_parallel_phase(torch, dsp, root: str, corpus: str, card: str,
+                                      vq_kernel, fused_adam, gen) -> tuple[dict, dict]:
+    """Phase 20: ``cli.main --model hiervqvae|wavevqvae|vae --mesh-model 2``
+    under torchrun at W 1, W 2 (data 1 x model 2) and, for the raw wave
+    model, W 4 (2 x 2), the ranks sharing this card over gloo, at phase
+    11's full widths and flags, each job against W 1's; ``cli.evaluate
+    --mesh-model 2`` and a --resume step from W 1's hier and wave
+    checkpoints; kernel 1 at the rank's K 256 shards and kernel 3 at each
+    rank's n against their plain versions. Returns (the record, the kernel
+    rows)."""
+    t0 = time.perf_counter()
+    base = os.path.join(root, "tp_ae")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    preset = os.path.join(base, "mulaw_quantize.json")
+    with open(preset, "w", encoding="utf-8") as f:
+        json.dump({"input_type": "mulaw-quantize", "quantize_channels": 256}, f)
+    data = {"corpus": corpus, "preset": preset,
+            "mulaw": mulaw_corpus(torch, dsp, corpus, os.path.join(base, "corpus_mulaw"), 256),
+            "mnist": write_mnist(os.path.join(base, "mnist"))}
+    runs = {w: launch_tp(torch, root, p20_jobs(root, data, w), w, "tp_ae", "wave_raw",
+                         P20_COLLECTIVE_ITERS) for w in P20_WORLDS}
+    one = runs[1]["ranks"][0]
+    argv_w1 = {job["name"]: job["argv"] for job in p20_jobs(root, data, 1)}
+    cpu_gaps: dict = {}
+
+    def cpu_gap(job: str) -> float:
+        # W 1's first step on the CPU, relative to W 1's norm (once a job)
+        if job not in cpu_gaps:
+            t_cpu = time.perf_counter()
+            g1, g_cpu = one[job]["first_grad"], p20_cpu_grad(torch, one[job], argv_w1[job])
+            keys = sorted(g1)
+            v1 = torch.cat([g1[k].reshape(-1) for k in keys])
+            v_cpu = torch.cat([g_cpu[k].reshape(-1) for k in keys])
+            cpu_gaps[job] = {"grad_rel": float((v_cpu - v1).norm() / v1.norm()),
+                             "seconds": time.perf_counter() - t_cpu}
+        return cpu_gaps[job]["grad_rel"]
+
+    shares = p20_shares(torch, p20_models(torch))
+    out = {"phase": "tensor_parallel_autoencoders", "card": card, "model": TP_MODEL,
+           "widths": {"dim": TRAIN_DIM, "codes": TRAIN_CODES, "batch": TRAIN_BATCH,
+                      "num_downsample": WAVE_DOWNSAMPLE, "vae_z": VAE_Z, "steps": P20_STEPS},
+           "table_share_a_rank": shares,
+           "note": "the ranks share one card over gloo: steps/s measures equality's and the "
+                   "collectives' cost, not scaling"}
+    jobs = {}
+    for w in P20_WORLDS[1:]:
+        run, n_data = runs[w], w // TP_MODEL
+        ranks = run["ranks"]
+        for job in (P20_W4_FAMILIES if w == P20_WORLDS[-1] else P20_FAMILIES):
+            init = P20_INIT_SEARCHES[job]
+            want_s = one[job]["searches"]
+
+            def searches(s, init=init, want_s=want_s, n_data=n_data):
+                # the data init's whole-codebook searches, then every one on
+                # this rank's rows and K / M codes
+                return s[:init] == want_s[:init] and s[init:] == [
+                    (r // n_data, k // TP_MODEL) for r, k in want_s[init:]]
+
+            check_tp_launches(ranks, job, one[job]["launches"], searches)
+            check_tp_groups(ranks, job)
+            first = p20_first_step(torch, one[job], [r[job] for r in ranks])
+            for i, s in enumerate(first["searches"]):
+                check(s["cascade"] or s["flips"] == s["near_ties"],
+                      f"tensor parallel {job} W {w}: search {i} flipped {s['flips']} codes, "
+                      f"{s['flips'] - s['near_ties']} of them not near-ties")
+                check(s["shard_max_abs_err"] <= 1e-5,
+                      f"tensor parallel {job} W {w}: codebook shard {s['shard_max_abs_err']} "
+                      "from W 1's rows")
+            check(first["loss_rel"] <= DP_LOSS_REL,
+                  f"tensor parallel {job} W {w}: first loss {first['loss']} against "
+                  f"W 1's {first['loss_w1']}")
+            limit = DP_GRAD_REL_FLIPS if first["flips"] else DP_GRAD_REL
+            if first["grad_rel"] > limit and job != "vae":
+                first["cpu_grad_rel"] = cpu_gap(job)
+                limit = max(limit, P20_CPU_GAP_C * first["cpu_grad_rel"])
+            check(first["grad_rel"] <= limit,
+                  f"tensor parallel {job} W {w}: the gathered gradient {first['grad_rel']:.3g} "
+                  f"of its norm away ({first['flips']} flips; the limit {limit:.3g})")
+            share = [r[job]["local_n"] / one[job]["local_n"] for r in ranks]
+            check(all(abs(s - shares[job]) <= P20_SHARE_TOL for s in share),
+                  f"tensor parallel {job} W {w}: a rank's flat buffer is {share} of W 1's, the "
+                  f"table's share is {shares[job]}")
+            losses = [float(np.mean([r[job]["metrics"][i]["loss"] for r in ranks[::TP_MODEL]]))
+                      for i in range(P20_STEPS)]
+            check(all(np.isfinite(losses)), f"tensor parallel {job} W {w}: losses {losses}")
+            jobs[f"{job}_w{w}"] = {
+                "first_step": first, "losses": losses,
+                "losses_w1": [m["loss"] for m in one[job]["metrics"]],
+                "local_n": [r[job]["local_n"] for r in ranks], "local_n_w1": one[job]["local_n"],
+                "split_at": ranks[0][job]["split_at"],
+                "state_bytes_a_rank": [r[job]["state_bytes"] for r in ranks],
+                "state_bytes_w1": one[job]["state_bytes"], "share_of_w1": share,
+                "seconds": ranks[0][job]["seconds"], "seconds_w1": one[job]["seconds"],
+                "launches": [r[job]["launches"] for r in ranks],
+                "launches_w1": one[job]["launches"]}
+        jobs[f"launch_seconds_w{w}"] = run["seconds"]
+        jobs[f"wave_raw_w{w}"].update(
+            collectives_ms_a_step=run["timing"][0]["collectives_ms"],
+            collective_calls_a_step=run["timing"][0]["collective_calls"],
+            backend=run["timing"][0]["backend"])
+    jobs["launch_seconds_w1"] = runs[1]["seconds"]
+    out["jobs"] = jobs
+    out["cpu_first_step"] = cpu_gaps
+    # steps/s of the raw wave model: the one interval between its two steps
+    out["wave_raw_steps_per_s"] = {
+        f"w{w}": float(1.0 / np.diff(runs[w]["ranks"][0]["wave_raw"]["step_t"])[0])
+        for w in P20_WORLDS}
+
+    # cli.evaluate --mesh-model 2 on W 1's checkpoints, against W 1's sweep
+    w2 = runs[TP_MODEL]["ranks"]
+    out["evaluate"] = {}
+    for job in ("hier", "wave_raw"):
+        name = f"evaluate_{job}"
+        m1, m2 = one[name]["means"], w2[0][name]["means"]
+        check(m1.keys() == m2.keys() and all(
+            abs(m2[k] - m1[k]) <= (DP_EVAL_PPL_REL if k.startswith("perplexity")
+                                   else DP_LOSS_REL) * abs(m1[k]) for k in m1),
+              f"tensor parallel {name}: {m2} against W 1's {m1}")
+        check_tp_launches(w2, name, one[name]["launches"],
+                          lambda s, want=one[name]["searches"]: s == [
+                              (r, k // TP_MODEL) for r, k in want])
+        out["evaluate"][job] = {"w1": m1, "w2": m2}
+        # one --resume step at M 2 from W 1's checkpoint
+        name = f"resume_{job}"
+        check_tp_launches(w2, name, {"fused_adam": 1})
+        check_tp_groups(w2, name)
+        model = "hiervqvae" if job == "hier" else "wavevqvae"
+        resumed = os.path.join(base, f"w{TP_MODEL}", name, "models", model,
+                               f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")
+        check(checkpoint_steps(resumed) == [P20_STEPS, P20_STEPS + 1],
+              f"tensor parallel {name}: {resumed} holds {checkpoint_steps(resumed)}")
+        out[name] = {"loss": w2[0][name]["metrics"][0]["loss"],
+                     "launches": [r[name]["launches"] for r in w2]}
+
+    # kernel 1 at a rank's K 256 shards on the first step's rows; kernel 3
+    # at each rank's n
+    vq_rows = {}
+    for job, i, label in (("hier", 0, "hier_top"), ("hier", 1, "hier_bottom"),
+                          ("wave_raw", 0, "wave_units")):
+        rec = w2[0][job]["first_vqs"][i]
+        row = compare_vq(torch, vq_kernel, rec["x"].to(DEVICE).contiguous(),
+                         rec["cb"].to(DEVICE).contiguous())
+        row["shape_of"] = f"tensor_parallel_{label}_shard"
+        emit(row)
+        check(row["mismatches"] == row["near_ties"] and row["run_to_run_identical"],
+              f"vq_nearest {label} shard: {row['mismatches'] - row['near_ties']} mismatches "
+              "that are not near-ties, or two calls differ")
+        vq_rows[label] = row
+    adam_rows = {}
+    for job in P20_FAMILIES:
+        row = compare_fused_adam(torch, fused_adam, w2[0][job]["local_n"], ADAM_CONFIGS[0], gen)
+        row["shape_of"] = f"tensor_parallel_{job}_rank"
+        emit(row)
+        adam_rows[job] = row
+    out["launches"] = {f"w{w}": [{job: r[job]["launches"] for job in r}
+                                 for r in runs[w]["ranks"]] for w in P20_WORLDS}
+    out["seconds"] = time.perf_counter() - t0
+    return out, {"vq": vq_rows, "adam": adam_rows}
 
 
 def checkpoint_steps(ckpt_dir: str) -> list:
@@ -6544,6 +6899,15 @@ def main() -> int:
         tpp, tpp_rows = prior_tensor_parallel_phase(torch, cli_prior, root, corpus, vq_ckpt,
                                                     card, fa, fused_adam, gen)
         emit(tpp)
+        torch.cuda.empty_cache()
+
+        # phase 20: cli.main and cli.evaluate with --mesh-model 2 for the
+        # HierVQVAE, the WaveVQVAE and the VAE under torchrun (ranks sharing
+        # this card), with each rank's launch counts; kernel 1 on a rank's
+        # K 256 shards, kernel 3 at each rank's n
+        tpa, tpa_rows = autoencoder_tensor_parallel_phase(torch, dsp, root, corpus, card,
+                                                          vq_kernel, fused_adam, gen)
+        emit(tpa)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
@@ -6554,6 +6918,7 @@ def main() -> int:
     dp_launches = dp_launch_totals(dp)
     tp_launches = dp_launch_totals(tp)
     tpp_launches = dp_launch_totals(tpp)
+    tpa_launches = dp_launch_totals(tpa)
     sharded, adam_local = tp_rows["vq_sharded"], tp_rows["adam_local"]
     train_runs = [*training["runs"].values(), rvq["run"]]
     train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
@@ -6576,7 +6941,8 @@ def main() -> int:
                      + priors_launches["vq_nearest"] + vtrain["vq_launches"]
                      + moe_launches["vq_nearest"] + bf16_launches["vq_nearest"]
                      + motion["vq_launches"] + dp_launches["vq_nearest"]
-                     + tp_launches["vq_nearest"] + tpp_launches["vq_nearest"]),
+                     + tp_launches["vq_nearest"] + tpp_launches["vq_nearest"]
+                     + tpa_launches["vq_nearest"]),
         "launches_by_path": {"serving": serving["vq_launches"], "training": train_vq,
                              "prior": prior_launches["vq_nearest"],
                              "preprocess_units": prep["vq_launches"],
@@ -6588,7 +6954,8 @@ def main() -> int:
                              "motion": motion["vq_launches"],
                              "data_parallel": dp_launches["vq_nearest"],
                              "tensor_parallel": tp_launches["vq_nearest"],
-                             "tensor_parallel_prior": tpp_launches["vq_nearest"]},
+                             "tensor_parallel_prior": tpp_launches["vq_nearest"],
+                             "tensor_parallel_autoencoders": tpa_launches["vq_nearest"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -6616,6 +6983,14 @@ def main() -> int:
                           "score_mismatches_vs_whole": {
                               f"m{m}": sharded[f"m{m}"]["score_mismatches"] for m in TP_SHARDS},
                           "score_max_abs_err_vs_float64": sharded["score_max_abs_err_vs_float64"]},
+        "tensor_parallel_autoencoder_shapes": {
+            name: {"n": r["n"], "k": r["k"], "ms": r["kernel_ms"],
+                   "device_ms": r["kernel_device_ms"], "plain_ms": r["plain_ms"],
+                   "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                   "bound_3xtf32_ms": r["tensor_core_bound_ms"], "library_ms": r["library_ms"],
+                   "library_device_ms": r["library_device_ms"], "ctas": r["ctas"],
+                   "max_abs_err": r["max_abs_err"]}
+            for name, r in tpa_rows["vq"].items()},
     }, {
         "name": "fused_adam", "route": "cuda",
         "source": "neural_sound_generation_tpu_torch/csrc/fused_adam.cu",
@@ -6625,7 +7000,7 @@ def main() -> int:
                      + priors_launches["fused_adam"] + vtrain["adam_launches"]
                      + moe_launches["fused_adam"] + bf16_launches["fused_adam"]
                      + dp_launches["fused_adam"] + tp_launches["fused_adam"]
-                     + tpp_launches["fused_adam"]),
+                     + tpp_launches["fused_adam"] + tpa_launches["fused_adam"]),
         "launches_by_path": {"training": train_adam, "prior": prior_launches["fused_adam"],
                              "other_autoencoders": others["adam_launches"],
                              "pixelcnn_and_hier_priors": priors_launches["fused_adam"],
@@ -6634,7 +7009,8 @@ def main() -> int:
                              "bf16_prior": bf16_launches["fused_adam"],
                              "data_parallel": dp_launches["fused_adam"],
                              "tensor_parallel": tp_launches["fused_adam"],
-                             "tensor_parallel_prior": tpp_launches["fused_adam"]},
+                             "tensor_parallel_prior": tpp_launches["fused_adam"],
+                             "tensor_parallel_autoencoders": tpa_launches["fused_adam"]},
         "max_abs_err": adam_row["max_abs_err"],
         "ms": adam_row["kernel_ms"], "plain_ms": adam_row["plain_ms"],
         "bound_ms": adam_row["bound_ms"], "bound_by": adam_row["bound_by"],
@@ -6644,6 +7020,8 @@ def main() -> int:
         "tensor_parallel_rank_shape": {k: adam_local[k] for k in ADAM_ROW_KEYS},
         **{f"tensor_parallel_{job}_prior_rank_shape": {k: r[k] for k in ADAM_ROW_KEYS}
            for job, r in tpp_rows["adam"].items()},
+        **{f"tensor_parallel_{job}_rank_shape": {k: r[k] for k in ADAM_ROW_KEYS}
+           for job, r in tpa_rows["adam"].items()},
         "vocoder_shapes": {tag: {k: r[k] for k in ("config",) + ADAM_ROW_KEYS}
                            for tag, r in vtrain["adam_rows"].items()},
     }] + [attention_summary({**attn_rows, **tpp_rows["attention"]}, name,
@@ -6653,7 +7031,8 @@ def main() -> int:
                              "bf16_prior": bf16_launches[name],
                              "data_parallel": dp_launches[name],
                              "tensor_parallel": tp_launches.get(name, 0),
-                             "tensor_parallel_prior": tpp_launches[name]},
+                             "tensor_parallel_prior": tpp_launches[name],
+                             "tensor_parallel_autoencoders": tpa_launches.get(name, 0)},
                             bf16["bf16_attention_launches"][name])
           for name in fa.KERNELS]
       + wavenet_summary(wn_rows, wn_api) + conv_summary(conv_rows, conv_ab)})

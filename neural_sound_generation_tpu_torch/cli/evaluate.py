@@ -13,10 +13,11 @@ in bfloat16 compute (checkpoints are float32 and restore unchanged).
 Under ``torchrun`` with ``--mesh-data N`` the sweep runs over N ranks, each
 on its rows of every test batch (``cli.main``'s policy): the summary is the
 global batches' and is printed by rank 0, which also writes ``--dump-npy``
-from the gathered reconstruction. ``--mesh-model M`` (``--model vqvae``)
-evaluates over a (W / M, M) mesh with the codebook's rows and the
-convolutions' output channels sharded, as ``cli.main`` trains: the restore
-keeps each rank's slices of the whole checkpoint, whatever M trained it.
+from the gathered reconstruction. ``--mesh-model M`` (every ``--model``)
+evaluates over a (W / M, M) mesh with the codebooks' rows and the
+convolutions' output channels sharded as ``cli.main`` trains them: the
+restore keeps each rank's slices of the whole checkpoint, whatever M
+trained it.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.evaluate --datadir
 <corpus> --ckpt-dir <dir> [--device cuda]``

@@ -33,21 +33,24 @@ rank runs the same seeded loader over the global ``--batch-size`` and
 keeps its rows, so a W-rank run computes the one-rank run's steps; rank 0
 writes the checkpoints, metrics and samples.
 
-Tensor parallelism (``--model vqvae`` only): ``--mesh-model M`` lays a
-(W / M, M) mesh over the W ranks (``--mesh-data D`` must then make D x M =
-W). Every rank builds the whole model from the seed (and the data-seeded
-codebook), keeps its slices of the codebook's rows and of the convolutions'
-output channels (``training.sharding``) and trains them with kernel 1 on
-its codebook shard and kernel 3 on its own flat buffer; the steps are the
-one-rank steps. Checkpoints hold the whole tree, so ``--resume`` works at
-any M. The other families refuse ``--mesh-model`` (``MODEL_AXIS_FAMILIES``).
+Tensor parallelism (every ``--model``): ``--mesh-model M`` lays a (W / M,
+M) mesh over the W ranks (``--mesh-data D`` must then make D x M = W).
+Every rank builds the whole model from the seed (and the data-seeded
+codebooks), keeps its slices of the leaves JAX's ``_TP_RULES`` shard
+(``training.sharding``: the codebooks' rows and the encoder's and
+decoder's output channels; the hierarchy's ``decoder`` and two codebooks
+only; nothing of the VAE, which each model rank computes whole) and trains
+them with kernel 1 on its codebook shards and kernel 3 on its own flat
+buffer; the steps are the one-rank steps. Checkpoints hold the whole
+tree, so ``--resume`` works at any M and a checkpoint serves without a
+mesh.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.main --model vqvae
 --dataset ljspeech --datadir <corpus> --dim 256 [--device cuda]``, or over
 eight cards ``torchrun --standalone --nproc_per_node 8 -m
 neural_sound_generation_tpu_torch.cli.main --mesh-data 8 ...``, or 4 x 2
 ``torchrun --standalone --nproc_per_node 8 -m
-neural_sound_generation_tpu_torch.cli.main --model vqvae --mesh-data 4
+neural_sound_generation_tpu_torch.cli.main --model wavevqvae --mesh-data 4
 --mesh-model 2 ...`` (``--device cpu`` runs the ranks on the CPU over gloo).
 """
 
@@ -76,7 +79,6 @@ from neural_sound_generation_tpu_torch.ops import dsp
 from neural_sound_generation_tpu_torch.ops.cuda import fused_adam, vq_kernel
 from neural_sound_generation_tpu_torch.ops.vq import data_codebook_init
 from neural_sound_generation_tpu_torch.parallel import (
-    MODEL_AXIS_FAMILIES,
     mesh_from_args,
     primary_print,
     process_group,
@@ -145,14 +147,9 @@ def parse_args(argv=None):
 
 
 def refuse_later_slices(args) -> None:
-    """Flags whose code paths the port does not have yet (the mesh's model
-    axis of the families but the flat VQ-VAE), and a stage count below
-    one."""
+    """Flags the port refuses before it starts: a stage count below one."""
     if getattr(args, "num_quantizers", 1) < 1:
         raise SystemExit(f"--num-quantizers {args.num_quantizers}: must be at least 1")
-    if args.mesh_model > 1 and args.model != "vqvae":
-        raise SystemExit(f"--mesh-model {args.mesh_model} --model {args.model}: "
-                         f"{MODEL_AXIS_FAMILIES}; --model vqvae has it")
 
 
 def build_config(args) -> Config:

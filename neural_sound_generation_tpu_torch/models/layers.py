@@ -25,12 +25,13 @@ bf16 functions round after every operation, as XLA lowers them: ``gelu``
 and ``sigmoid`` spell out flax's formulas op by op in bf16.
 
 Tensor parallelism (the mesh's model axis, ``training.sharding``): a
-column-split ``Conv2d`` or ``ConvTranspose2d`` (``model_split``) holds its
-rank's slice of the output channels, with their biases, and computes it
-from the whole input, taken through ``Mesh.copy_to_model`` so that the
-input's gradient is summed over the model group; the norm after it holds
-the same channels. The model gathers the whole channels after the layer
-(and its norm and ReLU) with ``gather_split``. A ``Linear`` is split the
+column-split ``Conv2d``, ``ConvTranspose2d``, ``Conv1d`` or
+``ConvTranspose1dSame`` (``model_split``) holds its rank's slice of the
+output channels, with their biases, and computes it from the whole input,
+taken through ``Mesh.copy_to_model`` so that the input's gradient is
+summed over the model group; the norm after it holds the same channels.
+The model gathers the whole channels after the layer (and its norm and
+ReLU) with ``gather_split``. A ``Linear`` is split the
 same way by output features (``model_split`` "columns") or by input
 features ("rows": it holds its rank's slice of the inputs and the whole
 bias, sums the model group's partial products with
@@ -281,11 +282,14 @@ def gate(z: torch.Tensor, dim: int) -> torch.Tensor:
 class Conv1d(nn.Conv1d):
     """``nn.Conv1d`` with flax's compute ``dtype``, as ``Conv2d``."""
 
+    model_split = False
+
     def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _model_input(self, x)
         dt = self.compute_dtype
         if dt == torch.float32:
             return super().forward(x)
@@ -327,11 +331,11 @@ def conv_up(in_dim: int, dim: int, dtype: torch.dtype = torch.float32) -> ConvTr
     return ConvTranspose2d(in_dim, dim, 4, stride=2, padding=1, dtype=dtype)
 
 
-def conv1d_down(in_dim: int, dim: int) -> nn.Conv1d:
+def conv1d_down(in_dim: int, dim: int) -> Conv1d:
     """Stride-2 width-4 downsampling conv over (B, C, T), output T/2: the
     JAX package's 1-D ``Conv(dim, (4,), strides=(2,), padding=((1, 1),))``,
     whose ``_s2d_conv`` lowering computes the same function."""
-    return nn.Conv1d(in_dim, dim, 4, stride=2, padding=1)
+    return Conv1d(in_dim, dim, 4, stride=2, padding=1)
 
 
 class ConvTranspose1dSame(nn.ConvTranspose1d):
@@ -345,6 +349,8 @@ class ConvTranspose1dSame(nn.ConvTranspose1d):
     more on the right, which is dropped. ``convert.py`` flips the kernel and
     swaps its in/out axes."""
 
+    model_split = False
+
     def __init__(self, in_dim: int, dim: int, kernel_size: int, stride: int):
         pad_a = -(-(kernel_size + stride - 2) // 2)
         if stride > kernel_size - 1 or kernel_size - 1 - pad_a < 0:
@@ -353,7 +359,7 @@ class ConvTranspose1dSame(nn.ConvTranspose1d):
                          padding=kernel_size - 1 - pad_a)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x)[..., : x.shape[-1] * self.stride[0]]
+        return super().forward(_model_input(self, x))[..., : x.shape[-1] * self.stride[0]]
 
 
 class ResBlock(nn.Module):

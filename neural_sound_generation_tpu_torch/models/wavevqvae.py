@@ -22,6 +22,16 @@ with residual VQ over a (Q, K, D) codebook; the nearest-code search runs
 once per stage (``ops/vq``). A speaker embedding is added to the quantized
 units when ``n_speakers`` and ``gin_channels`` are both positive, and
 speaker ids are ignored otherwise.
+
+Under the mesh's model axis (``training.sharding``) every encoder and
+decoder convolution holds a slice of its output channels, with the
+biases and the BatchNorm after it, and the codebook a slice of its rows
+(of each stage's under residual VQ); the forward gathers the channels
+after each split layer (and its norm and ReLU), so the skip sums, the
+straight-through codes and the losses stay whole. ``decoder.out`` splits
+where its outputs do (the 256 mulaw-quantize logits, gathered before the
+cross entropy) and stays whole for one scalar output; ``input_embed``,
+``speaker_embed`` and ``speaker_proj`` are computed whole on every rank.
 """
 
 from __future__ import annotations
@@ -33,8 +43,10 @@ from torch import nn
 
 from neural_sound_generation_tpu_torch.models.layers import (
     BatchNorm1d,
+    Conv1d,
     ConvTranspose1dSame,
     conv1d_down,
+    gather_split,
     init_weights,
 )
 from neural_sound_generation_tpu_torch.ops.vq import codebook_lookup, residual_vq, vq, vq_st
@@ -46,15 +58,16 @@ class ResBlock1D(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.Conv_0 = nn.Conv1d(dim, dim, 3, padding=1)
+        self.Conv_0 = Conv1d(dim, dim, 3, padding=1)
         self.BatchNorm_0 = BatchNorm1d(dim)
-        self.Conv_1 = nn.Conv1d(dim, dim, 1)
+        self.Conv_1 = Conv1d(dim, dim, 1)
         self.BatchNorm_1 = BatchNorm1d(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.BatchNorm_0(self.Conv_0(torch.relu(x)))
-        h = self.BatchNorm_1(self.Conv_1(torch.relu(h)))
-        return x + h
+        h = gather_split(torch.relu(h), self.Conv_0)
+        h = self.BatchNorm_1(self.Conv_1(h))
+        return x + gather_split(h, self.Conv_1)
 
 
 class WaveEncoder(nn.Module):
@@ -72,9 +85,11 @@ class WaveEncoder(nn.Module):
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         for i in range(self.num_downsample):
-            h = getattr(self, f"conv_{i}")(h)
+            conv = getattr(self, f"conv_{i}")
+            h = conv(h)
             if i < self.num_downsample - 1:
                 h = torch.relu(getattr(self, f"bn_{i}")(h))
+            h = gather_split(h, conv)
         return self.res_1(self.res_0(h))
 
 
@@ -95,8 +110,9 @@ class WaveDecoder(nn.Module):
     def forward(self, d: torch.Tensor) -> torch.Tensor:
         d = torch.relu(self.res_1(self.res_0(d)))
         for i in range(self.num_downsample - 1):
-            d = torch.relu(getattr(self, f"bn_{i}")(getattr(self, f"conv_{i}")(d)))
-        out = self.out(d)
+            conv = getattr(self, f"conv_{i}")
+            d = gather_split(torch.relu(getattr(self, f"bn_{i}")(conv(d))), conv)
+        out = gather_split(self.out(d), self.out)
         return out if self.categorical else torch.tanh(out)
 
 

@@ -71,8 +71,9 @@ float32) and ``broadcast_`` sends bytes.
 The tensor-parallel table is JAX's ``_TP_RULES`` on its flax path names
 (``model_param_shardings``, with ``flax_leaf`` mapping a port parameter to
 its flax path and axes); ``training.sharding`` lays a state out by it. The
-``model`` axis covers the flat mel VQ-VAE and the transformer prior (dense
-or routed); the other families and the ``pipe`` axis refuse with
+``model`` axis covers the four autoencoders of ``cli.main`` (the flat mel
+VQ-VAE, HierVQVAE, WaveVQVAE, the VAE) and the transformer prior (dense or
+routed); WaveNet, the GatedPixelCNN and the ``pipe`` axis refuse with
 ``MODEL_AXIS_FAMILIES`` and ``PIPE_AXIS``.
 """
 
@@ -92,8 +93,8 @@ from neural_sound_generation_tpu_torch.parallel import distributed
 from neural_sound_generation_tpu_torch.parallel.distributed import SOLO
 
 MODEL_AXIS_FAMILIES = (
-    "the model axis of WaveNet, the GatedPixelCNN, HierVQVAE, WaveVQVAE and the VAE "
-    "comes with a later parallel slice of the port (ROADMAP Queue 1, item 4b-iii)")
+    "the model axis of WaveNet and the GatedPixelCNN (a gate's grouped split) comes with "
+    "a later parallel slice of the port (ROADMAP Queue 1, item 4b-iv)")
 PIPE_AXIS = ("the pipe axis (pipeline and sequence parallelism) comes with a later "
              "parallel slice of the port")
 

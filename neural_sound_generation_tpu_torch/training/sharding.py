@@ -45,9 +45,33 @@ the model group and takes no model-group sum. The step then averages the
 flat gradient over the data group, and the clip's global norm sums the
 split segment's squares over the model group.
 
-The layout covers the flat mel ``VQVAE`` (one codebook or residual VQ)
-and the ``TransformerPrior``, dense or routed (Megatron's layout and
-expert parallelism). Where the prior's layout departs from ``_TP_RULES``:
+The layout covers the autoencoders of ``cli.main`` and the
+``TransformerPrior``, dense or routed (Megatron's layout and expert
+parallelism). The autoencoders take ``_TP_RULES`` as it falls on their
+flax names, with the convolutions' departures above:
+
+  * the flat mel ``VQVAE`` (one codebook or residual VQ): every encoder
+    and decoder convolution and the codebook's rows;
+  * the ``WaveVQVAE``: every encoder and decoder convolution, 1-D (a
+    ``Conv1d.weight`` (Cout, Cin, K) splits on dim 0, a
+    ``ConvTranspose1d.weight`` (Cin, Cout, K) on dim 1), with the
+    ``bn_i`` after ``conv_i``; ``decoder.out`` where its outputs divide
+    (the mulaw-quantize logits, not a scalar's one channel); the (K, D)
+    or (Q, K, D) codebook's codes; ``input_embed``, ``speaker_embed`` and
+    ``speaker_proj`` stay whole, as no rule names them;
+  * the ``HierVQVAE``: only ``decoder`` and both codebooks (``_TP_RULES``
+    names ``['decoder']`` and ``codebook_top``/``codebook_bottom``; the
+    bottom encoder, the top encoder and decoder and the two merges are
+    ``enc_bottom``, ``enc_top``, ``dec_top``, ``bottom_merge`` and
+    ``decode_merge``, which it does not name, so they stay whole as in
+    JAX);
+  * the ``VAE``: nothing (its layers are top-level ``Conv_i`` and
+    ``ConvTranspose_i``, which no rule names). Every model rank holds and
+    computes the whole model on its data group's rows: the flat buffer is
+    all replicated segment (``split_at`` 0), the clip's norm counts it
+    once and the gradient is model rank 0's, as for any replicated leaf.
+
+Where the prior's layout departs from ``_TP_RULES``:
 
   * heads, not contiguous columns. JAX's ``attn_qkv`` kernel is (D, 3 D),
     columns ``[q | k | v]``, each head-major, and ``_TP_RULES`` split it by
@@ -66,8 +90,10 @@ expert parallelism). Where the prior's layout departs from ``_TP_RULES``:
     is added once, after the model group's sum. ``bos`` stays whole and
     each rank adds its slice of it to the embeddings' slices.
 
-The other families wait for later slices (``parallel.mesh.
-MODEL_AXIS_FAMILIES``).
+WaveNet and the GatedPixelCNN wait for a later slice (``parallel.mesh.
+MODEL_AXIS_FAMILIES``): their gates split a 2G-channel output into tanh
+and sigmoid halves, which a contiguous split would give to different
+ranks.
 """
 
 from __future__ import annotations
@@ -78,9 +104,12 @@ from typing import Optional
 import torch
 from torch import nn
 
+from neural_sound_generation_tpu_torch.models.hiervqvae import HierVQVAE
 from neural_sound_generation_tpu_torch.models.layers import BatchNorm, GroupNorm
 from neural_sound_generation_tpu_torch.models.transformer_prior import TransformerPrior
+from neural_sound_generation_tpu_torch.models.vae import VAE
 from neural_sound_generation_tpu_torch.models.vqvae import VQVAE
+from neural_sound_generation_tpu_torch.models.wavevqvae import WaveVQVAE
 from neural_sound_generation_tpu_torch.parallel.mesh import (
     MODEL_AXIS_FAMILIES,
     model_param_shardings,
@@ -94,16 +123,20 @@ from neural_sound_generation_tpu_torch.training.train_state import (
 
 _TRANSPOSE = (nn.ConvTranspose1d, nn.ConvTranspose2d)
 _CONVS = (nn.Conv1d, nn.Conv2d, *_TRANSPOSE)
+#: the families whose convolutions and codebooks the layout splits
+_AUTOENCODERS = (VQVAE, HierVQVAE, WaveVQVAE, VAE)
 
 
 def _norm_after(model: nn.Module, conv_name: str) -> Optional[str]:
-    """The norm that normalizes a convolution's output in the VQ-VAE's
-    modules: ``Conv_i`` or ``ConvTranspose_i`` -> the norm of index i of
-    the same module, where it has one."""
+    """The norm that normalizes a convolution's output in the
+    autoencoders' modules: ``Conv_i`` or ``ConvTranspose_i`` (the wave
+    model's ``conv_i``) -> the norm of index i of the same module
+    (``BatchNorm_i``, ``GroupNorm_i``; the wave model's ``bn_i``), where
+    it has one."""
     prefix, _, conv = conv_name.rpartition(".")
     parent = model.get_submodule(prefix) if prefix else model
     index = conv.rpartition("_")[2]
-    for norm in (f"BatchNorm_{index}", f"GroupNorm_{index}"):
+    for norm in (f"BatchNorm_{index}", f"GroupNorm_{index}", f"bn_{index}"):
         if hasattr(parent, norm):
             return f"{prefix}.{norm}" if prefix else norm
     return None
@@ -175,7 +208,7 @@ def tensor_parallel_layout(model: nn.Module, n_model: int) -> Layout:
     heads, biases and embeddings as the module docstring says."""
     if isinstance(model, TransformerPrior):
         return _prior_layout(model, n_model)
-    if not isinstance(model, VQVAE):
+    if not isinstance(model, _AUTOENCODERS):
         raise NotImplementedError(f"{type(model).__name__}: {MODEL_AXIS_FAMILIES}")
     params = model_param_shardings(model, n_model)
     buffers: dict[str, int] = {}

@@ -255,10 +255,10 @@ def test_a_single_process_is_not_a_group():
 
 
 @pytest.mark.parametrize("run,exc,match", [
-    (lambda: main.main(["--mesh-model", "2", "--device", "cpu"]), SystemExit,
-     r"--mesh-model 2 --model vae: the model axis of WaveNet, the GatedPixelCNN, HierVQVAE, "
-     r"WaveVQVAE and the VAE comes with a later parallel slice of the port \(ROADMAP Queue 1, "
-     r"item 4b-iii\)"),
+    (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch", "pixelcnn",
+                         "--mesh-model", "2", "--device", "cpu"]), NotImplementedError,
+     r"--mesh-model 2: the model axis of WaveNet and the GatedPixelCNN \(a gate's grouped "
+     r"split\) comes with a later parallel slice of the port \(ROADMAP Queue 1, item 4b-iv\)"),
     (lambda: main.main(["--mesh-data", "2", "--device", "cpu"]), SystemExit,
      r"--mesh-data 2 asks for 2 data-parallel ranks, but this run has 1: launch one process "
      r"per rank, torchrun --nproc_per_node 2"),

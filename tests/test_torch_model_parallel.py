@@ -393,13 +393,16 @@ def test_flagship_step_equals_the_jax_tensor_parallel_step(tp, world):
 
 
 @pytest.mark.parametrize("run,exc,match", [
+    (lambda: vocoder.main(["train", "--datadir", "x", "--mesh-model", "2", "--device", "cpu"]),
+     NotImplementedError, r"--mesh-model 2: the model axis of WaveNet and the GatedPixelCNN "
+                          r"\(a gate's grouped split\) comes with a later parallel slice of "
+                          r"the port \(ROADMAP Queue 1, item 4b-iv\)"),
+    (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch", "pixelcnn",
+                         "--mesh-model", "4", "--mesh-data", "1", "--device", "cpu"]),
+     NotImplementedError, r"--mesh-model 4: the model axis of WaveNet and the GatedPixelCNN"),
     (lambda: main.main(["--model", "hiervqvae", "--mesh-model", "2", "--device", "cpu"]),
-     SystemExit, r"--model hiervqvae: the model axis of .* \(ROADMAP Queue 1, item 4b-iii\)"),
-    (lambda: main.main(["--model", "wavevqvae", "--mesh-model", "2", "--device", "cpu"]),
-     SystemExit, r"--model wavevqvae: the model axis of .*item 4b-iii"),
-    (lambda: evaluate.main(["--model", "vae", "--datadir", "x", "--ckpt-dir", "y",
-                            "--mesh-model", "2"]), SystemExit,
-     r"--model vae: the model axis of .*item 4b-iii"),
+     SystemExit, r"--mesh-model 2: the model axis \(tensor parallel\) of 2 ranks needs a "
+                 r"world of n_data x 2"),
     (lambda: main.main(["--model", "vqvae", "--mesh-model", "2", "--device", "cpu"]),
      SystemExit, r"--mesh-model 2: the model axis \(tensor parallel\) of 2 ranks needs a "
                  r"world of n_data x 2 ranks, but this run has 1"),
@@ -407,9 +410,9 @@ def test_flagship_step_equals_the_jax_tensor_parallel_step(tp, world):
                          "transformer", "--mesh-model", "2", "--mesh-pipe", "2"]),
      NotImplementedError, r"--mesh-pipe 2: the pipe axis"),
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch", "pixelcnn",
-                         "--mesh-model", "2"]), NotImplementedError, r"item 4b-iii"),
+                         "--mesh-model", "2"]), NotImplementedError, r"item 4b-iv"),
     (lambda: vocoder.main(["train", "--datadir", "x", "--mesh-model", "2"]),
-     NotImplementedError, r"WaveNet.*item 4b-iii"),
+     NotImplementedError, r"WaveNet.*item 4b-iv"),
 ])
 def test_model_axis_refusals_name_their_slice(run, exc, match):
     with pytest.raises(exc, match=match):

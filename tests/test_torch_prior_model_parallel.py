@@ -385,7 +385,7 @@ def test_qkv_split_is_head_aligned_and_round_trips(n_model, heads):
 def test_pixelcnn_and_pipe_refusals_still_name_their_slice():
     """The transformer takes --mesh-model; the PixelCNN's model axis and
     the pipe axis still refuse."""
-    with pytest.raises(NotImplementedError, match=r"item 4b-iii"):
+    with pytest.raises(NotImplementedError, match=r"item 4b-iv"):
         prior_cli.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch", "pixelcnn",
                         "--mesh-model", "2"])
     with pytest.raises(NotImplementedError, match=r"--mesh-pipe 2: the pipe axis"):

@@ -104,7 +104,8 @@ def local(state, mesh) -> dict:
     coord = (0, 0) if mesh is None else (mesh.data_rank, mesh.model_rank)
     return {"flat": flat.flat.clone(), "grad": flat.grad.clone(),
             "moments": torch.cat([t.reshape(-1).float() for t in state.opt_state.moments()]),
-            "buffers": torch.cat([b.reshape(-1).float() for b in state.model.buffers()]),
+            "buffers": torch.cat([torch.zeros(0)]
+                                 + [b.reshape(-1).float() for b in state.model.buffers()]),
             "split_at": torch.tensor(flat.split_at), "coord": torch.tensor(coord)}
 
 
