@@ -4,8 +4,8 @@ residual-VQ bf16), prior, vocoder, 3x3-convolution A/B, corpus
 preprocessing, mel-inversion, other-autoencoder (HierVQVAE, WaveVQVAE,
 VAE), PixelCNN-prior, hierarchical-chain, vocoder-training, routed
 (switch-MoE) prior, bf16 prior, motion, data-parallel and tensor-parallel
-(the flat VQ-VAE, the transformer prior and the other autoencoders) paths
-on one CUDA card and checks them.
+(the flat VQ-VAE, the transformer prior, the other autoencoders, the
+vocoder and the PixelCNN) paths on one CUDA card and checks them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
@@ -86,8 +86,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
    injected noise, with its launch count, each call's samples reproduced by
    the plain teacher, a third launch on the first call's noise bit-identical
    to it, and the kernel's device-only time at that length; then the CLI's
-   default vocoder at full width (24 layers, R = G = 512, S = 256) from a
-   seeded-init artifact: ``cli.vocoder synthesize``, and ``cli.serve
+   default vocoder at full width (R = G = 512, S = 256; its depth cut to 8
+   layers in 2 stacks) from a seeded-init artifact: ``cli.vocoder synthesize``, and ``cli.serve
    --vocoder wavenet`` on the trained VQ-VAE and prior answering
    /reconstruct_stream, /decode and /sample_stream, and with
    --stream-slots 2 two concurrent /reconstruct_stream;
@@ -283,7 +283,25 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
     evaluation's metrics; kernel 1 at the hier top, hier bottom and wave
     shard shapes and kernel 3 at each family's rank n against their plain
     versions; the raw wave step's collectives replayed and steps/s;
-21. summary: one JSON line per kernel, then the result line.
+21. tensor-parallel gated families: ``cli.vocoder train --mesh-model 2``
+    at phase 13's default vocoder (mel MoL, batch 2 of 7168-sample crops)
+    and ``cli.prior train --mesh-model 2`` at the CLI's default PixelCNN
+    on phase 5's VQ-VAE (batch 32 of 20 x 7 grids) under ``torchrun`` at W
+    1, W 2 (data 1 x model 2) and W 4 (2 x 2), the ranks sharing this card
+    over gloo, P21_VOCODER_STEPS and P21_PIXELCNN_STEPS steps; at W 1 and W
+    2 also one --bf16 step of each, mulaw-quantize with speakers on a
+    mu-law copy of phase 5's corpus, --condition units on phase 11's
+    WaveVQVAE and the spatially conditioned bottom prior on phase 11's
+    HierVQVAE; at W 2 a --resume step of each family from W 1's
+    checkpoint. Each rank's launches (W 1's counts: kernel 3 once a step
+    at the rank's n, kernel 1 once an encoded batch on the rank's rows),
+    the first step against W 1 (the loss, 2e-2 in bf16; the gathered
+    gradient as phase 20), the groups bit-equal, a rank's flat buffer at
+    the table's share; ``synthesize`` and ``cli.prior sample`` from the M
+    2 checkpoints on this process; kernel 1 at the ranks' encode shapes
+    and kernel 3 at the vocoder's and the PixelCNN's rank n against their
+    plain versions; the vocoder step's collectives replayed and steps/s;
+22. summary: one JSON line per kernel, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -447,14 +465,17 @@ WN_TEACHER_TOL = 1e-3
 WN_SAMPLE_TOL, WN_AGREE = 1e-3, 0.999
 WN_PLAIN_STEPS = 32  # steps of the plain sampler timed (launch-bound)
 WN_API_SAMPLES, WN_API_CALLS = 22050, 2  # one second per call
-# the CLI's default vocoder (24 layers, R = G = 512, S = 256) is served with
-# a 16-frame window: /sample_stream's 20 x 4 code grid then decodes to 16
-# mel frames, one 4096-sample chunk, as the 0.1 s chirp of
-# /reconstruct_stream and its /decode are; the scan sampler takes some
-# 25 s per chunk on the card (launch-bound), so one chunk per request keeps
-# the phase near 150 s
+# the CLI's default vocoder (R = G = 512, S = 256) is served with a
+# 16-frame window: /sample_stream's 20 x 4 code grid then decodes to 16 mel
+# frames, one 4096-sample chunk, as the 0.1 s chirp of /reconstruct_stream
+# and its /decode are; the scan sampler is launch-bound on the card, so one
+# chunk per request keeps the phase short
 WN_SERVE_FRAMES = 16
 WN_CHIRP_SECONDS = (0.1, 0.15)
+# ... at its full width but a third of its depth (8 layers in 2 stacks of
+# dilations 1-8): a request's time follows the layers the scan sampler steps
+# through, and the 24-layer vocoder's requests took the phase to 70-75 s
+WN_SERVE_LAYERS, WN_SERVE_STACKS = 8, 2
 WN_SYNTH_FRAMES = 4
 
 # the preprocessing phase: an LJSpeech-layout corpus at 22050 Hz with
@@ -2197,7 +2218,8 @@ def read_pcm(body: bytes, n: int, what: str) -> np.ndarray:
 
 def vocoder_fullwidth(torch, serve, cli_vocoder, checkpoint, wavenet_gen, dsp, root: str,
                       vq_ckpt: str, prior_ckpt: str) -> dict:
-    """The CLI's default vocoder at full width from a seeded-init artifact:
+    """The CLI's default vocoder at full width (WN_SERVE_LAYERS deep) from
+    a seeded-init artifact:
     ``cli.vocoder synthesize``, then ``cli.serve --vocoder wavenet`` with the
     training phase's VQ-VAE and the prior phase's checkpoint answering
     /reconstruct_stream, /decode and /sample_stream, then with
@@ -2210,8 +2232,10 @@ def vocoder_fullwidth(torch, serve, cli_vocoder, checkpoint, wavenet_gen, dsp, r
 
     cfg = Config()
     sr, hop = cfg.audio.sample_rate, cfg.audio.effective_hop_size
+    depth = ["--layers", str(WN_SERVE_LAYERS), "--stacks", str(WN_SERVE_STACKS)]
     model = cli_vocoder.build_model(
-        cfg, types.SimpleNamespace(residual_channels=None, layers=None, stacks=None),
+        cfg, types.SimpleNamespace(residual_channels=None, layers=WN_SERVE_LAYERS,
+                                   stacks=WN_SERVE_STACKS),
         generator=torch.Generator().manual_seed(SEED))
     widths = {"layers": model.layers, "stacks": model.stacks,
               "residual": model.residual_channels, "gate": model.gate_channels,
@@ -2236,7 +2260,8 @@ def vocoder_fullwidth(torch, serve, cli_vocoder, checkpoint, wavenet_gen, dsp, r
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         cli_vocoder.main(["synthesize", "--ckpt-dir", ckpt, "--mel-npy", mel_path, "--output",
-                          out_path, "--max-frames", str(WN_SYNTH_FRAMES), "--device", DEVICE])
+                          out_path, "--max-frames", str(WN_SYNTH_FRAMES), "--device", DEVICE,
+                          *depth])
     synth_s = time.perf_counter() - t0
     with open(out_path, "rb") as f:
         synth_wav = read_wav(f.read(), sr)
@@ -2247,7 +2272,8 @@ def vocoder_fullwidth(torch, serve, cli_vocoder, checkpoint, wavenet_gen, dsp, r
 
     base = ["--device", DEVICE, "--ckpt-dir", vq_ckpt, "--dim", str(TRAIN_DIM), "--z-dim",
             str(TRAIN_CODES), "--frames", str(WN_SERVE_FRAMES), "--vocoder", "wavenet",
-            "--vocoder-ckpt", ckpt]
+            "--vocoder-ckpt", ckpt, "--vocoder-layers", str(WN_SERVE_LAYERS),
+            "--vocoder-stacks", str(WN_SERVE_STACKS)]
     prior = ["--prior-ckpt", prior_ckpt, "--prior-arch", "transformer", "--prior-dim",
              str(PRIOR_DIM), "--prior-layers", str(PRIOR_LAYERS), "--prior-heads",
              str(PRIOR_HEADS)]
@@ -5094,10 +5120,6 @@ def dp_rank_main(spec_path: str) -> int:
     import torch
     import torch.distributed as dist
 
-    from neural_sound_generation_tpu_torch.cli import evaluate as cli_evaluate
-    from neural_sound_generation_tpu_torch.cli import main as cli_main
-    from neural_sound_generation_tpu_torch.cli import prior as cli_prior
-    from neural_sound_generation_tpu_torch.cli import vocoder as cli_vocoder
     from neural_sound_generation_tpu_torch.device import set_full_float32
     from neural_sound_generation_tpu_torch.ops.cuda import flash_attention as fa
     from neural_sound_generation_tpu_torch.ops.cuda import fused_adam, vq_kernel
@@ -5113,8 +5135,7 @@ def dp_rank_main(spec_path: str) -> int:
     set_full_float32()
     distributed.initialize(device=DEVICE)
     rank, world = distributed.rank(), distributed.world_size()
-    mods = {"main": cli_main, "evaluate": cli_evaluate, "prior": cli_prior,
-            "vocoder": cli_vocoder}
+    mods = tp_cli_modules()
     for job in spec["jobs"]:
         rec = run_dp_job(torch, mods, (vq_kernel, fused_adam, fa), job)
         torch.save(rec, os.path.join(spec["out"], f"{job['name']}_rank{rank}.pt"))
@@ -5514,13 +5535,14 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
     """One CLI run on this rank with every launch count set to 0 just
     before it and read just after (phase 17's ``run_dp_job`` with the
     model axis): each step's metrics and end time; the first step's
-    gradient and parameters gathered over the model group, by name; each
-    search's rows and codebook shard; each search of the first step (its
+    gradient and parameters gathered over the model group, by name (on
+    rank 0: they are the same on every rank); each search's rows and codebook shard; each search of the first step (its
     rows, codebook shard and global indices); with ``record_first_state``
     the model's state and the batch the first step starts from; kernel 3's
     n; the collectives of the first step."""
     from neural_sound_generation_tpu_torch.ops import vq as vq_ops
     from neural_sound_generation_tpu_torch.ops.cuda import vq_kernel
+    from neural_sound_generation_tpu_torch.parallel import distributed
     from neural_sound_generation_tpu_torch.parallel import mesh as mesh_mod
     from neural_sound_generation_tpu_torch.training import train_state as ts_mod
     from neural_sound_generation_tpu_torch.training import trainer as trainer_mod
@@ -5568,8 +5590,10 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
                     if state.shards is not None:
                         named = state.shards.gather_tensors(named)
                         params = state.shards.gather_tensors(params)
-                    rec["first_grad"] = {k[7:]: g.cpu().clone() for k, g in named.items()}
-                    rec["first_params"] = {k[7:]: p.cpu().clone() for k, p in params.items()}
+                    if distributed.rank() == 0:  # gathered: the same on every rank
+                        rec["first_grad"] = {k[7:]: g.cpu().clone() for k, g in named.items()}
+                        rec["first_params"] = {k[7:]: p.cpu().clone()
+                                               for k, p in params.items()}
                 return state, metrics
 
             self._train_step = step
@@ -5668,7 +5692,7 @@ def time_tp_collectives(torch, mesh, ops: list, iters: int = TP_COLLECTIVE_ITERS
 
 
 def tp_rank_main(spec_path: str) -> int:
-    """One rank of a phase-18, 19 or 20 launch (``chip_smoke.py --tp-rank
+    """One rank of a phase-18, 19, 20 or 21 launch (``chip_smoke.py --tp-rank
     spec.json`` under torchrun): joins the group with the port's backend
     rule, runs the spec's jobs in order, replays the first-step collectives
     of the spec's ``timing_job`` on the job's mesh (none on one rank) and
@@ -5676,9 +5700,6 @@ def tp_rank_main(spec_path: str) -> int:
     import torch
     import torch.distributed as dist
 
-    from neural_sound_generation_tpu_torch.cli import evaluate as cli_evaluate
-    from neural_sound_generation_tpu_torch.cli import main as cli_main
-    from neural_sound_generation_tpu_torch.cli import prior as cli_prior
     from neural_sound_generation_tpu_torch.device import set_full_float32
     from neural_sound_generation_tpu_torch.ops.cuda import flash_attention as fa
     from neural_sound_generation_tpu_torch.ops.cuda import fused_adam, vq_kernel
@@ -5694,7 +5715,7 @@ def tp_rank_main(spec_path: str) -> int:
     set_full_float32()
     distributed.initialize(device=DEVICE)
     rank, world = distributed.rank(), distributed.world_size()
-    mods = {"main": cli_main, "evaluate": cli_evaluate, "prior": cli_prior}
+    mods = tp_cli_modules()
     records = {}
     for job in spec["jobs"]:
         if rank == 0 and job.get("copy"):
@@ -5724,12 +5745,39 @@ def tp_rank_main(spec_path: str) -> int:
     return 0
 
 
+def tp_cli_modules() -> dict:
+    """The CLIs a phase-17-21 job names, by name."""
+    from neural_sound_generation_tpu_torch.cli import evaluate as cli_evaluate
+    from neural_sound_generation_tpu_torch.cli import main as cli_main
+    from neural_sound_generation_tpu_torch.cli import prior as cli_prior
+    from neural_sound_generation_tpu_torch.cli import vocoder as cli_vocoder
+
+    return {"main": cli_main, "evaluate": cli_evaluate, "prior": cli_prior,
+            "vocoder": cli_vocoder}
+
+
 def launch_tp(torch, root: str, jobs: list, world: int, tag: str = "tp",
               timing_job: str = "flagship", collective_iters: int = TP_COLLECTIVE_ITERS) -> dict:
     """One torchrun launch of ``world`` ranks on this card, its files under
-    ``root/tag``; every rank's records. A rank's failure fails the phase."""
+    ``root/tag``; every rank's records. A rank's failure fails the phase.
+    One rank runs the jobs in this process, the one-rank program (no
+    process group, as a torchrun launch of one rank has none), without a
+    second process's start-up and its records' round trip through files."""
     out = os.path.join(root, tag, f"w{world}")
     os.makedirs(out, exist_ok=True)
+    if world == 1:
+        from neural_sound_generation_tpu_torch.ops.cuda import flash_attention as fa
+        from neural_sound_generation_tpu_torch.ops.cuda import fused_adam, vq_kernel
+
+        t0 = time.perf_counter()
+        records = {}
+        for job in jobs:
+            check(not job.get("copy"), f"{tag}: a one-rank job copies nothing")
+            records[job["name"]] = run_tp_job(torch, tp_cli_modules(),
+                                              (vq_kernel, fused_adam, fa), job)
+            torch.cuda.empty_cache()
+        return {"ranks": [records], "timing": [{"backend": None, "world": 1}],
+                "seconds": time.perf_counter() - t0}
     spec = os.path.join(out, "spec.json")
     with open(spec, "w", encoding="utf-8") as f:
         json.dump({"jobs": jobs, "out": out, "device": DEVICE, "timing_job": timing_job,
@@ -6453,6 +6501,294 @@ def autoencoder_tensor_parallel_phase(torch, dsp, root: str, corpus: str, card: 
     return out, {"vq": vq_rows, "adam": adam_rows}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the gated families on the model axis
+# ---------------------------------------------------------------------------
+
+P21_WORLDS = (1, 2, 4)  # one rank, (data 1 x model 2), (data 2 x model 2)
+P21_VOCODER_STEPS = 2  # the vocoder's steps a job (mel MoL, mulaw-quantize)
+P21_PIXELCNN_STEPS = 4  # the flat PixelCNN's (steps/s reads the last two intervals)
+P21_HIER_STEPS = 2  # the spatially conditioned bottom prior's
+P21_COLLECTIVE_ITERS = 1  # the vocoder step moves some 2 GB through gloo
+P21_SHARE_TOL = 1e-3  # a rank's flat buffer against the table's share (alignment padding)
+P21_SPEAKERS = 7  # the default arch's n_speakers, assigned to the corpus in turn
+#: each job's CLI and whether it runs in bf16
+P21_JOBS = {"mel": ("vocoder", False), "pixelcnn": ("prior", False),
+            "mel_bf16": ("vocoder", True), "mulaw": ("vocoder", False),
+            "units": ("vocoder", False), "hier_bottom": ("prior", False),
+            "pixelcnn_bf16": ("prior", True), "mel_resume": ("vocoder", False),
+            "pixelcnn_resume": ("prior", False)}
+P21_W4_JOBS = ("mel", "pixelcnn")  # the jobs of the (2 x 2) launch
+
+
+def p21_mulaw_corpus(torch, dsp, corpus: str, out: str) -> str:
+    """The chirp corpus as mu-law integers (256 levels) with speaker ids
+    0..P21_SPEAKERS-1 in turn: the vocoder's mulaw-quantize input with the
+    speaker path (``speaker_embed`` and every ``g_i``)."""
+    from neural_sound_generation_tpu_torch.data.manifest import read_manifest, write_manifest
+
+    mulaw_corpus(torch, dsp, corpus, out, 256)
+    entries = [dataclasses.replace(e, speaker_id=i % P21_SPEAKERS)
+               for i, e in enumerate(read_manifest(out))]
+    write_manifest(out, entries)
+    return out
+
+
+def p21_jobs(root: str, data: dict, world: int) -> list[dict]:
+    """What one torchrun launch of ``world`` ranks runs with --mesh-model
+    TP_MODEL above one rank: ``cli.vocoder train`` at phase 13's default
+    vocoder (mel MoL, P21_VOCODER_STEPS steps) and ``cli.prior train`` at
+    the CLI's default PixelCNN on phase 5's VQ-VAE (P21_PIXELCNN_STEPS);
+    at W 1 and W 2 also one --bf16 step of each, mulaw-quantize with
+    speakers, --condition units on phase 11's WaveVQVAE and the
+    spatially conditioned bottom prior on phase 11's HierVQVAE; at W 2 one
+    --resume step of each family from W 1's checkpoint (copied first)."""
+    out = os.path.join(root, "tp_gated", f"w{world}")
+    one = os.path.join(root, "tp_gated", "w1")
+    mesh = [] if world == 1 else ["--mesh-model", str(TP_MODEL),
+                                  "--mesh-data", str(world // TP_MODEL)]
+
+    def vocoder(tag: str, steps: int, *extra, datadir=data["corpus"], preset=data["lr"],
+                epochs: int = 1) -> list:
+        return ["train", "--datadir", datadir, "--ckpt-dir", os.path.join(out, tag, "wavenet"),
+                "--preset", preset, "--batch-size", str(VT_BATCH), "--epochs", str(epochs),
+                "--max-batches-per-epoch", str(steps), "--device", DEVICE,
+                *vocoder_width_flags(), *mesh, *extra]
+
+    def prior(tag: str, steps: int, *extra, vq=data["vq"], epochs: int = 1) -> list:
+        return ["train", "--datadir", data["corpus"], "--vqvae-ckpt", vq,
+                "--ckpt-dir", os.path.join(out, tag, "prior"), "--batch-size", str(PRIOR_BATCH),
+                "--epochs", str(epochs), "--max-batches-per-epoch", str(steps),
+                "--dim", str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES), "--device", DEVICE,
+                *mesh, *extra]
+
+    argv = {"mel": vocoder("mel", P21_VOCODER_STEPS),
+            "pixelcnn": prior("pixelcnn", P21_PIXELCNN_STEPS),
+            "mel_bf16": vocoder("mel_bf16", 1, "--bf16"),
+            "mulaw": vocoder("mulaw", P21_VOCODER_STEPS, datadir=data["mulaw"],
+                             preset=data["mulaw_preset"]),
+            "units": vocoder("units", 1, *units_flags(data["units"])),
+            "hier_bottom": prior("hier_bottom", P21_HIER_STEPS, "--hier", "--hier-level",
+                                 "bottom", vq=data["hier"]),
+            "pixelcnn_bf16": prior("pixelcnn_bf16", 1, "--bf16"),
+            "mel_resume": vocoder("mel_resume", 1, "--resume", epochs=2),
+            "pixelcnn_resume": prior("pixelcnn_resume", 1, "--resume", epochs=2)}
+    names = list(P21_W4_JOBS) if world == P21_WORLDS[-1] else [
+        j for j in P21_JOBS if world == TP_MODEL or not j.endswith("_resume")]
+    jobs = []
+    for name in names:
+        job = {"name": name, "cli": P21_JOBS[name][0], "argv": argv[name],
+               "record_first_state": world == 1}
+        if name.endswith("_resume"):
+            source = name[:-len("_resume")]
+            job["copy"] = [os.path.join(one, source), os.path.join(out, name)]
+        jobs.append(job)
+    return jobs
+
+
+def p21_cpu_grad(torch, cli, one: dict, argv: list) -> dict:
+    """W 1's first step again on the CPU (float32, this process's threads)
+    from W 1's recorded state and batch: the gradient by name after the
+    step. The gap between two devices' one-rank gradients is the float32
+    order-of-sums noise of this state, which the model axis's split sums
+    meet too (phase 20's ``p20_cpu_grad`` for the vocoder and the prior)."""
+    from neural_sound_generation_tpu_torch.training.train_state import create_train_state
+    from neural_sound_generation_tpu_torch.training.trainer import make_train_step
+
+    args = cli.parse_args(argv)
+    if hasattr(cli, "build_model"):  # cli.vocoder
+        cfg = cli._load_cfg(args)
+        model = cli.build_model(cfg, args)
+    else:
+        cfg = cli._prior_cfg(args)
+        bottom = args.hier and args.hier_level == "bottom"
+        model = cli.PriorSpec.from_args(args, cond_dim=args.dim if bottom else 0).build(args.seed)
+    model.load_state_dict(one["first_state"])
+    state = create_train_state(model, cfg.train)
+    make_train_step(model, cfg)(state, one["first_batch"], torch.Generator().manual_seed(SEED))
+    return {k: g.clone() for k, g in state.flat.named(state.flat.grad).items()}
+
+
+def p21_shares(torch, cli_vocoder, cfg) -> dict:
+    """A model rank's share of the default vocoder's and PixelCNN's
+    parameters under the port's table at M TP_MODEL."""
+    from neural_sound_generation_tpu_torch.models import GatedPixelCNN
+
+    return p20_shares(torch, {
+        "mel": cli_vocoder.build_model(cfg, vocoder_widths()),
+        "pixelcnn": GatedPixelCNN(TRAIN_CODES, PIXELCNN_DIM, PIXELCNN_LAYERS)})
+
+
+def gated_tensor_parallel_phase(torch, dsp, cli_vocoder, cli_prior, root: str, data: dict,
+                                card: str, vq_kernel, fused_adam, gen) -> tuple[dict, dict]:
+    """Phase 21: ``cli.vocoder train --mesh-model 2`` and ``cli.prior train
+    --mesh-model 2`` (the default ``--arch pixelcnn``) under torchrun at W
+    1, W 2 (data 1 x model 2) and W 4 (2 x 2), the ranks sharing this card
+    over gloo, each job against a W 1 launch of the same flags (see
+    ``p21_jobs``); then ``synthesize`` and ``cli.prior sample`` from W 2's
+    checkpoints on this process, kernel 1 at the ranks' encode shapes and
+    kernel 3 at the ranks' n. ``data``: the chirp corpus ("corpus"), phase
+    5's VQ-VAE ("vq"), phase 11's HierVQVAE ("hier") and WaveVQVAE
+    ("units"). Returns (the record, the kernel rows)."""
+    from neural_sound_generation_tpu_torch.config import Config, load_preset
+
+    t0 = time.perf_counter()
+    base = os.path.join(root, "tp_gated")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    data = dict(data, lr=os.path.join(base, "vocoder_lr.json"),
+                mulaw_preset=os.path.join(base, "mulaw_speakers.json"),
+                mulaw=p21_mulaw_corpus(torch, dsp, data["corpus"],
+                                       os.path.join(base, "corpus_mulaw")))
+    with open(data["lr"], "w", encoding="utf-8") as f:
+        json.dump({"initial_learning_rate": VT_LR}, f)
+    with open(data["mulaw_preset"], "w", encoding="utf-8") as f:
+        json.dump({"input_type": "mulaw-quantize", "quantize_channels": 256,
+                   "exponential_moving_average": False, "gin_channels": VT_SPEAKER_GIN,
+                   "initial_learning_rate": VT_LR}, f)
+    runs = {w: launch_tp(torch, root, p21_jobs(root, data, w), w, "tp_gated", "mel",
+                         P21_COLLECTIVE_ITERS) for w in P21_WORLDS}
+    one = runs[1]["ranks"][0]
+    argv_w1 = {job["name"]: job["argv"] for job in p21_jobs(root, data, 1)}
+    mods = {"vocoder": cli_vocoder, "prior": cli_prior}
+    cpu_gaps: dict = {}
+
+    def cpu_gap(job: str) -> float:
+        # W 1's first step on the CPU, relative to W 1's norm (once a job)
+        if job not in cpu_gaps:
+            t_cpu = time.perf_counter()
+            g1 = one[job]["first_grad"]
+            g_cpu = p21_cpu_grad(torch, mods[P21_JOBS[job][0]], one[job], argv_w1[job])
+            keys = sorted(g1)
+            v1 = torch.cat([g1[k].reshape(-1) for k in keys])
+            v_cpu = torch.cat([g_cpu[k].reshape(-1) for k in keys])
+            cpu_gaps[job] = {"grad_rel": float((v_cpu - v1).norm() / v1.norm()),
+                             "seconds": time.perf_counter() - t_cpu}
+        return cpu_gaps[job]["grad_rel"]
+
+    cfg = load_preset(data["lr"], Config())
+    shares = p21_shares(torch, cli_vocoder, cfg)
+    out = {"phase": "tensor_parallel_gated", "card": card, "model": TP_MODEL,
+           "widths": {"vocoder": {"layers": 24, "stacks": 4, "residual": 512, "gate": 512,
+                                  "skip": 256, "cin": 80, "batch": VT_BATCH, "samples": 7168},
+                      "pixelcnn": {"dim": PIXELCNN_DIM, "layers": PIXELCNN_LAYERS,
+                                   "codes": TRAIN_CODES, "batch": PRIOR_BATCH, "grid": [20, 7]},
+                      "steps": {"vocoder": P21_VOCODER_STEPS, "pixelcnn": P21_PIXELCNN_STEPS,
+                                "hier_bottom": P21_HIER_STEPS}},
+           "table_share_a_rank": shares,
+           "note": "the ranks share one card over gloo: steps/s measures equality's and the "
+                   "collectives' cost, not scaling"}
+    jobs = {}
+    for w in P21_WORLDS[1:]:
+        run = runs[w]
+        ranks = run["ranks"]
+        for job in ranks[0]:
+            if job.endswith("_resume"):
+                want = {"fused_adam": 1, "vq_nearest": one[job[:-len("_resume")]]["launches"][
+                    "vq_nearest"] // len(one[job[:-len("_resume")]]["metrics"])}
+            else:
+                want = one[job]["launches"]
+            check_tp_launches(ranks, job, want)
+            check_tp_groups(ranks, job)
+            losses = [float(np.mean([r[job]["metrics"][i]["loss"] for r in ranks[::TP_MODEL]]))
+                      for i in range(len(ranks[0][job]["metrics"]))]
+            check(all(np.isfinite(losses)), f"tensor parallel {job} W {w}: losses {losses}")
+            rec = {"losses": losses,
+                   "launches": [r[job]["launches"] for r in ranks],
+                   "local_n": [r[job]["local_n"] for r in ranks],
+                   "split_at": ranks[0][job]["split_at"],
+                   "state_bytes_a_rank": [r[job]["state_bytes"] for r in ranks],
+                   "seconds": ranks[0][job]["seconds"]}
+            if not job.endswith("_resume"):
+                bf16 = P21_JOBS[job][1]
+                first = p19_first_step(torch, one[job], [r[job] for r in ranks])
+                check(first["loss_rel"] <= (BF16_LOSS_REL if bf16 else DP_LOSS_REL),
+                      f"tensor parallel {job} W {w}: first loss {first['loss']} against "
+                      f"W 1's {first['loss_w1']}")
+                if not bf16:
+                    limit = DP_GRAD_REL
+                    if first["grad_rel"] > limit:
+                        first["cpu_grad_rel"] = cpu_gap(job)
+                        limit = max(limit, P20_CPU_GAP_C * first["cpu_grad_rel"])
+                    check(first["grad_rel"] <= limit,
+                          f"tensor parallel {job} W {w}: the gathered gradient "
+                          f"{first['grad_rel']:.3g} of its norm away (the limit {limit:.3g})")
+                rec.update(first_step=first, losses_w1=[m["loss"] for m in one[job]["metrics"]],
+                           local_n_w1=one[job]["local_n"], seconds_w1=one[job]["seconds"],
+                           launches_w1=one[job]["launches"])
+            if job in shares:
+                share = [n / one[job]["local_n"] for n in rec["local_n"]]
+                check(all(abs(s - shares[job]) <= P21_SHARE_TOL for s in share),
+                      f"tensor parallel {job} W {w}: a rank's flat buffer is {share} of W 1's, "
+                      f"the table's share is {shares[job]}")
+                rec["share_of_w1"] = share
+            jobs[f"{job}_w{w}"] = rec
+        jobs[f"launch_seconds_w{w}"] = run["seconds"]
+        jobs[f"mel_w{w}"].update(
+            collectives_ms_a_step=run["timing"][0]["collectives_ms"],
+            collective_calls_a_step=run["timing"][0]["collective_calls"],
+            backend=run["timing"][0]["backend"])
+    jobs["launch_seconds_w1"] = runs[1]["seconds"]
+    out["jobs"] = jobs
+    out["cpu_first_step"] = cpu_gaps
+    # steps/s: the vocoder's one interval between its two steps, the
+    # PixelCNN's median of its last two
+    out["steps_per_s"] = {
+        "mel": {f"w{w}": float(1.0 / np.diff(runs[w]["ranks"][0]["mel"]["step_t"])[0])
+                for w in P21_WORLDS},
+        "pixelcnn": {f"w{w}": dp_step_rate(runs[w]["ranks"][0]["pixelcnn"])
+                     for w in P21_WORLDS}}
+
+    # the --resume steps at M 2 from W 1's checkpoints
+    w2 = os.path.join(base, f"w{TP_MODEL}")
+    for job, name, steps in (("mel_resume", "wavenet", P21_VOCODER_STEPS),
+                             ("pixelcnn_resume", "prior", P21_PIXELCNN_STEPS)):
+        for sub in ("", "_train"):
+            got = checkpoint_steps(os.path.join(w2, job, name + sub))
+            check(got == [steps, steps + 1], f"tensor parallel {job}: {name + sub} holds {got}")
+    # W 2's checkpoints synthesize and sample on one rank (this process)
+    sr, hop = cfg.audio.sample_rate, cfg.audio.effective_hop_size
+    mel_npy = os.path.join(base, "mel.npy")
+    np.save(mel_npy, np.load(os.path.join(data["corpus"], "m0.npy")))
+    out["synthesize"] = vocoder_synthesize(
+        cli_vocoder, vq_kernel, ["synthesize", "--ckpt-dir", os.path.join(w2, "mel", "wavenet"),
+                                 "--mel-npy", mel_npy, "--max-frames", str(WN_SYNTH_FRAMES)],
+        os.path.join(base, "mel.wav"), WN_SYNTH_FRAMES * hop, sr)
+    h, w_ = P19_SAMPLE_GRID
+    out["sample_cli"] = run_sample_cli(cli_prior, [
+        "sample", "--vqvae-ckpt", data["vq"], "--prior-ckpt",
+        os.path.join(w2, "pixelcnn", "prior") + "_ema", "--dim", str(TRAIN_DIM),
+        "--z-dim", str(TRAIN_CODES), "--code-shape", str(h), str(w_), "--device", DEVICE],
+        os.path.join(base, "samples"), "prior_sample", 4 * w_)
+
+    # kernel 1 at each new (rows, codes) shape a rank searched (the frozen
+    # encoders whole, on its rows); kernel 3 at the ranks' n
+    shapes = sorted({s for w in P21_WORLDS[1:] for job in runs[w]["ranks"][0]
+                     for s in runs[w]["ranks"][0][job]["searches"]})
+    vq_rows = {}
+    for n, k in shapes:
+        x = torch.randn(n, VQ_D, generator=gen, device="cuda")
+        cb = torch.randn(k, VQ_D, generator=gen, device="cuda")
+        row = compare_vq(torch, vq_kernel, x, cb)
+        row["shape_of"] = f"tensor_parallel_gated_n{n}"
+        emit(row)
+        check(row["mismatches"] == row["near_ties"] and row["run_to_run_identical"],
+              f"vq_nearest N={n} K={k}: {row['mismatches'] - row['near_ties']} mismatches "
+              "that are not near-ties, or two calls differ")
+        vq_rows[f"n{n}"] = row
+    adam_rows = {}
+    for job in ("mel", "mulaw", "pixelcnn"):
+        row = compare_fused_adam(torch, fused_adam, jobs[f"{job}_w{TP_MODEL}"]["local_n"][0],
+                                 ADAM_CONFIGS[0], gen)
+        row["shape_of"] = f"tensor_parallel_{job}_rank"
+        emit(row)
+        adam_rows[job] = row
+    out["launches"] = {f"w{w}": [{job: r[job]["launches"] for job in r}
+                                 for r in runs[w]["ranks"]] for w in P21_WORLDS}
+    out["seconds"] = time.perf_counter() - t0
+    return out, {"vq": vq_rows, "adam": adam_rows}
+
+
 def checkpoint_steps(ckpt_dir: str) -> list:
     """The step numbers a checkpoint directory holds, in order."""
     if not os.path.isdir(ckpt_dir):
@@ -6908,6 +7244,21 @@ def main() -> int:
         tpa, tpa_rows = autoencoder_tensor_parallel_phase(torch, dsp, root, corpus, card,
                                                           vq_kernel, fused_adam, gen)
         emit(tpa)
+        torch.cuda.empty_cache()
+
+        # phase 21: cli.vocoder train and cli.prior train (the PixelCNN)
+        # with --mesh-model 2 under torchrun (ranks sharing this card), with
+        # each rank's launch counts; kernel 1 at the ranks' encode shapes,
+        # kernel 3 at each rank's n
+        tpg, tpg_rows = gated_tensor_parallel_phase(
+            torch, dsp, cli_vocoder, cli_prior, root, {
+                "corpus": corpus, "vq": vq_ckpt,
+                "hier": os.path.join(root, "hier", "models", "hiervqvae",
+                                     f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}"),
+                "units": os.path.join(root, "wave", "models", "wavevqvae",
+                                      f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")},
+            card, vq_kernel, fused_adam, gen)
+        emit(tpg)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
@@ -6919,6 +7270,7 @@ def main() -> int:
     tp_launches = dp_launch_totals(tp)
     tpp_launches = dp_launch_totals(tpp)
     tpa_launches = dp_launch_totals(tpa)
+    tpg_launches = dp_launch_totals(tpg)
     sharded, adam_local = tp_rows["vq_sharded"], tp_rows["adam_local"]
     train_runs = [*training["runs"].values(), rvq["run"]]
     train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
@@ -6942,7 +7294,7 @@ def main() -> int:
                      + moe_launches["vq_nearest"] + bf16_launches["vq_nearest"]
                      + motion["vq_launches"] + dp_launches["vq_nearest"]
                      + tp_launches["vq_nearest"] + tpp_launches["vq_nearest"]
-                     + tpa_launches["vq_nearest"]),
+                     + tpa_launches["vq_nearest"] + tpg_launches["vq_nearest"]),
         "launches_by_path": {"serving": serving["vq_launches"], "training": train_vq,
                              "prior": prior_launches["vq_nearest"],
                              "preprocess_units": prep["vq_launches"],
@@ -6955,7 +7307,8 @@ def main() -> int:
                              "data_parallel": dp_launches["vq_nearest"],
                              "tensor_parallel": tp_launches["vq_nearest"],
                              "tensor_parallel_prior": tpp_launches["vq_nearest"],
-                             "tensor_parallel_autoencoders": tpa_launches["vq_nearest"]},
+                             "tensor_parallel_autoencoders": tpa_launches["vq_nearest"],
+                             "tensor_parallel_gated": tpg_launches["vq_nearest"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -6991,6 +7344,14 @@ def main() -> int:
                    "library_device_ms": r["library_device_ms"], "ctas": r["ctas"],
                    "max_abs_err": r["max_abs_err"]}
             for name, r in tpa_rows["vq"].items()},
+        "tensor_parallel_gated_shapes": {
+            name: {"n": r["n"], "k": r["k"], "ms": r["kernel_ms"],
+                   "device_ms": r["kernel_device_ms"], "plain_ms": r["plain_ms"],
+                   "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                   "bound_3xtf32_ms": r["tensor_core_bound_ms"], "library_ms": r["library_ms"],
+                   "library_device_ms": r["library_device_ms"], "ctas": r["ctas"],
+                   "max_abs_err": r["max_abs_err"]}
+            for name, r in tpg_rows["vq"].items()},
     }, {
         "name": "fused_adam", "route": "cuda",
         "source": "neural_sound_generation_tpu_torch/csrc/fused_adam.cu",
@@ -7000,7 +7361,8 @@ def main() -> int:
                      + priors_launches["fused_adam"] + vtrain["adam_launches"]
                      + moe_launches["fused_adam"] + bf16_launches["fused_adam"]
                      + dp_launches["fused_adam"] + tp_launches["fused_adam"]
-                     + tpp_launches["fused_adam"] + tpa_launches["fused_adam"]),
+                     + tpp_launches["fused_adam"] + tpa_launches["fused_adam"]
+                     + tpg_launches["fused_adam"]),
         "launches_by_path": {"training": train_adam, "prior": prior_launches["fused_adam"],
                              "other_autoencoders": others["adam_launches"],
                              "pixelcnn_and_hier_priors": priors_launches["fused_adam"],
@@ -7010,7 +7372,8 @@ def main() -> int:
                              "data_parallel": dp_launches["fused_adam"],
                              "tensor_parallel": tp_launches["fused_adam"],
                              "tensor_parallel_prior": tpp_launches["fused_adam"],
-                             "tensor_parallel_autoencoders": tpa_launches["fused_adam"]},
+                             "tensor_parallel_autoencoders": tpa_launches["fused_adam"],
+                             "tensor_parallel_gated": tpg_launches["fused_adam"]},
         "max_abs_err": adam_row["max_abs_err"],
         "ms": adam_row["kernel_ms"], "plain_ms": adam_row["plain_ms"],
         "bound_ms": adam_row["bound_ms"], "bound_by": adam_row["bound_by"],
@@ -7022,6 +7385,8 @@ def main() -> int:
            for job, r in tpp_rows["adam"].items()},
         **{f"tensor_parallel_{job}_rank_shape": {k: r[k] for k in ADAM_ROW_KEYS}
            for job, r in tpa_rows["adam"].items()},
+        **{f"tensor_parallel_gated_{job}_rank_shape": {k: r[k] for k in ADAM_ROW_KEYS}
+           for job, r in tpg_rows["adam"].items()},
         "vocoder_shapes": {tag: {k: r[k] for k in ("config",) + ADAM_ROW_KEYS}
                            for tag, r in vtrain["adam_rows"].items()},
     }] + [attention_summary({**attn_rows, **tpp_rows["attention"]}, name,
@@ -7032,7 +7397,8 @@ def main() -> int:
                              "data_parallel": dp_launches[name],
                              "tensor_parallel": tp_launches.get(name, 0),
                              "tensor_parallel_prior": tpp_launches[name],
-                             "tensor_parallel_autoencoders": tpa_launches.get(name, 0)},
+                             "tensor_parallel_autoencoders": tpa_launches.get(name, 0),
+                             "tensor_parallel_gated": tpg_launches.get(name, 0)},
                             bf16["bf16_attention_launches"][name])
           for name in fa.KERNELS]
       + wavenet_summary(wn_rows, wn_api) + conv_summary(conv_rows, conv_ab)})

@@ -43,18 +43,21 @@ the JAX CLI. The transformer's attention kernels run in bf16 on the card.
 ``train`` runs data-parallel under ``torchrun`` (``--mesh-data N``, the
 policy of ``cli.main``): every rank reads the same seeded batches, encodes
 its rows of each and trains on them, and rank 0 writes the checkpoints.
-``--mesh-model M`` trains the transformer prior (dense or routed, either
-dtype, either ``--hier`` level) over a (W / M, M) mesh: the ranks of a
-model group hold the same rows and a slice each of the layers (Megatron's
-layout, the experts split over the ranks; ``training.sharding``), placed
-after any ``--resume`` restore; the checkpoints stay whole, gathered for
-rank 0, so ``sample``, ``serve --prior-ckpt`` and ``--resume`` at any M read
-them. ``--arch pixelcnn --mesh-model`` and ``--mesh-pipe`` raise
-``NotImplementedError``: later slices.
+``--mesh-model M`` trains either prior (either dtype, either ``--hier``
+level) over a (W / M, M) mesh: the ranks of a model group hold the same
+rows and a slice each of the layers (``training.sharding``: for the
+transformer Megatron's layout, the experts split over the ranks; for the
+PixelCNN its convolutions and embeddings, each gate split block-wise so
+that a rank gates its own channels), placed after any ``--resume``
+restore; the checkpoints stay whole, gathered for rank 0, so ``sample``,
+``serve --prior-ckpt`` and ``--resume`` at any M read them. ``--mesh-pipe``
+raises ``NotImplementedError``: a later slice.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.prior train
 --datadir <corpus> --vqvae-ckpt <cli.main checkpoint> [--arch transformer
 [--moe-experts N]] [--bf16] [--hier --hier-level top|bottom] [--device cuda]``
+(``torchrun --nproc_per_node 2 -m ... train --mesh-model 2 ...`` for one
+data rank of two model ranks)
 """
 
 from __future__ import annotations
@@ -84,7 +87,6 @@ from neural_sound_generation_tpu_torch.models import (
 from neural_sound_generation_tpu_torch.ops import dsp
 from neural_sound_generation_tpu_torch.ops.cuda import flash_attention, fused_adam, vq_kernel
 from neural_sound_generation_tpu_torch.parallel import (
-    MODEL_AXIS_FAMILIES,
     PIPE_AXIS,
     mesh_from_args,
     primary_print,
@@ -190,11 +192,9 @@ def parse_args(argv=None):
 
 def refuse_later_slices(args) -> None:
     """Flags whose code paths the port does not have yet: the mesh's pipe
-    axis, and its model axis for the PixelCNN."""
+    axis."""
     if getattr(args, "mesh_pipe", 1) > 1:
         raise NotImplementedError(f"--mesh-pipe {args.mesh_pipe}: {PIPE_AXIS}")
-    if getattr(args, "mesh_model", 1) > 1 and getattr(args, "arch", None) != "transformer":
-        raise NotImplementedError(f"--mesh-model {args.mesh_model}: {MODEL_AXIS_FAMILIES}")
 
 
 @dataclasses.dataclass(frozen=True)

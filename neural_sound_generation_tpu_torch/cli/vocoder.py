@@ -30,16 +30,23 @@ products by default) and undoes mu-law companding for ``mulaw`` and
 ``train`` runs data-parallel under ``torchrun`` (``--mesh-data N``, the
 policy of ``cli.main``): every rank reads the same seeded batches and
 trains on its rows of each (encoding them to units itself under
-``--condition units``); the masked losses divide by the global batch's
-valid positions, and rank 0 writes the checkpoints. ``--mesh-model``,
-``--mesh-pipe`` and ``--pp-microbatches`` raise ``NotImplementedError``:
-the model and pipe axes are later slices of the port.
+``--condition units``, the frozen WaveVQVAE whole on every rank); the
+masked losses divide by the global batch's valid positions, and rank 0
+writes the checkpoints. ``--mesh-model M`` lays a (W / M, M) mesh: the
+ranks of a model group hold the same rows and a slice each of the
+WaveNet's convolutions, each gate split block-wise so that a rank gates
+its own channels (``training.sharding``), placed after any ``--resume``
+restore; the checkpoints stay whole, gathered for rank 0, so
+``synthesize``, ``serve --vocoder-ckpt`` and ``--resume`` at any M read
+them. ``--mesh-pipe`` and ``--pp-microbatches`` raise
+``NotImplementedError``: the pipe axis is a later slice of the port.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.vocoder train
 --datadir <corpus> [--condition units --units-vqvae-ckpt <ckpt>] [--bf16]
-[--resume] [--device cuda]``; ``... synthesize --ckpt-dir <artifact>
---mel-npy <frames x mels .npy> | --condition units --wav-in <wav> --output
-out.wav``
+[--resume] [--device cuda]`` (``torchrun --nproc_per_node 4 -m ... train
+--mesh-model 2 ...`` for two data ranks of two model ranks); ``...
+synthesize --ckpt-dir <artifact> --mel-npy <frames x mels .npy> |
+--condition units --wav-in <wav> --output out.wav``
 """
 
 from __future__ import annotations
@@ -59,7 +66,6 @@ from neural_sound_generation_tpu_torch.models.wavenet import WaveNet, make_gener
 from neural_sound_generation_tpu_torch.ops import dsp
 from neural_sound_generation_tpu_torch.ops.cuda import fused_adam, vq_kernel
 from neural_sound_generation_tpu_torch.parallel import (
-    MODEL_AXIS_FAMILIES,
     PIPE_AXIS,
     mesh_from_args,
     primary_print,
@@ -67,6 +73,7 @@ from neural_sound_generation_tpu_torch.parallel import (
     shard_batch,
 )
 from neural_sound_generation_tpu_torch.training import checkpoint
+from neural_sound_generation_tpu_torch.training.sharding import shard_train_state
 from neural_sound_generation_tpu_torch.training.train_state import create_train_state
 from neural_sound_generation_tpu_torch.training.trainer import Trainer
 
@@ -93,7 +100,7 @@ def parse_args(argv=None):
     tr.add_argument("--mesh-data", type=int, default=None,
                     help="data-parallel ranks (torchrun --nproc_per_node N)")
     tr.add_argument("--mesh-model", type=int, default=1,
-                    help="tensor-parallel shards (the model-axis slice)")
+                    help="tensor-parallel ranks (the model axis)")
     tr.add_argument("--mesh-pipe", type=int, default=1,
                     help="pipeline-parallel stages (the pipe-axis slice)")
     tr.add_argument("--pp-microbatches", type=int, default=None,
@@ -152,11 +159,9 @@ def _units_args(p) -> None:
 
 
 def refuse_parallel(args) -> None:
-    """The mesh axes this port does not have yet: pipe and model."""
+    """The mesh axis this port does not have yet: pipe."""
     if args.mesh_pipe > 1 or args.pp_microbatches is not None:
         raise NotImplementedError(f"--mesh-pipe/--pp-microbatches: {PIPE_AXIS}")
-    if args.mesh_model > 1:
-        raise NotImplementedError(f"--mesh-model {args.mesh_model}: {MODEL_AXIS_FAMILIES}")
 
 
 def _units_scales(num_downsample: int) -> tuple[int, ...]:
@@ -388,6 +393,9 @@ def _train(args) -> None:
     state = create_train_state(model, cfg.train)
     train_dir = args.ckpt_dir.rstrip("/") + "_train"
     start_epoch = _resume(args, state, train_dir, say) if args.resume else 1
+    if mesh is not None and mesh.tensor_parallel:
+        # this rank's slices of the whole (restored) state every rank holds
+        state = shard_train_state(state, mesh)
     if mesh is not None:
         mesh.replicate(state)
     trainer = Trainer(model, cfg, state, log_fn=None, multi_steps=args.multi_steps, mesh=mesh)
@@ -397,7 +405,7 @@ def _train(args) -> None:
         # completed_epoch is the last FINISHED epoch: an interval save inside
         # epoch N records N-1, so --resume replays epoch N with its data order
         extra = {"epoch": completed_epoch, **meta}
-        checkpoint.save_params(args.ckpt_dir, state.model, step, extra)
+        checkpoint.save_params(args.ckpt_dir, state.model, step, extra, shards=state.shards)
         checkpoint.save_ema_sibling(args.ckpt_dir, state, step, extra)
         checkpoint.save(train_dir, state, step, extra, block=False)
 

@@ -294,7 +294,8 @@ def local_state_dict(
     under a model axis of ``n_model``: each split parameter and BatchNorm
     statistic sliced along its axis by the port's tensor-parallel table
     (the transformer prior's qkv projection head by head: its q, k and v
-    blocks each sliced alike), every other entry whole."""
+    blocks each sliced alike; a gated family's gate leaves by the channels
+    of each half), every other entry whole."""
     from neural_sound_generation_tpu_torch.training.sharding import (
         _slice,
         tensor_parallel_layout,

@@ -31,7 +31,9 @@ output channels, with their biases, and computes it from the whole input,
 taken through ``Mesh.copy_to_model`` so that the input's gradient is
 summed over the model group; the norm after it holds the same channels.
 The model gathers the whole channels after the layer (and its norm and
-ReLU) with ``gather_split``. A ``Linear`` is split the
+ReLU) with ``gather_split``; a layer whose output channels are a gate's
+two halves holds its slice of each (``model_groups`` 2), and the gather
+puts them back in the layer's order. A ``Linear`` is split the
 same way by output features (``model_split`` "columns") or by input
 features ("rows": it holds its rank's slice of the inputs and the whole
 bias, sums the model group's partial products with
@@ -198,11 +200,12 @@ def _model_input(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 def gather_split(h: torch.Tensor, layer: nn.Module) -> torch.Tensor:
     """The whole channels (dim 1) of a column-split ``layer``'s output
-    slice ``h``, gathered over the model group; ``h`` itself after a whole
-    layer."""
+    slice ``h``, gathered over the model group in the layer's own channel
+    order (a gate's pre-activation is split in ``model_groups`` blocks);
+    ``h`` itself after a whole layer."""
     if not getattr(layer, "model_split", False):
         return h
-    return model_axis().gather_channels(h)
+    return model_axis().gather_channels(h, groups=getattr(layer, "model_groups", 1))
 
 
 class Conv2d(nn.Conv2d):
@@ -280,7 +283,10 @@ def gate(z: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class Conv1d(nn.Conv1d):
-    """``nn.Conv1d`` with flax's compute ``dtype``, as ``Conv2d``."""
+    """``nn.Conv1d`` with flax's compute ``dtype``, as ``Conv2d``. A caller
+    that feeds one whole input to several split layers takes it through
+    ``copy_to_model`` once and passes ``copied`` (one all-reduce of the
+    summed input gradient instead of one a layer)."""
 
     model_split = False
 
@@ -288,8 +294,9 @@ class Conv1d(nn.Conv1d):
         super().__init__(*args, **kwargs)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _model_input(self, x)
+    def forward(self, x: torch.Tensor, copied: bool = False) -> torch.Tensor:
+        if not copied:
+            x = _model_input(self, x)
         dt = self.compute_dtype
         if dt == torch.float32:
             return super().forward(x)

@@ -47,6 +47,18 @@ argmax(logits + G), which is how ``jax.random.categorical`` draws; the
 (H*W, B, K) noise is drawn up front from a ``torch.Generator`` in raster
 order, or injected. ``incremental_logits`` teacher-forces the row-cached
 path, the fast sampler's parity oracle.
+
+Under the mesh's model axis (``training.sharding``) ``forward`` runs on
+this rank's slices. The embedding's feature slice is gathered before layer
+0. In a layer whose gate is split the vertical and horizontal kernels and
+biases, ``vert_to_horiz``, ``spatial_cond`` and the class table hold this
+rank's channels of each gate half; the layer takes its inputs through
+``copy_to_model`` (the raw kernels do not go through ``layers.Conv2d``),
+gates its own channels, and gathers: the vertical pre-activation block-wise
+as ``vert_to_horiz``'s input, both gates' outputs, and ``horiz_resid``'s
+slice before the residual add. ``out_hidden`` and ``out_logits`` are
+gathered, so the logits come out whole on every rank. The samplers and
+``incremental_logits`` run on a whole model only.
 """
 
 from __future__ import annotations
@@ -55,7 +67,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neural_sound_generation_tpu_torch.models.layers import Conv2d, gate, init_weights
+from neural_sound_generation_tpu_torch.models.layers import (
+    Conv2d,
+    gate,
+    gather_split,
+    init_weights,
+    split_mesh,
+)
 from neural_sound_generation_tpu_torch.models.transformer_prior import gumbel_noise
 
 __all__ = ["GatedPixelCNN", "fast_generate", "generate", "incremental_logits"]
@@ -117,15 +135,24 @@ class GatedMaskedConvLayer(nn.Module):
         return h_cond
 
     def forward(self, x_v, x_h, label, cond_map=None):
+        # the gate's leaves hold this rank's channels of each half
+        mesh = split_mesh() if self.vert_to_horiz.model_split else None
+        x_in = x_h if mesh is None else mesh.copy_to_model(x_h)
+        if mesh is not None:
+            x_v = mesh.copy_to_model(x_v)
         vk, hk = self.kernels()
         h_cond = self.cond_bias(label, cond_map)
         h_vert = self.vertical(x_v, vk)
         out_v = gate(h_vert + h_cond, 1)
         dt, p = self.compute_dtype, self.kernel // 2
-        h_horiz = (F.conv2d(F.pad(x_h.to(dt), (p, 0, 0, 0)), hk.to(dt))
+        h_horiz = (F.conv2d(F.pad(x_in.to(dt), (p, 0, 0, 0)), hk.to(dt))
                    + self.horiz_bias.to(dt)[:, None, None])
-        out = gate(self.vert_to_horiz(h_vert) + h_horiz + h_cond, 1)
-        out_h = self.horiz_resid(out)
+        # vert_to_horiz reads the whole vertical pre-activation, in its order
+        v_in = h_vert if mesh is None else mesh.gather_channels(h_vert, groups=2)
+        out = gate(self.vert_to_horiz(v_in) + h_horiz + h_cond, 1)
+        if mesh is not None:
+            out_v, out = mesh.gather_channels(out_v), mesh.gather_channels(out)
+        out_h = gather_split(self.horiz_resid(out), self.horiz_resid)
         if self.residual:
             out_h = out_h + x_h
         return out_v, out_h
@@ -140,6 +167,10 @@ class GatedPixelCNN(nn.Module):
     parameters are float32 either way). Weights are initialized from
     ``generator``: Xavier-uniform kernels, zero biases, embeddings N(0,
     1/width)."""
+
+    #: set by ``training.sharding``: this rank holds a feature slice of
+    #: ``embedding``
+    embed_split = False
 
     def __init__(self, input_dim: int = 256, dim: int = 64, n_layers: int = 15,
                  n_classes: int = 10, spatial_cond: bool = False, cond_dim: int = 0,
@@ -183,11 +214,14 @@ class GatedPixelCNN(nn.Module):
     def forward(self, codes: torch.Tensor, label: torch.Tensor,
                 cond_map: torch.Tensor | None = None) -> torch.Tensor:
         h = self.embedding(codes.long()).to(self.compute_dtype).permute(0, 3, 1, 2)
+        if self.embed_split:
+            h = split_mesh().gather_channels(h)
         cond = self._cond_nchw(cond_map)
         x_v = x_h = h
         for layer in self.layers:
             x_v, x_h = layer(x_v, x_h, label, cond)
-        out = self.out_logits(torch.relu(self.out_hidden(x_h)))
+        out = gather_split(torch.relu(self.out_hidden(x_h)), self.out_hidden)
+        out = gather_split(self.out_logits(out), self.out_logits)
         return out.permute(0, 2, 3, 1).float()
 
 

@@ -29,6 +29,17 @@ inputs (B, T, 1) floats or (B, T) ints, mels (B, T', C), logits (B, T, out).
     mel-conditioned MoL generation to the whole-loop CUDA kernel
     (``ops/cuda/wavenet_gen.py``), as ``use_pallas=True`` does in the JAX
     package; it is opt-in there and here.
+  * Under the mesh's model axis (``training.sharding``) ``forward`` runs on
+    this rank's slices: ``first_conv``, each upsampler convolution (after
+    its leaky ReLU), ``res_i``, ``post1`` and ``post2`` compute their slice
+    of the output channels and gather the whole; ``dilated_i`` and
+    ``cond_i`` compute this rank's slice of each gate half, with its slice
+    of the whole ``g_i``'s term, so the gate runs on the rank's own
+    channels and its output is gathered for ``res_i`` and ``skip_i`` (one
+    ``copy_to_model`` for both where both split, and one for the upsampled
+    conditioning of every ``cond_i``); ``skip_i``'s slices are summed over
+    the layers and gathered once, ahead of ``post1``. The logits come out
+    whole on every rank. The incremental paths run on a whole model only.
 """
 
 from __future__ import annotations
@@ -44,7 +55,9 @@ from neural_sound_generation_tpu_torch.models.layers import (
     Conv1d,
     ConvTranspose1dSame,
     gate,
+    gather_split,
     init_weights,
+    split_mesh,
 )
 
 __all__ = ["WaveNet", "ConditionUpsampler", "incremental_forward", "make_generate_fn",
@@ -74,7 +87,8 @@ class ConditionUpsampler(nn.Module):
     def forward(self, c: torch.Tensor) -> torch.Tensor:
         x = c.transpose(1, 2)
         for i in range(len(self.scales)):
-            x = F.leaky_relu(getattr(self, f"ConvTranspose_{i}")(x), 0.4)
+            conv = getattr(self, f"ConvTranspose_{i}")
+            x = gather_split(F.leaky_relu(conv(x), 0.4), conv)
         return x.transpose(1, 2)
 
 
@@ -155,12 +169,22 @@ class WaveNet(nn.Module):
             return self.first_conv(x.transpose(1, 2))
         return self.first_conv(self.input_embed(x).transpose(1, 2))
 
+    def _gate_slice(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of each half of a whole leaf's gate term (the
+        speaker's (B, 2G, 1)), as ``dilated_i`` holds its channels; the
+        term goes through ``copy_to_model`` first, so that the whole leaf's
+        gradient sums every rank's slice."""
+        mesh = split_mesh()
+        size = y.shape[1] // (2 * mesh.n_model)
+        halves = mesh.copy_to_model(y).unflatten(1, (2, -1))
+        return halves.narrow(2, mesh.model_rank * size, size).flatten(1, 2)
+
     def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None,
                 g: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Teacher-forced pass: x holds the inputs at t (the caller shifts
         targets, see ``shift_inputs``); c (B, T', cin) mels; g (B,) speaker
         ids. Returns (B, T, out_channels) float32 predictions."""
-        h = self._embed(x)
+        h = gather_split(self._embed(x), self.first_conv)
         t = h.shape[-1]
         c_up = None
         if c is not None and self.conditioned:
@@ -168,20 +192,34 @@ class WaveNet(nn.Module):
         g_emb = None
         if g is not None and self.speakered:
             g_emb = self.speaker_embed(g)[:, :, None]  # (B, gin, 1)
+        # each gate on this rank's channels; the conditioning, and each gate's
+        # gathered output where res_i and skip_i both split, enter the model
+        # group once, so that one all-reduce sums their input gradients
+        split = self.layer("dilated", 0).model_split
+        shared = split and self.layer("res", 0).model_split and self.layer("skip", 0).model_split
+        mesh = split_mesh() if split else None
+        if split and c_up is not None:
+            c_up = mesh.copy_to_model(c_up)
         skips = 0.0
         k = self.kernel_size
         for i, d in enumerate(self.dilation_rates):
             z = self.layer("dilated", i)(F.pad(h, ((k - 1) * d, 0)))
             if c_up is not None:
-                z = z + self.layer("cond", i)(c_up)
+                z = z + self.layer("cond", i)(c_up, copied=split)
             if g_emb is not None:
-                z = z + self.layer("g", i)(g_emb)
+                g_term = self.layer("g", i)(g_emb)
+                z = z + (self._gate_slice(g_term) if split else g_term)
             gated = gate(z, 1)
-            skips = skips + self.layer("skip", i)(gated)
-            h = h + self.layer("res", i)(gated)
-        out = torch.relu(skips)
-        out = torch.relu(self.post1(out))
-        return self.post2(out).float().transpose(1, 2)
+            if split:
+                gated = mesh.gather_channels(gated)
+            if shared:
+                gated = mesh.copy_to_model(gated)
+            skips = skips + self.layer("skip", i)(gated, copied=shared)
+            res = self.layer("res", i)
+            h = h + gather_split(res(gated, copied=shared), res)
+        out = torch.relu(gather_split(skips, self.layer("skip", 0)))
+        out = gather_split(torch.relu(self.post1(out)), self.post1)
+        return gather_split(self.post2(out), self.post2).float().transpose(1, 2)
 
     @staticmethod
     def shift_inputs(targets: torch.Tensor, scalar: bool) -> torch.Tensor:

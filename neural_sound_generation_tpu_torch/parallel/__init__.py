@@ -16,7 +16,6 @@ from neural_sound_generation_tpu_torch.parallel.distributed import (  # noqa: F4
     topology,
 )
 from neural_sound_generation_tpu_torch.parallel.mesh import (  # noqa: F401
-    MODEL_AXIS_FAMILIES,
     PIPE_AXIS,
     Mesh,
     current_mesh,

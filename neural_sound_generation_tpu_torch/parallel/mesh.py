@@ -71,10 +71,12 @@ float32) and ``broadcast_`` sends bytes.
 The tensor-parallel table is JAX's ``_TP_RULES`` on its flax path names
 (``model_param_shardings``, with ``flax_leaf`` mapping a port parameter to
 its flax path and axes); ``training.sharding`` lays a state out by it. The
-``model`` axis covers the four autoencoders of ``cli.main`` (the flat mel
-VQ-VAE, HierVQVAE, WaveVQVAE, the VAE) and the transformer prior (dense or
-routed); WaveNet, the GatedPixelCNN and the ``pipe`` axis refuse with
-``MODEL_AXIS_FAMILIES`` and ``PIPE_AXIS``.
+``model`` axis covers every family: the four autoencoders of ``cli.main``
+(the flat mel VQ-VAE, HierVQVAE, WaveVQVAE, the VAE), the transformer
+prior (dense or routed), and the gated families, WaveNet and the
+GatedPixelCNN, whose gates split their pre-activation block-wise
+(``gather_channels(..., groups=2)`` puts it back in the leaf's order). The
+``pipe`` axis refuses with ``PIPE_AXIS``.
 """
 
 from __future__ import annotations
@@ -92,9 +94,6 @@ from torch import nn
 from neural_sound_generation_tpu_torch.parallel import distributed
 from neural_sound_generation_tpu_torch.parallel.distributed import SOLO
 
-MODEL_AXIS_FAMILIES = (
-    "the model axis of WaveNet and the GatedPixelCNN (a gate's grouped split) comes with "
-    "a later parallel slice of the port (ROADMAP Queue 1, item 4b-iv)")
 PIPE_AXIS = ("the pipe axis (pipeline and sequence parallelism) comes with a later "
              "parallel slice of the port")
 
@@ -159,17 +158,25 @@ class _GatherChannels(torch.autograd.Function):
     (1, a convolution's channels; -1, a linear layer's features), in rank
     order, forward; this rank's slice of the gradient backward (the
     gradient of a whole tensor is the same on every rank of the model
-    group)."""
+    group). With ``groups`` g the axis is g equal blocks, each split alike
+    over the ranks (a gate's tanh and sigmoid halves): the output is block
+    by block, every rank's slice of block 0, then of block 1, the leaf's
+    own channel order."""
 
     @staticmethod
-    def forward(ctx, x, mesh, dim):
-        ctx.mesh, ctx.dim, ctx.c = mesh, dim, x.shape[dim]
-        return mesh.model_concat(x, dim=dim)
+    def forward(ctx, x, mesh, dim, groups):
+        dim = dim % x.dim()
+        ctx.mesh, ctx.dim, ctx.groups = mesh, dim, groups
+        ctx.c = x.shape[dim] // groups
+        blocks = x.unflatten(dim, (groups, -1))
+        return mesh.model_concat(blocks, dim=dim + 1).flatten(dim, dim + 1)
 
     @staticmethod
     def backward(ctx, grad):
-        c = ctx.c
-        return grad.narrow(ctx.dim, ctx.mesh.model_rank * c, c), None, None
+        c, dim = ctx.c, ctx.dim
+        blocks = grad.unflatten(dim, (ctx.groups, -1))
+        mine = blocks.narrow(dim + 1, ctx.mesh.model_rank * c, c).flatten(dim, dim + 1)
+        return mine, None, None, None
 
 
 class Mesh:
@@ -307,11 +314,16 @@ class Mesh:
         gradient summed over the model group backward."""
         return _CopyToModel.apply(x, self)
 
-    def gather_channels(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    def gather_channels(self, x: torch.Tensor, dim: int = 1, groups: int = 1) -> torch.Tensor:
         """A column-split layer's output slice (B, C / M, ...) -> the whole
         (B, C, ...) (``dim`` 1; -1 for a linear layer's (..., C / M)),
-        differentiable (the backward keeps this rank's slice)."""
-        return _GatherChannels.apply(x, self, dim)
+        differentiable (the backward keeps this rank's slice). With
+        ``groups`` g the slice is g blocks of C / (g M), each rank's slice
+        of each of the leaf's g blocks (``training.sharding``'s grouped
+        split), and the whole comes back in the leaf's order: for a gate's
+        g = 2, [tanh 0..C/2 | sigmoid 0..C/2], not the ranks' slices side
+        by side."""
+        return _GatherChannels.apply(x, self, dim, groups)
 
     def reduce_from_model(self, x: torch.Tensor) -> torch.Tensor:
         """A row-split layer's partial product -> the whole one, summed over

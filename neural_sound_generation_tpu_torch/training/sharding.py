@@ -90,15 +90,46 @@ Where the prior's layout departs from ``_TP_RULES``:
     is added once, after the model group's sum. ``bos`` stays whole and
     each rank adds its slice of it to the embeddings' slices.
 
-WaveNet and the GatedPixelCNN wait for a later slice (``parallel.mesh.
-MODEL_AXIS_FAMILIES``): their gates split a 2G-channel output into tanh
-and sigmoid halves, which a contiguous split would give to different
-ranks.
+The gated families, WaveNet and the GatedPixelCNN, take ``_TP_RULES`` as
+it falls on their flax names, with the convolutions' bias departure above
+and these:
+
+  * a gate's grouped split. Both gate a 2G-channel pre-activation with
+    tanh(a) * sigmoid(b), a and b its two halves; ``_TP_RULES`` splits the
+    leaves that make it by contiguous output channels, which gives rank 0
+    the tanh half and rank 1 the sigmoid half, and GSPMD reshards around
+    that; the port cannot. Rank r holds channels [r G / M, (r + 1) G / M)
+    of each half (``Layout.groups`` 2, as the prior's qkv is split in
+    three), so it gates its own G / M channels, and the whole tree, and the
+    checkpoint, keep JAX's channel order. The leaves: WaveNet's
+    ``dilated_i`` (kernel and bias) and ``cond_i``; the PixelCNN's
+    ``vert_kernel``, ``vert_bias``, ``horiz_kernel``, ``horiz_bias``,
+    ``vert_to_horiz``, ``spatial_cond`` and each layer's
+    ``class_cond_embedding`` (its 2C feature axis), every one a
+    ``layer_i``'s.
+  * gates whose half does not divide. Where G % M != 0 every leaf of the
+    gates stays whole on every rank (the counterpart of JAX's "shard only
+    where it divides", the prior's heads' rule), and every rank computes
+    the gates whole: ``gate_channels`` 4 at M 4 has halves of 2, where JAX
+    would still split the 4-wide leaf. The other leaves still split where
+    they divide.
+  * leaves that no rule names stay whole, as in JAX: WaveNet's ``g_i``,
+    ``speaker_embed`` and ``input_embed``. A rank that uses only its
+    grouped slice of a whole leaf's output (``g_i``'s) takes it through
+    ``copy_to_model`` first, so that the leaf's gradient is the whole one,
+    as the prior's ``bos`` does.
+  * outputs that do not divide stay whole, as in JAX: ``post2`` of a
+    10-mixture MoL head (30 channels) at M 4.
+
+Each rank then runs the one-rank forward on its slices, gathering the
+channels where the next layer needs them whole (``models.wavenet``,
+``models.pixelcnn``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional
 
 import torch
@@ -106,14 +137,13 @@ from torch import nn
 
 from neural_sound_generation_tpu_torch.models.hiervqvae import HierVQVAE
 from neural_sound_generation_tpu_torch.models.layers import BatchNorm, GroupNorm
+from neural_sound_generation_tpu_torch.models.pixelcnn import GatedPixelCNN
 from neural_sound_generation_tpu_torch.models.transformer_prior import TransformerPrior
 from neural_sound_generation_tpu_torch.models.vae import VAE
 from neural_sound_generation_tpu_torch.models.vqvae import VQVAE
+from neural_sound_generation_tpu_torch.models.wavenet import WaveNet
 from neural_sound_generation_tpu_torch.models.wavevqvae import WaveVQVAE
-from neural_sound_generation_tpu_torch.parallel.mesh import (
-    MODEL_AXIS_FAMILIES,
-    model_param_shardings,
-)
+from neural_sound_generation_tpu_torch.parallel.mesh import model_param_shardings
 from neural_sound_generation_tpu_torch.training.train_state import (
     FlatParams,
     FusedOptState,
@@ -125,6 +155,13 @@ _TRANSPOSE = (nn.ConvTranspose1d, nn.ConvTranspose2d)
 _CONVS = (nn.Conv1d, nn.Conv2d, *_TRANSPOSE)
 #: the families whose convolutions and codebooks the layout splits
 _AUTOENCODERS = (VQVAE, HierVQVAE, WaveVQVAE, VAE)
+#: the leaves that make a gated family's pre-activation, split block-wise
+_GATE_LEAVES = {
+    WaveNet: re.compile(r"^(dilated|cond)_\d+\.(weight|bias)$"),
+    GatedPixelCNN: re.compile(
+        r"^layer_\d+\.((vert|horiz)_(kernel|bias)|(vert_to_horiz|spatial_cond)\.(weight|bias)"
+        r"|class_cond_embedding\.weight)$"),
+}
 
 
 def _norm_after(model: nn.Module, conv_name: str) -> Optional[str]:
@@ -146,10 +183,11 @@ def _norm_after(model: nn.Module, conv_name: str) -> Optional[str]:
 class Layout:
     """The port's tensor-parallel table for one model and M: the split
     axis of each sharded parameter and buffer, the column-split
-    convolutions and norms; for the transformer prior the leaves split
-    block by block (``groups``: the qkv projection's three), the split
-    linear layers ({prefix: "columns" or "rows"}), the routed blocks whose
-    experts split, and whether the embeddings split."""
+    convolutions and norms; the leaves split block by block (``groups``:
+    the transformer prior's qkv projection's three, a gate's two halves);
+    for the transformer prior the split linear layers ({prefix: "columns"
+    or "rows"}) and the routed blocks whose experts split; whether the
+    embeddings split (the prior's, the PixelCNN's code embedding)."""
 
     params: dict
     buffers: dict
@@ -201,22 +239,17 @@ def _prior_layout(model: TransformerPrior, n_model: int) -> Layout:
     return layout
 
 
-def tensor_parallel_layout(model: nn.Module, n_model: int) -> Layout:
-    """``model_param_shardings`` plus the port's departures: a column-split
-    convolution's bias and the norm after it (scale, offset, BatchNorm's
-    running statistics) split with its kernel; the transformer prior's
-    heads, biases and embeddings as the module docstring says."""
-    if isinstance(model, TransformerPrior):
-        return _prior_layout(model, n_model)
-    if not isinstance(model, _AUTOENCODERS):
-        raise NotImplementedError(f"{type(model).__name__}: {MODEL_AXIS_FAMILIES}")
-    params = model_param_shardings(model, n_model)
+def _conv_layout(model: nn.Module, params: dict, n_model: int) -> Layout:
+    """The convolutions' table from ``params`` (a ``model_param_shardings``
+    subset): each split convolution's bias and the norm after it split
+    with its kernel; every other leaf as ``params`` has it."""
+    params = dict(params)
     buffers: dict[str, int] = {}
     convs, norms = [], []
     for name, axis in list(params.items()):
         prefix, _, leaf = name.rpartition(".")
         module = model.get_submodule(prefix) if prefix else model
-        if not isinstance(module, _CONVS):
+        if not isinstance(module, _CONVS) or leaf != "weight":
             continue
         if axis != (1 if isinstance(module, _TRANSPOSE) else 0):
             raise NotImplementedError(f"{name}: only output-channel splits are laid out")
@@ -236,6 +269,41 @@ def tensor_parallel_layout(model: nn.Module, n_model: int) -> Layout:
         if isinstance(norm_module, BatchNorm):
             buffers[f"{norm}.running_mean"] = buffers[f"{norm}.running_var"] = 0
     return Layout(params, buffers, convs, norms)
+
+
+def _gated_layout(model: nn.Module, n_model: int) -> Layout:
+    """WaveNet's or the GatedPixelCNN's table: ``model_param_shardings``
+    with its convolutions' biases, and the gates' leaves split block-wise
+    in two where a half divides by M, else whole (the module docstring)."""
+    gate = _GATE_LEAVES[type(model)]
+    half = model.gate_channels // 2 if isinstance(model, WaveNet) else model.dim
+    params = {k: a for k, a in model_param_shardings(model, n_model).items()
+              if not gate.match(k)}
+    leaves = [k for k, _ in model.named_parameters() if gate.match(k)]
+    if half % n_model == 0:
+        # every gate leaf on its output channels: dim 0 of a kernel or a
+        # bias, dim 1 of a class table (n_classes, 2C)
+        params.update({k: 1 if "class_cond_embedding" in k else 0 for k in leaves})
+    layout = _conv_layout(model, params, n_model)
+    if half % n_model == 0:
+        layout.groups.update({k: 2 for k in layout.params if gate.match(k)})
+    layout.embed = "embedding.weight" in layout.params
+    return layout
+
+
+def tensor_parallel_layout(model: nn.Module, n_model: int) -> Layout:
+    """``model_param_shardings`` plus the port's departures: a column-split
+    convolution's bias and the norm after it (scale, offset, BatchNorm's
+    running statistics) split with its kernel; the transformer prior's
+    heads, biases and embeddings, and the gated families' gates, as the
+    module docstring says."""
+    if isinstance(model, TransformerPrior):
+        return _prior_layout(model, n_model)
+    if type(model) in _GATE_LEAVES:
+        return _gated_layout(model, n_model)
+    if not isinstance(model, _AUTOENCODERS):
+        raise NotImplementedError(f"{type(model).__name__}: no tensor-parallel layout")
+    return _conv_layout(model, model_param_shardings(model, n_model), n_model)
 
 
 def _slice(t: torch.Tensor, axis: int, rank: int, n: int, groups: int = 1) -> torch.Tensor:
@@ -308,6 +376,7 @@ def _shard_module(model: nn.Module, layout: Layout, rank: int, n: int) -> None:
     for prefix in layout.convs:
         conv = model.get_submodule(prefix)
         conv.model_split = True
+        conv.model_groups = layout.groups.get(f"{prefix}.weight", 1)
         conv.out_channels //= n
     for prefix in layout.norms:
         norm = model.get_submodule(prefix)

@@ -200,7 +200,7 @@ def test_sample_endpoint_over_http(trained):
 
 @pytest.mark.parametrize("flags,match", [
     (["--arch", "transformer", "--mesh-pipe", "2"], "parallel slice"),
-    (["--arch", "pixelcnn", "--mesh-model", "2"], "parallel slice"),
+    (["--arch", "pixelcnn", "--mesh-model", "2", "--mesh-pipe", "2"], "parallel slice"),
 ])
 def test_flags_of_later_slices_refuse(flags, match):
     common = ["--vqvae-ckpt", "/nonexistent", "--device", "cpu"]

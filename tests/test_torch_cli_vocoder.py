@@ -111,12 +111,13 @@ def test_synthesize_refusals(artifact, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["train", "--datadir", "x", "--mesh-model", "2"],
+    ["train", "--datadir", "x", "--mesh-model", "2", "--mesh-pipe", "2"],
     ["train", "--datadir", "x", "--bf16", "--mesh-pipe", "2", "--multi-steps", "4"],
     ["train", "--datadir", "x", "--mesh-model", "2", "--pp-microbatches", "2"],
 ])
 def test_next_slice_raises(argv):
-    """The mesh's model and pipe axes come with later parallel slices."""
+    """The mesh's pipe axis comes with a later parallel slice, with or
+    without the model axis."""
     with pytest.raises(NotImplementedError, match="parallel slice"):
         vocoder.main(argv)
 

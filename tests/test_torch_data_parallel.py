@@ -256,9 +256,9 @@ def test_a_single_process_is_not_a_group():
 
 @pytest.mark.parametrize("run,exc,match", [
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch", "pixelcnn",
-                         "--mesh-model", "2", "--device", "cpu"]), NotImplementedError,
-     r"--mesh-model 2: the model axis of WaveNet and the GatedPixelCNN \(a gate's grouped "
-     r"split\) comes with a later parallel slice of the port \(ROADMAP Queue 1, item 4b-iv\)"),
+                         "--mesh-model", "2", "--device", "cpu"]), SystemExit,
+     r"--mesh-model 2: the model axis \(tensor parallel\) of 2 ranks needs a world of "
+     r"n_data x 2 ranks, but this run has 1"),
     (lambda: main.main(["--mesh-data", "2", "--device", "cpu"]), SystemExit,
      r"--mesh-data 2 asks for 2 data-parallel ranks, but this run has 1: launch one process "
      r"per rank, torchrun --nproc_per_node 2"),
@@ -267,14 +267,14 @@ def test_a_single_process_is_not_a_group():
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--mesh-pipe", "2"]),
      NotImplementedError, r"--mesh-pipe 2: the pipe axis \(pipeline and sequence "
      r"parallelism\) comes with a later parallel slice"),
-    (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--mesh-model", "2"]),
-     NotImplementedError, r"--mesh-model 2: the model axis"),
+    (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--mesh-model", "2",
+                         "--device", "cpu"]), SystemExit, r"--mesh-model 2: the model axis"),
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--mesh-data", "2",
                          "--device", "cpu"]), SystemExit, r"2 data-parallel ranks"),
     (lambda: vocoder.main(["train", "--datadir", "x", "--pp-microbatches", "2"]),
      NotImplementedError, r"--mesh-pipe/--pp-microbatches: the pipe axis"),
-    (lambda: vocoder.main(["train", "--datadir", "x", "--mesh-model", "2"]),
-     NotImplementedError, r"--mesh-model 2: the model axis"),
+    (lambda: vocoder.main(["train", "--datadir", "x", "--mesh-model", "2", "--device", "cpu"]),
+     SystemExit, r"--mesh-model 2: the model axis"),
     (lambda: vocoder.main(["train", "--datadir", "x", "--mesh-data", "2", "--device", "cpu"]),
      SystemExit, r"2 data-parallel ranks"),
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch",

@@ -394,12 +394,13 @@ def test_flagship_step_equals_the_jax_tensor_parallel_step(tp, world):
 
 @pytest.mark.parametrize("run,exc,match", [
     (lambda: vocoder.main(["train", "--datadir", "x", "--mesh-model", "2", "--device", "cpu"]),
-     NotImplementedError, r"--mesh-model 2: the model axis of WaveNet and the GatedPixelCNN "
-                          r"\(a gate's grouped split\) comes with a later parallel slice of "
-                          r"the port \(ROADMAP Queue 1, item 4b-iv\)"),
+     SystemExit, r"--mesh-model 2: the model axis \(tensor parallel\) of 2 ranks needs a "
+                 r"world of n_data x 2 ranks, but this run has 1"),
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch", "pixelcnn",
                          "--mesh-model", "4", "--mesh-data", "1", "--device", "cpu"]),
-     NotImplementedError, r"--mesh-model 4: the model axis of WaveNet and the GatedPixelCNN"),
+     SystemExit, r"--mesh-model 4: the model axis \(tensor parallel\) of 4 ranks needs a "
+                 r"world of n_data x 4 ranks, but this run has 1: launch torchrun "
+                 r"--nproc_per_node 4"),
     (lambda: main.main(["--model", "hiervqvae", "--mesh-model", "2", "--device", "cpu"]),
      SystemExit, r"--mesh-model 2: the model axis \(tensor parallel\) of 2 ranks needs a "
                  r"world of n_data x 2"),
@@ -410,9 +411,10 @@ def test_flagship_step_equals_the_jax_tensor_parallel_step(tp, world):
                          "transformer", "--mesh-model", "2", "--mesh-pipe", "2"]),
      NotImplementedError, r"--mesh-pipe 2: the pipe axis"),
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch", "pixelcnn",
-                         "--mesh-model", "2"]), NotImplementedError, r"item 4b-iv"),
-    (lambda: vocoder.main(["train", "--datadir", "x", "--mesh-model", "2"]),
-     NotImplementedError, r"WaveNet.*item 4b-iv"),
+                         "--mesh-model", "2", "--mesh-pipe", "2"]), NotImplementedError,
+     r"--mesh-pipe 2: the pipe axis"),
+    (lambda: vocoder.main(["train", "--datadir", "x", "--mesh-model", "2", "--pp-microbatches",
+                           "2"]), NotImplementedError, r"--mesh-pipe/--pp-microbatches: the pipe"),
 ])
 def test_model_axis_refusals_name_their_slice(run, exc, match):
     with pytest.raises(exc, match=match):
