@@ -3,9 +3,10 @@
 residual-VQ bf16), prior, vocoder, 3x3-convolution A/B, corpus
 preprocessing, mel-inversion, other-autoencoder (HierVQVAE, WaveVQVAE,
 VAE), PixelCNN-prior, hierarchical-chain, vocoder-training, routed
-(switch-MoE) prior, bf16 prior, motion, data-parallel and tensor-parallel
+(switch-MoE) prior, bf16 prior, motion, data-parallel, tensor-parallel
 (the flat VQ-VAE, the transformer prior, the other autoencoders, the
-vocoder and the PixelCNN) paths on one CUDA card and checks them.
+vocoder and the PixelCNN) and pipeline-parallel (the transformer prior and
+the vocoder) paths on one CUDA card and checks them.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
 
@@ -301,7 +302,33 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases:
     2 checkpoints on this process; kernel 1 at the ranks' encode shapes
     and kernel 3 at the vocoder's and the PixelCNN's rank n against their
     plain versions; the vocoder step's collectives replayed and steps/s;
-22. summary: one JSON line per kernel, then the result line.
+22. pipeline parallelism: ``cli.prior train --arch transformer
+    --mesh-pipe`` at phase 19's widths and ``cli.vocoder train
+    --mesh-pipe`` at phase 21's under ``torchrun``, the ranks sharing this
+    card over gloo: at W 2 (pipe 2, 2 microbatches) the dense, routed,
+    bf16 and hier-bottom priors and the mel MoL, bf16, mulaw-quantize
+    (speakers) and units vocoders; at W 4 the dense prior on (data 2 x
+    pipe 2) and at pipe 4 with 4 microbatches, a pipe-4 --resume from the
+    pipe-2 ``_pp_train`` sibling and the vocoder at pipe 4 on batch 4.
+    Each job against the W 1 run of its flags (phases 19 and 21's; the
+    hier-bottom transformer and the batch-4 vocoder run here): the first
+    loss (2e-2 in bf16), the gradient norm and the gathered gradient
+    (phase 17's limits, the vocoder's as phase 21), the parameters after
+    the first step within 2 lr; each rank's launches (kernel 4 a stage's
+    layers x microbatches x steps for each kernel at the microbatch's BH,
+    kernel 3 once a step, kernel 1 once an encoded batch), its state
+    bit-equal across its stage's ranks and its rest across its pipe group,
+    its flat buffer its stage's parameters; the hand-offs' seconds and
+    bytes; ``cli.prior sample`` and ``synthesize`` from the pipe-2
+    artifacts on this process; kernel 4 at BH 16 and 32, kernel 3 at a
+    stage's n and kernel 1 at a rank's rows against their plain versions;
+23. summary: one JSON line per kernel, then the result line.
+
+Phases 18 to 22 share one ``torchrun`` launch a world (a launch's rank
+start-up costs some 20 s of the command's 1,200): the one-rank jobs of
+phases 19 and 20 run first, in this process; phase 21's launches carry
+the two- and four-rank jobs of phases 18, 19, 20 and 22; then the checks
+of 18, 19, 20 and 22 run in that order.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 port is not beside this script, or when any check fails.
@@ -5086,8 +5113,8 @@ def run_dp_job(torch, mods, kernels, job: dict) -> dict:
     rec["launches"] = read_launches(*kernels)
     if job["cli"] == "evaluate":
         rec["means"] = result
-    if trainers:
-        state = trainers[-1].state
+    if trainers or pp_states:
+        state = trainers[-1].state if trainers else pp_states[-1]
         rec["digest"] = state_digest(torch, state)
         if state.codebook_ema is not None:
             rec["codebook"] = state.model.codebook.detach().cpu().clone()
@@ -5411,7 +5438,7 @@ def data_parallel_phase(torch, root: str, corpus: str, vq_ckpt: str, card: str) 
 TP_MODEL = 2
 TP_WORLDS = (2, 4)  # (data 1 x model 2), (data 2 x model 2)
 TP_SHARDS = (2, 4)  # the direct kernel check's codebook shards
-TP_TIMEOUT_S = 480
+TP_TIMEOUT_S = 720  # a launch that phases 18-22 share (some 300 s at W 2)
 TP_COLLECTIVE_ITERS = 5
 # the header's bound on a winning score (csrc/vq_nearest.cu: "some 1e-4
 # absolute at |x| = |e| = 16"), scaled by |x| |e| / 256 for other norms
@@ -5539,7 +5566,9 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
     rank 0: they are the same on every rank); each search's rows and codebook shard; each search of the first step (its
     rows, codebook shard and global indices); with ``record_first_state``
     the model's state and the batch the first step starts from; kernel 3's
-    n; the collectives of the first step."""
+    n; the collectives of the first step. A pipe job's steps
+    (``parallel.pipeline.PipelineStep``) are recorded alike, with the
+    hand-offs' host seconds and bytes."""
     from neural_sound_generation_tpu_torch.ops import vq as vq_ops
     from neural_sound_generation_tpu_torch.ops.cuda import vq_kernel
     from neural_sound_generation_tpu_torch.parallel import distributed
@@ -5550,11 +5579,14 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
     from neural_sound_generation_tpu_torch.models.moe import SwitchMoE
     from neural_sound_generation_tpu_torch.ops.cuda import flash_attention as fa_mod
 
+    from neural_sound_generation_tpu_torch.parallel import pipeline as pp_mod
+
     cli = mods[job["cli"]]
     rec = {"metrics": [], "step_t": [], "searches": [], "adam_n": [], "collectives": [],
            "attention": [], "routing": []}
     trainers = []
     recording = {"on": False}
+    pp_states = []
 
     def route(moe, args, out):
         if recording["on"]:
@@ -5584,19 +5616,37 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
                 rec["step_t"].append(time.perf_counter())
                 rec["metrics"].append({k: float(v) for k, v in metrics.items()})
                 if len(rec["metrics"]) == 1:
-                    flat = state.flat
-                    named = {f"params/{k}": g for k, g in flat.named(flat.grad).items()}
-                    params = {f"params/{k}": p for k, p in flat.named(flat.flat).items()}
-                    if state.shards is not None:
-                        named = state.shards.gather_tensors(named)
-                        params = state.shards.gather_tensors(params)
-                    if distributed.rank() == 0:  # gathered: the same on every rank
-                        rec["first_grad"] = {k[7:]: g.cpu().clone() for k, g in named.items()}
-                        rec["first_params"] = {k[7:]: p.cpu().clone()
-                                               for k, p in params.items()}
+                    record_first(state)
                 return state, metrics
 
             self._train_step = step
+
+    def record_first(state) -> None:
+        flat = state.flat
+        named = {f"params/{k}": g for k, g in flat.named(flat.grad).items()}
+        params = {f"params/{k}": p for k, p in flat.named(flat.flat).items()}
+        if state.shards is not None:
+            named = state.shards.gather_tensors(named)
+            params = state.shards.gather_tensors(params)
+        if distributed.rank() == 0:  # gathered: the same on every rank
+            rec["first_grad"] = {k[7:]: g.cpu().clone() for k, g in named.items()}
+            rec["first_params"] = {k[7:]: p.cpu().clone() for k, p in params.items()}
+
+    pipeline_call = pp_mod.PipelineStep.__call__
+
+    def pipeline_step(self, state, batch):
+        # a pipe job's step (parallel.pipeline): recorded as a Trainer's
+        recording["on"] = not rec["metrics"]
+        metrics = pipeline_call(self, state, batch)
+        recording["on"] = False
+        sync(torch)
+        rec["step_t"].append(time.perf_counter())
+        rec["metrics"].append({k: float(v) for k, v in metrics.items()})
+        rec["handoff_s"], rec["handoff_bytes"] = self.handoff_seconds, self.handoff_bytes
+        if len(rec["metrics"]) == 1:
+            record_first(state)
+        pp_states[:] = [state]
+        return metrics
 
     nearest, merged_nearest = vq_kernel.nearest_codebook_indices, vq_ops._nearest_indices
     adam = ts_mod.fused_adam_update
@@ -5637,6 +5687,7 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
 
     saved_trainer = cli.Trainer
     cli.Trainer = Recorded
+    pp_mod.PipelineStep.__call__ = pipeline_step
     vq_kernel.nearest_codebook_indices, vq_ops._nearest_indices = recorded_nearest, recorded_merged
     ts_mod.fused_adam_update = recorded_adam
     for name in saved:
@@ -5650,6 +5701,7 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
         result = cli.main(job["argv"])
     finally:
         cli.Trainer = saved_trainer
+        pp_mod.PipelineStep.__call__ = pipeline_call
         vq_kernel.nearest_codebook_indices, vq_ops._nearest_indices = nearest, merged_nearest
         ts_mod.fused_adam_update = adam
         for name, fn in saved.items():
@@ -5660,8 +5712,8 @@ def run_tp_job(torch, mods, kernels, job: dict) -> dict:
     rec["launches"] = read_launches(*kernels)
     if job["cli"] == "evaluate":
         rec["means"] = result
-    if trainers:
-        state = trainers[-1].state
+    if trainers or pp_states:
+        state = trainers[-1].state if trainers else pp_states[-1]
         rec["digests"] = tp_digests(torch, state)
         rec["state_bytes"] = sum(t.numel() * t.element_size() for t in (
             state.flat.flat, *state.opt_state.moments(),
@@ -5692,11 +5744,11 @@ def time_tp_collectives(torch, mesh, ops: list, iters: int = TP_COLLECTIVE_ITERS
 
 
 def tp_rank_main(spec_path: str) -> int:
-    """One rank of a phase-18, 19, 20 or 21 launch (``chip_smoke.py --tp-rank
+    """One rank of a phase-18 to 22 launch (``chip_smoke.py --tp-rank
     spec.json`` under torchrun): joins the group with the port's backend
     rule, runs the spec's jobs in order, replays the first-step collectives
-    of the spec's ``timing_job`` on the job's mesh (none on one rank) and
-    writes one record per job."""
+    of each of the spec's ``timings`` jobs on a (W / 2, 2) mesh (none on
+    one rank) and writes one record per job."""
     import torch
     import torch.distributed as dist
 
@@ -5729,15 +5781,14 @@ def tp_rank_main(spec_path: str) -> int:
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
     timing = {"backend": None, "world": world}
-    if world > 1:
-        # the collectives' ms a step: the timing job's first step replayed
+    if world > 1 and spec["timings"]:
+        # the collectives' ms a step: each timing job's first step replayed
         mesh = make_mesh(n_data=world // TP_MODEL, n_model=TP_MODEL)
-        first = records[spec.get("timing_job", "flagship")]
-        timing.update(backend=dist.get_backend(),
-                      collectives_ms=time_tp_collectives(
-                          torch, mesh, first["collectives"],
-                          spec.get("collective_iters", TP_COLLECTIVE_ITERS)),
-                      collective_calls=len(first["collectives"]))
+        by_job = {job: {"collectives_ms": time_tp_collectives(
+                            torch, mesh, records[job]["collectives"], iters),
+                        "collective_calls": len(records[job]["collectives"])}
+                  for job, iters in spec["timings"].items()}
+        timing.update(backend=dist.get_backend(), by_job=by_job)
     with open(os.path.join(spec["out"], f"timing_rank{rank}.json"), "w", encoding="utf-8") as f:
         json.dump(timing, f)
     distributed.barrier()
@@ -5757,12 +5808,18 @@ def tp_cli_modules() -> dict:
 
 
 def launch_tp(torch, root: str, jobs: list, world: int, tag: str = "tp",
-              timing_job: str = "flagship", collective_iters: int = TP_COLLECTIVE_ITERS) -> dict:
+              timing_job: str | None = "flagship", collective_iters: int = TP_COLLECTIVE_ITERS,
+              riders: dict | None = None, rider_timings: dict | None = None) -> dict:
     """One torchrun launch of ``world`` ranks on this card, its files under
     ``root/tag``; every rank's records. A rank's failure fails the phase.
     One rank runs the jobs in this process, the one-rank program (no
     process group, as a torchrun launch of one rank has none), without a
-    second process's start-up and its records' round trip through files."""
+    second process's start-up and its records' round trip through files.
+    ``riders``: {phase tag: jobs} of other phases of the same world, run
+    after ``jobs`` in the same launch (one rank start-up for all, some 20 s
+    of the command's 1,200), each tag's (timing job, iterations) in
+    ``rider_timings`` replayed; they come back under ``"riders"``, a run of
+    the same shape a tag, with their own names."""
     out = os.path.join(root, tag, f"w{world}")
     os.makedirs(out, exist_ok=True)
     if world == 1:
@@ -5779,9 +5836,13 @@ def launch_tp(torch, root: str, jobs: list, world: int, tag: str = "tp",
         return {"ranks": [records], "timing": [{"backend": None, "world": 1}],
                 "seconds": time.perf_counter() - t0}
     spec = os.path.join(out, "spec.json")
+    riders = riders or {}
+    # a rider's name carries its tag, so that two phases' jobs never share a file
+    tagged = [dict(job, name=f"{rt}.{job['name']}") for rt, js in riders.items() for job in js]
+    timings = {**({timing_job: collective_iters} if timing_job else {}),
+               **{f"{rt}.{job}": iters for rt, (job, iters) in (rider_timings or {}).items()}}
     with open(spec, "w", encoding="utf-8") as f:
-        json.dump({"jobs": jobs, "out": out, "device": DEVICE, "timing_job": timing_job,
-                   "collective_iters": collective_iters}, f)
+        json.dump({"jobs": jobs + tagged, "out": out, "device": DEVICE, "timings": timings}, f)
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1")
@@ -5793,12 +5854,23 @@ def launch_tp(torch, root: str, jobs: list, world: int, tag: str = "tp",
     seconds = time.perf_counter() - t0
     check(proc.returncode == 0, f"{tag}: torchrun with {world} ranks exited "
           f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    ranks = [{job["name"]: torch.load(os.path.join(out, f"{job['name']}_rank{r}.pt"),
-                                      weights_only=False) for job in jobs}
-             for r in range(world)]
-    timing = [json.load(open(os.path.join(out, f"timing_rank{r}.json"), encoding="utf-8"))
-              for r in range(world)]
-    return {"ranks": ranks, "timing": timing, "seconds": seconds}
+    def records(of: list, prefix: str = "") -> list:
+        return [{job["name"]: torch.load(os.path.join(out, f"{prefix}{job['name']}_rank{r}.pt"),
+                                         weights_only=False) for job in of}
+                for r in range(world)]
+
+    raw = [json.load(open(os.path.join(out, f"timing_rank{r}.json"), encoding="utf-8"))
+           for r in range(world)]
+
+    def timing(job):  # a job's replayed collectives at the top, as one launch of it has them
+        return [{**t, **t.get("by_job", {}).get(job, {})} for t in raw]
+
+    run = {"ranks": records(jobs), "timing": timing(timing_job), "seconds": seconds}
+    run["riders"] = {
+        rt: {"ranks": records(js, f"{rt}."), "seconds": seconds,
+             "timing": timing(f"{rt}.{(rider_timings or {}).get(rt, (None,))[0]}")}
+        for rt, js in riders.items()}
+    return run
 
 
 def check_tp_groups(ranks: list, job: str) -> None:
@@ -5875,23 +5947,25 @@ def tp_first_step(torch, one: dict, ranks: list) -> dict:
 
 
 def tensor_parallel_phase(torch, root: str, corpus: str, card: str, dp: dict, vq_kernel,
-                          fused_adam, gen) -> tuple[dict, dict]:
+                          fused_adam, gen, runs: dict | None = None) -> tuple[dict, dict]:
     """Phase 18: ``cli.main --mesh-model 2`` under torchrun at W 2 (data 1
     x model 2) and W 4 (data 2 x model 2), the ranks sharing this card over
     gloo, against phase 17's W 1 run; at W 2 a --resume step from phase
     17's W 1 checkpoint, ``cli.evaluate --mesh-model 2`` and one RVQ/bf16
     step; kernel 1 sharded against one launch, kernel 3 at the local n.
-    Returns (the record, the kernel rows)."""
+    ``runs``: its launches' records where they ran already (riding phase
+    21's). Returns (the record, the kernel rows)."""
     from neural_sound_generation_tpu_torch.config import Config
     from neural_sound_generation_tpu_torch.models import VQVAE
     from neural_sound_generation_tpu_torch.ops import vq as vq_ops
     from neural_sound_generation_tpu_torch.training.train_state import create_train_state
 
     t0 = time.perf_counter()
-    shutil.rmtree(os.path.join(root, "tp"), ignore_errors=True)
     kernel_row = sharded_search_check(torch, vq_kernel, vq_ops, gen)
     emit(kernel_row)
-    runs = {w: launch_tp(torch, root, tp_jobs(root, corpus, w), w) for w in TP_WORLDS}
+    if runs is None:
+        shutil.rmtree(os.path.join(root, "tp"), ignore_errors=True)
+        runs = {w: launch_tp(torch, root, tp_jobs(root, corpus, w), w) for w in TP_WORLDS}
     one = {job: torch.load(os.path.join(root, "dp", "w1", f"{job}_rank0.pt"),
                            weights_only=False) for job in ("flagship", "evaluate", "rvq")}
     rows = TRAIN_BATCH * (80 // 4) * (28 // 4)
@@ -6031,6 +6105,12 @@ def p19_jobs(root: str, corpus: str, vq_ckpt: str, world: int) -> list[dict]:
     return jobs
 
 
+def p19_runs(torch, root: str, corpus: str, vq_ckpt: str) -> dict:
+    """Phase 19's W 1 jobs, in this process, from an empty ``tp_prior``."""
+    shutil.rmtree(os.path.join(root, "tp_prior"), ignore_errors=True)
+    return launch_tp(torch, root, p19_jobs(root, corpus, vq_ckpt, 1), 1, "tp_prior")
+
+
 def p19_first_step(torch, one: dict, ranks: list) -> dict:
     """A job's first step on the model axis against W 1's: the loss (the
     data ranks' mean), the gathered gradient relative to W 1's norm, and
@@ -6062,19 +6142,23 @@ def p19_bh(world: int) -> int:
 
 
 def prior_tensor_parallel_phase(torch, cli_prior, root: str, corpus: str, vq_ckpt: str,
-                                card: str, fa, fused_adam, gen) -> tuple[dict, dict]:
+                                card: str, fa, fused_adam, gen,
+                                runs: dict | None = None) -> tuple[dict, dict]:
     """Phase 19: ``cli.prior train --arch transformer --mesh-model 2`` under
     torchrun at W 2 (data 1 x model 2) and W 4 (data 2 x model 2), the
     ranks sharing this card over gloo, each job against a W 1 launch of the
     same flags: the dense prior, the routed prior (expert parallelism), one
     --bf16 step and, at W 2, a --resume step from W 1's checkpoint; then
     ``cli.prior sample`` from W 2's checkpoint on this process, kernel 4 at
-    a rank's BH 32 and kernel 3 at the dense and routed ranks' n. Returns
-    (the record, the kernel rows)."""
+    a rank's BH 32 and kernel 3 at the dense and routed ranks' n. ``runs``:
+    the launches' records where they ran already (W 1's from ``p19_runs``,
+    W 2's and 4's riding phase 21's launches). Returns (the record, the
+    kernel rows, with W 1's records)."""
     t0 = time.perf_counter()
-    shutil.rmtree(os.path.join(root, "tp_prior"), ignore_errors=True)
-    runs = {w: launch_tp(torch, root, p19_jobs(root, corpus, vq_ckpt, w), w, "tp_prior", "dense")
-            for w in P19_WORLDS}
+    if runs is None:
+        runs = {1: p19_runs(torch, root, corpus, vq_ckpt)}
+        runs.update({w: launch_tp(torch, root, p19_jobs(root, corpus, vq_ckpt, w), w,
+                                  "tp_prior", "dense") for w in P19_WORLDS[1:]})
     one = runs[1]["ranks"][0]
     layers = PRIOR_LAYERS
     out = {"phase": "tensor_parallel_prior", "card": card, "model": TP_MODEL,
@@ -6170,7 +6254,7 @@ def prior_tensor_parallel_phase(torch, cli_prior, root: str, corpus: str, vq_ckp
     out["launches"] = {f"w{w}": [{job: r[job]["launches"] for job in r}
                                  for r in runs[w]["ranks"]] for w in P19_WORLDS}
     out["seconds"] = time.perf_counter() - t0
-    return out, {"attention": attn_rows, "adam": adam_rows}
+    return out, {"attention": attn_rows, "adam": adam_rows, "w1": one}
 
 
 # ---------------------------------------------------------------------------
@@ -6340,28 +6424,39 @@ def p20_shares(torch, models: dict) -> dict:
     return out
 
 
-def autoencoder_tensor_parallel_phase(torch, dsp, root: str, corpus: str, card: str,
-                                      vq_kernel, fused_adam, gen) -> tuple[dict, dict]:
-    """Phase 20: ``cli.main --model hiervqvae|wavevqvae|vae --mesh-model 2``
-    under torchrun at W 1, W 2 (data 1 x model 2) and, for the raw wave
-    model, W 4 (2 x 2), the ranks sharing this card over gloo, at phase
-    11's full widths and flags, each job against W 1's; ``cli.evaluate
-    --mesh-model 2`` and a --resume step from W 1's hier and wave
-    checkpoints; kernel 1 at the rank's K 256 shards and kernel 3 at each
-    rank's n against their plain versions. Returns (the record, the kernel
-    rows)."""
-    t0 = time.perf_counter()
+def p20_data(torch, dsp, root: str, corpus: str) -> dict:
+    """Phase 20's inputs in an empty ``tp_ae``: the corpus, a
+    mulaw-quantize preset and mu-law copy, MNIST."""
     base = os.path.join(root, "tp_ae")
     shutil.rmtree(base, ignore_errors=True)
     os.makedirs(base)
     preset = os.path.join(base, "mulaw_quantize.json")
     with open(preset, "w", encoding="utf-8") as f:
         json.dump({"input_type": "mulaw-quantize", "quantize_channels": 256}, f)
-    data = {"corpus": corpus, "preset": preset,
+    return {"corpus": corpus, "preset": preset,
             "mulaw": mulaw_corpus(torch, dsp, corpus, os.path.join(base, "corpus_mulaw"), 256),
             "mnist": write_mnist(os.path.join(base, "mnist"))}
-    runs = {w: launch_tp(torch, root, p20_jobs(root, data, w), w, "tp_ae", "wave_raw",
-                         P20_COLLECTIVE_ITERS) for w in P20_WORLDS}
+
+
+def autoencoder_tensor_parallel_phase(torch, dsp, root: str, corpus: str, card: str,
+                                      vq_kernel, fused_adam, gen, data: dict | None = None,
+                                      runs: dict | None = None) -> tuple[dict, dict]:
+    """Phase 20: ``cli.main --model hiervqvae|wavevqvae|vae --mesh-model 2``
+    under torchrun at W 1, W 2 (data 1 x model 2) and, for the raw wave
+    model, W 4 (2 x 2), the ranks sharing this card over gloo, at phase
+    11's full widths and flags, each job against W 1's; ``cli.evaluate
+    --mesh-model 2`` and a --resume step from W 1's hier and wave
+    checkpoints; kernel 1 at the rank's K 256 shards and kernel 3 at each
+    rank's n against their plain versions. ``data`` (``p20_data``) and
+    ``runs``: its inputs and launches' records where they were made
+    already (W 1 here, W 2 and 4 riding phase 21's launches). Returns (the
+    record, the kernel rows)."""
+    t0 = time.perf_counter()
+    base = os.path.join(root, "tp_ae")
+    if runs is None:
+        data = p20_data(torch, dsp, root, corpus)
+        runs = {w: launch_tp(torch, root, p20_jobs(root, data, w), w, "tp_ae", "wave_raw",
+                             P20_COLLECTIVE_ITERS) for w in P20_WORLDS}
     one = runs[1]["ranks"][0]
     argv_w1 = {job["name"]: job["argv"] for job in p20_jobs(root, data, 1)}
     cpu_gaps: dict = {}
@@ -6586,6 +6681,22 @@ def p21_jobs(root: str, data: dict, world: int) -> list[dict]:
     return jobs
 
 
+def p21_data(torch, dsp, base: str, data: dict) -> dict:
+    """``data`` with the vocoder jobs' presets under ``base`` (the lr,
+    mulaw-quantize with speakers) and the mu-law copy of the corpus."""
+    data = dict(data, lr=os.path.join(base, "vocoder_lr.json"),
+                mulaw_preset=os.path.join(base, "mulaw_speakers.json"),
+                mulaw=p21_mulaw_corpus(torch, dsp, data["corpus"],
+                                       os.path.join(base, "corpus_mulaw")))
+    with open(data["lr"], "w", encoding="utf-8") as f:
+        json.dump({"initial_learning_rate": VT_LR}, f)
+    with open(data["mulaw_preset"], "w", encoding="utf-8") as f:
+        json.dump({"input_type": "mulaw-quantize", "quantize_channels": 256,
+                   "exponential_moving_average": False, "gin_channels": VT_SPEAKER_GIN,
+                   "initial_learning_rate": VT_LR}, f)
+    return data
+
+
 def p21_cpu_grad(torch, cli, one: dict, argv: list) -> dict:
     """W 1's first step again on the CPU (float32, this process's threads)
     from W 1's recorded state and batch: the gradient by name after the
@@ -6620,7 +6731,8 @@ def p21_shares(torch, cli_vocoder, cfg) -> dict:
 
 
 def gated_tensor_parallel_phase(torch, dsp, cli_vocoder, cli_prior, root: str, data: dict,
-                                card: str, vq_kernel, fused_adam, gen) -> tuple[dict, dict]:
+                                card: str, vq_kernel, fused_adam, gen,
+                                riders=None) -> tuple[dict, dict]:
     """Phase 21: ``cli.vocoder train --mesh-model 2`` and ``cli.prior train
     --mesh-model 2`` (the default ``--arch pixelcnn``) under torchrun at W
     1, W 2 (data 1 x model 2) and W 4 (2 x 2), the ranks sharing this card
@@ -6629,25 +6741,24 @@ def gated_tensor_parallel_phase(torch, dsp, cli_vocoder, cli_prior, root: str, d
     checkpoints on this process, kernel 1 at the ranks' encode shapes and
     kernel 3 at the ranks' n. ``data``: the chirp corpus ("corpus"), phase
     5's VQ-VAE ("vq"), phase 11's HierVQVAE ("hier") and WaveVQVAE
-    ("units"). Returns (the record, the kernel rows)."""
+    ("units"). ``riders(data, world) -> ({tag: jobs}, {tag: (timing job,
+    iterations)})``: other phases' jobs that ride this phase's launches of
+    the same world (phases 18, 19, 20 and 22). Returns (the record, the
+    kernel rows, with W 1's records, their argv and the derived data, which
+    phase 22 holds its pipe jobs against, and the riders' runs by world and
+    tag)."""
     from neural_sound_generation_tpu_torch.config import Config, load_preset
 
     t0 = time.perf_counter()
     base = os.path.join(root, "tp_gated")
     shutil.rmtree(base, ignore_errors=True)
     os.makedirs(base)
-    data = dict(data, lr=os.path.join(base, "vocoder_lr.json"),
-                mulaw_preset=os.path.join(base, "mulaw_speakers.json"),
-                mulaw=p21_mulaw_corpus(torch, dsp, data["corpus"],
-                                       os.path.join(base, "corpus_mulaw")))
-    with open(data["lr"], "w", encoding="utf-8") as f:
-        json.dump({"initial_learning_rate": VT_LR}, f)
-    with open(data["mulaw_preset"], "w", encoding="utf-8") as f:
-        json.dump({"input_type": "mulaw-quantize", "quantize_channels": 256,
-                   "exponential_moving_average": False, "gin_channels": VT_SPEAKER_GIN,
-                   "initial_learning_rate": VT_LR}, f)
-    runs = {w: launch_tp(torch, root, p21_jobs(root, data, w), w, "tp_gated", "mel",
-                         P21_COLLECTIVE_ITERS) for w in P21_WORLDS}
+    data = p21_data(torch, dsp, base, data)
+    runs = {}
+    for w in P21_WORLDS:
+        jobs, timings = riders(data, w) if riders and w > 1 else ({}, {})
+        runs[w] = launch_tp(torch, root, p21_jobs(root, data, w), w, "tp_gated", "mel",
+                            P21_COLLECTIVE_ITERS, jobs, timings)
     one = runs[1]["ranks"][0]
     argv_w1 = {job["name"]: job["argv"] for job in p21_jobs(root, data, 1)}
     mods = {"vocoder": cli_vocoder, "prior": cli_prior}
@@ -6767,8 +6878,8 @@ def gated_tensor_parallel_phase(torch, dsp, cli_vocoder, cli_prior, root: str, d
                      for s in runs[w]["ranks"][0][job]["searches"]})
     vq_rows = {}
     for n, k in shapes:
-        x = torch.randn(n, VQ_D, generator=gen, device="cuda")
-        cb = torch.randn(k, VQ_D, generator=gen, device="cuda")
+        x = torch.randn(n, VQ_D, generator=gen, device=DEVICE)
+        cb = torch.randn(k, VQ_D, generator=gen, device=DEVICE)
         row = compare_vq(torch, vq_kernel, x, cb)
         row["shape_of"] = f"tensor_parallel_gated_n{n}"
         emit(row)
@@ -6786,7 +6897,345 @@ def gated_tensor_parallel_phase(torch, dsp, cli_vocoder, cli_prior, root: str, d
     out["launches"] = {f"w{w}": [{job: r[job]["launches"] for job in r}
                                  for r in runs[w]["ranks"]] for w in P21_WORLDS}
     out["seconds"] = time.perf_counter() - t0
-    return out, {"vq": vq_rows, "adam": adam_rows}
+    return out, {"vq": vq_rows, "adam": adam_rows, "w1": one, "w1_argv": argv_w1, "data": data,
+                 "riders": {w: run["riders"] for w, run in runs.items() if run.get("riders")}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: the pipe axis (GPipe)
+# ---------------------------------------------------------------------------
+
+P22_PRIOR_STEPS = 2  # the dense pipe-2 prior's steps (its _pp_train feeds the pipe-4 resume)
+P22_BATCH4 = 4  # the pipe-4 vocoder's batch: one row a microbatch
+#: each pipe job: (its W 1 record's job, its CLI, bf16, the mesh flags);
+#: the jobs of a launch of W ranks are those whose flags make W (they ride
+#: phase 21's launches, so their names are its and phase 19's apart)
+P22_JOBS = {
+    "pp_dense": ("dense", "prior", False, ["--mesh-pipe", "2"]),
+    "pp_routed": ("routed", "prior", False, ["--mesh-pipe", "2"]),
+    "pp_bf16": ("bf16", "prior", True, ["--mesh-pipe", "2"]),
+    "pp_hier_bottom": ("hier_bottom", "prior", False, ["--mesh-pipe", "2"]),
+    "pp_mel": ("mel", "vocoder", False, ["--mesh-pipe", "2"]),
+    "pp_mel_bf16": ("mel_bf16", "vocoder", True, ["--mesh-pipe", "2"]),
+    "pp_mulaw": ("mulaw", "vocoder", False, ["--mesh-pipe", "2"]),
+    "pp_units": ("units", "vocoder", False, ["--mesh-pipe", "2"]),
+    "pp_dense_d2": ("dense", "prior", False, ["--mesh-pipe", "2", "--mesh-data", "2"]),
+    "pp_dense_p4": ("dense", "prior", False, ["--mesh-pipe", "4", "--pp-microbatches", "4"]),
+    "pp_resume_p4": (None, "prior", False, ["--mesh-pipe", "4", "--resume", "--epochs", "2"]),
+    "pp_mel_p4": ("mel_b4", "vocoder", False, ["--mesh-pipe", "4"]),
+}
+# kernel 4 at a stage's microbatches of phase 7's step (batch 32 of 20 x 7
+# grids, 2 heads): 16 rows at pipe 2 (BH 32), 8 on a (2 x 2) mesh's rows
+# and at pipe 4 over 4 microbatches (BH 16), f32 and bf16
+P22_ATTN_SHAPES = [("pp_prior_T140_bh32", 32, 140, 64, False),
+                   ("pp_prior_T140_bh32_bf16", 32, 140, 64, True),
+                   ("pp_prior_T140_bh16", 16, 140, 64, False),
+                   ("pp_prior_T140_bh16_bf16", 16, 140, 64, True)]
+
+
+def p22_mesh(flags: list) -> tuple[int, int, int]:
+    """(D, S, M) of a job's mesh flags."""
+    def value(flag, default):
+        return int(flags[flags.index(flag) + 1]) if flag in flags else default
+
+    n_pipe = value("--mesh-pipe", 1)
+    return value("--mesh-data", 1), n_pipe, value("--pp-microbatches", n_pipe)
+
+
+def p22_argv(argv: list, out: str, tag: str, flags: list, steps: int = 1) -> list:
+    """A W 1 job's argv for a pipe job: its own --ckpt-dir under ``out``,
+    ``steps`` batches, the mesh flags last (a later --epochs wins)."""
+    a = list(argv)
+    i = a.index("--ckpt-dir")
+    a[i + 1] = os.path.join(out, tag, os.path.basename(a[i + 1]))
+    a[a.index("--max-batches-per-epoch") + 1] = str(steps)
+    return a + flags
+
+
+def p22_w1_argv(root: str, corpus: str, vq_ckpt: str, hier_ckpt: str, gated_data: dict) -> dict:
+    """The argv of each W 1 job a pipe job is held against: phase 19's and
+    21's (from phase 21's ``data``), and two that phase 22 runs itself, the
+    hier-bottom transformer and the batch-4 vocoder."""
+    argv = {job["name"]: job["argv"] for job in p19_jobs(root, corpus, vq_ckpt, 1)}
+    argv.update({job["name"]: job["argv"] for job in p21_jobs(root, gated_data, 1)})
+    here = os.path.join(root, "pp", "w1")
+    bottom = p22_argv(argv["dense"], here, "hier_bottom", ["--hier", "--hier-level", "bottom"])
+    bottom[bottom.index("--vqvae-ckpt") + 1] = hier_ckpt
+    mel_b4 = p22_argv(argv["mel"], here, "mel_b4", [])
+    mel_b4[mel_b4.index("--batch-size") + 1] = str(P22_BATCH4)
+    return {**argv, "hier_bottom": bottom, "mel_b4": mel_b4}
+
+
+def p22_jobs(root: str, w1_argv: dict, world: int) -> list[dict]:
+    """The pipe jobs of a launch of ``world`` ranks, each built from its W 1
+    job's argv; the pipe-4 resume copies the pipe-2 dense run's
+    checkpoints (its ``_pp_train`` at step P22_PRIOR_STEPS) first."""
+    out = os.path.join(root, "pp", f"w{world}")
+    jobs = []
+    for name, (w1, cli, _, flags) in P22_JOBS.items():
+        n_data, n_pipe, _ = p22_mesh(flags)
+        if n_data * n_pipe != world:
+            continue
+        job = {"name": name, "cli": cli}
+        if name == "pp_resume_p4":
+            job["copy"] = [os.path.join(root, "pp", "w2", "pp_dense"), os.path.join(out, name)]
+            job["argv"] = p22_argv(w1_argv["dense"], out, name, flags)
+        else:
+            steps = P22_PRIOR_STEPS if name == "pp_dense" else 1
+            job["argv"] = p22_argv(w1_argv[w1], out, name, flags, steps)
+        jobs.append(job)
+    return jobs
+
+
+def p22_stage_n(torch, cli, argv: list, n_pipe: int) -> list[tuple[int, int]]:
+    """Each stage's (parameter count, parameter tensors) of a job's model
+    (built whole on the host, then cut to the stage as
+    ``parallel.pipeline.place_stage`` cuts it)."""
+    import argparse
+
+    from neural_sound_generation_tpu_torch.parallel import pipeline as pp
+
+    args = cli.parse_args(argv)
+    counts = []
+    for s in range(n_pipe):
+        if hasattr(cli, "build_model"):  # cli.vocoder
+            model = cli.build_model(cli._load_cfg(args),
+                                    argparse.Namespace(**{**vars(args), "bf16": False}))
+            pp.pp_wavenet_partition(model, pp.Stage(s, n_pipe))
+        else:
+            bottom = args.hier and args.hier_level == "bottom"
+            model = cli.PriorSpec.from_args(args, cond_dim=args.dim if bottom else 0).build()
+            pp.pp_prior_partition(model, pp.Stage(s, n_pipe))
+        params = list(model.parameters())
+        counts.append((sum(p.numel() for p in params), len(params)))
+    return counts
+
+
+def check_pp_groups(ranks: list, job: str, n_pipe: int) -> None:
+    """Every rank's local state bit-equal across its data group (the ranks
+    of its stage), its rest (past ``split_at``) across its pipe group."""
+    for r, rank in enumerate(ranks):
+        for s, other in enumerate(ranks):
+            a, b = rank[job]["digests"], other[job]["digests"]
+            if r % n_pipe == s % n_pipe:
+                check(a["local"] == b["local"],
+                      f"pipeline {job}: ranks {r} and {s} (one stage) differ")
+            if r // n_pipe == s // n_pipe:
+                check(a["replicated"] == b["replicated"],
+                      f"pipeline {job}: ranks {r} and {s} (one pipe group) differ in the rest")
+
+
+def p22_first_step(torch, one: dict, ranks: list, n_pipe: int) -> dict:
+    """A job's first step under the pipe against W 1's: the loss (the
+    mean of the data rows', each its pipe group's), the gradient norm, the
+    gathered gradient relative to W 1's norm, and the parameters after the
+    step (rank 0's gathered records, the same on every rank)."""
+    rank0 = ranks[0]
+    g1, g2 = one["first_grad"], rank0["first_grad"]
+    keys = sorted(g1)
+    check(sorted(g2) == keys, "pipeline: the gathered gradient's names differ from W 1's")
+    v1 = torch.cat([g1[k].reshape(-1) for k in keys])
+    v2 = torch.cat([g2[k].reshape(-1) for k in keys])
+    loss1 = one["metrics"][0]["loss"]
+    loss2 = float(np.mean([r["metrics"][0]["loss"] for r in ranks[::n_pipe]]))
+    norm1, norm2 = one["metrics"][0]["grad_norm"], rank0["metrics"][0]["grad_norm"]
+    p1, p2 = one["first_params"], rank0["first_params"]
+    return {"loss_w1": loss1, "loss": loss2, "loss_rel": abs(loss2 - loss1) / abs(loss1),
+            "grad_norm_w1": norm1, "grad_norm": norm2,
+            "grad_norm_rel": abs(norm2 - norm1) / abs(norm1),
+            "grad_rel": float((v2 - v1).norm() / v1.norm()),
+            "params_max_abs_err": max(float((p2[k] - p1[k]).abs().max()) for k in keys)}
+
+
+def pipeline_parallel_phase(torch, cli_prior, cli_vocoder, root: str, corpus: str,
+                            vq_ckpt: str, hier_ckpt: str, card: str, tpp_rows: dict,
+                            tpg_rows: dict, fa, vq_kernel, fused_adam, gen,
+                            runs: dict | None = None) -> tuple[dict, dict]:
+    """Phase 22: ``cli.prior train --arch transformer --mesh-pipe`` and
+    ``cli.vocoder train --mesh-pipe`` under torchrun, the ranks sharing this
+    card over gloo: at W 2 (pipe 2) the dense, routed, bf16 and
+    hier-bottom priors and the mel MoL, bf16, mulaw-quantize-with-speakers
+    and units vocoders; at W 4 the dense prior on (data 2 x pipe 2) and at
+    pipe 4 with 4 microbatches, a pipe-4 --resume from the pipe-2 run's
+    ``_pp_train`` sibling, the vocoder at pipe 4 on batch 4. Each job is
+    held against its W 1 run of the same flags (phases 19 and 21 ran most
+    of them; the hier-bottom transformer and the batch-4 vocoder run here,
+    in this process). Then ``cli.prior sample`` and ``cli.vocoder
+    synthesize`` from the pipe-2 artifacts on one rank, kernel 4 at the
+    stages' BH 16 and 32, kernel 3 at a stage's n and kernel 1 at a rank's
+    rows. ``runs``: the pipe launches' records where they ran already
+    (riding phase 21's launches). Returns (the record, the kernel rows)."""
+    from neural_sound_generation_tpu_torch.config import Config, load_preset
+
+    t0 = time.perf_counter()
+    base = os.path.join(root, "pp")
+    w1_argv = p22_w1_argv(root, corpus, vq_ckpt, hier_ckpt, tpg_rows["data"])
+    if runs is None:
+        shutil.rmtree(base, ignore_errors=True)
+        runs = {w: launch_tp(torch, root, p22_jobs(root, w1_argv, w), w, "pp", None)
+                for w in (2, 4)}
+    one = {**tpp_rows["w1"], **tpg_rows["w1"]}
+    # the W 1 runs no earlier phase made: the hier-bottom transformer, the batch-4 vocoder
+    extra = launch_tp(torch, root, [
+        {"name": "hier_bottom", "cli": "prior", "argv": w1_argv["hier_bottom"]},
+        {"name": "mel_b4", "cli": "vocoder", "argv": w1_argv["mel_b4"],
+         "record_first_state": True}], 1, "pp_w1")
+    one.update(extra["ranks"][0])
+    mods = {"prior": cli_prior, "vocoder": cli_vocoder}
+    out = {"phase": "pipeline_parallel", "card": card,
+           "widths": {"prior": {"dim": PRIOR_DIM, "layers": PRIOR_LAYERS, "heads": PRIOR_HEADS,
+                                "batch": PRIOR_BATCH, "grid": [20, 7]},
+                      "vocoder": {"layers": 24, "stacks": 4, "residual": 512, "gate": 512,
+                                  "skip": 256, "cin": 80, "batch": VT_BATCH, "samples": 7168,
+                                  "batch_pipe4": P22_BATCH4}},
+           "note": "the ranks share one card over gloo: a step's time measures the hand-offs' "
+                   "and the collectives' cost, not scaling"}
+    jobs, cpu_gaps, shares = {}, {}, {}
+    for w, run in runs.items():
+        ranks = run["ranks"]
+        argvs = {j["name"]: j["argv"] for j in p22_jobs(root, w1_argv, w)}
+        for job in ranks[0]:
+            w1, cli, bf16, flags = P22_JOBS[job]
+            n_data, n_pipe, n_micro = p22_mesh(flags)
+            steps = len(ranks[0][job]["metrics"])
+            check(steps == (P22_PRIOR_STEPS if job == "pp_dense" else 1),
+                  f"pipeline {job}: {steps} steps")
+            argv = argvs[job]
+            args = mods[cli].parse_args(argv)
+            want = {"fused_adam": steps}
+            if cli == "prior":
+                want["vq_nearest"] = steps * (2 if args.hier else 1)
+                want.update({k: args.prior_layers // n_pipe * n_micro * steps
+                             for k in fa.KERNELS})
+            else:
+                want["vq_nearest"] = steps if args.condition == "units" else 0
+            check_tp_launches(ranks, job, want)
+            rows = args.batch_size // n_data // n_micro
+            for r, rank in enumerate(ranks):
+                bhs = {q[0] for _, q, _ in rank[job]["attention"]}
+                check(cli != "prior" or bhs == {rows * PRIOR_HEADS},
+                      f"pipeline {job} rank {r}: kernel 4 at BH {bhs}, expected "
+                      f"{rows * PRIOR_HEADS}")
+            check_pp_groups(ranks, job, n_pipe)
+            key = (cli, w1 or "dense", n_pipe)
+            if key not in shares:
+                shares[key] = p22_stage_n(torch, mods[cli], argv, n_pipe)
+            for r, rank in enumerate(ranks):
+                # its stage's parameters, each leaf padded to 16 bytes
+                n, leaves = shares[key][r % n_pipe]
+                check(0 <= rank[job]["local_n"] - n < 4 * leaves,
+                      f"pipeline {job} rank {r}: a flat buffer of {rank[job]['local_n']} for "
+                      f"a stage of {n} parameters")
+            rec = {"mesh": {"data": n_data, "pipe": n_pipe, "microbatches": n_micro},
+                   "losses": [float(np.mean([r[job]["metrics"][i]["loss"]
+                                             for r in ranks[::n_pipe]]))
+                              for i in range(steps)],
+                   "launches": [r[job]["launches"] for r in ranks],
+                   "local_n": [r[job]["local_n"] for r in ranks],
+                   "stage_n": [n for n, _ in shares[key]],
+                   "split_at": [r[job]["split_at"] for r in ranks],
+                   "state_bytes_a_rank": [r[job]["state_bytes"] for r in ranks],
+                   "handoff_s": [r[job].get("handoff_s") for r in ranks],
+                   "handoff_bytes": [r[job].get("handoff_bytes") for r in ranks],
+                   "seconds": ranks[0][job]["seconds"]}
+            check(all(np.isfinite(rec["losses"])), f"pipeline {job}: losses {rec['losses']}")
+            if w1 is not None:
+                first = p22_first_step(torch, one[w1], [r[job] for r in ranks], n_pipe)
+                check(first["loss_rel"] <= (BF16_LOSS_REL if bf16 else DP_LOSS_REL),
+                      f"pipeline {job}: first loss {first['loss']} against W 1's "
+                      f"{first['loss_w1']}")
+                if not bf16:
+                    # a routed step may flip near-tie routings (phase 17's bound);
+                    # the vocoder's dilated weight gradients are not
+                    # deterministic on the card: twice the CPU's gap (phase 21)
+                    limit = DP_GRAD_REL_FLIPS if job == "routed" else DP_GRAD_REL
+                    if first["grad_rel"] > limit and cli == "vocoder":
+                        if w1 not in cpu_gaps:
+                            g1 = one[w1]["first_grad"]
+                            g_cpu = p21_cpu_grad(torch, cli_vocoder, one[w1], w1_argv[w1])
+                            v1 = torch.cat([g1[k].reshape(-1) for k in sorted(g1)])
+                            v_cpu = torch.cat([g_cpu[k].reshape(-1) for k in sorted(g1)])
+                            cpu_gaps[w1] = float((v_cpu - v1).norm() / v1.norm())
+                        first["cpu_grad_rel"] = cpu_gaps[w1]
+                        limit = max(limit, P20_CPU_GAP_C * cpu_gaps[w1])
+                    check(first["grad_rel"] <= limit and first["grad_norm_rel"] <= limit,
+                          f"pipeline {job}: the gathered gradient {first['grad_rel']:.3g} and "
+                          f"its norm {first['grad_norm_rel']:.3g} of the norm away (the limit "
+                          f"{limit:.3g})")
+                    # Adam's first (cold) step moves an element by at most lr
+                    # whatever its gradient, so two correct runs part by 2 lr
+                    # where a gradient is rounding noise
+                    lr = args.lr if cli == "prior" else VT_LR
+                    check(first["params_max_abs_err"] <= 2 * lr * 1.0001,
+                          f"pipeline {job}: parameters after the first step "
+                          f"{first['params_max_abs_err']:.3g} from W 1's (2 lr {2 * lr:.3g})")
+                rec["first_step"] = first
+            jobs[f"{job}_w{w}"] = rec
+        jobs[f"launch_seconds_w{w}"] = run["seconds"]
+    jobs["w1_seconds_here"] = extra["seconds"]
+    out["jobs"] = jobs
+    out["cpu_first_step_grad_rel"] = cpu_gaps
+
+    # the pipe-4 resume: the pipe-2 run's two steps, then one
+    resumed = os.path.join(base, "w4", "pp_resume_p4", "prior")
+    for sub in ("", "_ema", "_pp_train"):
+        got = checkpoint_steps(resumed + sub)
+        check(got == [P22_PRIOR_STEPS, P22_PRIOR_STEPS + 1],
+              f"pipeline --resume at pipe 4: {resumed + sub} holds {got}")
+    # the pipe-2 artifacts sample and synthesize on one rank (this process)
+    w2 = os.path.join(base, "w2")
+    h, w_ = P19_SAMPLE_GRID
+    out["sample_cli"] = run_sample_cli(cli_prior, [
+        "sample", "--vqvae-ckpt", vq_ckpt, "--prior-ckpt",
+        os.path.join(w2, "pp_dense", "prior") + "_ema", "--arch", "transformer",
+        "--prior-dim", str(PRIOR_DIM), "--prior-layers", str(PRIOR_LAYERS), "--dim",
+        str(TRAIN_DIM), "--z-dim", str(TRAIN_CODES), "--code-shape", str(h), str(w_),
+        "--device", DEVICE], os.path.join(base, "samples"), "prior_sample", 4 * w_)
+    cfg = load_preset(tpg_rows["data"]["lr"], Config())
+    mel_npy = os.path.join(base, "mel.npy")
+    np.save(mel_npy, np.load(os.path.join(corpus, "m0.npy")))
+    out["synthesize"] = vocoder_synthesize(
+        cli_vocoder, vq_kernel, ["synthesize", "--ckpt-dir", os.path.join(w2, "pp_mel", "wavenet"),
+                                 "--mel-npy", mel_npy, "--max-frames", str(WN_SYNTH_FRAMES)],
+        os.path.join(base, "mel.wav"), WN_SYNTH_FRAMES * cfg.audio.effective_hop_size,
+        cfg.audio.sample_rate)
+
+    # kernel 4 at the stages' BH, kernel 3 at a stage's n, kernel 1 at a rank's rows
+    attn_rows = {}
+    for shape in P22_ATTN_SHAPES:
+        row = compare_attention(torch, fa, shape, gen)
+        emit(row)
+        limit = ATTN_BF16_REL if shape[4] else ATTN_F32_REL
+        check(max(row["rel_err"].values()) <= limit and row["run_to_run_identical"],
+              f"flash attention {shape[0]}: errors {row['rel_err']} above {limit}")
+        for kernel, plan in row["plan"].items():
+            check(plan["spill_bytes"] == 0,
+                  f"{kernel} {shape[0]}: {plan['spill_bytes']} bytes spilled per thread")
+        attn_rows[shape[0]] = row
+    adam_rows = {}
+    for job in ("pp_dense", "pp_mel"):
+        row = compare_fused_adam(torch, fused_adam, jobs[f"{job}_w2"]["local_n"][0],
+                                 ADAM_CONFIGS[0], gen)
+        row["shape_of"] = f"pipeline_{job[3:]}_stage0"
+        emit(row)
+        adam_rows[job[3:]] = row
+    vq_rows = {}
+    for n, k in sorted({s for run in runs.values() for job in run["ranks"][0]
+                        for s in run["ranks"][0][job]["searches"]}):
+        x = torch.randn(n, VQ_D, generator=gen, device=DEVICE)
+        cb = torch.randn(k, VQ_D, generator=gen, device=DEVICE)
+        row = compare_vq(torch, vq_kernel, x, cb)
+        row["shape_of"] = f"pipeline_n{n}"
+        emit(row)
+        check(row["mismatches"] == row["near_ties"] and row["run_to_run_identical"],
+              f"vq_nearest N={n} K={k}: {row['mismatches'] - row['near_ties']} mismatches "
+              "that are not near-ties, or two calls differ")
+        vq_rows[f"n{n}"] = row
+    out["launches"] = {f"w{w}": [{job: r[job]["launches"] for job in r}
+                                 for r in runs[w]["ranks"]] for w in runs}
+    out["launches"]["w1"] = [{job: r["launches"] for job, r in extra["ranks"][0].items()}]
+    out["seconds"] = time.perf_counter() - t0
+    return out, {"attention": attn_rows, "adam": adam_rows, "vq": vq_rows}
 
 
 def checkpoint_steps(ckpt_dir: str) -> list:
@@ -7220,31 +7669,30 @@ def main() -> int:
         emit(dp)
         torch.cuda.empty_cache()
 
-        # phase 18: cli.main and cli.evaluate with --mesh-model 2 under
-        # torchrun (ranks sharing this card), with each rank's launch
-        # counts; kernel 1 over codebook shards, kernel 3 at a rank's n
-        tp, tp_rows = tensor_parallel_phase(torch, root, corpus, card, dp, vq_kernel,
-                                            fused_adam, gen)
-        emit(tp)
-        torch.cuda.empty_cache()
+        # phases 18 to 22 share one torchrun launch a world: phase 21's
+        # launches carry the two- and four-rank jobs of phases 18, 19, 20 and
+        # 22 (a launch's rank start-up costs some 20 s of the command's
+        # 1,200); the one-rank jobs of phases 19 and 20 run here first, and
+        # each phase's checks follow phase 21
+        tpp_w1 = p19_runs(torch, root, corpus, vq_ckpt)
+        ae_data = p20_data(torch, dsp, root, corpus)
+        tpa_w1 = launch_tp(torch, root, p20_jobs(root, ae_data, 1), 1, "tp_ae")
+        hier_ckpt = os.path.join(root, "hier", "models", "hiervqvae",
+                                 f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")
+        for tag in ("tp", "pp"):
+            shutil.rmtree(os.path.join(root, tag), ignore_errors=True)
+        for w in TP_WORLDS:  # phase 18's evaluate job writes its dump there
+            os.makedirs(os.path.join(root, "tp", f"w{w}"))
 
-        # phase 19: cli.prior train --arch transformer with --mesh-model 2
-        # under torchrun (ranks sharing this card), dense, routed, bf16 and
-        # --resume, with each rank's launch counts; kernel 4 at a rank's
-        # heads, kernel 3 at a rank's n
-        tpp, tpp_rows = prior_tensor_parallel_phase(torch, cli_prior, root, corpus, vq_ckpt,
-                                                    card, fa, fused_adam, gen)
-        emit(tpp)
-        torch.cuda.empty_cache()
-
-        # phase 20: cli.main and cli.evaluate with --mesh-model 2 for the
-        # HierVQVAE, the WaveVQVAE and the VAE under torchrun (ranks sharing
-        # this card), with each rank's launch counts; kernel 1 on a rank's
-        # K 256 shards, kernel 3 at each rank's n
-        tpa, tpa_rows = autoencoder_tensor_parallel_phase(torch, dsp, root, corpus, card,
-                                                          vq_kernel, fused_adam, gen)
-        emit(tpa)
-        torch.cuda.empty_cache()
+        def riders(data, world):
+            return ({"tp": tp_jobs(root, corpus, world),
+                     "tp_prior": p19_jobs(root, corpus, vq_ckpt, world),
+                     "tp_ae": p20_jobs(root, ae_data, world),
+                     "pp": p22_jobs(root, p22_w1_argv(root, corpus, vq_ckpt, hier_ckpt, data),
+                                    world)},
+                    {"tp": ("flagship", TP_COLLECTIVE_ITERS),
+                     "tp_prior": ("dense", TP_COLLECTIVE_ITERS),
+                     "tp_ae": ("wave_raw", P20_COLLECTIVE_ITERS)})
 
         # phase 21: cli.vocoder train and cli.prior train (the PixelCNN)
         # with --mesh-model 2 under torchrun (ranks sharing this card), with
@@ -7252,13 +7700,49 @@ def main() -> int:
         # kernel 3 at each rank's n
         tpg, tpg_rows = gated_tensor_parallel_phase(
             torch, dsp, cli_vocoder, cli_prior, root, {
-                "corpus": corpus, "vq": vq_ckpt,
-                "hier": os.path.join(root, "hier", "models", "hiervqvae",
-                                     f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}"),
+                "corpus": corpus, "vq": vq_ckpt, "hier": hier_ckpt,
                 "units": os.path.join(root, "wave", "models", "wavevqvae",
                                       f"checkpoint_ljspeech_{TRAIN_DIM}_{TRAIN_CODES}")},
-            card, vq_kernel, fused_adam, gen)
+            card, vq_kernel, fused_adam, gen, riders)
         emit(tpg)
+        rode = tpg_rows["riders"]
+        torch.cuda.empty_cache()
+
+        # phase 18: cli.main and cli.evaluate with --mesh-model 2 under
+        # torchrun (ranks sharing this card), with each rank's launch
+        # counts; kernel 1 over codebook shards, kernel 3 at a rank's n
+        tp, tp_rows = tensor_parallel_phase(torch, root, corpus, card, dp, vq_kernel,
+                                            fused_adam, gen,
+                                            {w: rode[w]["tp"] for w in TP_WORLDS})
+        emit(tp)
+
+        # phase 19: cli.prior train --arch transformer with --mesh-model 2
+        # under torchrun (ranks sharing this card), dense, routed, bf16 and
+        # --resume, with each rank's launch counts; kernel 4 at a rank's
+        # heads, kernel 3 at a rank's n
+        tpp, tpp_rows = prior_tensor_parallel_phase(
+            torch, cli_prior, root, corpus, vq_ckpt, card, fa, fused_adam, gen,
+            {1: tpp_w1, **{w: rode[w]["tp_prior"] for w in P19_WORLDS[1:]}})
+        emit(tpp)
+
+        # phase 20: cli.main and cli.evaluate with --mesh-model 2 for the
+        # HierVQVAE, the WaveVQVAE and the VAE under torchrun (ranks sharing
+        # this card), with each rank's launch counts; kernel 1 on a rank's
+        # K 256 shards, kernel 3 at each rank's n
+        tpa, tpa_rows = autoencoder_tensor_parallel_phase(
+            torch, dsp, root, corpus, card, vq_kernel, fused_adam, gen, ae_data,
+            {1: tpa_w1, **{w: rode[w]["tp_ae"] for w in P20_WORLDS[1:]}})
+        emit(tpa)
+        torch.cuda.empty_cache()
+
+        # phase 22: cli.prior train --arch transformer and cli.vocoder train
+        # with --mesh-pipe under torchrun (ranks sharing this card), each job
+        # against W 1's, with each rank's launch counts; kernel 4 at the
+        # stages' BH, kernel 3 at a stage's n, kernel 1 at a rank's rows
+        ppl, ppl_rows = pipeline_parallel_phase(
+            torch, cli_prior, cli_vocoder, root, corpus, vq_ckpt, hier_ckpt, card, tpp_rows,
+            tpg_rows, fa, vq_kernel, fused_adam, gen, {w: rode[w]["pp"] for w in (2, 4)})
+        emit(ppl)
     except (SmokeFailure, RuntimeError, ValueError, OSError, KeyError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
@@ -7271,6 +7755,7 @@ def main() -> int:
     tpp_launches = dp_launch_totals(tpp)
     tpa_launches = dp_launch_totals(tpa)
     tpg_launches = dp_launch_totals(tpg)
+    ppl_launches = dp_launch_totals(ppl)
     sharded, adam_local = tp_rows["vq_sharded"], tp_rows["adam_local"]
     train_runs = [*training["runs"].values(), rvq["run"]]
     train_vq = sum(r["launches"]["vq_kernel"] for r in train_runs)
@@ -7294,7 +7779,8 @@ def main() -> int:
                      + moe_launches["vq_nearest"] + bf16_launches["vq_nearest"]
                      + motion["vq_launches"] + dp_launches["vq_nearest"]
                      + tp_launches["vq_nearest"] + tpp_launches["vq_nearest"]
-                     + tpa_launches["vq_nearest"] + tpg_launches["vq_nearest"]),
+                     + tpa_launches["vq_nearest"] + tpg_launches["vq_nearest"]
+                     + ppl_launches["vq_nearest"]),
         "launches_by_path": {"serving": serving["vq_launches"], "training": train_vq,
                              "prior": prior_launches["vq_nearest"],
                              "preprocess_units": prep["vq_launches"],
@@ -7308,7 +7794,8 @@ def main() -> int:
                              "tensor_parallel": tp_launches["vq_nearest"],
                              "tensor_parallel_prior": tpp_launches["vq_nearest"],
                              "tensor_parallel_autoencoders": tpa_launches["vq_nearest"],
-                             "tensor_parallel_gated": tpg_launches["vq_nearest"]},
+                             "tensor_parallel_gated": tpg_launches["vq_nearest"],
+                             "pipeline_parallel": ppl_launches["vq_nearest"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -7352,6 +7839,14 @@ def main() -> int:
                    "library_device_ms": r["library_device_ms"], "ctas": r["ctas"],
                    "max_abs_err": r["max_abs_err"]}
             for name, r in tpg_rows["vq"].items()},
+        "pipeline_parallel_shapes": {
+            name: {"n": r["n"], "k": r["k"], "ms": r["kernel_ms"],
+                   "device_ms": r["kernel_device_ms"], "plain_ms": r["plain_ms"],
+                   "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                   "bound_3xtf32_ms": r["tensor_core_bound_ms"], "library_ms": r["library_ms"],
+                   "library_device_ms": r["library_device_ms"], "ctas": r["ctas"],
+                   "max_abs_err": r["max_abs_err"]}
+            for name, r in ppl_rows["vq"].items()},
     }, {
         "name": "fused_adam", "route": "cuda",
         "source": "neural_sound_generation_tpu_torch/csrc/fused_adam.cu",
@@ -7362,7 +7857,7 @@ def main() -> int:
                      + moe_launches["fused_adam"] + bf16_launches["fused_adam"]
                      + dp_launches["fused_adam"] + tp_launches["fused_adam"]
                      + tpp_launches["fused_adam"] + tpa_launches["fused_adam"]
-                     + tpg_launches["fused_adam"]),
+                     + tpg_launches["fused_adam"] + ppl_launches["fused_adam"]),
         "launches_by_path": {"training": train_adam, "prior": prior_launches["fused_adam"],
                              "other_autoencoders": others["adam_launches"],
                              "pixelcnn_and_hier_priors": priors_launches["fused_adam"],
@@ -7373,7 +7868,8 @@ def main() -> int:
                              "tensor_parallel": tp_launches["fused_adam"],
                              "tensor_parallel_prior": tpp_launches["fused_adam"],
                              "tensor_parallel_autoencoders": tpa_launches["fused_adam"],
-                             "tensor_parallel_gated": tpg_launches["fused_adam"]},
+                             "tensor_parallel_gated": tpg_launches["fused_adam"],
+                             "pipeline_parallel": ppl_launches["fused_adam"]},
         "max_abs_err": adam_row["max_abs_err"],
         "ms": adam_row["kernel_ms"], "plain_ms": adam_row["plain_ms"],
         "bound_ms": adam_row["bound_ms"], "bound_by": adam_row["bound_by"],
@@ -7387,9 +7883,12 @@ def main() -> int:
            for job, r in tpa_rows["adam"].items()},
         **{f"tensor_parallel_gated_{job}_rank_shape": {k: r[k] for k in ADAM_ROW_KEYS}
            for job, r in tpg_rows["adam"].items()},
+        **{f"pipeline_{job}_stage_shape": {k: r[k] for k in ADAM_ROW_KEYS}
+           for job, r in ppl_rows["adam"].items()},
         "vocoder_shapes": {tag: {k: r[k] for k in ("config",) + ADAM_ROW_KEYS}
                            for tag, r in vtrain["adam_rows"].items()},
-    }] + [attention_summary({**attn_rows, **tpp_rows["attention"]}, name,
+    }] + [attention_summary({**attn_rows, **tpp_rows["attention"], **ppl_rows["attention"]},
+                            name,
                             {"prior": prior_launches[name],
                              "hier_top_prior": priors_launches[name],
                              "moe_prior": moe_launches[name],
@@ -7398,7 +7897,8 @@ def main() -> int:
                              "tensor_parallel": tp_launches.get(name, 0),
                              "tensor_parallel_prior": tpp_launches[name],
                              "tensor_parallel_autoencoders": tpa_launches.get(name, 0),
-                             "tensor_parallel_gated": tpg_launches.get(name, 0)},
+                             "tensor_parallel_gated": tpg_launches.get(name, 0),
+                             "pipeline_parallel": ppl_launches[name]},
                             bf16["bf16_attention_launches"][name])
           for name in fa.KERNELS]
       + wavenet_summary(wn_rows, wn_api) + conv_summary(conv_rows, conv_ab)})

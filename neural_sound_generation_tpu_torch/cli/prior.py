@@ -50,14 +50,23 @@ transformer Megatron's layout, the experts split over the ranks; for the
 PixelCNN its convolutions and embeddings, each gate split block-wise so
 that a rank gates its own channels), placed after any ``--resume``
 restore; the checkpoints stay whole, gathered for rank 0, so ``sample``,
-``serve --prior-ckpt`` and ``--resume`` at any M read them. ``--mesh-pipe``
-raises ``NotImplementedError``: a later slice.
+``serve --prior-ckpt`` and ``--resume`` at any M read them. ``--mesh-pipe
+S`` (``--arch transformer``; ``--prior-layers`` divisible by S) trains
+GPipe over a (W / S, S) mesh, ``--pp-microbatches M`` (default S)
+microbatches a step (``parallel.pipeline``, the lifecycle of
+``cli._pp``): each rank holds its stage's blocks and their moments, the
+routed prior's load-balance term is collected across stages, and the
+checkpoints are dense (``<ckpt-dir>_pp_train`` holds the state that
+``--resume`` continues at any pipe width; without it the artifact and its
+EMA sibling). ``--mesh-model`` with ``--mesh-pipe`` refuses: JAX's pipe
+path lays no model axis.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.prior train
 --datadir <corpus> --vqvae-ckpt <cli.main checkpoint> [--arch transformer
 [--moe-experts N]] [--bf16] [--hier --hier-level top|bottom] [--device cuda]``
 (``torchrun --nproc_per_node 2 -m ... train --mesh-model 2 ...`` for one
-data rank of two model ranks)
+data rank of two model ranks; ``torchrun --nproc_per_node 4 -m ... train
+--arch transformer --mesh-pipe 2 ...`` for two data rows of two stages)
 """
 
 from __future__ import annotations
@@ -87,7 +96,6 @@ from neural_sound_generation_tpu_torch.models import (
 from neural_sound_generation_tpu_torch.ops import dsp
 from neural_sound_generation_tpu_torch.ops.cuda import flash_attention, fused_adam, vq_kernel
 from neural_sound_generation_tpu_torch.parallel import (
-    PIPE_AXIS,
     mesh_from_args,
     primary_print,
     process_group,
@@ -139,7 +147,9 @@ def parse_args(argv=None):
     tr.add_argument("--mesh-data", type=int, default=None)
     tr.add_argument("--mesh-model", type=int, default=1)
     tr.add_argument("--mesh-pipe", type=int, default=1,
-                    help="pipeline-parallel stages (a later slice)")
+                    help="pipeline-parallel stages (GPipe; --arch transformer)")
+    tr.add_argument("--pp-microbatches", type=int, default=None,
+                    help="pipeline microbatches a step (default: --mesh-pipe)")
     tr.add_argument("--multi-steps", type=int, default=1,
                     help="optimization steps per super-batch")
     tr.add_argument("--ema-warmup", action="store_true",
@@ -190,11 +200,22 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_later_slices(args) -> None:
-    """Flags whose code paths the port does not have yet: the mesh's pipe
-    axis."""
-    if getattr(args, "mesh_pipe", 1) > 1:
-        raise NotImplementedError(f"--mesh-pipe {args.mesh_pipe}: {PIPE_AXIS}")
+def check_pipe_flags(args) -> None:
+    """JAX's refusals of the pipe path (``_train_pp``), before anything is
+    read: the PixelCNN's layers are not a uniform stack, the layers must
+    stage evenly; and ``--mesh-model`` with ``--mesh-pipe``."""
+    from neural_sound_generation_tpu_torch.cli._pp import refuse_model_and_pipe
+
+    refuse_model_and_pipe(args)
+    n_pipe = getattr(args, "mesh_pipe", 1)
+    if n_pipe <= 1:
+        return
+    if args.arch != "transformer":
+        raise SystemExit("--mesh-pipe stages the transformer prior's uniform block stack; use "
+                         "--arch transformer (the pixelcnn layers are not a uniform stack)")
+    if args.prior_layers % n_pipe:
+        raise SystemExit(f"--prior-layers {args.prior_layers} does not stage evenly over "
+                         f"--mesh-pipe {n_pipe}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -346,9 +367,80 @@ def make_encoder(args, vqvae):
 
 
 def cmd_train(args) -> None:
-    refuse_later_slices(args)
+    check_pipe_flags(args)
     with process_group(args.device):
-        _train(args)
+        (_train_pp if args.mesh_pipe > 1 else _train)(args)
+
+
+def _setup(args, device, mesh):
+    """What both train paths read: (cfg with the run's train settings, the
+    loaders, the epoch's batches of this rank's rows encoded on
+    ``device``, the prior's spec)."""
+    cfg = _prior_cfg(args)
+    loaders = get_audio_data_loaders(args.datadir, None, args.batch_size, cfg,
+                                     latent_stride=2 * LATENT_STRIDE if args.hier else LATENT_STRIDE)
+    vqvae = load_vqvae(args, cfg, device)
+    encode = make_encoder(args, vqvae)
+    bottom_level = args.hier and args.hier_level == "bottom"
+    spec = PriorSpec.from_args(args, cond_dim=args.dim if bottom_level else 0)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, initial_learning_rate=args.lr, batch_size=args.batch_size,
+        ema_warmup=args.ema_warmup))
+    say = primary_print(mesh)
+    warned = []
+
+    def epoch_batches():
+        for i, batch in enumerate(loaders["train"]):
+            if args.max_batches_per_epoch and i >= args.max_batches_per_epoch:
+                break
+            # this rank's rows, encoded here: the codes of a row do not
+            # depend on the others (the VQ-VAE runs in eval mode)
+            batch = shard_batch(batch, mesh)
+            codes, cond = encode(torch.from_numpy(batch["x"]).to(device))
+            if not warned:
+                warned.append(True)
+                warning = long_t_warning(args.arch, codes.shape)
+                if warning:
+                    say(warning)
+            labels = np.asarray(batch.get("g", np.zeros(codes.shape[0])), np.int32)
+            out = {"codes": codes, "labels": torch.from_numpy(labels).to(device)}
+            if bottom_level:
+                out["cond"] = cond
+            yield out
+
+    return cfg, loaders, epoch_batches, spec
+
+
+def _epoch_line(args, epoch: int, means: dict) -> str:
+    nll = means.get("loss", float("nan"))
+    routed = (f" load_balance {means['moe_load_balance']:.4f}"
+              if "moe_load_balance" in means else "")
+    return (f"prior epoch {epoch}: nll/code {nll:.4f} (ppl {np.exp(nll):.1f} of "
+            f"{args.z_dim}){routed}")
+
+
+def _train_pp(args) -> None:
+    """GPipe over the mesh's pipe axis (``--mesh-pipe S`` > 1; JAX's
+    ``_train_pp``): each rank builds the prior whole on the host from the
+    seed, keeps its stage's blocks (``parallel.pipeline.place_stage``) and
+    encodes its rows with the frozen VQ-VAE; the lifecycle is
+    ``cli._pp.run_pp_training``'s."""
+    from neural_sound_generation_tpu_torch.cli._pp import pp_mesh, run_pp_training
+    from neural_sound_generation_tpu_torch.parallel import pipeline as pp
+
+    mesh, n_micro = pp_mesh(args)
+    device = resolve_device(args.device)
+    mesh.build_first(device, vq_kernel, fused_adam, flash_attention)
+    cfg, loaders, epoch_batches, spec = _setup(args, device, mesh)
+    prior = spec.build(args.seed, compute_dtype(args))
+    state = pp.place_stage(prior, cfg.train, mesh, device)
+    run_pp_training(
+        ckpt_dir=args.ckpt_dir, resume=args.resume, epochs=args.epochs, mesh=mesh,
+        n_micro=n_micro, checkpoint_interval=cfg.train.checkpoint_interval,
+        set_epoch=loaders["train"].set_epoch, epoch_batches=epoch_batches, state=state,
+        step_fn=pp.make_pp_prior_train_step(prior, mesh, n_micro), kind="prior",
+        epoch_line=lambda epoch, means: _epoch_line(args, epoch, means),
+        meta=spec.metadata(), say=primary_print(mesh))
 
 
 def _train(args) -> None:
@@ -358,18 +450,9 @@ def _train(args) -> None:
     if mesh is not None:
         kernels = (flash_attention,) if args.arch == "transformer" else ()
         mesh.build_first(device, vq_kernel, fused_adam, *kernels)
-    cfg = _prior_cfg(args)
-    loaders = get_audio_data_loaders(args.datadir, None, args.batch_size, cfg,
-                                     latent_stride=2 * LATENT_STRIDE if args.hier else LATENT_STRIDE)
-    vqvae = load_vqvae(args, cfg, device)
-    encode = make_encoder(args, vqvae)
-    bottom_level = args.hier and args.hier_level == "bottom"
-    spec = PriorSpec.from_args(args, cond_dim=args.dim if bottom_level else 0)
+    cfg, loaders, epoch_batches, spec = _setup(args, device, mesh)
     meta = spec.metadata()
     prior = spec.build(args.seed, compute_dtype(args)).to(device)
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, initial_learning_rate=args.lr, batch_size=args.batch_size,
-        ema_warmup=args.ema_warmup))
     state = create_train_state(prior, cfg.train)
 
     start_epoch = 1
@@ -402,26 +485,6 @@ def _train(args) -> None:
         mesh.replicate(state)
 
     trainer = Trainer(prior, cfg, state, log_fn=None, multi_steps=args.multi_steps, mesh=mesh)
-    warned = []
-
-    def epoch_batches():
-        for i, batch in enumerate(loaders["train"]):
-            if args.max_batches_per_epoch and i >= args.max_batches_per_epoch:
-                break
-            # this rank's rows, encoded here: the codes of a row do not
-            # depend on the others (the VQ-VAE runs in eval mode)
-            batch = shard_batch(batch, mesh)
-            codes, cond = encode(torch.from_numpy(batch["x"]).to(device))
-            if not warned:
-                warned.append(True)
-                warning = long_t_warning(args.arch, codes.shape)
-                if warning:
-                    say(warning)
-            labels = np.asarray(batch.get("g", np.zeros(codes.shape[0])), np.int32)
-            out = {"codes": codes, "labels": torch.from_numpy(labels).to(device)}
-            if bottom_level:
-                out["cond"] = cond
-            yield out
 
     def save_ckpt(state, step, completed_epoch):
         # completed_epoch is the last FINISHED epoch: an interval save inside
@@ -439,11 +502,7 @@ def _train(args) -> None:
             epoch_batches(), epoch=epoch,
             checkpoint_cb=lambda s, st, e=epoch: save_ckpt(s, st, completed_epoch=e - 1),
         )
-        nll = means.get("loss", float("nan"))
-        routed = (f" load_balance {means['moe_load_balance']:.4f}"
-                  if "moe_load_balance" in means else "")
-        say(f"prior epoch {epoch}: nll/code {nll:.4f} (ppl {np.exp(nll):.1f} of "
-            f"{args.z_dim}){routed}")
+        say(_epoch_line(args, epoch, means))
         save_ckpt(trainer.state, int(trainer.state.step), completed_epoch=epoch)
     checkpoint.wait_for_pending()
     say(f"prior saved to {args.ckpt_dir}")
@@ -452,7 +511,6 @@ def _train(args) -> None:
 
 
 def cmd_sample(args) -> None:
-    refuse_later_slices(args)
     device = resolve_device(args.device)
     cfg = _prior_cfg(args)
     h, w = args.code_shape

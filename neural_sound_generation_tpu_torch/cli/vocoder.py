@@ -38,13 +38,23 @@ WaveNet's convolutions, each gate split block-wise so that a rank gates
 its own channels (``training.sharding``), placed after any ``--resume``
 restore; the checkpoints stay whole, gathered for rank 0, so
 ``synthesize``, ``serve --vocoder-ckpt`` and ``--resume`` at any M read
-them. ``--mesh-pipe`` and ``--pp-microbatches`` raise
-``NotImplementedError``: the pipe axis is a later slice of the port.
+them. ``--mesh-pipe S`` (``--stacks`` divisible by S, mel or units
+conditioning) trains GPipe over a (W / S, S) mesh, ``--pp-microbatches
+M`` (default S) microbatches a step (``parallel.pipeline``, the lifecycle
+of ``cli._pp``): each rank holds the layers of its stacks and their
+moments; ``--bf16`` runs the stages' layers in bfloat16 on float32
+parameters, with bfloat16 activations between stages and a float32 head,
+as JAX's pipe path does; the checkpoints are dense
+(``<ckpt-dir>_pp_train`` holds the state that ``--resume`` continues at
+any pipe width; without it the artifact and its EMA sibling). Speaker ids
+are dropped for a model without speakers. ``--mesh-model`` with
+``--mesh-pipe`` refuses: JAX's pipe path lays no model axis.
 
 Run: ``python -m neural_sound_generation_tpu_torch.cli.vocoder train
 --datadir <corpus> [--condition units --units-vqvae-ckpt <ckpt>] [--bf16]
 [--resume] [--device cuda]`` (``torchrun --nproc_per_node 4 -m ... train
---mesh-model 2 ...`` for two data ranks of two model ranks); ``...
+--mesh-model 2 ...`` for two data ranks of two model ranks, ``...
+--mesh-pipe 2 ...`` for two data rows of two stages); ``...
 synthesize --ckpt-dir <artifact> --mel-npy <frames x mels .npy> |
 --condition units --wav-in <wav> --output out.wav``
 """
@@ -66,7 +76,6 @@ from neural_sound_generation_tpu_torch.models.wavenet import WaveNet, make_gener
 from neural_sound_generation_tpu_torch.ops import dsp
 from neural_sound_generation_tpu_torch.ops.cuda import fused_adam, vq_kernel
 from neural_sound_generation_tpu_torch.parallel import (
-    PIPE_AXIS,
     mesh_from_args,
     primary_print,
     process_group,
@@ -102,9 +111,9 @@ def parse_args(argv=None):
     tr.add_argument("--mesh-model", type=int, default=1,
                     help="tensor-parallel ranks (the model axis)")
     tr.add_argument("--mesh-pipe", type=int, default=1,
-                    help="pipeline-parallel stages (the pipe-axis slice)")
+                    help="pipeline-parallel stages (GPipe over the stacks)")
     tr.add_argument("--pp-microbatches", type=int, default=None,
-                    help="pipeline microbatches (the pipe-axis slice)")
+                    help="pipeline microbatches a step (default: --mesh-pipe)")
     tr.add_argument("--multi-steps", type=int, default=1,
                     help="optimization steps per super-batch")
     tr.add_argument("--bf16", action="store_true",
@@ -158,10 +167,24 @@ def _units_args(p) -> None:
     p.add_argument("--units-num-quantizers", type=int, default=1)
 
 
-def refuse_parallel(args) -> None:
-    """The mesh axis this port does not have yet: pipe."""
-    if args.mesh_pipe > 1 or args.pp_microbatches is not None:
-        raise NotImplementedError(f"--mesh-pipe/--pp-microbatches: {PIPE_AXIS}")
+def check_pipe_flags(args, cfg: Config) -> None:
+    """JAX's refusals of the pipe path (``_train_pp``), before anything is
+    read: the stacks must stage evenly and the layers fill them, the
+    vocoder must be conditioned; and ``--mesh-model`` with ``--mesh-pipe``."""
+    from neural_sound_generation_tpu_torch.cli._pp import refuse_model_and_pipe
+
+    refuse_model_and_pipe(args)
+    n_pipe = args.mesh_pipe
+    if n_pipe <= 1:
+        return
+    layers, stacks = args.layers or cfg.arch.layers, args.stacks or cfg.arch.stacks
+    if stacks % n_pipe:
+        raise SystemExit(f"--stacks {stacks} does not stage evenly over --mesh-pipe {n_pipe}")
+    if layers % stacks:
+        raise SystemExit(f"--layers {layers} does not divide into --stacks {stacks}")
+    cin = args.units_dim if args.condition == "units" else cfg.arch.cin_channels
+    if cin <= 0:
+        raise SystemExit("--mesh-pipe requires mel conditioning (cin_channels > 0)")
 
 
 def _units_scales(num_downsample: int) -> tuple[int, ...]:
@@ -345,23 +368,15 @@ def _resume(args, state, train_dir: str, say=print) -> int:
 
 
 def cmd_train(args) -> None:
-    refuse_parallel(args)
+    check_pipe_flags(args, _load_cfg(args))
     with process_group(args.device):
-        _train(args)
+        (_train_pp if args.mesh_pipe > 1 else _train)(args)
 
 
-def _train(args) -> None:
-    from neural_sound_generation_tpu_torch.cli.main import epoch_generator
-
-    device = resolve_device(args.device)
-    mesh = mesh_from_args(args.mesh_data, args.mesh_model, args.batch_size)
-    say = primary_print(mesh)
-    if mesh is not None:
-        mesh.build_first(device, fused_adam, *(
-            (vq_kernel,) if args.condition == "units" else ()))
-    cfg = _load_cfg(args)
-    loaders = get_audio_data_loaders(args.datadir, None, args.batch_size, cfg, batch_mode="raw")
-    model = build_model(cfg, args, generator=torch.Generator().manual_seed(args.seed)).to(device)
+def _batches(args, cfg: Config, loaders, mesh, device, speakers: bool = True):
+    """The epoch's batches of this rank's rows: (targets, the mels or, under
+    ``--condition units``, the units encoded on ``device``, the lengths,
+    the speaker ids where the corpus has them and ``speakers``)."""
     units_fn = None
     if args.condition == "units":
         units_fn, units_model = _build_units_encoder(args, cfg, device)
@@ -384,10 +399,66 @@ def _train(args) -> None:
                 out = {"y": y, "c": c}
             out["input_lengths"] = np.asarray(batch["input_lengths"])
             g = _batch_speakers(batch)
-            if g is not None:
+            if g is not None and speakers:
                 out["g"] = g
             yield out
 
+    return epoch_batches
+
+
+def _train_pp(args) -> None:
+    """GPipe over the mesh's pipe axis (``--mesh-pipe S`` > 1; JAX's
+    ``_train_pp``): each rank builds the vocoder whole (float32) on the
+    host from the seed and keeps the layers of its stacks
+    (``parallel.pipeline.place_stage``, bf16 stage math under ``--bf16``);
+    under ``--condition units`` the frozen WaveVQVAE stays whole on every
+    rank and encodes its rows; the lifecycle is
+    ``cli._pp.run_pp_training``'s."""
+    from neural_sound_generation_tpu_torch.cli._pp import pp_mesh, run_pp_training
+    from neural_sound_generation_tpu_torch.parallel import pipeline as pp
+
+    mesh, n_micro = pp_mesh(args)
+    device = resolve_device(args.device)
+    if args.resume:
+        for d in (args.ckpt_dir.rstrip("/") + "_pp_train", args.ckpt_dir):
+            if checkpoint.latest_step(d) is not None:
+                _check_condition_meta(args, checkpoint.read_extra(d))
+                break
+    mesh.build_first(device, fused_adam, *((vq_kernel,) if args.condition == "units" else ()))
+    cfg = _load_cfg(args)
+    loaders = get_audio_data_loaders(args.datadir, None, args.batch_size, cfg, batch_mode="raw")
+    # the module float32; --bf16 selects the stages' compute dtype
+    model = build_model(cfg, argparse.Namespace(**{**vars(args), "bf16": False}),
+                        generator=torch.Generator().manual_seed(args.seed))
+    epoch_batches = _batches(args, cfg, loaders, mesh, device, speakers=model.speakered)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=args.batch_size, ema_warmup=args.ema_warmup))
+    state = pp.place_stage(model, cfg.train, mesh, device,
+                           torch.bfloat16 if args.bf16 else None)
+    run_pp_training(
+        ckpt_dir=args.ckpt_dir, resume=args.resume, epochs=args.epochs, mesh=mesh,
+        n_micro=n_micro, checkpoint_interval=cfg.train.checkpoint_interval,
+        set_epoch=loaders["train"].set_epoch, epoch_batches=epoch_batches, state=state,
+        step_fn=pp.make_pp_wavenet_train_step(model, cfg, mesh, n_micro, bf16=args.bf16),
+        kind="wavenet",
+        epoch_line=lambda epoch, means: f"wavenet epoch {epoch}: loss "
+                                        f"{means.get('loss', float('nan')):.4f}",
+        meta=_condition_meta(args), say=primary_print(mesh))
+
+
+def _train(args) -> None:
+    from neural_sound_generation_tpu_torch.cli.main import epoch_generator
+
+    device = resolve_device(args.device)
+    mesh = mesh_from_args(args.mesh_data, args.mesh_model, args.batch_size)
+    say = primary_print(mesh)
+    if mesh is not None:
+        mesh.build_first(device, fused_adam, *(
+            (vq_kernel,) if args.condition == "units" else ()))
+    cfg = _load_cfg(args)
+    loaders = get_audio_data_loaders(args.datadir, None, args.batch_size, cfg, batch_mode="raw")
+    model = build_model(cfg, args, generator=torch.Generator().manual_seed(args.seed)).to(device)
+    epoch_batches = _batches(args, cfg, loaders, mesh, device)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, batch_size=args.batch_size, ema_warmup=args.ema_warmup))
     state = create_train_state(model, cfg.train)

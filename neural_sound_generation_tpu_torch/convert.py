@@ -48,6 +48,10 @@ converted JAX tree) into one model-axis rank's share by the port's table
 (``training.sharding.tensor_parallel_layout``), so that every rank of a
 test holds the same weights as the one-rank model.
 
+Pipeline parallelism. ``stage_state_dict`` gives one pipe stage its share
+of a JAX tree through ``parallel.pipeline``'s split (its layers and the
+rest whole), which loads strictly into the model cut to that stage.
+
 Flat vectors. The JAX package keeps the fused optimizer's moments and the
 parameter EMA as one vector in ``ravel_pytree`` order (the params tree
 flattened with sorted keys); the port keeps them in its flat buffer's
@@ -309,3 +313,18 @@ def local_state_dict(
         out[key] = t if axis is None else _slice(t, axis, model_rank, n_model,
                                                  layout.groups.get(key, 1))
     return out
+
+
+def stage_state_dict(
+    variables: Mapping[str, Any], model: torch.nn.Module, stage: int, n_stages: int,
+) -> dict[str, torch.Tensor]:
+    """Pipeline stage ``stage`` of ``n_stages``'s share of a JAX tree for the
+    whole ``model`` (a ``TransformerPrior`` or a ``WaveNet``): the entries
+    the stage holds under ``parallel.pipeline``'s split (its layers [s L /
+    S, (s + 1) L / S), the rest whole), which load strictly into the model
+    cut to that stage (``pp_prior_partition``, ``pp_wavenet_partition``)."""
+    from neural_sound_generation_tpu_torch.parallel.pipeline import Stage, holds
+
+    at = Stage(stage, n_stages)
+    return {k: t for k, t in flax_to_state_dict(variables, model).items()
+            if holds(model, at, k)}

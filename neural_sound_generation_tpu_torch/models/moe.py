@@ -27,7 +27,9 @@ expert's output in float32, and the product is rounded once to the input's
 dtype.
 
 The load-balance term is returned by ``forward``, not kept in module
-state. Inside a data-parallel step (``parallel.mesh.current_mesh()``) its
+state, or, for the pipeline's microbatches, each row's two statistics
+(``forward(..., per_row=True)``, JAX's ``sow("moe_stats", "rows", ...)``),
+from which ``load_balance`` takes the term over the whole batch. Inside a data-parallel step (``parallel.mesh.current_mesh()``) its
 two means are the global batch's, taken over the ranks before their
 product (the product is not linear in the rows); capacity is per row, so
 routing and drops need no collective. Under the model axis (expert
@@ -55,7 +57,7 @@ from torch import nn
 from neural_sound_generation_tpu_torch.models.layers import gelu, split_mesh
 from neural_sound_generation_tpu_torch.parallel.mesh import current_mesh
 
-__all__ = ["SwitchMoE"]
+__all__ = ["SwitchMoE", "load_balance"]
 
 
 class SwitchMoE(nn.Module):
@@ -113,19 +115,28 @@ class SwitchMoE(nn.Module):
         pos = (torch.cumsum(onehot, dim=1) * onehot).sum(-1) - 1
         return probs, expert, gate, pos, pos < self.capacity(h.shape[1])
 
-    def forward(self, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, h: torch.Tensor, per_row: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """(y, the load-balance term); with ``per_row`` (y, each row's
+        statistics (B, 2, E): the fraction of its tokens dispatched to each
+        expert and its mean router probability, both over T), which
+        ``load_balance`` turns into the term over any set of rows (the
+        pipeline's microbatches, JAX's ``moe_stats`` ``rows``)."""
         b, t, d = h.shape
         e, cap = self.n_experts, self.capacity(t)
         probs, expert, gate, pos, keep = self.dispatch(h)
         # Switch aux: E * sum_e(fraction dispatched_e * mean prob_e); the
         # dispatched one-hot carries no gradient, the mean probabilities do
-        frac = (F.one_hot(expert, e) * keep[..., None]).float().mean(dim=(0, 1))
-        mean_prob = probs.mean(dim=(0, 1))
-        mesh = current_mesh()
-        if mesh is not None:
-            frac = mesh.mean_(frac)
-            mean_prob = mesh.sum(mean_prob) / mesh.n_data
-        aux = e * torch.sum(frac * mean_prob)
+        dispatched = (F.one_hot(expert, e) * keep[..., None]).float()
+        if per_row:
+            aux = torch.stack([dispatched.mean(dim=1), probs.mean(dim=1)], dim=1)
+        else:
+            frac = dispatched.mean(dim=(0, 1))
+            mean_prob = probs.mean(dim=(0, 1))
+            mesh = current_mesh()
+            if mesh is not None:
+                frac = mesh.mean_(frac)
+                mean_prob = mesh.sum(mean_prob) / mesh.n_data
+            aux = e * torch.sum(frac * mean_prob)
 
         mesh, lo, x = None, 0, h
         if self.expert_split:
@@ -166,3 +177,18 @@ class SwitchMoE(nn.Module):
         y = ys[expert, torch.arange(b, device=h.device)]
         counts.scatter_add_(1, expert[:, None], room[:, None].to(counts.dtype))
         return (y.float() * (gate * room)[:, None]).to(h.dtype)
+
+
+def load_balance(rows: torch.Tensor) -> torch.Tensor:
+    """The Switch term E * sum_e(frac_e * mean_prob_e) of per-row statistics
+    (N, 2, E) (``SwitchMoE.forward(..., per_row=True)``, concatenated over the
+    rows of the batch): both factors are means over every row, and inside a
+    data-parallel step over every data rank's rows, as ``forward``'s are.
+    The product is not linear in the rows, so the mean of the microbatches'
+    terms is not the batch's."""
+    frac, mean_prob = rows[:, 0].detach().mean(dim=0), rows[:, 1].mean(dim=0)
+    mesh = current_mesh()
+    if mesh is not None:
+        frac = mesh.mean_(frac)
+        mean_prob = mesh.sum(mean_prob) / mesh.n_data
+    return rows.shape[-1] * torch.sum(frac * mean_prob)

@@ -60,6 +60,12 @@ the loss. The residual stream and the LayerNorms are whole on every rank.
 A routed block splits its experts (``models/moe.py``). The KV-cached decode
 and ``generate`` run the whole model on one rank: sampling restores a whole
 checkpoint.
+
+Pipeline parallelism (the mesh's pipe axis, ``parallel.pipeline``): a
+stage holds the blocks of its layers and the rest whole; stage 0 runs
+``embed_sequence`` on each microbatch, every stage its ``_Block``s (a
+routed block returning its rows' statistics, ``per_row``), the last stage
+``head_logits`` on the whole batch.
 """
 
 from __future__ import annotations
@@ -110,9 +116,12 @@ class _Block(nn.Module):
     def _mlp(self, h: torch.Tensor) -> torch.Tensor:
         return self.mlp_out(gelu(self.mlp_in(h)))
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    def forward(self, x: torch.Tensor,
+                per_row: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
         """x: (B, T, D); causal self-attention over T. Returns (x, the
-        routed MLP's load-balance term, or None for a dense block)."""
+        routed MLP's load-balance term, or None for a dense block); with
+        ``per_row`` the routed MLP's per-row statistics (B, 2, E) in place
+        of the term (``SwitchMoE.forward``)."""
         b, t, _ = x.shape
         hd, dt = self.head_dim, self.compute_dtype
         # this rank's heads' width: all of D unless the model axis split them
@@ -123,7 +132,7 @@ class _Block(nn.Module):
         o = causal_attention(q, k, v, scale=1.0 / math.sqrt(hd))
         x = x + self.attn_out(o.transpose(1, 2).reshape(b, t, d)).to(x.dtype)
         if self.routed:
-            y, aux = self.moe(self.ln2(x).to(dt))
+            y, aux = self.moe(self.ln2(x).to(dt), per_row=per_row)
             return x + y.to(x.dtype), aux
         return x + self._mlp(self.ln2(x).to(dt)).to(x.dtype), None
 

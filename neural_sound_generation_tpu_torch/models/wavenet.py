@@ -40,6 +40,12 @@ inputs (B, T, 1) floats or (B, T) ints, mels (B, T', C), logits (B, T, out).
     conditioning of every ``cond_i``); ``skip_i``'s slices are summed over
     the layers and gathered once, ahead of ``post1``. The logits come out
     whole on every rank. The incremental paths run on a whole model only.
+  * Under the mesh's pipe axis (``parallel.pipeline``) a stage holds the
+    layers of its stacks and the rest whole, and runs ``forward``'s parts:
+    ``_embed`` on stage 0, ``conditioning`` on every stage (the upsampled
+    mels and the speaker embedding stay local), ``run_layers`` on its own
+    layers with (h, skips) handed from stage to stage, ``head`` on the
+    last stage.
 """
 
 from __future__ import annotations
@@ -185,24 +191,40 @@ class WaveNet(nn.Module):
         targets, see ``shift_inputs``); c (B, T', cin) mels; g (B,) speaker
         ids. Returns (B, T, out_channels) float32 predictions."""
         h = gather_split(self._embed(x), self.first_conv)
-        t = h.shape[-1]
+        c_up, g_emb = self.conditioning(c, g, h.shape[-1])
+        _, skips = self.run_layers(h, 0.0, c_up, g_emb, range(self.layers))
+        return self.head(skips)
+
+    def conditioning(self, c: Optional[torch.Tensor], g: Optional[torch.Tensor], t: int):
+        """(the upsampled conditioning (B, cin, t) or None, the speaker
+        embedding (B, gin, 1) or None): what every layer reads and none
+        writes."""
         c_up = None
         if c is not None and self.conditioned:
             c_up = self.upsampler(c)[:, :t].transpose(1, 2)  # (B, C, T)
         g_emb = None
         if g is not None and self.speakered:
             g_emb = self.speaker_embed(g)[:, :, None]  # (B, gin, 1)
+        return c_up, g_emb
+
+    def run_layers(self, h: torch.Tensor, skips, c_up: Optional[torch.Tensor],
+                   g_emb: Optional[torch.Tensor], layers) -> tuple[torch.Tensor, torch.Tensor]:
+        """The residual layers ``layers`` (indices, in order) on (h (B, R,
+        T), the running skip sum): (h, skips) after them. ``forward`` runs
+        them all; a pipeline stage runs its own."""
         # each gate on this rank's channels; the conditioning, and each gate's
         # gathered output where res_i and skip_i both split, enter the model
         # group once, so that one all-reduce sums their input gradients
-        split = self.layer("dilated", 0).model_split
-        shared = split and self.layer("res", 0).model_split and self.layer("skip", 0).model_split
+        first = layers[0]
+        split = self.layer("dilated", first).model_split
+        shared = (split and self.layer("res", first).model_split
+                  and self.layer("skip", first).model_split)
         mesh = split_mesh() if split else None
         if split and c_up is not None:
             c_up = mesh.copy_to_model(c_up)
-        skips = 0.0
         k = self.kernel_size
-        for i, d in enumerate(self.dilation_rates):
+        for i in layers:
+            d = self.dilation_rates[i]
             z = self.layer("dilated", i)(F.pad(h, ((k - 1) * d, 0)))
             if c_up is not None:
                 z = z + self.layer("cond", i)(c_up, copied=split)
@@ -217,7 +239,15 @@ class WaveNet(nn.Module):
             skips = skips + self.layer("skip", i)(gated, copied=shared)
             res = self.layer("res", i)
             h = h + gather_split(res(gated, copied=shared), res)
-        out = torch.relu(gather_split(skips, self.layer("skip", 0)))
+        return h, skips
+
+    def head(self, skips: torch.Tensor) -> torch.Tensor:
+        """The skip sum (B, S, T) -> (B, T, out_channels) float32 predictions
+        through ``post1`` and ``post2`` (a bf16 sum is widened to the
+        parameters' dtype first: the pipeline's bf16 stages feed a float32
+        head)."""
+        out = torch.relu(gather_split(skips, getattr(self, "skip_0", None)))
+        out = out.to(self.post1.weight.dtype)
         out = gather_split(torch.relu(self.post1(out)), self.post1)
         return gather_split(self.post2(out), self.post2).float().transpose(1, 2)
 

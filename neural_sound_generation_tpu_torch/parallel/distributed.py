@@ -6,8 +6,10 @@ JAX package connects the hosts of a pod slice with
 each process drives one device: ``torchrun`` (or the caller) starts one
 process per card, ``initialize`` joins them into the default
 ``torch.distributed`` process group, ``subgroups`` splits it into the
-data and model groups of a two-axis mesh, and ``parallel.mesh`` lays the
-``data`` and ``model`` axes over the ranks. A single process stays a plain one-device
+data and model (or pipe) groups of a two-axis mesh, ``neighbour_groups``
+into the two-rank groups of neighbouring pipeline stages, and
+``parallel.mesh`` lays the ``data``, ``model`` and ``pipe`` axes over the
+ranks. A single process stays a plain one-device
 program, as in JAX: nothing is initialized.
 
 The backend is a rule, logged when the group starts, never a fallback
@@ -153,6 +155,27 @@ def subgroups(n_data: int, n_model: int):
             _SUBGROUPS[key] = made
     r = rank()
     return made[0][r % n_model], made[1][r // n_model]
+
+
+def neighbour_groups(n_data: int, n_pipe: int):
+    """This rank's two-rank groups with its neighbours on a row-major
+    (n_data, n_pipe) mesh: (the group with stage s - 1, the group with
+    stage s + 1) for rank r at stage s = r % n_pipe of row r // n_pipe,
+    each None (the default group) where it is the whole world and
+    ``SOLO`` past either end. Every rank creates every pair, row by row
+    and stage by stage, in the same order."""
+    key = (dist.group.WORLD, "pairs", n_data, n_pipe) if dist.is_initialized() else None
+    if key is not None and key in _SUBGROUPS:
+        pairs = _SUBGROUPS[key]
+    else:
+        world = n_data * n_pipe
+        pairs = [[None if world == 2 else dist.new_group([i * n_pipe + s, i * n_pipe + s + 1])
+                  for s in range(n_pipe - 1)] for i in range(n_data)]
+        if key is not None:
+            _SUBGROUPS[key] = pairs
+    row, s = divmod(rank(), n_pipe)
+    return (pairs[row][s - 1] if s > 0 else SOLO,
+            pairs[row][s] if s < n_pipe - 1 else SOLO)
 
 
 def is_primary() -> bool:

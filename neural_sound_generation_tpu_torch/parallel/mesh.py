@@ -1,4 +1,4 @@
-"""The device mesh's ``data`` and ``model`` axes over the ranks of a process group.
+"""The device mesh's ``data``, ``model`` and ``pipe`` axes over the ranks of a process group.
 
 Counterpart of ``neural_sound_generation_tpu/parallel/mesh.py``. The JAX
 package builds one ``Mesh`` with ``data`` and ``model`` axes, shards the
@@ -75,8 +75,20 @@ its flax path and axes); ``training.sharding`` lays a state out by it. The
 (the flat mel VQ-VAE, HierVQVAE, WaveVQVAE, the VAE), the transformer
 prior (dense or routed), and the gated families, WaveNet and the
 GatedPixelCNN, whose gates split their pre-activation block-wise
-(``gather_channels(..., groups=2)`` puts it back in the leaf's order). The
-``pipe`` axis refuses with ``PIPE_AXIS``.
+(``gather_channels(..., groups=2)`` puts it back in the leaf's order).
+
+The pipe axis (``n_pipe`` > 1; ``parallel.pipeline`` runs the stages)
+takes the model axis's place in the same arithmetic, as JAX's
+``make_pp_mesh`` lays (data, pipe) with pipe innermost: rank r sits at
+stage r % S of data row r // S. Its **pipe group** is the S ranks of its
+row (the same rows of the batch, a stage each); its **data group** the
+ranks of its stage, which is what ``current_mesh()`` reduces over. A
+stage hands its activations to the next stage, and their gradients back,
+through a two-rank group per neighbouring pair (``send_next``,
+``recv_prev``, ``send_prev``, ``recv_next``: the sender broadcasts, as
+bytes); the rest's gradient and the clip norm's stage segments are summed
+over the pipe group (``pipe_all_reduce_``). A mesh has a model axis or a
+pipe axis, not both.
 """
 
 from __future__ import annotations
@@ -93,9 +105,6 @@ from torch import nn
 
 from neural_sound_generation_tpu_torch.parallel import distributed
 from neural_sound_generation_tpu_torch.parallel.distributed import SOLO
-
-PIPE_AXIS = ("the pipe axis (pipeline and sequence parallelism) comes with a later "
-             "parallel slice of the port")
 
 _CURRENT: contextvars.ContextVar[Optional["Mesh"]] = contextvars.ContextVar(
     "nsg_mesh", default=None)
@@ -180,22 +189,36 @@ class _GatherChannels(torch.autograd.Function):
 
 
 class Mesh:
-    """``n_data`` x ``n_model`` ranks, row-major over the default process
-    group, whose size must be their product. Build it with ``make_mesh``
-    or ``mesh_from_args``."""
+    """``n_data`` x ``n_model`` (or ``n_data`` x ``n_pipe``) ranks,
+    row-major over the default process group, whose size must be their
+    product. Build it with ``make_mesh``, ``mesh_from_args`` or
+    ``parallel.pipeline.make_pp_mesh``."""
 
-    def __init__(self, n_data: int, n_model: int = 1):
+    def __init__(self, n_data: int, n_model: int = 1, n_pipe: int = 1):
         world = distributed.world_size()
-        if n_data < 1 or n_model < 1 or n_data * n_model != world:
-            raise ValueError(f"a mesh of {n_data} x {n_model} needs a group of "
-                             f"{n_data * n_model} ranks, this one has {world}")
-        self.n_data, self.n_model = n_data, n_model
+        if n_model > 1 and n_pipe > 1:
+            raise ValueError("a mesh has a model axis or a pipe axis, not both")
+        inner = n_model * n_pipe
+        if n_data < 1 or n_model < 1 or n_pipe < 1 or n_data * inner != world:
+            raise ValueError(f"a mesh of {n_data} x {inner} needs a group of "
+                             f"{n_data * inner} ranks, this one has {world}")
+        self.n_data, self.n_model, self.n_pipe = n_data, n_model, n_pipe
         self.rank = distributed.rank()
-        self.data_rank, self.model_rank = divmod(self.rank, n_model)
-        self.data_group, self.model_group = distributed.subgroups(n_data, n_model)
+        # the column: this rank's place in its row, and the global rank of
+        # the first rank of its data group
+        self.data_rank, self.column = divmod(self.rank, inner)
+        self.model_rank = self.column if n_model > 1 else 0
+        self.stage = self.column if n_pipe > 1 else 0
+        self.data_group, inner_group = distributed.subgroups(n_data, inner)
+        self.model_group = inner_group if n_model > 1 else SOLO
+        self.pipe_group = inner_group if n_pipe > 1 else SOLO
+        self._prev, self._next = (distributed.neighbour_groups(n_data, n_pipe) if n_pipe > 1
+                                  else (SOLO, SOLO))
 
     @property
     def shape(self) -> dict:
+        if self.n_pipe > 1:
+            return {"data": self.n_data, "pipe": self.n_pipe}
         return {"data": self.n_data, "model": self.n_model}
 
     @property
@@ -257,7 +280,7 @@ class Mesh:
             raise ValueError("broadcast needs a contiguous tensor")
         if self.data_group is not SOLO:
             # src is a global rank: the first of this data group
-            dist.broadcast(t.reshape(-1).view(torch.uint8), src=self.model_rank,
+            dist.broadcast(t.reshape(-1).view(torch.uint8), src=self.column,
                            group=self.data_group)
         return t
 
@@ -330,6 +353,47 @@ class Mesh:
         the model group (bfloat16 in float32, rounded once), differentiable
         (the backward passes the gradient through)."""
         return _ReduceFromModel.apply(x, self)
+
+    # -- the pipe axis -----------------------------------------------------------
+
+    def pipe_all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM over the pipe group, in place, outside autograd."""
+        return _all_reduce(t, self.pipe_group)
+
+    def stage_rank(self, stage: int) -> int:
+        """The global rank of ``stage`` in this rank's row."""
+        return self.data_rank * self.n_pipe + stage
+
+    def pipe_broadcast_(self, t: torch.Tensor, stage: int) -> torch.Tensor:
+        """``stage``'s values in place on every rank of the pipe group,
+        sent as bytes."""
+        if self.pipe_group is not SOLO:
+            dist.broadcast(t.reshape(-1).view(torch.uint8), src=self.stage_rank(stage),
+                           group=self.pipe_group)
+        return t
+
+    def _hand(self, t: torch.Tensor, group, src_stage: int) -> torch.Tensor:
+        if not t.is_contiguous():
+            raise ValueError("a hand-off needs a contiguous tensor")
+        dist.broadcast(t.reshape(-1).view(torch.uint8), src=self.stage_rank(src_stage),
+                       group=group)
+        return t
+
+    def send_next(self, t: torch.Tensor) -> None:
+        """Hand ``t`` to stage s + 1 (its ``recv_prev``)."""
+        self._hand(t, self._next, self.stage)
+
+    def recv_prev(self, buf: torch.Tensor) -> torch.Tensor:
+        """Stage s - 1's ``send_next`` into ``buf``, in place."""
+        return self._hand(buf, self._prev, self.stage - 1)
+
+    def send_prev(self, t: torch.Tensor) -> None:
+        """Hand ``t`` back to stage s - 1 (its ``recv_next``)."""
+        self._hand(t, self._prev, self.stage)
+
+    def recv_next(self, buf: torch.Tensor) -> torch.Tensor:
+        """Stage s + 1's ``send_prev`` into ``buf``, in place."""
+        return self._hand(buf, self._next, self.stage + 1)
 
     def build_first(self, device: torch.device, *kernel_modules) -> None:
         """On a CUDA ``device``, build each kernel's library on rank 0

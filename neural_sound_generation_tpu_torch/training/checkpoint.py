@@ -39,7 +39,12 @@ and ``save_ema_sibling`` gather the whole tree over the model group on
 every rank, and rank 0 writes it in the one format; ``restore`` and
 ``restore_ema_sibling`` read the whole tree and keep this rank's slices.
 So a checkpoint from an M-way run resumes at any M, and ``serve`` and
-``evaluate`` without a mesh read it unchanged.
+``evaluate`` without a mesh read it unchanged. Under the pipe axis
+(``parallel.pipeline``) a state holds its stage's layers and the rest
+whole: ``state.shards`` (a ``PipeShards``) gathers every stage's layers
+over the pipe group for the dense tree on save, and a restore copies the
+names the stage holds out of the dense tree, so a state written at any
+number of stages (one included) resumes at any other.
 
 The optimizer's moments are named by parameter under either optimizer
 (the flat fused one or the per-leaf one, ``TrainConfig.fused_optimizer``),

@@ -322,6 +322,11 @@ class ModelShards:
     mesh: object
     layout: Layout
 
+    def sum_sharded(self, t: torch.Tensor) -> torch.Tensor:
+        """A partial sum over this rank's slices -> the whole one (the clip
+        norm's squares), summed over the model group."""
+        return self.mesh.model_all_reduce(t)
+
     def split(self, key: str) -> tuple[Optional[int], int]:
         """The split axis of a checkpoint tensor (None if it is whole) and
         its number of blocks."""

@@ -37,8 +37,10 @@ of its own leaves (the sharded slices first, then the replicated leaves,
 buffer with the same clip -> weight decay -> Adam chain. The clip's global
 norm is the one-rank norm: the sharded segment's sum of squares summed
 over the model group, plus the replicated segment's counted once
-(``TrainState.grad_sq_norm``). The JAX Trainer's refusal of a fused state
-under tensor parallelism has no counterpart.
+(``TrainState.grad_norm``). The JAX Trainer's refusal of a fused state
+under tensor parallelism has no counterpart. The pipe axis
+(``parallel.pipeline``) lays a rank's buffer the same way, its stage's
+layers first, and sums their squares over the pipe group.
 """
 
 from __future__ import annotations
@@ -392,13 +394,14 @@ class TrainState:
         return self.flat.flat if self.ema_params is None else self.ema_params
 
     def grad_norm(self) -> torch.Tensor | None:
-        """The global norm of the raw gradient under the model axis: the
-        sharded segment's squares summed over the model group plus the
-        replicated segment's; None (the optimizer's own norm) otherwise."""
+        """The global norm of the raw gradient under the model or the pipe
+        axis: the sharded segment's squares summed over the model (or pipe)
+        group (``shards.sum_sharded``) plus the replicated segment's; None
+        (the optimizer's own norm) otherwise."""
         if self.shards is None:
             return None
         g, cut = self.flat.grad, self.flat.split_at
-        sharded = self.shards.mesh.model_all_reduce(torch.sum(g[:cut] * g[:cut]))
+        sharded = self.shards.sum_sharded(torch.sum(g[:cut] * g[:cut]))
         return torch.sqrt(sharded + torch.sum(g[cut:] * g[cut:]))
 
     def apply_gradients(self) -> torch.Tensor:
@@ -420,10 +423,13 @@ def create_train_state(
     use_schedule: bool = False,
     ema_codebook: bool = False,
     fused: bool | None = None,
+    first=(),
 ) -> TrainState:
     """Flatten ``model``'s parameters (on its device) and build the state:
     the fused optimizer, or with ``fused`` False (None: follow
-    ``cfg.fused_optimizer``) the per-leaf one.
+    ``cfg.fused_optimizer``) the per-leaf one. The parameters named in
+    ``first`` lead the flat buffer (``FlatParams``: a pipeline stage's
+    layers).
 
     Under ``ema_codebook`` the codebook statistics start as cluster sizes
     of 1 and ``embed_sum`` equal to the codebook, so embed_sum / cluster is
@@ -431,7 +437,7 @@ def create_train_state(
     clusters."""
     if fused is None:
         fused = cfg.fused_optimizer
-    flat = FlatParams(model)
+    flat = FlatParams(model, first=first)
     device = flat.flat.device
     ema = flat.flat.clone() if cfg.exponential_moving_average else None
     cb_ema = None

@@ -114,17 +114,21 @@ def _wavenet_loss(model: WaveNet, cfg: Config, batch: Batch):
     """The vocoder's teacher-forced loss (the JAX ``_wavenet_loss_fn``):
     (logits, loss), MoL over ``quantize_channels`` classes for scalar input,
     masked cross entropy for mulaw-quantize, both over ``input_lengths``."""
-    targets = batch["y"]
-    y_hat = model(WaveNet.shift_inputs(targets, model.scalar_input), batch.get("c"),
+    y_hat = model(WaveNet.shift_inputs(batch["y"], model.scalar_input), batch.get("c"),
                   batch.get("g"))
-    lengths = batch.get("input_lengths")
+    return y_hat, wavenet_objective(model, cfg, y_hat, batch)
+
+
+def wavenet_objective(model: WaveNet, cfg: Config, y_hat: torch.Tensor, batch: Batch):
+    """The vocoder's loss of its predictions ``y_hat`` against the batch's
+    targets over ``input_lengths``: MoL for scalar input, masked cross
+    entropy for mulaw-quantize."""
+    targets, lengths = batch["y"], batch.get("input_lengths")
     if model.scalar_input:
-        loss = discretized_mix_logistic_loss(
+        return discretized_mix_logistic_loss(
             y_hat, targets, num_classes=cfg.audio.quantize_channels,
             log_scale_min=cfg.arch.log_scale_min, lengths=lengths)
-    else:
-        loss = masked_cross_entropy(y_hat, targets, lengths)
-    return y_hat, loss
+    return masked_cross_entropy(y_hat, targets, lengths)
 
 
 def _loss_fn(model, cfg: Config) -> Callable:

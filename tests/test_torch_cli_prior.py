@@ -199,16 +199,18 @@ def test_sample_endpoint_over_http(trained):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--arch", "transformer", "--mesh-pipe", "2"], "parallel slice"),
-    (["--arch", "pixelcnn", "--mesh-model", "2", "--mesh-pipe", "2"], "parallel slice"),
+    (["--arch", "transformer", "--mesh-pipe", "2"],
+     "--prior-layers 15 does not stage evenly over --mesh-pipe 2"),
+    (["--arch", "pixelcnn", "--mesh-model", "2", "--mesh-pipe", "2"],
+     "--mesh-model 2 with --mesh-pipe 2: a mesh has a model axis or a pipe axis, not both"),
 ])
 def test_flags_of_later_slices_refuse(flags, match):
+    """The pipe path's refusals, before anything is read: layers that do not
+    stage (the default 15 over 2 stages), and a model axis with a pipe
+    axis."""
     common = ["--vqvae-ckpt", "/nonexistent", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(SystemExit, match=match):
         prior.main(["train", "--datadir", "/nonexistent", *common, *flags])
-    if "--mesh-pipe" not in flags and "--mesh-model" not in flags:
-        with pytest.raises(NotImplementedError, match=match):
-            prior.main(["sample", "--prior-ckpt", "/nonexistent", *common, *flags])
 
 
 @pytest.mark.parametrize("flags", [["--arch", "pixelcnn"], ["--arch", "transformer", "--hier"],
@@ -222,7 +224,7 @@ def test_flags_of_this_slice_pass_the_refusals(flags):
     common = ["--vqvae-ckpt", "/nonexistent", "--device", "cpu", *flags]
     for argv in (["train", "--datadir", "/nonexistent", *common],
                  ["sample", "--prior-ckpt", "/nonexistent", *common]):
-        prior.refuse_later_slices(prior.parse_args(argv))
+        prior.check_pipe_flags(prior.parse_args(argv))
 
 
 @pytest.fixture(scope="module")

@@ -110,16 +110,25 @@ def test_synthesize_refusals(artifact, tmp_path):
                                               "--stream-slots", "2"]))
 
 
-@pytest.mark.parametrize("argv", [
-    ["train", "--datadir", "x", "--mesh-model", "2", "--mesh-pipe", "2"],
-    ["train", "--datadir", "x", "--bf16", "--mesh-pipe", "2", "--multi-steps", "4"],
-    ["train", "--datadir", "x", "--mesh-model", "2", "--pp-microbatches", "2"],
+@pytest.mark.parametrize("argv,match", [
+    (["train", "--datadir", "x", "--stacks", "3", "--mesh-pipe", "2"],
+     "--stacks 3 does not stage evenly over --mesh-pipe 2"),
+    (["train", "--datadir", "x", "--bf16", "--mesh-pipe", "2", "--multi-steps", "4",
+      "--preset", "CIN0"], r"--mesh-pipe requires mel conditioning \(cin_channels > 0\)"),
+    (["train", "--datadir", "x", "--mesh-pipe", "2", "--pp-microbatches", "3"],
+     "--pp-microbatches 3 must divide --batch-size 2"),
+    (["train", "--datadir", "x", "--mesh-pipe", "2", "--device", "cpu"],
+     r"mesh 1x2 needs 2 ranks, have 1: launch torchrun --nproc_per_node 2"),
 ])
-def test_next_slice_raises(argv):
-    """The mesh's pipe axis comes with a later parallel slice, with or
-    without the model axis."""
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        vocoder.main(argv)
+def test_next_slice_raises(argv, match, tmp_path):
+    """The pipe path's refusals (JAX's ``_train_pp`` checks): stacks that
+    do not stage, an unconditioned vocoder (a preset with cin_channels 0),
+    microbatches that do not divide the batch, and a world that is not
+    D x S ranks."""
+    preset = tmp_path / "cin0.json"
+    preset.write_text('{"cin_channels": 0}')
+    with pytest.raises(SystemExit, match=match):
+        vocoder.main([str(preset) if a == "CIN0" else a for a in argv])
 
 
 def _units_artifacts(root):

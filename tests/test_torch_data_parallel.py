@@ -265,22 +265,23 @@ def test_a_single_process_is_not_a_group():
     (lambda: evaluate.main(["--datadir", "x", "--ckpt-dir", "y", "--mesh-model", "4"]),
      SystemExit, r"--mesh-model 4: the model axis"),
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--mesh-pipe", "2"]),
-     NotImplementedError, r"--mesh-pipe 2: the pipe axis \(pipeline and sequence "
-     r"parallelism\) comes with a later parallel slice"),
+     SystemExit, r"--mesh-pipe stages the transformer prior's uniform block stack; use "
+     r"--arch transformer \(the pixelcnn layers are not a uniform stack\)"),
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--mesh-model", "2",
                          "--device", "cpu"]), SystemExit, r"--mesh-model 2: the model axis"),
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--mesh-data", "2",
                          "--device", "cpu"]), SystemExit, r"2 data-parallel ranks"),
-    (lambda: vocoder.main(["train", "--datadir", "x", "--pp-microbatches", "2"]),
-     NotImplementedError, r"--mesh-pipe/--pp-microbatches: the pipe axis"),
+    (lambda: vocoder.main(["train", "--datadir", "x", "--mesh-model", "2", "--mesh-pipe",
+                           "2"]),
+     SystemExit, r"--mesh-model 2 with --mesh-pipe 2: a mesh has a model axis or a pipe "
+                 r"axis, not both"),
     (lambda: vocoder.main(["train", "--datadir", "x", "--mesh-model", "2", "--device", "cpu"]),
      SystemExit, r"--mesh-model 2: the model axis"),
     (lambda: vocoder.main(["train", "--datadir", "x", "--mesh-data", "2", "--device", "cpu"]),
      SystemExit, r"2 data-parallel ranks"),
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch",
                          "transformer", "--mesh-pipe", "2"]),
-     NotImplementedError, r"--mesh-pipe 2: the pipe axis \(pipeline and sequence "
-                          r"parallelism\) comes with a later parallel slice"),
+     SystemExit, r"--prior-layers 15 does not stage evenly over --mesh-pipe 2"),
 ])
 def test_refusals_name_their_slice(run, exc, match):
     """What the mesh does not cover refuses, naming the slice it waits

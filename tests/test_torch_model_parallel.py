@@ -409,12 +409,15 @@ def test_flagship_step_equals_the_jax_tensor_parallel_step(tp, world):
                  r"world of n_data x 2 ranks, but this run has 1"),
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch",
                          "transformer", "--mesh-model", "2", "--mesh-pipe", "2"]),
-     NotImplementedError, r"--mesh-pipe 2: the pipe axis"),
+     SystemExit, r"--mesh-model 2 with --mesh-pipe 2: a mesh has a model axis or a pipe "
+                 r"axis, not both"),
     (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch", "pixelcnn",
-                         "--mesh-model", "2", "--mesh-pipe", "2"]), NotImplementedError,
-     r"--mesh-pipe 2: the pipe axis"),
-    (lambda: vocoder.main(["train", "--datadir", "x", "--mesh-model", "2", "--pp-microbatches",
-                           "2"]), NotImplementedError, r"--mesh-pipe/--pp-microbatches: the pipe"),
+                         "--mesh-pipe", "2"]), SystemExit,
+     r"--mesh-pipe stages the transformer prior's uniform block stack; use --arch "
+     r"transformer"),
+    (lambda: prior.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch",
+                         "transformer", "--prior-layers", "3", "--mesh-pipe", "2"]),
+     SystemExit, r"--prior-layers 3 does not stage evenly over --mesh-pipe 2"),
 ])
 def test_model_axis_refusals_name_their_slice(run, exc, match):
     with pytest.raises(exc, match=match):

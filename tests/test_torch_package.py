@@ -61,7 +61,7 @@ def test_importing_every_module_loads_no_jax():
 
 @pytest.mark.parametrize("worker", ["torch_dp_worker.py", "torch_tp_worker.py",
                                     "torch_prior_tp_worker.py", "torch_ae_tp_worker.py",
-                                    "torch_gated_tp_worker.py"])
+                                    "torch_gated_tp_worker.py", "torch_pp_worker.py"])
 def test_the_rank_workers_import_no_jax(worker):
     """The rank processes of the parallel tests run the port alone: no
     import of JAX or of the JAX package anywhere in their source."""

@@ -384,14 +384,15 @@ def test_qkv_split_is_head_aligned_and_round_trips(n_model, heads):
 
 def test_pixelcnn_and_pipe_refusals_still_name_their_slice():
     """Both priors take --mesh-model (on one rank the mesh policy asks for
-    two); the pipe axis still refuses, for either."""
-    with pytest.raises(NotImplementedError, match=r"--mesh-pipe 2: the pipe axis"):
+    two); a model axis with a pipe axis refuses, for either."""
+    both = r"--mesh-model 2 with --mesh-pipe 2: a mesh has a model axis or a pipe axis"
+    with pytest.raises(SystemExit, match=both):
         prior_cli.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch", "pixelcnn",
                         "--mesh-model", "2", "--mesh-pipe", "2"])
     with pytest.raises(SystemExit, match=r"--mesh-model 2: the model axis \(tensor parallel\)"):
         prior_cli.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch", "pixelcnn",
                         "--mesh-model", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=r"--mesh-pipe 2: the pipe axis"):
+    with pytest.raises(SystemExit, match=both):
         prior_cli.main(["train", "--datadir", "x", "--vqvae-ckpt", "y", "--arch",
                         "transformer", "--mesh-model", "2", "--mesh-pipe", "2"])
     with pytest.raises(SystemExit, match=r"--mesh-model 2: the model axis \(tensor parallel\)"):
