@@ -4,9 +4,12 @@ Counterpart of ``neural_sound_generation_tpu/data/pipeline.py``: paired
 raw-audio + mel sources over a train.txt manifest, length-bucketed
 sampling, collation on IO worker threads behind a bounded queue, and
 ``device_prefetch``, which keeps batches on the device ahead of the step.
-The batches are host numpy, equal to the JAX loader's pure-Python collate
-(``use_native=False``) for the same seed and epoch; the JAX package's
-native C++ loader is not ported.
+The batches are host numpy, equal to the JAX loader's for the same seed
+and epoch. A loader assembles them either in C++ over mmap'd shards
+(``data.native_loader``, the JAX package's native loader) or with the
+Python collate, bit-equal either way; which one is decided once, when the
+loader is made (``use_native``), and a native build or load failure
+raises instead of falling back.
 """
 
 from __future__ import annotations
@@ -26,6 +29,11 @@ from neural_sound_generation_tpu_torch.data.collate import (
     as_wave_batch,
     collate_mel_batch,
     static_crop_frames,
+)
+from neural_sound_generation_tpu_torch.data.native_loader import (
+    NativeCorpus,
+    load_library,
+    native_available,
 )
 from neural_sound_generation_tpu_torch.data.sampler import (
     PartiallyRandomizedSimilarTimeLengthSampler,
@@ -73,6 +81,7 @@ class MelFrameLoader:
         batch_mode: str = "mel",  # mel | wave | raw
         drop_last: bool = True,
         latent_stride: int = 4,
+        use_native: Optional[bool] = None,
     ):
         if batch_mode not in ("mel", "wave", "raw"):
             raise ValueError(f"unknown batch_mode {batch_mode!r}")
@@ -91,11 +100,32 @@ class MelFrameLoader:
         # __iter__ advances it, set_epoch pins it so a resumed run replays
         # the order an uninterrupted run would have seen
         self._epoch = 0
+        # the native path (data/native_loader.py), decided here: None takes
+        # it where g++ is on PATH and the corpus pairs mel shards, True
+        # always, False never. Its library is built and loaded here (a
+        # failure raises); its corpus, ``native``, is mapped at the first
+        # pass, so that a bad shard fails the pass as it does on the
+        # Python path
+        if use_native is None:
+            use_native = native_available() and dataset.Mel is not None
+        if use_native and dataset.Mel is None:
+            raise ValueError("the native loader needs paired mel shards")
+        self.use_native = bool(use_native)
+        self.native: Optional[NativeCorpus] = None
+        if self.use_native:
+            load_library()
 
     def set_epoch(self, epoch: int) -> None:
         """Pin the shuffle epoch for the NEXT pass (epoch ``e`` of a 1-based
         training loop is ``set_epoch(e - 1)``)."""
         self._epoch = int(epoch)
+
+    def _open_native(self) -> NativeCorpus:
+        if self.native is None:
+            x, mel = self.dataset.X, self.dataset.Mel
+            self.native = NativeCorpus([x.path(i) for i in range(len(x))],
+                                       [mel.path(i) for i in range(len(x))])
+        return self.native
 
     def _indices(self):
         if self.shuffle:
@@ -143,6 +173,7 @@ class MelFrameLoader:
         return cap
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        native = self._open_native() if self.use_native else None
         batches = self._indices()
         rng = np.random.default_rng(self.seed + 7919 * self._epoch)
         self._epoch += 1
@@ -160,20 +191,33 @@ class MelFrameLoader:
                     continue
             return False
 
+        def collate_native(batch_idx):
+            gs = ([self.dataset.X.speaker_ids[i] for i in batch_idx]
+                  if self.dataset.multi_speaker else None)
+            return native.collate(
+                batch_idx, self.cfg.audio, self.cfg.train.max_time_steps, rng,
+                latent_stride=self.latent_stride, frames_out=self._bucket_frames(batch_idx),
+                speaker_ids=gs,
+                # mel-mode training reads only c (and g): no x/y fills
+                need_audio=self.batch_mode != "mel")
+
         def produce():
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     for batch_idx in batches:
-                        items = list(pool.map(self.dataset.__getitem__, batch_idx))
-                        out = collate_mel_batch(
-                            items,
-                            self.cfg.audio,
-                            self.cfg.train.max_time_steps,
-                            rng,
-                            latent_stride=self.latent_stride,
-                            frames_out=self._bucket_frames(batch_idx),
-                            one_hot=False,
-                        )
+                        if native is not None:
+                            out = collate_native(batch_idx)
+                        else:
+                            items = list(pool.map(self.dataset.__getitem__, batch_idx))
+                            out = collate_mel_batch(
+                                items,
+                                self.cfg.audio,
+                                self.cfg.train.max_time_steps,
+                                rng,
+                                latent_stride=self.latent_stride,
+                                frames_out=self._bucket_frames(batch_idx),
+                                one_hot=False,
+                            )
                         if self.batch_mode == "mel":
                             out = as_model_batch(out)
                         elif self.batch_mode == "wave":

@@ -6,32 +6,23 @@ same way, with push callbacks from the producer thread through ``CFUNCTYPE``
 and pull access by ``poll``/``read``/``drain``.
 
 The library is compiled at first use by the ``g++`` on ``PATH`` with the
-flags of ``native/Makefile`` into ``build/native/`` at the root of the
-checkout (listed in ``.gitignore``). Its file name carries a digest of the
-compiler, the flags and the source, so an edited source is rebuilt and a
-stale library is never loaded; it is written aside and renamed into place,
-so a concurrent process never loads a half-written file. Nothing is built
-when a module is imported.
+flags of ``native/Makefile`` into ``build/native/`` (``native_build``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Callable, List, Optional
 
 import numpy as np
 
+from neural_sound_generation_tpu_torch import native_build
+
 NATIVE_SOURCE = Path(__file__).resolve().parent / "native" / "motion.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-# native/Makefile's CXXFLAGS and link line
-CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared")
-LINK_FLAGS = ("-lpthread",)
+BUILD_DIR = native_build.BUILD_DIR
+LINK_FLAGS = ("-lpthread",)  # native/Makefile's link line
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -108,34 +99,15 @@ class GestureEvent:
                 f"id={self.id}{extra})")
 
 
-def find_gxx() -> str:
-    """The ``g++`` on ``PATH``. ``$CXX`` is not read: a compiler that links
-    libstdc++ statically puts a second copy of it beside the one torch has
-    loaded, and the library's file streams then crash the process."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        raise RuntimeError("g++ not found on PATH: the motion runtime is built with it")
-    return gxx
-
-
 def library_path() -> Path:
     """Where the library of this source, compiler and flags lives."""
-    digest = hashlib.sha256(" ".join((find_gxx(), *CXX_FLAGS, *LINK_FLAGS)).encode())
-    digest.update(NATIVE_SOURCE.read_bytes())
-    return BUILD_DIR / f"libnsgmotion-{digest.hexdigest()[:16]}.so"
+    return native_build.library_path(NATIVE_SOURCE, "libnsgmotion", LINK_FLAGS,
+                                     "the motion runtime")
 
 
 def build(path: Path) -> None:
-    """Compile ``native/motion.cpp`` into ``path``, written aside and renamed
-    into place."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [find_gxx(), *CXX_FLAGS, "-o", str(tmp), str(NATIVE_SOURCE), *LINK_FLAGS]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed for {NATIVE_SOURCE}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
+    """Compile ``native/motion.cpp`` into ``path``."""
+    native_build.build(NATIVE_SOURCE, path, LINK_FLAGS, "the motion runtime")
 
 
 def load_library(rebuild: bool = False) -> ctypes.CDLL:

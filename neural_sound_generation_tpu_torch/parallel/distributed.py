@@ -7,7 +7,8 @@ each process drives one device: ``torchrun`` (or the caller) starts one
 process per card, ``initialize`` joins them into the default
 ``torch.distributed`` process group, ``subgroups`` splits it into the
 data and model (or pipe) groups of a two-axis mesh, ``neighbour_groups``
-into the two-rank groups of neighbouring pipeline stages, and
+into the two-rank groups of neighbours along an axis (pipeline stages,
+the shards of a sequence), and
 ``parallel.mesh`` lays the ``data``, ``model`` and ``pipe`` axes over the
 ranks. A single process stays a plain one-device
 program, as in JAX: nothing is initialized.
@@ -157,25 +158,37 @@ def subgroups(n_data: int, n_model: int):
     return made[0][r % n_model], made[1][r // n_model]
 
 
-def neighbour_groups(n_data: int, n_pipe: int):
-    """This rank's two-rank groups with its neighbours on a row-major
-    (n_data, n_pipe) mesh: (the group with stage s - 1, the group with
-    stage s + 1) for rank r at stage s = r % n_pipe of row r // n_pipe,
-    each None (the default group) where it is the whole world and
-    ``SOLO`` past either end. Every rank creates every pair, row by row
-    and stage by stage, in the same order."""
-    key = (dist.group.WORLD, "pairs", n_data, n_pipe) if dist.is_initialized() else None
+def neighbour_groups(n_data: int, n_inner: int, along_data: bool = False):
+    """This rank's two-rank groups with its neighbours along one axis of a
+    row-major (n_data, n_inner) mesh: (the group with the rank before it on
+    the axis, the group with the rank after it), each None (the default
+    group) where it is the whole world and ``SOLO`` past either end. The
+    inner axis (``along_data`` False: the pipe or model axis) pairs rank r
+    at s = r % n_inner of row r // n_inner with s - 1 and s + 1 of its row;
+    the data axis pairs it with the ranks of rows r // n_inner - 1 and + 1
+    at its column. Every rank creates every pair of the axis, line by line
+    and pair by pair, in the same order; they are cached as ``subgroups``'
+    are."""
+    kind = "data_pairs" if along_data else "pairs"
+    key = (dist.group.WORLD, kind, n_data, n_inner) if dist.is_initialized() else None
+    world = n_data * n_inner
+    # (lines, length): the lines of ranks along the axis and their length
+    lines, length = ((n_inner, n_data) if along_data else (n_data, n_inner))
+
+    def member(line: int, pos: int) -> int:
+        return pos * n_inner + line if along_data else line * n_inner + pos
+
     if key is not None and key in _SUBGROUPS:
         pairs = _SUBGROUPS[key]
     else:
-        world = n_data * n_pipe
-        pairs = [[None if world == 2 else dist.new_group([i * n_pipe + s, i * n_pipe + s + 1])
-                  for s in range(n_pipe - 1)] for i in range(n_data)]
+        pairs = [[None if world == 2 else dist.new_group([member(i, s), member(i, s + 1)])
+                  for s in range(length - 1)] for i in range(lines)]
         if key is not None:
             _SUBGROUPS[key] = pairs
-    row, s = divmod(rank(), n_pipe)
-    return (pairs[row][s - 1] if s > 0 else SOLO,
-            pairs[row][s] if s < n_pipe - 1 else SOLO)
+    row, col = divmod(rank(), n_inner)
+    line, s = (col, row) if along_data else (row, col)
+    return (pairs[line][s - 1] if s > 0 else SOLO,
+            pairs[line][s] if s < length - 1 else SOLO)
 
 
 def is_primary() -> bool:

@@ -84,11 +84,16 @@ stage r % S of data row r // S. Its **pipe group** is the S ranks of its
 row (the same rows of the batch, a stage each); its **data group** the
 ranks of its stage, which is what ``current_mesh()`` reduces over. A
 stage hands its activations to the next stage, and their gradients back,
-through a two-rank group per neighbouring pair (``send_next``,
-``recv_prev``, ``send_prev``, ``recv_next``: the sender broadcasts, as
-bytes); the rest's gradient and the clip norm's stage segments are summed
+through a two-rank group per neighbouring pair (``send_along`` and
+``recv_along`` on "pipe": the sender broadcasts, as bytes); the rest's
+gradient and the clip norm's stage segments are summed
 over the pipe group (``pipe_all_reduce_``). A mesh has a model axis or a
 pipe axis, not both.
+
+The same hand-off runs between neighbours along any axis
+(``axis_size``, ``axis_index``, ``axis_group`` and ``axis_rank`` read an
+axis by name): ``parallel.sequence`` exchanges its convolutions' halos
+along the data axis by default.
 """
 
 from __future__ import annotations
@@ -188,6 +193,12 @@ class _GatherChannels(torch.autograd.Function):
         return mine, None, None, None
 
 
+def _axis(axis: str) -> str:
+    if axis not in ("data", "model", "pipe"):
+        raise ValueError(f"unknown mesh axis {axis!r}: data, model or pipe")
+    return axis
+
+
 class Mesh:
     """``n_data`` x ``n_model`` (or ``n_data`` x ``n_pipe``) ranks,
     row-major over the default process group, whose size must be their
@@ -212,8 +223,11 @@ class Mesh:
         self.data_group, inner_group = distributed.subgroups(n_data, inner)
         self.model_group = inner_group if n_model > 1 else SOLO
         self.pipe_group = inner_group if n_pipe > 1 else SOLO
-        self._prev, self._next = (distributed.neighbour_groups(n_data, n_pipe) if n_pipe > 1
-                                  else (SOLO, SOLO))
+        # {axis: (the pair group with the rank before, the one after)},
+        # made at first use (the pipe axis's here: every stage hands off)
+        self._pairs: dict = {}
+        if n_pipe > 1:
+            self.neighbour_group("pipe", 1)
 
     @property
     def shape(self) -> dict:
@@ -360,40 +374,70 @@ class Mesh:
         """SUM over the pipe group, in place, outside autograd."""
         return _all_reduce(t, self.pipe_group)
 
-    def stage_rank(self, stage: int) -> int:
-        """The global rank of ``stage`` in this rank's row."""
-        return self.data_rank * self.n_pipe + stage
-
     def pipe_broadcast_(self, t: torch.Tensor, stage: int) -> torch.Tensor:
         """``stage``'s values in place on every rank of the pipe group,
         sent as bytes."""
         if self.pipe_group is not SOLO:
-            dist.broadcast(t.reshape(-1).view(torch.uint8), src=self.stage_rank(stage),
+            dist.broadcast(t.reshape(-1).view(torch.uint8), src=self.axis_rank("pipe", stage),
                            group=self.pipe_group)
         return t
 
-    def _hand(self, t: torch.Tensor, group, src_stage: int) -> torch.Tensor:
+    # -- any axis ----------------------------------------------------------------
+
+    def axis_size(self, axis: str) -> int:
+        """The number of ranks along ``axis`` ("data", "model" or "pipe")."""
+        return {"data": self.n_data, "model": self.n_model, "pipe": self.n_pipe}[_axis(axis)]
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's place along ``axis``."""
+        return {"data": self.data_rank, "model": self.model_rank,
+                "pipe": self.stage}[_axis(axis)]
+
+    def axis_group(self, axis: str):
+        """The group of the ranks along ``axis`` through this rank."""
+        return {"data": self.data_group, "model": self.model_group,
+                "pipe": self.pipe_group}[_axis(axis)]
+
+    def axis_rank(self, axis: str, index: int) -> int:
+        """The global rank at ``index`` along ``axis`` on this rank's line."""
+        inner = self.n_model * self.n_pipe
+        if _axis(axis) == "data":
+            return index * inner + self.column
+        return self.data_rank * inner + index
+
+    def neighbour_group(self, axis: str, step: int):
+        """The two-rank group of this rank and its neighbour at ``step``
+        (-1 or +1) along ``axis``; ``SOLO`` past either end. Every rank
+        makes an axis's pairs at the first call for that axis, together."""
+        if axis not in self._pairs:
+            n_inner = self.n_model * self.n_pipe
+            if _axis(axis) == "data":
+                self._pairs[axis] = distributed.neighbour_groups(self.n_data, n_inner, True)
+            elif self.axis_size(axis) > 1:
+                self._pairs[axis] = distributed.neighbour_groups(self.n_data, n_inner)
+            else:
+                self._pairs[axis] = (SOLO, SOLO)
+        return self._pairs[axis][0 if step < 0 else 1]
+
+    def _hand(self, t: torch.Tensor, axis: str, step: int, src: int) -> torch.Tensor:
         if not t.is_contiguous():
             raise ValueError("a hand-off needs a contiguous tensor")
-        dist.broadcast(t.reshape(-1).view(torch.uint8), src=self.stage_rank(src_stage),
-                       group=group)
+        group = self.neighbour_group(axis, step)
+        if group is SOLO:
+            raise ValueError(f"rank {self.rank} has no neighbour at {step:+d} along {axis!r}")
+        dist.broadcast(t.reshape(-1).view(torch.uint8), src=src, group=group)
         return t
 
-    def send_next(self, t: torch.Tensor) -> None:
-        """Hand ``t`` to stage s + 1 (its ``recv_prev``)."""
-        self._hand(t, self._next, self.stage)
+    def send_along(self, t: torch.Tensor, axis: str, step: int) -> None:
+        """Hand ``t`` to the neighbour at ``step`` (-1 or +1) along ``axis``
+        (its ``recv_along(buf, axis, -step)``): the sender broadcasts over
+        their two-rank group, as bytes."""
+        self._hand(t, axis, step, self.rank)
 
-    def recv_prev(self, buf: torch.Tensor) -> torch.Tensor:
-        """Stage s - 1's ``send_next`` into ``buf``, in place."""
-        return self._hand(buf, self._prev, self.stage - 1)
-
-    def send_prev(self, t: torch.Tensor) -> None:
-        """Hand ``t`` back to stage s - 1 (its ``recv_next``)."""
-        self._hand(t, self._prev, self.stage)
-
-    def recv_next(self, buf: torch.Tensor) -> torch.Tensor:
-        """Stage s + 1's ``send_prev`` into ``buf``, in place."""
-        return self._hand(buf, self._next, self.stage + 1)
+    def recv_along(self, buf: torch.Tensor, axis: str, step: int) -> torch.Tensor:
+        """The neighbour at ``step`` along ``axis``'s ``send_along`` into
+        ``buf``, in place."""
+        return self._hand(buf, axis, step, self.axis_rank(axis, self.axis_index(axis) + step))
 
     def build_first(self, device: torch.device, *kernel_modules) -> None:
         """On a CUDA ``device``, build each kernel's library on rank 0

@@ -484,12 +484,16 @@ class PipelineStep:
         self.stage = family.stage
         self.handoff_seconds, self.handoff_bytes = 0.0, 0
 
-    def _hand(self, fn, t: torch.Tensor) -> torch.Tensor:
+    def _hand(self, send: bool, step: int, t: torch.Tensor) -> torch.Tensor:
+        """Send ``t`` to, or receive it in place from, the stage at ``step``."""
         t0 = time.perf_counter()
-        out = fn(t)
+        if send:
+            self.mesh.send_along(t, "pipe", step)
+        else:
+            self.mesh.recv_along(t, "pipe", step)
         self.handoff_seconds += time.perf_counter() - t0
         self.handoff_bytes += t.numel() * t.element_size()
-        return t if out is None else out
+        return t
 
     def __call__(self, state: TrainState, batch: dict) -> dict:
         with mesh_mod.active(self.mesh):
@@ -518,7 +522,7 @@ class PipelineStep:
         rest's only this stage's part, over its rows); the metrics of the
         last stage, zeros elsewhere, and the stage's ``moe_load_balance``
         piece."""
-        fam, stage, mesh = self.family, self.stage, self.mesh
+        fam, stage = self.family, self.stage
         fam.model.train()
         micro = fam.microbatches(batch, self.n_micro)
         ins, outs, rows = [], [], []
@@ -526,11 +530,11 @@ class PipelineStep:
             if stage.first:
                 x = fam.first(mb)
             else:
-                x = self._hand(mesh.recv_prev, fam.payload(mb)).requires_grad_()
+                x = self._hand(False, -1, fam.payload(mb)).requires_grad_()
                 ins.append(x)
             y, stats = fam.layers(x, mb)
             if not stage.last:
-                self._hand(mesh.send_next, y.detach().contiguous())
+                self._hand(True, 1, y.detach().contiguous())
             outs.append(y)
             rows.append(stats)
         piece = fam.load_balance(rows)
@@ -538,7 +542,7 @@ class PipelineStep:
             loss, metrics = fam.loss(torch.cat(outs), batch)
             (loss if piece is None else loss + MOE_AUX_WEIGHT * piece).backward()
             for i in reversed(range(len(ins))):
-                self._hand(mesh.send_prev, ins[i].grad.contiguous())
+                self._hand(True, -1, ins[i].grad.contiguous())
         else:
             device = outs[0].device
             metrics = {k: torch.zeros((), device=device) for k in fam.metric_keys}
@@ -551,11 +555,11 @@ class PipelineStep:
                 grads = iter(torch.autograd.grad(MOE_AUX_WEIGHT * piece, flat))
                 d_rows = [[next(grads) for _ in r] for r in rows]
             for i in reversed(range(len(outs))):
-                g = self._hand(mesh.recv_next, torch.empty_like(outs[i]))
+                g = self._hand(False, 1, torch.empty_like(outs[i]))
                 torch.autograd.backward([outs[i], *(rows[i] if d_rows[i] else ())],
                                         [g, *d_rows[i]])
                 if not stage.first:
-                    self._hand(mesh.send_prev, ins[i].grad.contiguous())
+                    self._hand(True, -1, ins[i].grad.contiguous())
         metrics = {k: v.detach() for k, v in metrics.items()}
         if piece is not None:
             metrics["moe_load_balance"] = piece.detach()

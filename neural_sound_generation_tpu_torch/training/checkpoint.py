@@ -20,8 +20,10 @@ A parameters-only artifact (``save_params``, and the ``_ema`` sibling) holds
 just ``params/<name>``: the prior CLI writes its sampling artifact that way,
 with the full state in a ``<ckpt_dir>_train`` sibling, and so does a WaveNet
 vocoder (``{"condition": "mel"}`` in its metadata); ``restore_params`` reads
-either kind into a module. A JAX checkpoint (Orbax) is not read here;
-``convert.py`` bridges the two trees in one process.
+either kind into a module. A JAX checkpoint (Orbax) is not read here, as
+Orbax imports JAX: ``scripts/torch_import_orbax.py`` reads one through the
+JAX package and writes this format (``convert.py`` maps the trees), so the
+port's ``--resume`` continues a JAX run.
 
 Restore is strict: a parameter or statistic the template has and the
 checkpoint lacks, or one of another shape, refuses with the names;
@@ -318,6 +320,14 @@ def save_params(ckpt_dir: str, module: torch.nn.Module, step: int,
     if shards is not None:
         tensors = shards.gather_tensors(tensors)
     return _save_tensors(ckpt_dir, tensors, step, extra, block=True)
+
+
+def save_named_params(ckpt_dir: str, params: dict[str, torch.Tensor], step: int,
+                      extra: Optional[dict] = None) -> str:
+    """``save_params`` of named tensors (an imported artifact's) rather than
+    of a module's parameters."""
+    return _save_tensors(ckpt_dir, {f"params/{k}": t for k, t in params.items()}, step, extra,
+                         block=True)
 
 
 def restore_params(ckpt_dir: str, module: torch.nn.Module,

@@ -10,7 +10,11 @@ four-rank jobs riding its ``torchrun`` launches, then the checks of 19, 20
 and 22. With ``--pipe-alone`` it runs the W 1 jobs phase 22 reads and phase
 22 alone, launching its own jobs. A failed check is recorded, not fatal;
 the exit code is 4 when any failed. ``--out FILE`` writes every phase's
-record there as JSON.
+record there as JSON. Phase 23's halo-convolution jobs ride the launches
+too, as in the smoke; each launch's record has its ``launch_wall``: the
+ranks' start-up, jobs, loader waits and replay. ``--python-collate`` runs
+every loader, in this process and on the ranks, on the Python collate in
+place of the native loader (the default), for an A/B of the launches.
 
 ``--cpu`` rehearses on the CPU at small widths (dim 16, 32 codes, a
 4-layer 16-wide vocoder in 4 stacks): the kernel comparisons are stubbed,
@@ -44,6 +48,8 @@ def main() -> int:
     p.add_argument("--tag", default="parallel_phases",
                    help="the name of the working directory under build/")
     p.add_argument("--out", help="a file to write the phases' records to as JSON")
+    p.add_argument("--python-collate", action="store_true",
+                   help="every loader on the Python collate instead of the native loader")
     args = p.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -69,6 +75,9 @@ def main() -> int:
 
     cs.check = check
     t0 = time.time()
+    if args.python_collate:
+        cs.PYTHON_COLLATE = True
+        cs.loader_wait_meter(python_collate=True)
     if args.cpu:
         cs.DEVICE = "cpu"
         cs.TRAIN_DIM, cs.TRAIN_CODES = 16, 32
@@ -137,7 +146,9 @@ def main() -> int:
             return ({"tp_prior": cs.p19_jobs(root, corpus, vq, world),
                      "tp_ae": cs.p20_jobs(root, ae_data, world),
                      "pp": cs.p22_jobs(root, cs.p22_w1_argv(root, corpus, vq, hier, data),
-                                       world)},
+                                       world),
+                     # full width only: no CPU rehearsal of phase 23
+                     **({} if args.cpu else {"seq": cs.seq_jobs()})},
                     {"tp_prior": ("dense", cs.TP_COLLECTIVE_ITERS),
                      "tp_ae": ("wave_raw", cs.P20_COLLECTIVE_ITERS)})
 
@@ -164,6 +175,10 @@ def main() -> int:
     shutil.rmtree(root, ignore_errors=True)
     print("FAILS", len(fails), "seconds", out["total_seconds"],
           {k: out[k]["seconds"] for k in ("p21", "p19", "p20", "p22") if k in out}, flush=True)
+    if "p21" in out:
+        for w in (2, 4):
+            print(f"W {w} launch", json.dumps(out["p21"]["jobs"][f"launch_wall_w{w}"]),
+                  flush=True)
     return 4 if fails else 0
 
 

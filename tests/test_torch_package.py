@@ -18,6 +18,42 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
              "neural_sound_generation_tpu")
 
 
+#: the JAX package's modules with no counterpart at the same relative path
+#: in the port, and why
+JAX_ONLY = {
+    "ops/pallas/__init__.py": "the Pallas kernels' port is ops/cuda/ with csrc/",
+    "ops/pallas/attention.py": "ported as ops/cuda/flash_attention.py and csrc/flash_attention.cu",
+    "ops/pallas/fused_adam.py": "ported as ops/cuda/fused_adam.py and csrc/fused_adam.cu",
+    "ops/pallas/vq_kernel.py": "ported as ops/cuda/vq_kernel.py and csrc/vq_nearest.cu",
+    "ops/pallas/wavenet_gen.py": "ported as ops/cuda/wavenet_gen.py and csrc/wavenet_gen.cu",
+    "utils/compilation_cache.py": "XLA's persistent compilation cache: JAX only",
+}
+#: the modules the last JAX modules' port added
+NEW_MODULES = ("parallel.sequence", "data.native_loader", "utils", "utils.augment",
+               "utils.profiling", "utils.spectrogram_dataset", "utils.visualize",
+               "config.tacotron")
+JAX_PACKAGE = os.path.join(REPO, "neural_sound_generation_tpu")
+
+
+def _jax_modules():
+    return sorted(
+        os.path.relpath(os.path.join(d, f), JAX_PACKAGE).replace(os.sep, "/")
+        for d, _, files in os.walk(JAX_PACKAGE) for f in files if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("module", _jax_modules())
+def test_every_jax_module_has_a_counterpart(module):
+    """The port has a module of the same relative path, or the JAX module
+    stands on ``JAX_ONLY`` with its reason (and then has no such module)."""
+    ours = os.path.join(os.path.dirname(port.__file__), *module.split("/"))
+    assert os.path.exists(ours) != (module in JAX_ONLY), (
+        f"{module}: {'listed as JAX-only but ported' if module in JAX_ONLY else 'no counterpart'}")
+
+
+def test_every_jax_only_entry_names_a_jax_module():
+    assert set(JAX_ONLY) <= set(_jax_modules())
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top in FORBIDDEN
@@ -42,7 +78,7 @@ def test_importing_every_module_loads_no_jax():
                  "data.corpora.jsut", "data.corpora.librivox", "cli.preprocess",
                  "cli.invert", "motion", "motion.capture", "motion.pca",
                  "motion.inference", "cli.motion", "parallel", "parallel.distributed",
-                 "parallel.mesh", "training.sharding"):
+                 "parallel.mesh", "training.sharding", *NEW_MODULES):
         assert f"neural_sound_generation_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -95,6 +131,10 @@ def test_the_motion_package_loads_nothing_of_the_jax_package():
     assert out.stdout.strip() == "[]"
 
 
+#: the port's scripts that bridge to the JAX package by design, and why
+BRIDGES = {"torch_import_orbax.py": "reads Orbax checkpoints, and Orbax imports JAX"}
+
+
 def _python_sources():
     root = os.path.dirname(port.__file__)
     for dirpath, _, files in os.walk(root):
@@ -104,8 +144,23 @@ def _python_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     scripts = os.path.join(REPO, "scripts")
     for f in sorted(os.listdir(scripts)):
-        if f.startswith("torch_") and f.endswith(".py"):
+        if f.startswith("torch_") and f.endswith(".py") and f not in BRIDGES:
             yield os.path.join(scripts, f)
+
+
+def _imported_names(path: str) -> list[str]:
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    return names + [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+
+
+def test_no_port_source_imports_a_bridge():
+    """The bridges stand outside the port: no module of the package, no
+    other script and not ``chip_smoke.py`` imports one."""
+    offenders = [f"{path}: {name}" for path in _python_sources()
+                 for name in _imported_names(path)
+                 if name.split(".")[-1] in {b[:-3] for b in BRIDGES}]
+    assert not offenders
 
 
 def test_sources_import_nothing_of_jax():
