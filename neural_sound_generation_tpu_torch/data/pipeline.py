@@ -296,10 +296,11 @@ def device_prefetch(iterator, size: int = 2, device: torch.device | str = "cuda"
     """Keep ``size`` batches on ``device`` ahead of consumption.
 
     Numpy arrays are copied into pinned host memory and sent with
-    ``non_blocking`` copies on the current stream, so the copies of the
-    next batches overlap the current step's compute; tensors already on
-    the device pass through. On the CPU the batches become tensors
-    without copies."""
+    ``non_blocking`` copies on the current stream: the host's pinning and
+    enqueue overlap the steps already queued on the card, while the copies
+    themselves run in stream order, after the kernels enqueued before them
+    and before the next step's. Tensors already on the device pass through.
+    On the CPU the batches become tensors without copies."""
     device = torch.device(device)
     pin = device.type == "cuda"
     buf = collections.deque()

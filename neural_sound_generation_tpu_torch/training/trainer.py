@@ -61,6 +61,7 @@ buffer. The eval step runs the same forward.
 
 from __future__ import annotations
 
+import itertools
 import json
 from typing import Callable, Dict, Optional
 
@@ -96,6 +97,7 @@ from neural_sound_generation_tpu_torch.training.losses import (
     vqvae_loss,
 )
 from neural_sound_generation_tpu_torch.training.train_state import TrainState
+from neural_sound_generation_tpu_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 PRIORS = (TransformerPrior, GatedPixelCNN)
@@ -218,7 +220,13 @@ def make_train_step(model, cfg: Config, mesh=None) -> Callable:
     codebook is overwritten after it (from the pre-update codebook and the
     step's encoder outputs), and ``grad_norm`` is the norm after the
     zeroing. ``generator`` draws the dead-code restarts (on the batch's
-    device) and a VAE's noise."""
+    device) and a VAE's noise.
+
+    While the tracer of ``utils.profiling`` is on, a step records the span
+    ``train.step`` around three: ``train.forward`` (``zero_grad`` and the
+    loss), ``train.backward`` and ``train.optimizer`` (the mesh's gradient
+    mean, the codebook's zeroing, kernel 3 with its EMA, the step count and
+    the EMA-codebook branch)."""
     loss_fn = _loss_fn(model, cfg)
     ema_codebook = uses_ema_codebook(model, cfg)
 
@@ -227,29 +235,36 @@ def make_train_step(model, cfg: Config, mesh=None) -> Callable:
             return _step(state, batch, generator)
 
     def _step(state: TrainState, batch: Batch, generator):
-        model.train()
-        state.flat.zero_grad()
-        total, metrics, z_e = loss_fn(batch, generator)
-        total.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        with torch.no_grad():
-            if mesh is not None:
-                # one collective over the flat buffer (the parameters' .grad
-                # are views into it): the global batch's gradient
-                mesh.mean_(state.flat.grad)
-                if state.shards is not None:
-                    # the replicated leaves' gradient, computed alike on every
-                    # model rank but not bit-equal on the card: rank 0's
-                    mesh.model_broadcast_(state.flat.grad[state.flat.split_at:])
-            cb_old = None
-            if ema_codebook:
-                state.flat.view("codebook", state.flat.grad).zero_()
-                cb_old = model.codebook.detach().clone()
-            metrics["grad_norm"] = state.apply_gradients()
-            state.step.add_(1)
-            if ema_codebook:
-                _ema_codebook_step(state, cfg, cb_old, z_e.detach(), generator)
-        return state, metrics
+        with span("train.step"):
+            model.train()
+            with span("train.forward"):
+                state.flat.zero_grad()
+                total, metrics, z_e = loss_fn(batch, generator)
+            with span("train.backward"):
+                total.backward()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            with span("train.optimizer"):
+                _update(state, metrics, z_e, generator)
+            return state, metrics
+
+    @torch.no_grad()
+    def _update(state: TrainState, metrics, z_e, generator) -> None:
+        if mesh is not None:
+            # one collective over the flat buffer (the parameters' .grad
+            # are views into it): the global batch's gradient
+            mesh.mean_(state.flat.grad)
+            if state.shards is not None:
+                # the replicated leaves' gradient, computed alike on every
+                # model rank but not bit-equal on the card: rank 0's
+                mesh.model_broadcast_(state.flat.grad[state.flat.split_at:])
+        cb_old = None
+        if ema_codebook:
+            state.flat.view("codebook", state.flat.grad).zero_()
+            cb_old = model.codebook.detach().clone()
+        metrics["grad_norm"] = state.apply_gradients()
+        state.step.add_(1)
+        if ema_codebook:
+            _ema_codebook_step(state, cfg, cb_old, z_e.detach(), generator)
 
     return train_step
 
@@ -442,7 +457,11 @@ class Trainer:
         Returns mean metrics over the epoch.
 
         ``checkpoint_cb(state, step)`` runs every
-        ``cfg.train.checkpoint_interval`` optimization steps."""
+        ``cfg.train.checkpoint_interval`` optimization steps. While the
+        tracer of ``utils.profiling`` is on, each fetch of the next device
+        batch (the source's ``next``, pinning, the copy's enqueue) is a
+        ``train.feed`` span and each metric pull, with its log line, a
+        ``train.pull`` span."""
         sums: Optional[Dict[str, torch.Tensor]] = None
         count = 0
         interval = self.cfg.train.checkpoint_interval
@@ -450,7 +469,13 @@ class Trainer:
         step_incr = self.multi_steps if self._multi_step is not None else 1
         if self._multi_step is not None:
             batches = self._chunk_batches(batches)
-        for i, batch in enumerate(self._batches_on_device(batches)):
+        feed = iter(self._batches_on_device(batches))
+        for i in itertools.count():
+            try:
+                with span("train.feed"):
+                    batch = next(feed)
+            except StopIteration:
+                break
             if self._multi_step is not None:
                 self.state, stacked = self._multi_step(self.state, batch, generator)
                 metrics = {k: v.mean() for k, v in stacked.items()}
@@ -459,18 +484,20 @@ class Trainer:
             count += 1
             step_now += step_incr
             if self.cfg.train.log_interval and i % self.cfg.train.log_interval == 0:
-                m = self._pull(metrics, 1)
-                self.log_fn(
-                    f"Train Epoch: {epoch} [{i}]\t"
-                    + " ".join(f"{k}={v:.6f}" for k, v in sorted(m.items()))
-                )
+                with span("train.pull"):
+                    m = self._pull(metrics, 1)
+                    self.log_fn(
+                        f"Train Epoch: {epoch} [{i}]\t"
+                        + " ".join(f"{k}={v:.6f}" for k, v in sorted(m.items()))
+                    )
             if sums is None:
                 sums = dict(metrics)
             else:
                 sums = {k: sums.get(k, 0.0) + v for k, v in metrics.items()}
             if checkpoint_cb and interval and step_now % interval < step_incr:
                 checkpoint_cb(self.state, step_now)
-        means = self._pull(sums, count)
+        with span("train.pull"):
+            means = self._pull(sums, count)
         if count == 0:
             # a silent no-op epoch trains nothing while printing loss 0.0
             self.log_fn(

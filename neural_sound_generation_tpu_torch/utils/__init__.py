@@ -9,17 +9,27 @@ has no counterpart: nothing here is compiled by XLA, and the port's CUDA
 kernels are built once a digest by ``ops.cuda.build``.
 """
 
-from neural_sound_generation_tpu_torch.utils.augment import (  # noqa: F401
-    NoiseInjection,
-    augment_audio,
-    change_gain,
-    change_tempo,
-)
+import importlib
+
 from neural_sound_generation_tpu_torch.utils.profiling import (  # noqa: F401
     StepTimer,
     trace_context,
 )
-from neural_sound_generation_tpu_torch.utils.visualize import (  # noqa: F401
-    project_codebook_2d,
-    visualize_embedding,
-)
+
+#: the exports loaded at first use, so that importing ``utils.profiling``
+#: (the training step's spans) loads neither scipy nor the plotting path
+_LAZY = {
+    "NoiseInjection": "augment",
+    "augment_audio": "augment",
+    "change_gain": "augment",
+    "change_tempo": "augment",
+    "project_codebook_2d": "visualize",
+    "visualize_embedding": "visualize",
+}
+__all__ = ["StepTimer", "trace_context", *_LAZY]
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_LAZY[name]}"), name)
